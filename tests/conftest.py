@@ -9,3 +9,8 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: runs a hand-written CUDA kernel; skips without a card")
