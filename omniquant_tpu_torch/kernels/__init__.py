@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels (``csrc/``) with their wrappers and plain
 PyTorch versions, one module each. Each wrapper counts its kernel launches
 in its ``launches`` attribute."""
-from . import flash_attention, kv_update, quant_matmul
+from . import decode_attention, flash_attention, kv_update, quant_matmul
 
 KERNEL_WRAPPERS = {
     "quant_matmul": quant_matmul.quant_matmul,
     "flash_attention": flash_attention.flash_attention,
     "kv_cache_prefill_write": kv_update.kv_cache_prefill_write,
     "kv_cache_write": kv_update.kv_cache_write,
+    "kv_cache_write_span": kv_update.kv_cache_write_span,
+    "decode_attention_int8": decode_attention.decode_attention_int8,
 }
 
 

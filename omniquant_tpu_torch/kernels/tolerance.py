@@ -1,11 +1,13 @@
 """How far a CUDA kernel may stray from its plain PyTorch version.
 
-quant_matmul and flash_attention sum in f32 in both versions and round each
-output to bf16 once, so an element may differ by a rounding step of its own
-size. The bound is per element, never a share of the tensor's largest
-value, so small outputs (late rows of causal attention) are held as tightly
-as large ones. Each kernel adds a slack for what it rounds that its plain
-version does not. ``chip_smoke.py`` and the card tests use these rules.
+quant_matmul, flash_attention and decode_attention_int8 sum in f32 in both
+versions and round each output to bf16 once, so an element may differ by a
+rounding step of its own size. The bound is per element, never a share of
+the tensor's largest value, so small outputs (late rows of causal
+attention) are held as tightly as large ones. Each kernel adds a slack for
+what it rounds that its plain version does not. ``chip_smoke.py`` and the
+card tests use these rules; the KV-cache writes are copies and are held
+exact.
 """
 from __future__ import annotations
 
@@ -20,6 +22,12 @@ from .flash_attention import flash_attention_plain
 # dequantized weights), ~1e-6 at outputs of order 1; this floor covers the
 # elements whose own rounding step is smaller than that.
 QUANT_MATMUL_SLACK = 2.0 ** -10
+
+# decode_attention_int8: the kernel keeps q.k, the scales, exp and p * vs in
+# f32 (its plain version dequantizes in f32 and attends densely); only the
+# summation order and the fast exp differ, ~1e-6 of the largest |v|, so it
+# is held like quant_matmul.
+DECODE_ATTENTION_SLACK = 2.0 ** -10
 
 
 def bf16_ulp(a: torch.Tensor) -> torch.Tensor:

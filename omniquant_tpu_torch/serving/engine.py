@@ -1,5 +1,5 @@
 """Single-device serving engine with slot-based continuous batching and a
-bf16 (native-dtype) KV cache.
+native-dtype or int8 KV cache.
 
 Counterpart of ``omniquant_tpu/serving/engine.py::LlamaEngine``. PyTorch
 runs eagerly, so the jitted step programs become plain methods; the
@@ -10,21 +10,32 @@ the kv_update kernels (the JAX engine donates and aliases its buffers). The
 CUDA kernels take bf16, so an engine on the card runs at the default
 ``dtype=torch.bfloat16``; other dtypes run on the CPU.
 
-Not in this slice: ``kv_dtype="int8"``, ``auto_grow`` and ``verify_step*``
-raise NotImplementedError; ``prefetch_grow`` and the AOT tables only hid XLA
-compiles and have no counterpart.
+``kv_dtype="int8"`` stores per-token symmetric int8 codes with f32 scale
+planes (B, n_kv, max_len). Its decode attention (``attn_kernel``, on by
+default) reads the codes through ``decode_attention_int8``, and ``step_n``
+then stages each step's k/v in small per-layer rings that the kernel
+attends, flushing them with one span write per layer at the end. The
+speculative-decoding verify pass (``verify_step``, ``verify_step_logits``)
+serves both cache dtypes.
+
+Not ported yet: ``auto_grow`` raises NotImplementedError; ``SpecDecoder``
+lives only in the JAX package; ``prefetch_grow`` and the AOT tables only hid
+XLA compiles and have no counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels.decode_attention import decode_attention_int8
 from ..kernels.flash_attention import flash_attention
-from ..kernels.kv_update import kv_cache_prefill_write, kv_cache_write
+from ..kernels.kv_update import (
+    kv_cache_prefill_write, kv_cache_write, kv_cache_write_span,
+    scale_plane_init)
 from ..models import llama as tllama
 from ..models.common import (
     NO_ACT_QUANT, ActQuantSpec, linear, maybe_quant, repeat_kv, rms_norm)
@@ -65,10 +76,38 @@ def fuse_packed(pws: List[PackedWeight]) -> Optional[PackedWeight]:
 
 @dataclasses.dataclass
 class KVCache:
-    """Per-layer lists of (B, n_kv, max_len, hd) tensors, written in place."""
+    """Per-layer lists of (B, n_kv, max_len, hd) tensors, written in place;
+    with an int8 cache also per-layer (B, n_kv, max_len) f32 scale planes."""
 
     k: list
     v: list
+    k_scale: Optional[list] = None
+    v_scale: Optional[list] = None
+
+
+@dataclasses.dataclass
+class _Int8Window:
+    """What an int8 commit hands to the fused decode attention: the full
+    cache buffers of one layer, the window bound, the per-slot last
+    attended position, and optionally the ring of staged tokens."""
+
+    kv_len: int
+    k: torch.Tensor
+    k_scale: torch.Tensor
+    v: torch.Tensor
+    v_scale: torch.Tensor
+    lengths: torch.Tensor
+    ring: Optional[Tuple[torch.Tensor, ...]] = None
+    ring_n: int = -1
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Per-token symmetric int8 quantization over head_dim, computed in
+    x's dtype as the JAX engine does; returns (int8 codes, f32 scales with
+    a trailing 1)."""
+    scale = (x.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return codes, scale.float()
 
 
 def _pow2_bucket(n: int, floor: int) -> int:
@@ -81,13 +120,13 @@ class LlamaEngine:
     def __init__(self, params: dict, cfg: tllama.LlamaConfig,
                  max_batch: int = 8, max_len: int = 2048,
                  dtype=torch.bfloat16, kv_dtype: str = "native",
-                 spec: ActQuantSpec = NO_ACT_QUANT, seed: int = 0,
+                 spec: ActQuantSpec = NO_ACT_QUANT,
+                 attn_kernel: Optional[bool] = None, seed: int = 0,
                  flash_min_len: int = 256, auto_grow: bool = False,
                  device="cuda"):
-        if kv_dtype != "native":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: only the native-dtype KV cache is "
-                "ported so far")
+        if kv_dtype not in ("native", "int8"):
+            raise ValueError(f"kv_dtype must be 'native' or 'int8', not "
+                             f"{kv_dtype!r}")
         if auto_grow:
             raise NotImplementedError("auto_grow is not ported yet")
         self.device = resolve_device(device)
@@ -95,9 +134,13 @@ class LlamaEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.dtype = dtype
+        self.kv_int8 = kv_dtype == "int8"
         # a non-identity softmax-probs quantizer cannot be honoured inside
-        # the flash kernel (probabilities never materialise)
+        # the fused kernels (probabilities never materialise)
         self._p_quant_active = spec.p is not None and spec.p.enabled
+        # the fused int8 decode attention: on by default for int8 caches
+        self.attn_kernel = ((True if attn_kernel is None else attn_kernel)
+                            and self.kv_int8 and not self._p_quant_active)
         self.flash_min_len = flash_min_len
         self.spec = spec
         self.params = self._prep_params(params)
@@ -147,11 +190,19 @@ class LlamaEngine:
         L = self.cfg.num_hidden_layers
         shape = (self.max_batch, self.cfg.num_key_value_heads, self.max_len,
                  self.cfg.head_dim)
+        kv_type = torch.int8 if self.kv_int8 else self.dtype
 
         def zeros():
-            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+            return torch.zeros(shape, dtype=kv_type, device=self.device)
 
-        return KVCache([zeros() for _ in range(L)], [zeros() for _ in range(L)])
+        cache = KVCache([zeros() for _ in range(L)], [zeros() for _ in range(L)])
+        if self.kv_int8:
+            def plane():
+                return scale_plane_init(*shape[:3], device=self.device)
+
+            cache.k_scale = [plane() for _ in range(L)]
+            cache.v_scale = [plane() for _ in range(L)]
+        return cache
 
     def _flash_ok(self) -> bool:
         return not self._p_quant_active
@@ -176,16 +227,58 @@ class LlamaEngine:
                 torch.as_tensor(self.top_ps[idx], device=dev))
 
     # ------------------------------------------------------------------
-    def _write_kv(self, cache: KVCache, li, slot, pos, k_new, v_new):
-        """Write (n_kv, s, hd) k/v into cache layer li at (slot, pos=0)."""
-        del pos  # always 0: prefill writes the sequence head
-        slots = torch.full((1,), slot, dtype=torch.int32, device=self.device)
-        kv_cache_prefill_write(cache.k[li], k_new[None].to(self.dtype), slots)
-        kv_cache_prefill_write(cache.v[li], v_new[None].to(self.dtype), slots)
+    @staticmethod
+    def _set_plane(plane, slots, scales, seq_len: int):
+        """Write (N, n_kv, seq, 1) scales into a (B, n_kv, max_len) plane at
+        positions [0, seq) of each slot (the prefill commit of the scales)."""
+        plane[slots.long(), :, :seq_len] = scales[..., 0]
+
+    def _commit_prefill(self, cache: KVCache, li, slots, k, v):
+        """Write (N, n_kv, s, hd) prefilled k/v at positions [0, s) of each
+        slot; an int8 cache stores their codes and scales."""
+        if not self.kv_int8:
+            kv_cache_prefill_write(cache.k[li], k.to(self.dtype), slots)
+            kv_cache_prefill_write(cache.v[li], v.to(self.dtype), slots)
+            return
+        kc, ks = _quantize_kv(k)
+        vc, vs = _quantize_kv(v)
+        kv_cache_prefill_write(cache.k[li], kc, slots)
+        kv_cache_prefill_write(cache.v[li], vc, slots)
+        self._set_plane(cache.k_scale[li], slots, ks, k.shape[2])
+        self._set_plane(cache.v_scale[li], slots, vs, v.shape[2])
+
+    def _layer_bufs(self, cache: KVCache, li) -> tuple:
+        """The buffers a decode write or span flush of layer li covers: K
+        and V, then (int8) their scale planes."""
+        if self.kv_int8:
+            return (cache.k[li], cache.v[li], cache.k_scale[li],
+                    cache.v_scale[li])
+        return cache.k[li], cache.v[li]
+
+    def _rows(self, k, v) -> tuple:
+        """New k/v rows (B, n_kv, [span,] hd) as the cache stores them, in
+        the order of ``_layer_bufs``."""
+        if self.kv_int8:
+            kc, ks = _quantize_kv(k)
+            vc, vs = _quantize_kv(v)
+            return kc, vc, ks[..., 0], vs[..., 0]
+        return k.to(self.dtype), v.to(self.dtype)
+
+    def _window(self, li, kv_len: int, lengths, ring=None,
+                ring_n: int = -1) -> _Int8Window:
+        c = self.cache
+        return _Int8Window(kv_len, c.k[li], c.k_scale[li], c.v[li],
+                           c.v_scale[li], lengths, ring, ring_n)
 
     def _read_kv(self, cache: KVCache, li, kv_len: Optional[int] = None):
-        """-> (B, n_kv, kv_len, hd) views of the cache window."""
+        """-> (B, n_kv, kv_len, hd) of the cache window, dequantized in the
+        engine dtype for an int8 cache."""
         sl = slice(None) if kv_len is None else slice(0, kv_len)
+        if self.kv_int8:
+            ks = cache.k_scale[li][:, :, sl, None].to(self.dtype)
+            vs = cache.v_scale[li][:, :, sl, None].to(self.dtype)
+            return (cache.k[li][:, :, sl].to(self.dtype) * ks,
+                    cache.v[li][:, :, sl].to(self.dtype) * vs)
         return cache.k[li][:, :, sl], cache.v[li][:, :, sl]
 
     # ------------------------------------------------------------------
@@ -255,7 +348,17 @@ class LlamaEngine:
         b, s, _ = hidden.shape
         q, k, v = self._attn_qkv(p, hidden, positions)
         q, k, v = self._quant_qkv(q, k, v)
-        k_all, v_all = commit(k, v)
+        committed = commit(k, v)
+        if isinstance(committed, _Int8Window):
+            # int8 decode: the fused kernel reads the codes of the window
+            # (and the ring), never a dequantized copy
+            w = committed
+            attn = decode_attention_int8(
+                q[:, :, 0], w.k, w.k_scale, w.v, w.v_scale, w.lengths,
+                w.kv_len, self._sm_scale(), out_dtype=self.dtype,
+                ring_kv=w.ring, ring_n=w.ring_n)
+            return self._attn_out(p, attn.reshape(b, s, -1))
+        k_all, v_all = committed
         if (s >= max(2, self.flash_min_len) and k_all.shape[2] == s
                 and self._flash_ok()):
             # prefill of fresh same-length k/v under a plain causal mask:
@@ -290,9 +393,11 @@ class LlamaEngine:
         returns the (1, V) logits at ``last_idx``."""
         positions, mask = self._prefill_mask(seq_len)
         x = self._embed(self.params, tokens, positions[None])
+        slots = torch.full((1,), slot, dtype=torch.int32, device=self.device)
         for li, p in enumerate(self.params["layers"]):
             def commit(k, v, _li=li):
-                self._write_kv(self.cache, _li, slot, 0, k[0], v[0])
+                # prefill attends the fresh k/v, not what the cache stores
+                self._commit_prefill(self.cache, _li, slots, k, v)
                 return k, v
             x = self._block(p, x, positions, mask, commit)
         return self._head(self.params, x[:, last_idx: last_idx + 1])[:, 0]
@@ -305,8 +410,7 @@ class LlamaEngine:
         x = self._embed(self.params, tokens, positions[None])
         for li, p in enumerate(self.params["layers"]):
             def commit(k, v, _li=li):
-                kv_cache_prefill_write(self.cache.k[_li], k.to(self.dtype), slots)
-                kv_cache_prefill_write(self.cache.v[_li], v.to(self.dtype), slots)
+                self._commit_prefill(self.cache, _li, slots, k, v)
                 return k, v
             x = self._block(p, x, positions, mask, commit)
         idx = last_idx.long()[:, None, None].expand(-1, 1, x.shape[-1])
@@ -324,24 +428,97 @@ class LlamaEngine:
         mask = mask.to(self.dtype)[:, None, None, :]
         for li, p in enumerate(self.params["layers"]):
             def commit(k, v, _li=li):
-                kv_cache_write((self.cache.k[_li], self.cache.v[_li]),
-                               (k[:, :, 0].to(self.dtype),
-                                v[:, :, 0].to(self.dtype)), lengths)
+                # one launch writes every buffer of the layer (codes and
+                # scale planes for an int8 cache)
+                kv_cache_write(self._layer_bufs(self.cache, _li),
+                               self._rows(k[:, :, 0], v[:, :, 0]), lengths)
+                if self.attn_kernel:
+                    return self._window(_li, kv_len, lengths)
                 return self._read_kv(self.cache, _li, kv_len)
             x = self._block(p, x, positions, mask, commit)
         return self._head(self.params, x)[:, 0]
 
     def _decode_multi_impl(self, last_tokens, lengths, kv_len: int,
                            n_steps: int, do_sample: bool):
-        """n_steps decode steps with no host round trip; (B, n_steps)."""
+        """n_steps decode steps with no host round trip; (B, n_steps).
+
+        With the fused int8 attention (``_use_ring``), step i quantizes its
+        k/v into index i of small zeroed per-layer rings of n_steps rows
+        instead of the cache; the kernel attends the cache window [0, base)
+        and then ring rows 0..i, and at the end one span write per layer
+        flushes the rings to positions base..base+n_steps-1."""
         controls = self._controls(slice(None)) if do_sample else (None,) * 3
-        toks, lens, outs = last_tokens, lengths, []
-        for _ in range(n_steps):
-            logits = self._decode_impl(toks, lens, kv_len)
+        if n_steps == 1 or not self._use_ring():
+            toks, lens, outs = last_tokens, lengths, []
+            for _ in range(n_steps):
+                logits = self._decode_impl(toks, lens, kv_len)
+                toks = self._select(logits, *controls, do_sample)
+                lens = lens + 1
+                outs.append(toks)
+            return torch.stack(outs, dim=1)
+
+        cfg, base = self.cfg, lengths
+        n_layers = len(self.params["layers"])
+        ring_shape = (n_layers, self.max_batch, cfg.num_key_value_heads,
+                      n_steps)
+        rings = [torch.zeros(ring_shape + (cfg.head_dim,), dtype=torch.int8,
+                             device=self.device) for _ in range(2)]
+        rings += [torch.zeros(ring_shape, dtype=torch.float32,
+                              device=self.device) for _ in range(2)]
+        toks, outs = last_tokens, []
+        for i in range(n_steps):
+            positions = (base + i)[:, None]
+            x = self._embed(self.params, toks[:, None], positions)
+            for li, p in enumerate(self.params["layers"]):
+                def commit(k, v, _li=li, _i=i):
+                    rkc, rvc, rks, rvs = (r[_li] for r in rings)
+                    for ring, row in zip((rkc, rvc, rks, rvs),
+                                         self._rows(k[:, :, 0], v[:, :, 0])):
+                        ring[:, :, _i] = row
+                    # the window [0, base) holds the past; the ring the rest
+                    return self._window(_li, kv_len, base - 1,
+                                        (rkc, rks, rvc, rvs), _i)
+                # the fused kernel masks by itself: no additive mask
+                x = self._block(p, x, positions, None, commit)
+            logits = self._head(self.params, x)[:, 0]
             toks = self._select(logits, *controls, do_sample)
-            lens = lens + 1
             outs.append(toks)
+        for li in range(n_layers):
+            kv_cache_write_span(self._layer_bufs(self.cache, li),
+                                tuple(r[li] for r in rings), base)
         return torch.stack(outs, dim=1)
+
+    def _use_ring(self) -> bool:
+        """Whether step_n stages its tokens in rings the fused int8 kernel
+        attends (int8 engines with attn_kernel only)."""
+        return self.attn_kernel
+
+    def _verify_impl(self, tokens, lengths, kv_len: int,
+                     return_logits: bool):
+        """Score s known tokens per slot in one forward (the speculative-
+        decoding verify pass): tokens (B, s) enter at positions
+        lengths..lengths+s-1 and their k/v are written there with one span
+        write per layer; the mask bounds each query at its own position, so
+        entries past what the caller later accepts are never attended.
+        Returns the (B, s) argmax tokens, or the (B, s, V) f32 logits."""
+        s = tokens.shape[1]
+        positions = lengths[:, None] + torch.arange(s, device=self.device)
+        x = self._embed(self.params, tokens, positions)
+        kv_positions = torch.arange(kv_len, device=self.device)
+        neg = torch.finfo(self.dtype).min
+        mask = torch.where(kv_positions[None, None, None, :]
+                           <= positions[:, None, :, None], 0.0, neg)
+        mask = mask.to(self.dtype)  # (B, 1, s, kv_len)
+        for li, p in enumerate(self.params["layers"]):
+            def commit(k, v, _li=li):
+                kv_cache_write_span(self._layer_bufs(self.cache, _li),
+                                    self._rows(k, v), lengths)
+                return self._read_kv(self.cache, _li, kv_len)
+            x = self._block(p, x, positions, mask, commit)
+        logits = self._head(self.params, x)
+        if return_logits:
+            return logits.float()
+        return torch.argmax(logits, dim=-1).to(torch.int32)
 
     # ------------------------------------------------------------------
     # host-side continuous batching API
@@ -474,11 +651,41 @@ class LlamaEngine:
             res[s] = out[s].tolist()
         return res
 
+    def _verify_call(self, tokens: dict, return_logits: bool) -> np.ndarray:
+        """Shared body of verify_step/verify_step_logits: the (B, s) token
+        buffer, the window bucket, and one verify pass, which writes k/v at
+        lengths..lengths+s-1 without advancing ``lengths``."""
+        s = len(next(iter(tokens.values())))
+        if not all(len(t) == s for t in tokens.values()):
+            raise ValueError(
+                "verify requires the same number of tokens per slot (got "
+                f"lengths {sorted(set(len(t) for t in tokens.values()))})")
+        self._check_capacity(tokens, s)
+        toks = np.zeros((self.max_batch, s), np.int32)
+        for sl, ts in tokens.items():
+            toks[sl] = ts
+        dev = self.device
+        out = self._verify_impl(
+            torch.as_tensor(toks, device=dev),
+            torch.as_tensor(self.lengths, device=dev), self._kv_len(s + 1),
+            return_logits)
+        return out.cpu().numpy()
+
     def verify_step(self, tokens: dict) -> dict:
-        raise NotImplementedError("speculative-decoding verify is not ported yet")
+        """Speculative-decoding verify: tokens {slot: [s tokens]} (the same
+        s for every slot) are scored in one pass and their k/v written at
+        positions lengths..lengths+s-1; ``lengths`` is NOT advanced (the
+        caller advances it by the tokens it accepts; the rest are never
+        attended and are overwritten later). Returns {slot: [s argmax
+        tokens]}, entry i the model's next token after tokens[:i+1]."""
+        out = self._verify_call(tokens, return_logits=False)
+        return {sl: out[sl].tolist() for sl in tokens}
 
     def verify_step_logits(self, tokens: dict) -> dict:
-        raise NotImplementedError("speculative-decoding verify is not ported yet")
+        """verify_step returning the f32 logit rows instead of argmaxes:
+        {slot: (s, V) float32 ndarray}, with the same cache writes."""
+        out = self._verify_call(tokens, return_logits=True)
+        return {sl: out[sl] for sl in tokens}
 
     def generate(self, prompt_tokens, max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k: int = 0,

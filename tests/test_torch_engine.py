@@ -4,7 +4,8 @@ A tiny LLaMA (hidden 256, inter 512, 2 layers, 4 query / 2 kv heads) is
 made with numpy from a seed, packed W4 g128 (pairs layout) by the JAX
 package and carried across by ``from_jax_params``. Both engines run in f32
 on the CPU (the JAX Pallas kernels in interpret mode, the port's wrappers
-through their plain versions); their greedy token streams must be equal.
+through their plain versions); their greedy token streams must be equal,
+with a native or an int8 KV cache, and so must their verify passes.
 """
 import dataclasses
 
@@ -115,55 +116,49 @@ def test_generate_matches_jax(packed, prompt_len):
         prompt, max_new_tokens=10)
 
 
-def test_continuous_batching_matches_jax(packed):
-    """Slots join and leave between single steps."""
-    je, te = engines(packed, max_batch=3, max_len=64)
-    streams = []
-    for eng in (je, te):
-        out = {}
-        a = eng.add_request([1, 2, 3, 4, 5])
-        last = {a: eng._pending_next[a]}
-        out[a] = [last[a]]
-        for _ in range(3):
-            last = eng.step(last)
-            out[a].append(last[a])
-        b = eng.add_request([9, 8, 7, 6, 5, 4, 3, 2, 1, 0, 11, 12, 13, 14,
-                             15, 16, 17])
-        last[b] = eng._pending_next[b]
-        out[b] = [last[b]]
-        for _ in range(4):
-            last = eng.step(last)
-            for s, t in last.items():
-                out[s].append(t)
-        eng.release(a)
-        del last[a]
-        for _ in range(2):
-            last = eng.step(last)
-            out[b].append(last[b])
-        streams.append(out)
-    assert streams[0] == streams[1]
+def continuous_batching(eng):
+    """Slots join and leave between single steps; the token streams."""
+    out = {}
+    a = eng.add_request([1, 2, 3, 4, 5])
+    last = {a: eng._pending_next[a]}
+    out[a] = [last[a]]
+    for _ in range(3):
+        last = eng.step(last)
+        out[a].append(last[a])
+    b = eng.add_request([9, 8, 7, 6, 5, 4, 3, 2, 1, 0, 11, 12, 13, 14,
+                         15, 16, 17])
+    last[b] = eng._pending_next[b]
+    out[b] = [last[b]]
+    for _ in range(4):
+        last = eng.step(last)
+        for s, t in last.items():
+            out[s].append(t)
+    eng.release(a)
+    del last[a]
+    for _ in range(2):
+        last = eng.step(last)
+        out[b].append(last[b])
+    return out
 
 
-def test_add_requests_step_n_matches_jax(packed):
-    je, te = engines(packed, max_batch=4, max_len=64)
+def add_requests_step_n(eng):
+    """Three prompts of uneven lengths prefilled together, then two
+    step_n(., 4) dispatches; the token streams."""
     prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [2, 7, 1, 8], [1, 6, 1, 8, 0, 3, 3]]
-    streams = []
-    for eng in (je, te):
-        slots = eng.add_requests(prompts)
-        last = {s: eng._pending_next[s] for s in slots}
-        out = {s: [t] for s, t in last.items()}
-        for _ in range(2):
-            res = eng.step_n(last, 4)
-            for s, toks in res.items():
-                out[s].extend(toks)
-                last[s] = toks[-1]
-        streams.append(out)
-    assert streams[0] == streams[1]
+    slots = eng.add_requests(prompts)
+    last = {s: eng._pending_next[s] for s in slots}
+    out = {s: [t] for s, t in last.items()}
+    for _ in range(2):
+        res = eng.step_n(last, 4)
+        for s, toks in res.items():
+            out[s].extend(toks)
+            last[s] = toks[-1]
+    return out
 
 
-def test_flash_gated_prompt_matches_jax(packed, monkeypatch):
-    """A prompt whose bucket crosses a lowered flash_min_len takes the
-    blockwise-attention path in both engines."""
+def flash_gated_prompt(packed, monkeypatch, **kw):
+    """A 40-token prompt whose bucket crosses a lowered flash_min_len:
+    (port stream, JAX stream, shapes the port's flash kernel saw)."""
     calls = []
     real = t_engine_mod.flash_attention
 
@@ -172,10 +167,29 @@ def test_flash_gated_prompt_matches_jax(packed, monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(t_engine_mod, "flash_attention", spy)
-    je, te = engines(packed, max_batch=2, max_len=128, flash_min_len=32)
+    je, te = engines(packed, max_batch=2, max_len=128, flash_min_len=32,
+                     **kw)
     prompt = [(7 * i + 3) % 256 for i in range(40)]
-    assert te.generate(prompt, max_new_tokens=6) == je.generate(
-        prompt, max_new_tokens=6)
+    return (te.generate(prompt, max_new_tokens=6),
+            je.generate(prompt, max_new_tokens=6), calls)
+
+
+def test_continuous_batching_matches_jax(packed):
+    """Slots join and leave between single steps."""
+    je, te = engines(packed, max_batch=3, max_len=64)
+    assert continuous_batching(te) == continuous_batching(je)
+
+
+def test_add_requests_step_n_matches_jax(packed):
+    je, te = engines(packed, max_batch=4, max_len=64)
+    assert add_requests_step_n(te) == add_requests_step_n(je)
+
+
+def test_flash_gated_prompt_matches_jax(packed, monkeypatch):
+    """A prompt whose bucket crosses a lowered flash_min_len takes the
+    blockwise-attention path in both engines."""
+    got, want, calls = flash_gated_prompt(packed, monkeypatch)
+    assert got == want
     assert calls and calls[0][2] == 64  # (1, heads, bucket 64, head_dim)
 
 
@@ -215,13 +229,7 @@ def test_unported_options_raise(packed):
     _, tp = packed
     cfg = tllama.LlamaConfig(**CFG)
     with pytest.raises(NotImplementedError):
-        TEngine(tp, cfg, kv_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError):
         TEngine(tp, cfg, auto_grow=True, device="cpu")
-    eng = TEngine(tp, cfg, max_batch=1, max_len=32, device="cpu",
-                  dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        eng.verify_step({0: [1, 2]})
 
 
 def test_capacity_guard(packed):
@@ -231,3 +239,130 @@ def test_capacity_guard(packed):
     with pytest.raises(RuntimeError, match="max_len"):
         te.step_n({slot: te._pending_next[slot]}, 4)
     assert dataclasses.is_dataclass(te.cache)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_matches_jax(dtype):
+    """Per-token int8 codes and scales, computed in the input's dtype:
+    exact on identical inputs (one row all zero, for the 1e-8 floor)."""
+    from omniquant_tpu.serving.engine import _quantize_kv as j_quantize
+
+    x = np.random.default_rng(3).standard_normal((2, 3, 5, 64)) * 4
+    x[0, 1, 2] = 0.0
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    jc, js = j_quantize(jx)
+    tc, ts = t_engine_mod._quantize_kv(tx)
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("attn_kernel", [True, False])
+def test_int8_generate_matches_jax(packed, attn_kernel):
+    """generate (prefill, then single steps through K4 and the fused
+    attention, or the dequantized dense path), across the 64-row window
+    bucket into the 128-row one."""
+    je, te = engines(packed, max_batch=2, max_len=128, kv_dtype="int8",
+                     attn_kernel=attn_kernel)
+    assert te.attn_kernel == je.attn_kernel == attn_kernel
+    prompt = [(31 * i + 5) % 256 for i in range(58)]
+    assert te.generate(prompt, max_new_tokens=10) == je.generate(
+        prompt, max_new_tokens=10)
+
+
+@pytest.mark.parametrize("attn_kernel", [True, False])
+def test_int8_continuous_batching_matches_jax(packed, attn_kernel):
+    je, te = engines(packed, max_batch=3, max_len=64, kv_dtype="int8",
+                     attn_kernel=attn_kernel)
+    assert continuous_batching(te) == continuous_batching(je)
+
+
+@pytest.mark.parametrize("attn_kernel", [True, False])
+def test_int8_add_requests_step_n_matches_jax(packed, attn_kernel):
+    """step_n(., 4): with attn_kernel the ring-staged path (the fused
+    attention over the window plus the ring, one span flush per layer),
+    without it the per-step path. The caches after it equal JAX's: the
+    k/v entering the quantizer come from f32 sums taken in another order
+    (relative differences ~1e-6), so a code may round the other way where
+    x / scale sits on a half-integer, and the flipped code moves the next
+    layer's k/v by ~1e-5; codes differ by at most one step, at under 1 in
+    1000 entries of the cache (5 or 6 of 32768 here). Scales hold to 1e-4
+    of the largest (2.3e-5 here)."""
+    je, te = engines(packed, max_batch=4, max_len=64, kv_dtype="int8",
+                     attn_kernel=attn_kernel)
+    assert te._use_ring() == attn_kernel
+    assert add_requests_step_n(te) == add_requests_step_n(je)
+    B, H = 4, CFG["num_key_value_heads"]
+    for li in range(CFG["num_hidden_layers"]):
+        for jc, tc in ((je.cache.k[li], te.cache.k[li]),
+                       (je.cache.v[li], te.cache.v[li])):
+            d = np.abs(np.asarray(jc, np.int32) - tc.numpy().astype(np.int32))
+            assert d.max() <= 1 and np.count_nonzero(d) <= d.size * 1e-3
+        for js, ts in ((je.cache.k_scale[li], te.cache.k_scale[li]),
+                       (je.cache.v_scale[li], te.cache.v_scale[li])):
+            jflat = np.asarray(js).reshape(B, H, -1)[:, :, :64]
+            np.testing.assert_allclose(ts.numpy(), jflat, rtol=0,
+                                       atol=1e-4 * np.abs(jflat).max())
+
+
+def test_int8_flash_gated_prompt_matches_jax(packed, monkeypatch):
+    """The int8 prefill attends the fresh k/v through flash attention and
+    commits their codes; decode then reads the codes."""
+    got, want, calls = flash_gated_prompt(packed, monkeypatch,
+                                          kv_dtype="int8")
+    assert got == want
+    assert calls and calls[0][2] == 64
+
+
+# ---------------------------------------------------------------------------
+# the speculative-decoding verify pass
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_verify_step_matches_jax(packed, kv_dtype):
+    """verify_step on the engine's own greedy continuation returns it
+    shifted by one, and decoding continues the chain once the tokens are
+    accepted; garbage verified on another slot and never accepted leaves
+    its later decoding unchanged. Both engines through the same calls."""
+    je, te = engines(packed, max_batch=2, max_len=64, kv_dtype=kv_dtype)
+    prompt, other = [5, 17, 99, 3], [9, 4, 88]
+    results = []
+    for eng in (je, te):
+        ref = eng.generate(prompt, max_new_tokens=9)
+        a = eng.add_request(prompt)
+        b = eng.add_request(other)
+        res = [ref, eng.verify_step({a: ref[:8], b: [1, 2, 3, 4, 5, 6, 7,
+                                                     8]})]
+        eng.lengths[a] += 8
+        last = {a: ref[8], b: eng._pending_next[b]}
+        for _ in range(3):
+            last = eng.step(last)
+            res.append(dict(last))
+        results.append(res)
+    assert results[1] == results[0]
+    ref, verified = results[1][:2]
+    assert verified[0] == ref[1:9]
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_verify_step_logits_match_jax(packed, kv_dtype):
+    """verify_step_logits gives f32 (s, V) rows equal to JAX's: rtol 1e-4
+    with a native cache; with an int8 cache 1e-3, since a code that rounds
+    the other way (see the step_n test) moves a logit by ~2e-5."""
+    je, te = engines(packed, max_batch=2, max_len=64, kv_dtype=kv_dtype)
+    rows = []
+    for eng in (je, te):
+        slots = eng.add_requests([[5, 6, 7, 8, 9], [10, 20, 30]])
+        rows.append(eng.verify_step_logits(
+            {s: [11 + s, 12, 13] for s in slots}))
+    for s, want in rows[0].items():
+        got = rows[1][s]
+        assert got.dtype == np.float32 and got.shape == (3, CFG["vocab_size"])
+        rtol = 1e-3 if kv_dtype == "int8" else 1e-4
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol / 10)

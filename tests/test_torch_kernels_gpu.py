@@ -7,8 +7,8 @@ machine with the card run them with
 (``--noconftest``: tests/conftest.py configures JAX, which that machine
 does not have; nothing here imports JAX.)
 
-Tolerances: the products (quant_matmul, flash_attention) round an f32 sum
-to bf16 once in both versions, so each element may differ by 2 bf16 ulps of
+Tolerances: the products (quant_matmul, flash_attention,
+decode_attention_int8) round an f32 sum to bf16 once in both versions, so each element may differ by 2 bf16 ulps of
 its own size plus the kernel's slack (``kernels/tolerance.py``); the cache
 writes are copies and must be exact.
 """
@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from omniquant_tpu_torch.kernels import kv_update, tolerance
+from omniquant_tpu_torch.kernels.decode_attention import (
+    decode_attention_int8, decode_attention_int8_plain)
 from omniquant_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
 from omniquant_tpu_torch.kernels.quant_matmul import (
@@ -139,6 +141,137 @@ def test_kv_update_kernels_exact(cuda):
     torch.cuda.synchronize()
     assert kv_update.kv_cache_write.launches == before + 2
     assert torch.equal(a, b) and torch.equal(a2, b2)
+
+
+def _int8_cache(cuda, B, n_kv, S, hd, gen):
+    codes = [torch.randint(-127, 128, (B, n_kv, S, hd), generator=gen,
+                           device=cuda, dtype=torch.int8) for _ in range(2)]
+    scales = [0.001 + 0.019 * torch.rand(B, n_kv, S, generator=gen,
+                                         device=cuda) for _ in range(2)]
+    return codes[0], scales[0], codes[1], scales[1]
+
+
+@pytest.mark.parametrize("B,n_kv,n_rep,kv_len,max_len,lengths,R,ring_n", [
+    (4, 4, 1, 64, 64, [0, 63, 17, 40], 0, -1),
+    (3, 2, 4, 200, 256, [199, 0, 130], 0, -1),     # GQA, ragged window
+    (4, 4, 1, 2048, 2048, [1023, 1024, 2000, 37], 0, -1),
+    (4, 2, 2, 2048, 2048, [-1, 1024, 2046, 500], 8, 0),   # ring, idle slot
+    (4, 2, 2, 2048, 2048, [-1, 1023, 2040, 129], 8, 7),
+])
+def test_decode_attention_int8_kernel(cuda, B, n_kv, n_rep, kv_len, max_len,
+                                      lengths, R, ring_n):
+    gen = torch.Generator(device=cuda).manual_seed(kv_len + R + ring_n)
+    q = torch.randn(B, n_kv * n_rep, 128, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    cache = _int8_cache(cuda, B, n_kv, max_len, 128, gen)
+    ring = _int8_cache(cuda, B, n_kv, R, 128, gen) if R else None
+    if ring is not None:
+        ring = (ring[0], ring[1], ring[2], ring[3])
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = decode_attention_int8.launches
+    got = decode_attention_int8(q, *cache, lens, kv_len, 128 ** -0.5,
+                                ring_kv=ring, ring_n=ring_n)
+    want = decode_attention_int8_plain(q, *cache, lens, kv_len, 128 ** -0.5,
+                                       ring_kv=ring, ring_n=ring_n)
+    torch.cuda.synchronize()
+    assert decode_attention_int8.launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    ok, err, worst = tolerance.bf16_close(got, want,
+                                          tolerance.DECODE_ATTENTION_SLACK)
+    assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("span", [1, 3, 8])
+def test_kv_write_mixed_kinds_and_span_exact(cuda, span):
+    """K4 (span 1) and K5 write int8 codes, bf16 rows and f32 scale planes
+    of mixed row sizes in one launch each, exactly as their plain
+    versions; rows past the cache or before it are dropped."""
+    B, H, S, D = 4, 3, 40, 128
+    gen = torch.Generator(device=cuda).manual_seed(span)
+    kc, ks, vc, vs = _int8_cache(cuda, B, H, S, D, gen)
+    vb = torch.randn(B, H, S, D, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    bufs = (kc, vb, ks, vs)
+    news = (torch.randint(-127, 128, (B, H, span, D), generator=gen,
+                          device=cuda, dtype=torch.int8),
+            torch.randn(B, H, span, D, generator=gen, device=cuda).to(
+                torch.bfloat16),
+            torch.rand(B, H, span, generator=gen, device=cuda),
+            torch.rand(B, H, span, generator=gen, device=cuda))
+    lengths = torch.tensor([0, S - 2, -1, 17], dtype=torch.int32,
+                           device=cuda)
+    plain = [b.clone() for b in bufs]
+    for p, n in zip(plain, news):
+        kv_update.kv_cache_write_span_plain(p, n, lengths)
+    if span == 1:
+        before = kv_update.kv_cache_write.launches
+        kv_update.kv_cache_write(bufs, [n[:, :, 0] for n in news], lengths)
+        count = kv_update.kv_cache_write.launches - before
+    else:
+        before = kv_update.kv_cache_write_span.launches
+        kv_update.kv_cache_write_span(bufs, news, lengths)
+        count = kv_update.kv_cache_write_span.launches - before
+    torch.cuda.synchronize()
+    assert count == 1
+    for got, want in zip(bufs, plain):
+        assert torch.equal(got, want)
+
+
+def test_int8_engine_on_the_card_matches_plain_versions(cuda):
+    """A tiny bf16 int8-KV engine on the card (K3, K5 through a verify
+    pass on fixed tokens, then K4 on codes and planes and K6) against the
+    same engine on the CPU (every plain version): the decode logits after
+    the verified tokens are accepted. A staged step_n (the ring and its
+    flush) must then give tokens in the vocabulary."""
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=2,
+                            num_attention_heads=2, num_key_value_heads=2)
+    gen = torch.Generator().manual_seed(1)
+    dense = llama.init_params(gen, cfg, device="cpu")
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+                        device="cpu")
+    reqs = [[(5 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12))]
+    logits = []
+    for dev in ("cpu", "cuda"):
+        eng = LlamaEngine(packed, cfg, max_batch=4, max_len=128,
+                          dtype=torch.bfloat16, kv_dtype="int8", device=dev)
+        slots = eng.add_requests(reqs)
+        eng.verify_step({s: [3 + s, 7, 11, 13] for s in slots})
+        eng.lengths[slots] += 4
+        toks, lens = eng._device_tokens({s: 1 for s in slots})
+        logits.append(eng._decode_impl(toks, lens, eng._kv_len(1))[
+            :len(slots)].float().cpu())
+        out = eng.step_n({s: 2 for s in slots}, 4)
+        assert all(0 <= t < 256 for ts in out.values() for t in ts)
+    d = logits[1] - logits[0]
+    assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 3e-2
+
+
+def test_int8_decode_does_not_synchronize(cuda):
+    """The int8 decode step, the staged step_n and the verify pass queue
+    their work without a host synchronisation inside the layer loop."""
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=2,
+                            num_attention_heads=2, num_key_value_heads=2)
+    dense = llama.init_params(torch.Generator().manual_seed(2), cfg,
+                              device="cpu")
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+                        device="cpu")
+    eng = LlamaEngine(packed, cfg, max_batch=4, max_len=128,
+                      dtype=torch.bfloat16, kv_dtype="int8", device=cuda)
+    slots = eng.add_requests([[1, 2, 3, 4, 5], [6, 7, 8]])
+    toks, lens = eng._device_tokens({s: 9 for s in slots})
+    verify = torch.full((4, 3), 5, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_impl(toks, lens, 64)
+        eng._decode_multi_impl(toks, lens + 1, 64, 4, False)
+        eng._verify_impl(verify, lens + 5, 64, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_engine_on_the_card_matches_plain_versions(cuda):
