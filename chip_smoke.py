@@ -11,8 +11,8 @@ prints no result. Any failure raises, so the exit code is non-zero.
               into ``build/`` (one nvcc per source, all started at once).
 2. kernels -- each hand-written kernel against its plain PyTorch version at
               the shapes of the LLaMA-7B serving path, in bf16 (int8 codes
-              and f32 scales for the int8 cache), with the per-element
-              tolerance stated in KERNELS
+              and f32 scales for the int8 cache and the integer products),
+              with the per-element tolerance stated in KERNELS
               (omniquant_tpu_torch/kernels/tolerance.py); device times of
               the kernel, the plain version and one PyTorch library call as
               a yardstick (CUDA events, launches queued behind a device
@@ -20,9 +20,9 @@ prints no result. Any failure raises, so the exit code is non-zero.
               the card could take for this run's inputs.
 3. serve   -- LLaMA-7B widths and depth (vocab 32000, hidden 4096, inter
               11008, 32 layers, 32/32 heads), random weights from a seeded
-              torch.Generator, packed W4 g128 (pairs layout) by pack_model,
-              one packed model shared by four engines, built and freed one
-              after another:
+              torch.Generator, packed g128 by pack_model: W4 (pairs layout)
+              for engines A-F, then, once that model is freed, W6 (planar)
+              for G; engines built and freed one after another:
               A  bf16 KV, max_batch 32, max_len 512: add_requests of 32
                  prompts of 128 tokens, 32 tokens by step_n(., 8);
               B  bf16 KV, max_batch 8, max_len 2048: 8 prompts of 1024
@@ -32,7 +32,14 @@ prints no result. Any failure raises, so the exit code is non-zero.
                  with the ring, K5 flush), verify_step of 4 tokens on every
                  slot (K5);
               D  int8 KV, max_batch 8, max_len 2048: 8 x 1024 prompts (K2,
-                 K3 on codes), step_n(., 8) x 2 at a 2048 window.
+                 K3 on codes), step_n(., 8) x 2 at a 2048 window;
+              E  W4A4 (4-bit activations), bf16 KV, as A: the prefill
+                 (m = 4096) through K8 + K9, decode through fake-quant + K1;
+              F  W4A4, bf16 KV, as B: the prefill (m = 8192) through K8 + K9
+                 and K2, 8 tokens by step_n(., 8);
+              G  W6A6 on the W6 model, bf16 KV, as A plus verify_step of 4
+                 tokens: prefill K8 + K9, decode (m = 32) and verify
+                 (m = 128) through K7.
               Each engine's run starts with the launch counts set to 0 and
               ends by reading them; every kernel of its path must have
               launched.
@@ -40,7 +47,11 @@ prints no result. Any failure raises, so the exit code is non-zero.
               decode logits of a bf16-KV and an int8-KV engine against a
               forward of the same packed model composed of plain PyTorch ops
               in f32, and the int8 engine's fused decode attention against
-              its dequantized dense path.
+              its dequantized dense path; then W4A4 and W6A6 engines
+              against the f32 forward with the same activation quantizers
+              (rms and largest error, cosine, norm ratio), and at 4 x 512
+              the same engines on the CPU (every plain version) showing the
+              same error.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line ``{"kernels": [...]}``; the last line is
@@ -90,6 +101,20 @@ KERNELS = {
         "omniquant_tpu_torch/csrc/decode_attention.cu",
         "per element 2 bf16 ulps of |plain| + 2^-10 (both keep scores, "
         "softmax and p*vs in f32 and round the output to bf16 once)"),
+    "quant_matmul_int": (
+        "omniquant_tpu/kernels/quant_matmul.py:502",
+        "omniquant_tpu_torch/csrc/quant_matmul_int.cu",
+        "per element 2 bf16 ulps of |plain| + 2^-14 * xs * sum_g (|dot_g| "
+        "sc_g + |xsum_g off2_g|) (exact int dots; only the f32 order of the "
+        "group terms differs)"),
+    "_unpack_to_int8": (
+        "omniquant_tpu/kernels/quant_matmul.py:569",
+        "omniquant_tpu_torch/csrc/quant_matmul_int.cu", "exact"),
+    "_quant_matmul_int_dense": (
+        "omniquant_tpu/kernels/quant_matmul.py:644",
+        "omniquant_tpu_torch/csrc/quant_matmul_int.cu",
+        "per element 2 bf16 ulps of |plain| + 2^-14 * xs * sum_g (|dot_g| "
+        "sc_g + |xsum_g off2_g|), as quant_matmul_int"),
 }
 
 # kernels each engine of the serve phase must launch
@@ -101,6 +126,12 @@ SERVE_PATHS = {
           "kv_cache_write_span", "decode_attention_int8"),
     "D": ("quant_matmul", "flash_attention", "kv_cache_prefill_write",
           "kv_cache_write_span", "decode_attention_int8"),
+    "E": ("_unpack_to_int8", "_quant_matmul_int_dense", "quant_matmul",
+          "kv_cache_prefill_write", "kv_cache_write"),
+    "F": ("_unpack_to_int8", "_quant_matmul_int_dense", "flash_attention",
+          "quant_matmul", "kv_cache_prefill_write", "kv_cache_write"),
+    "G": ("_unpack_to_int8", "_quant_matmul_int_dense", "quant_matmul_int",
+          "kv_cache_prefill_write", "kv_cache_write", "kv_cache_write_span"),
 }
 
 # e2e tolerance on logits, relative to the reference's rms / max magnitude:
@@ -113,11 +144,51 @@ SERVE_PATHS = {
 # fused decode attention and its dense path (which rounds the scales and
 # the dequantized window to bf16) are two bf16 engines that differ only in
 # where they round, and are held to the same bounds against each other.
-E2E_RMS_REL, E2E_MAX_REL = 5e-2, 1e-1
+E2E_TOL = dict(rms=5e-2, max=1e-1)
+# W4A4 / W6A6 engines against the f32 forward with the same activation
+# quantizers: a bf16 rounding upstream may move an activation across a 4-
+# or 6-bit grid step (a whole step, not a bf16 ulp), and on random weights
+# at full width that compounds: the same plain forward in bf16 (plain
+# PyTorch ops, no kernel) already strays 0.80 (W4A4) and 0.27 (W6A6) rms
+# from the f32 one, with no argmax in common at W4A4. So the engines are
+# held to that yardstick, measured in the same run on the same tokens
+# (their rms error at most E2E_INT_VS_PLAIN times the bf16 forward's), and
+# at 4 x 512 to the same engine on the CPU running every plain version
+# instead of a kernel (the same factor). An rms error near 1 is what zero
+# logits give, so each comparison also holds the cosine of the logits to a
+# floor and the ratio of their norms to a band: zero, random, negated and
+# halved or doubled logits fail, and the run checks that they do.
+E2E_INT_TOL = {4: dict(rms=1.0, max=1.2, cos=0.4, norm=(0.8, 1.25)),
+               6: dict(rms=0.4, max=0.5, cos=0.8, norm=(0.8, 1.25))}
+E2E_INT_VS_PLAIN = 1.25
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def logit_gap(got, want) -> dict:
+    """How far logits ``got`` lie from ``want``: rms and largest error over
+    want's rms and largest magnitude, argmax agreement, cosine, and the
+    ratio of their norms."""
+    g = got.float()
+    w = want.float().to(g.device)
+    gn, wn = g.norm(), w.norm()
+    return dict(
+        rms_rel=((g - w).norm() / wn).item(),
+        max_rel=((g - w).abs().max() / w.abs().max()).item(),
+        argmax_agree=(g.argmax(-1) == w.argmax(-1)).float().mean().item(),
+        cos=((g * w).sum() / (gn * wn).clamp_min(1e-30)).item(),
+        norm_ratio=(gn / wn).item())
+
+
+def gap_within(gap: dict, tol: dict) -> bool:
+    """``gap`` inside ``tol``: rms and max bounds, and where given a cosine
+    floor and a band for the norm ratio (NaN fails every bound)."""
+    lo, hi = tol.get("norm", (0.0, math.inf))
+    return (gap["rms_rel"] <= tol["rms"] and gap["max_rel"] <= tol["max"]
+            and gap["cos"] >= tol.get("cos", -1.0)
+            and lo <= gap["norm_ratio"] <= hi)
 
 
 def rms_rel_err(got, want) -> float:
@@ -194,6 +265,12 @@ def build(out: dict):
             log(f"  ptxas {n}: {ln.strip()}")
 
 
+def _seven_b_shapes(dims):
+    H, I = dims["hidden"], dims["inter"]
+    return {"qkv": (H, 3 * H), "o": (H, H), "gate_up": (H, 2 * I),
+            "down": (I, H)}
+
+
 def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
     """K1 at the decode (m = 32) and prefill shapes of the serving path;
     the JSON entry sums one decoder layer's four decode products."""
@@ -203,9 +280,7 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
     from omniquant_tpu_torch.quant import QuantConfig, dequantize_packed
     from omniquant_tpu_torch.quant import pack_weight
 
-    H, I = dims["hidden"], dims["inter"]
-    shapes = {"qkv": (H, 3 * H), "o": (H, H), "gate_up": (H, 2 * I),
-              "down": (I, H)}
+    shapes = _seven_b_shapes(dims)
     ms_list = [(32, ("qkv", "o", "gate_up", "down")),
                (dims["prefill_m"], ("qkv", "o", "down")),
                (dims["flash_m"], ("qkv", "o", "down"))]
@@ -520,49 +595,244 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
     return head
 
 
-def unported_bounds(dims, out: dict) -> None:
-    """Bounds, from the shapes alone, of the W4A4 kernels still to port,
-    over the four LLaMA-7B projections (qkv, o, gate_up, down), W4 g128:
-    K7 quant_matmul_int (int8 activation codes x packed codes, f32 group
-    scales and offsets, bf16 out) at decode m = 32; K8 _unpack_to_int8
-    (packed words -> dense int8 codes, independent of m) and K9
-    _quant_matmul_int_dense (dense int8 x int8, plus xsum x offsets) at
-    m = 4096."""
-    H, I, gs = dims["hidden"], dims["inter"], 128
-    shapes = ((H, 3 * H), (H, H), (H, 2 * I), (I, H))
-    res = {}
-    for name, m in (("quant_matmul_int", 32), ("_unpack_to_int8", 4096),
-                    ("_quant_matmul_int_dense", 4096)):
-        nbytes = flops = 0.0
-        for K, N in shapes:
-            groups = 2 * N * (K // gs) * 4            # f32 scales + offsets
-            if name == "quant_matmul_int":
-                nbytes += K * N / 2 + groups + m * K + m * 4 + m * N * 2
-                flops += 2.0 * m * K * N
-            elif name == "_unpack_to_int8":
-                nbytes += K * N / 2 + K * N
-            else:
-                nbytes += (K * N + groups + m * K + m * (K // gs) * 4
-                           + m * 4 + m * N * 2)
-                flops += 2.0 * m * K * N
-        b, by = bound_ms(nbytes, flops, INT8_OPS_PER_S)
-        res[name] = dict(m=m, bound_ms=b, bound_by=by, bytes=nbytes,
-                         ops=flops)
-        log(f"  {name} (four 7B projections, m={m}): bound {b:.4f} ms "
-            f"({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GOP int8)")
-    out["unported_bounds"] = res
+def _seven_b_packed(torch, device, gen, bits, K, N):
+    """A random (N, K) projection packed at ``bits`` g128 (pairs for 4-bit,
+    planar for 6-bit: the "auto" layouts pack_model gives), with the
+    bf16-rounded scales and zeros a bf16 engine serves."""
+    from omniquant_tpu_torch.quant import QuantConfig, pack_weight
+
+    w = torch.randn(N, K, generator=gen, device=device) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=128),
+                     layout="auto")
+    return pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+
+
+def _int_held(torch, name, got, want, slack):
+    from omniquant_tpu_torch.kernels import tolerance
+
+    torch.cuda.synchronize()
+    ok, err, worst = tolerance.bf16_close(got, want, slack)
+    if not (ok and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: max abs err {err}, {worst:.3g} x its "
+                             "per-element bound")
+    return err, worst
+
+
+def _int_bytes(pw, m, K, N, w_bytes):
+    """Bytes an integer product's wrapper must move: bf16 activations in,
+    the weight (packed words), bf16 scales and zeros, bf16 output."""
+    return w_bytes + 2 * pw.scales.numel() * 2 + m * K * 2 + m * N * 2
+
+
+def _totals(rows, keys):
+    tot = {k: sum(r[k] for r in rows) for k in keys}
+    tot["bound_by"] = ("bytes" if sum(r["bytes_ms"] for r in rows)
+                       >= sum(r["ops_ms"] for r in rows) else "operations")
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return tot
+
+
+def _int_launches(qmm):
+    return (qmm.quant_matmul_int.launches, qmm._unpack_to_int8.launches,
+            qmm._quant_matmul_int_dense.launches)
+
+
+def _int_call_held(torch, qmm, label, call, want, mag, launched):
+    """One call of an integer wrapper, held to its plain version on the
+    same activations (kernels/tolerance.py) and to the launches of its
+    route: ``launched`` counts (K7, K8, K9)."""
+    from omniquant_tpu_torch.kernels import tolerance
+
+    before = _int_launches(qmm)
+    got = call()
+    delta = tuple(a - b for a, b in zip(_int_launches(qmm), before))
+    if delta != launched:
+        raise AssertionError(f"{label}: launched (K7, K8, K9) {delta}, its "
+                             f"route launches {launched}")
+    return _int_held(torch, label, got, want, tolerance.INT_MATMUL_SLACK * mag)
+
+
+def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
+    """quant_matmul_int on W6 planar g128 weights of the four 7B projections
+    at decode (m = 32) and verify (m = 128) rows with 6-bit activations, as
+    the engine calls it: the activation quantizer, then K7. Held to the
+    plain path on the same x (quantize_act_int, quant_matmul_int_plain) and
+    timed whole; K7 alone on the same codes (kernel_ms) gives the
+    quantizer's share. The JSON entry sums the four at m = 32. Yardstick:
+    bf16 torch.matmul on the dequantized weight."""
+    from omniquant_tpu_torch.kernels import quant_matmul as qmm
+    from omniquant_tpu_torch.quant import QuantConfig, dequantize_packed
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    acfg = QuantConfig(n_bits=6)
+    rows = []
+    for name, (K, N) in _seven_b_shapes(dims).items():
+        pw = _seven_b_packed(torch, device, gen, 6, K, N)
+        assert pw.layout == "planar"
+        w_lib = dequantize_packed(pw, dtype=torch.bfloat16)
+        for m in (32, 128):
+            x = torch.randn(m, K, generator=gen, device=device).to(
+                torch.bfloat16)
+            xc, xs = qmm.quantize_act_int(x, acfg)
+            want, mag = qmm.quant_matmul_int_plain(xc, xs, pw, magnitude=True)
+            lbl = f"quant_matmul_int {name} m={m}"
+            err, worst = _int_call_held(
+                torch, qmm, lbl, lambda: qmm.quant_matmul_int(x, pw, acfg),
+                want, mag, (1, 0, 0))
+            del want, mag
+            t = timer(lambda: qmm.quant_matmul_int(x, pw, acfg), lbl)
+            tk = timer(lambda: qmm._qmm_int_cuda(xc, xs, pw, torch.bfloat16),
+                       lbl + " kernel")
+            tp = timer(lambda: qmm.quant_matmul_int_plain(
+                *qmm.quantize_act_int(x, acfg), pw), lbl + " plain", iters=3)
+            tl = timer(lambda: torch.matmul(x, w_lib), lbl + " library")
+            nbytes = _int_bytes(pw, m, K, N, pw.qweight.numel() * 4)
+            ops = 2.0 * m * K * N
+            b, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+            rows.append(dict(
+                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk, plain_ms=tp,
+                library_ms=tl, bound_ms=b, bound_by=by, max_abs_err=err,
+                err_over_bound=worst,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=ops / INT8_OPS_PER_S * 1e3))
+            log(f"  quant_matmul_int {name:7s} m={m:4d} K={K:5d} N={N:5d}: "
+                f"max abs err {err:.3g} ({worst:.3g} x bound)  wrapper "
+                f"{t:.4f} ms (K7 alone {tk:.4f})  plain {tp:.4f}  bf16 "
+                f"matmul {tl:.4f}  bound {b:.4f} ({by})")
+        del pw, w_lib
+    out["quant_matmul_int_shapes"] = rows
+    tot = _totals([r for r in rows if r["m"] == 32],
+                  ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms"))
+    tot["shape"] = ("four 7B projections (qkv, o, gate_up, down), W6 planar "
+                    "g128, bf16 x quantized to 6-bit codes in the wrapper, "
+                    "m=32; library: bf16 torch.matmul on the dequantized "
+                    "weight")
+    return tot
+
+
+def check_unpack_int8(torch, device, timer, dims, out: dict) -> dict:
+    """K8 on the four 7B projections packed W4 g128 (pairs, the W4A4
+    engines' prefill) and W6 g128 (planar, W6A6's), exact; the JSON entry
+    sums the four W4 projections. No single PyTorch call computes it."""
+    from omniquant_tpu_torch.kernels import quant_matmul as qmm
+
+    gen = torch.Generator(device=device).manual_seed(5432)
+    rows = []
+    for bits in (4, 6):
+        for name, (K, N) in _seven_b_shapes(dims).items():
+            pw = _seven_b_packed(torch, device, gen, bits, K, N)
+            got = qmm._unpack_to_int8(pw)
+            want = qmm.unpack_to_int8_plain(pw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"_unpack_to_int8 W{bits} {name} "
+                                     "differs from its plain version")
+            lbl = f"_unpack_to_int8 W{bits} {pw.layout} {name}"
+            t = timer(lambda: qmm._unpack_to_int8(pw), lbl)
+            tp = timer(lambda: qmm.unpack_to_int8_plain(pw), lbl + " plain",
+                       iters=3)
+            nbytes = pw.qweight.numel() * 4 + got.numel()
+            b, by = bound_ms(nbytes, 0)
+            rows.append(dict(shape=name, bits=bits, layout=pw.layout, K=K,
+                             N=N, ms=t, plain_ms=tp, library_ms=None,
+                             bound_ms=b, bound_by=by, max_abs_err=0.0,
+                             bytes_ms=b, ops_ms=0.0))
+            log(f"  _unpack_to_int8 W{bits} {pw.layout:6s} {name:7s} "
+                f"K={K:5d} N={N:5d}: exact  kernel {t:.4f} ms  plain "
+                f"{tp:.4f}  bound {b:.4f} ({by})")
+            del pw, got, want
+    out["unpack_to_int8_shapes"] = rows
+    tot = _totals([r for r in rows if r["bits"] == 4],
+                  ("ms", "plain_ms", "bound_ms"))
+    tot["library_ms"] = None
+    tot["shape"] = ("four 7B projections packed W4 g128 pairs -> int8 "
+                    "(k_pad, N); no library call")
+    return tot
+
+
+def check_int_dense(torch, device, timer, dims, out: dict) -> dict:
+    """_quant_matmul_int_dense on the four 7B projections packed W4 g128
+    pairs with 4-bit activations at the prefill rows of engines E (m =
+    4096) and F (m = 8192), as the engine calls it: the activation
+    quantizer, K8, then K9. Held to the plain path on the same x
+    (quantize_act_int, unpack_to_int8_plain, quant_matmul_int_dense_plain)
+    and timed whole; K8 alone (unpack_ms) and K9 alone on the same codes
+    (kernel_ms) give their shares. The JSON entry sums the four at m =
+    4096. Yardsticks: bf16 torch.matmul on the dequantized weight
+    (library_ms) and torch._int_mm on the same int8 codes (timed only,
+    without the group scaling)."""
+    from omniquant_tpu_torch.kernels import quant_matmul as qmm
+    from omniquant_tpu_torch.quant import QuantConfig, dequantize_packed
+
+    gen = torch.Generator(device=device).manual_seed(6543)
+    acfg = QuantConfig(n_bits=4)
+    rows = []
+    for name, (K, N) in _seven_b_shapes(dims).items():
+        pw = _seven_b_packed(torch, device, gen, 4, K, N)
+        w8 = qmm.unpack_to_int8_plain(pw)
+        w_lib = dequantize_packed(pw, dtype=torch.bfloat16)
+        tu = timer(lambda: qmm._unpack_to_int8(pw), f"_unpack_to_int8 {name}")
+        for m in (dims["prefill_m"], dims["flash_m"]):
+            x = torch.randn(m, K, generator=gen, device=device).to(
+                torch.bfloat16)
+            xc, xs = qmm.quantize_act_int(x, acfg)
+            want, mag = qmm.quant_matmul_int_dense_plain(xc, xs, w8, pw,
+                                                         magnitude=True)
+            lbl = f"_quant_matmul_int_dense {name} m={m}"
+            err, worst = _int_call_held(
+                torch, qmm, lbl,
+                lambda: qmm._quant_matmul_int_dense(x, pw, acfg), want, mag,
+                (0, 1, 1))
+            del want, mag
+            t = timer(lambda: qmm._quant_matmul_int_dense(x, pw, acfg), lbl)
+            tk = timer(lambda: qmm._qmm_int_dense_cuda(xc, xs, w8, pw,
+                                                       torch.bfloat16),
+                       lbl + " kernel")
+            tp = timer(lambda: qmm.quant_matmul_int_dense_plain(
+                *qmm.quantize_act_int(x, acfg), qmm.unpack_to_int8_plain(pw),
+                pw), lbl + " plain", iters=3)
+            tl = timer(lambda: torch.matmul(x, w_lib), lbl + " library")
+            xpad = torch.nn.functional.pad(xc, (0, pw.k_pad - K))
+            ti = timer(lambda: torch._int_mm(xpad, w8), lbl + " _int_mm")
+            del xpad
+            nbytes = _int_bytes(pw, m, K, N, pw.qweight.numel() * 4)
+            ops = 2.0 * m * K * N
+            b, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+            rows.append(dict(
+                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk, unpack_ms=tu,
+                plain_ms=tp, library_ms=tl, int_mm_ms=ti, bound_ms=b,
+                bound_by=by, max_abs_err=err, err_over_bound=worst,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=ops / INT8_OPS_PER_S * 1e3))
+            log(f"  _quant_matmul_int_dense {name:7s} m={m:5d} K={K:5d} "
+                f"N={N:5d}: max abs err {err:.3g} ({worst:.3g} x bound)  "
+                f"wrapper {t:.4f} ms (K9 alone {tk:.4f}, "
+                f"{ops / tk / 1e9:.0f} TOP/s; K8 alone {tu:.4f})  plain "
+                f"{tp:.4f}  bf16 matmul {tl:.4f}  _int_mm {ti:.4f}  bound "
+                f"{b:.4f} ({by})")
+        del pw, w8, w_lib
+    out["quant_matmul_int_dense_shapes"] = rows
+    tot = _totals([r for r in rows if r["m"] == dims["prefill_m"]],
+                  ("ms", "kernel_ms", "unpack_ms", "plain_ms", "library_ms",
+                   "bound_ms"))
+    tot["shape"] = ("four 7B projections, W4 g128 pairs, bf16 x quantized to "
+                    "4-bit codes in the wrapper, K8 then K9, m=4096; "
+                    "library: bf16 torch.matmul on the dequantized weight")
+    return tot
 
 
 # ---------------------------------------------------------------------------
-def make_packed(torch, cfg, device, seed):
-    """Random dense weights from a seeded generator, packed W4 g128."""
+def make_packed(torch, cfg, device, seed, bits=4):
+    """Random dense weights from a seeded generator, packed g128 at ``bits``
+    (the "auto" layout: pairs for 4-bit, planar for 6-bit)."""
     from omniquant_tpu_torch.models import LLAMA, llama
     from omniquant_tpu_torch.quant import QuantConfig
     from omniquant_tpu_torch.serving import pack_model
 
     gen = torch.Generator(device=device).manual_seed(seed)
     dense = llama.init_params(gen, cfg, dtype=torch.float32, device=device)
-    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=bits, group_size=128),
                         device=device)
     return packed
 
@@ -573,18 +843,22 @@ def prompts(torch, n, length, vocab, seed):
 
 
 def serve(torch, device, cfg, dims, seed, out: dict) -> dict:
-    """The main path: four engines (SERVE_PATHS) through their user entry
-    points, one after another on one packed model. Returns the launch
-    counts summed over the four runs."""
+    """The main path: seven engines (SERVE_PATHS) through their user entry
+    points, one after another: A-F on one W4 g128 model (E and F with
+    4-bit activations), G on a W6 g128 model packed once A-F's is freed.
+    Returns the launch counts summed over the seven runs."""
     from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.models.common import ActQuantSpec
     from omniquant_tpu_torch.serving import LlamaEngine
 
-    t0 = time.time()
-    packed = make_packed(torch, cfg, device, seed)
-    torch.cuda.synchronize()
-    out["pack_s"] = time.time() - t0
-    log(f"serve: {cfg.num_hidden_layers}-layer model packed W4 g128 in "
-        f"{out['pack_s']:.1f} s")
+    def pack(bits):
+        t0 = time.time()
+        packed = make_packed(torch, cfg, device, seed, bits)
+        torch.cuda.synchronize()
+        out[f"pack_w{bits}_s"] = time.time() - t0
+        log(f"serve: {cfg.num_hidden_layers}-layer model packed W{bits} g128 "
+            f"in {out[f'pack_w{bits}_s']:.1f} s")
+        return packed
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -656,14 +930,33 @@ def serve(torch, device, cfg, dims, seed, out: dict) -> dict:
                    max_len=2 * dims["flash_len"], kv_dtype="int8"),
               dict(n=dims["flash_batch"], length=dims["flash_len"], steps=16,
                    step_n=8)),
+        "E": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
+                   spec=ActQuantSpec.from_bits(4)),
+              dict(n=dims["batch"], length=dims["prompt_len"],
+                   steps=dims["decode_steps"], step_n=8)),
+        "F": (dict(max_batch=dims["flash_batch"],
+                   max_len=2 * dims["flash_len"],
+                   spec=ActQuantSpec.from_bits(4)),
+              dict(n=dims["flash_batch"], length=dims["flash_len"], steps=8,
+                   step_n=8)),
+        "G": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
+                   spec=ActQuantSpec.from_bits(6)),
+              dict(n=dims["batch"], length=dims["prompt_len"],
+                   steps=dims["decode_steps"], step_n=8, verify=4)),
     }
-    total = {}
+    total, packed, packed_bits = {}, None, None
     for name, (eng_kw, run_kw) in plans.items():
+        bits = 6 if name == "G" else 4
+        if bits != packed_bits:
+            del packed
+            torch.cuda.empty_cache()
+            packed, packed_bits = pack(bits), bits
+        base = torch.cuda.memory_allocated()
         eng = LlamaEngine(packed, cfg, dtype=torch.bfloat16, seed=seed,
                           device=device, **eng_kw)
-        c = eng.cache
         cache_gb = sum(t.numel() * t.element_size()
-                       for bufs in (c.k, c.v, c.k_scale, c.v_scale)
+                       for bufs in (eng.cache.k, eng.cache.v,
+                                    eng.cache.k_scale, eng.cache.v_scale)
                        if bufs is not None for t in bufs) / 2**30
         # warm-up (allocator, library handles): two short requests
         s = eng.add_requests(prompts(torch, 2, 16, cfg.vocab_size, seed))
@@ -688,6 +981,11 @@ def serve(torch, device, cfg, dims, seed, out: dict) -> dict:
             total[k] = total.get(k, 0) + v
         del eng
         torch.cuda.empty_cache()
+        # a freed engine must give its cache and buffers back at once
+        res["left_gib"] = (torch.cuda.memory_allocated() - base) / 2**30
+        if res["left_gib"] > 0.5:
+            raise AssertionError(f"engine {name} left {res['left_gib']:.2f} "
+                                 "GiB allocated after it was freed")
     out["launches"] = total
     return total
 
@@ -728,20 +1026,19 @@ def e2e(torch, device, cfg, seed, out: dict):
     ref_params = plain_reference_params(torch, packed)
     res = {}
 
-    def held(key, got, want):
-        d = got.float() - want.float()
-        rms_rel = (d.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()
-                   ).item()
-        max_rel = (d.abs().max() / want.float().abs().max()).item()
-        agree = (got.float().argmax(-1) == want.float().argmax(-1)).float(
-        ).mean().item()
-        res[key] = dict(rms_rel=rms_rel, max_rel=max_rel, argmax_agree=agree)
-        log(f"  e2e {key}: rms rel err {rms_rel:.3g} (tol {E2E_RMS_REL}), "
-            f"max rel err {max_rel:.3g} (tol {E2E_MAX_REL}), argmax "
-            f"agreement {agree:.3f}")
-        if not (math.isfinite(rms_rel) and rms_rel <= E2E_RMS_REL
-                and max_rel <= E2E_MAX_REL):
-            raise AssertionError(f"e2e {key} outside tolerance")
+    def held(key, got, want, tol=E2E_TOL):
+        gap = res[key] = logit_gap(got, want)
+        log(f"  e2e {key}: rms rel err {gap['rms_rel']:.3g} (tol "
+            f"{tol['rms']}), max rel err {gap['max_rel']:.3g} (tol "
+            f"{tol['max']}), cosine {gap['cos']:.3g} (floor "
+            f"{tol.get('cos', '-')}), norm ratio {gap['norm_ratio']:.3g} "
+            f"(band {tol.get('norm', '-')}), argmax agreement "
+            f"{gap['argmax_agree']:.3f}")
+        if not gap_within(gap, tol):
+            failed.append(key)
+        return gap["rms_rel"]
+
+    failed = []
 
     for n, length in ((32, 128), (4, 512)):
         reqs = prompts(torch, n, length, cfg.vocab_size, seed + 7 * length)
@@ -772,7 +1069,107 @@ def e2e(torch, device, cfg, seed, out: dict):
                 held(f"int8_decode_kernel_vs_dense_{n}x{length}", dec[True],
                      dec[False])
             del ref
+    del packed, ref_params
+    torch.cuda.empty_cache()
+    for abits in (4, 6):
+        failed += e2e_int(torch, device, cfg, seed, abits, held)
     out["e2e"] = res
+    if failed:
+        raise AssertionError(f"e2e outside tolerance: {failed}")
+
+
+def e2e_int(torch, device, cfg, seed, abits, held):
+    """W4A4 (W4 pairs) or W6A6 (W6 planar) engines against the plain f32
+    forward with the same activation quantizers: prefill logits (K8 + K9)
+    and the first decode (fake-quant + K1, or K7). At 4 x 512 the same
+    engine also runs on the CPU, every kernel replaced by its plain
+    version, and must show the same error as the card's; so must the plain
+    forward in bf16. Each comparison also holds the logits' cosine and norm
+    ratio (E2E_INT_TOL), and the run checks that those bounds reject zero,
+    random, negated, halved and doubled logits. Returns the keys that missed
+    their bounds."""
+    from omniquant_tpu_torch.models import llama
+    from omniquant_tpu_torch.models.common import ActQuantSpec
+    from omniquant_tpu_torch.serving import LlamaEngine
+    from omniquant_tpu_torch.serving.engine import _to_engine
+
+    wbits = 4 if abits == 4 else 6
+    spec = ActQuantSpec.from_bits(abits)
+    failed = []
+    packed = make_packed(torch, cfg, device, seed + 1, wbits)
+    ref_params = plain_reference_params(torch, packed)
+    tag = f"w{wbits}a{abits}"
+    tol = E2E_INT_TOL[abits]
+    for n, length in ((32, 128), (4, 512)):
+        reqs = prompts(torch, n, length, cfg.vocab_size, seed + 7 * length)
+        errs = {}
+        for dev in (("cuda", "cpu") if n == 4 else ("cuda",)):
+            eng = LlamaEngine(packed, cfg, max_batch=n, max_len=2 * length,
+                              dtype=torch.bfloat16, spec=spec, seed=seed,
+                              device=device if dev == "cuda" else "cpu")
+            slots, logits = eng.add_requests(reqs, return_logits=True)
+            if dev == "cuda":
+                first = [eng._pending_next[s] for s in slots]
+            toks, lens = eng._device_tokens(dict(zip(slots, first)))
+            dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+            del eng
+            if dev == "cuda":
+                tokens = torch.tensor(reqs, device=device)
+                full = torch.cat([tokens, torch.tensor(
+                    first, device=device)[:, None]], dim=1)
+                with torch.no_grad():
+                    ref = llama.forward(ref_params, full, cfg, spec=spec)
+                    # the same plain forward in bf16: what bf16 alone moves
+                    ref16 = llama.forward(
+                        _to_engine(ref_params, device, torch.bfloat16), full,
+                        cfg, spec=spec)
+                errs["bf16 forward"] = tuple(
+                    held(f"{tag}_bf16_forward_{what}_{n}x{length}",
+                         ref16[:, i], ref[:, i], tol)
+                    for i, what in ((length - 1, "prefill"),
+                                    (length, "decode")))
+                del ref16
+            where = "" if dev == "cuda" else "plain_"
+            errs[dev] = (
+                held(f"{tag}_{where}prefill_{n}x{length}", logits,
+                     ref[:, length - 1], tol),
+                held(f"{tag}_{where}decode_{n}x{length}", dec, ref[:, length],
+                     tol))
+            if dev == "cuda":
+                out16 = (logits, dec)
+                # the bounds must reject gross failures of these logits
+                fakes = {"zero": torch.zeros_like(logits),
+                         "random": torch.randn_like(logits.float())
+                         * logits.float().pow(2).mean().sqrt(),
+                         "negated": -logits, "halved": 0.5 * logits,
+                         "doubled": 2.0 * logits}
+                for fault, fake in fakes.items():
+                    if gap_within(logit_gap(fake, ref[:, length - 1]), tol):
+                        failed.append(f"{tag}_bounds_admit_{fault}_logits")
+                del fakes
+            else:
+                # the card's engine against the CPU's: cosine and norm only,
+                # as two bf16 runs may each flip activation codes
+                vs = dict(tol, rms=math.inf, max=math.inf)
+                for i, what in enumerate(("prefill", "decode")):
+                    held(f"{tag}_kernels_vs_plain_{what}_{n}x{length}",
+                         out16[i], (logits, dec)[i], vs)
+        del ref, out16
+        for i, what in enumerate(("prefill", "decode")):
+            k = errs["cuda"][i]
+            for name, key in (("the bf16 forward", "bf16 forward"),
+                              ("plain versions on the CPU", "cpu")):
+                if key not in errs:
+                    continue
+                p = errs[key][i]
+                log(f"  e2e {tag} {what} {n}x{length}: kernels {k:.4g}, "
+                    f"{name} {p:.4g} (kernels at most {E2E_INT_VS_PLAIN} "
+                    f"x that)")
+                if not k <= E2E_INT_VS_PLAIN * p:
+                    failed.append(f"{tag}_{what}_{n}x{length}_vs_{key}")
+    del packed, ref_params
+    torch.cuda.empty_cache()
+    return failed
 
 
 # ---------------------------------------------------------------------------
@@ -825,8 +1222,12 @@ def main(argv=None) -> int:
                                                  out)
     results["decode_attention_int8"] = check_decode_attention(
         torch, device, timer, dims, out)
-    log("bounds of the kernels still to port (no times)")
-    unported_bounds(dims, out)
+    results["quant_matmul_int"] = check_quant_matmul_int(torch, device, timer,
+                                                         dims, out)
+    results["_unpack_to_int8"] = check_unpack_int8(torch, device, timer, dims,
+                                                   out)
+    results["_quant_matmul_int_dense"] = check_int_dense(torch, device, timer,
+                                                         dims, out)
     out["host_in_window"] = timer.host_in_window
     log(f"  timings that include host time (the function synchronises): "
         f"{timer.host_in_window or 'none'}")

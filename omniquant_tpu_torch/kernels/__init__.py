@@ -10,6 +10,9 @@ KERNEL_WRAPPERS = {
     "kv_cache_write": kv_update.kv_cache_write,
     "kv_cache_write_span": kv_update.kv_cache_write_span,
     "decode_attention_int8": decode_attention.decode_attention_int8,
+    "quant_matmul_int": quant_matmul.quant_matmul_int,
+    "_unpack_to_int8": quant_matmul._unpack_to_int8,
+    "_quant_matmul_int_dense": quant_matmul._quant_matmul_int_dense,
 }
 
 

@@ -15,6 +15,29 @@ the same host routing:
 Geometry comes from the tensor shapes (qweight's column count is N), as in
 the JAX package. x's last dim is the logical in_features; rows past it up to
 the packed length count as zeros.
+
+The integer-activation path (W4A4 / W6A6), counterpart of
+``quant_matmul_int`` there: per-token asymmetric activation codes, centered
+to int8 (``quantize_act_int``), meet the weight codes centered by 2^{b-1}
+in exact int32 dots, one per quant group, and
+
+    y[m, n] = xs_m * sum_g [dot_g[m, n] * sc_g[n] + xsum_g[m] * off2_g[n]]
+
+with off2 = (2^{b-1} - zero) * scale formed in the dtype of the scales (bf16
+in a bf16 engine) and widened to f32, and xsum_g the group's sum of
+activation codes. ``quant_matmul_int`` routes as the JAX function does:
+
+* eligible (act quant enabled, per token, n_bits <= 7, minmax; N % 128 == 0;
+  bits <= 8) and m >= ``_INT_DENSE_MIN_M`` -> ``_quant_matmul_int_dense``:
+  the weight unpacked once to centered int8 (K8 ``_unpack_to_int8``), then
+  the dense product (K9), for either layout;
+* eligible, smaller m, planar layout -> the fused kernel (K7), which unpacks
+  each K tile in shared memory;
+* anything else -> ``fake_quant_act`` then ``quant_matmul`` (K1). K1 takes
+  only the pairs layout on the card, so a planar weight there raises.
+
+K7, K8 and K9 live in ``csrc/quant_matmul_int.cu`` (s8 x s8 -> s32
+``mma.sync``); their plain versions evaluate the same algebra in f32.
 """
 from __future__ import annotations
 
@@ -22,13 +45,21 @@ import math
 
 import torch
 
-from ..quant.packing import PackedWeight, dequantize_packed
+from ..quant.packing import PackedWeight, dequantize_packed, unpack_codes
+from ..quant.quantizer import _scale_zp, fake_quant_act
 from . import _build
 
-_CUDA_GROUP_MULTIPLE = 64  # deepest K step of the CUDA kernel's tile shapes
+_CUDA_GROUP_MULTIPLE = 64  # deepest K step of the CUDA kernels' tile shapes
 # column blocks of the JAX kernel, widest first: N's widest divisor among
 # them decides the dequantize-once route at m >= 4096, as it does there
 _BLOCK_N = (2048, 1024, 512, 256, 128)
+# the integer path's dense route from this many rows on (a TPU-tuned
+# threshold, kept so the port routes like the reference)
+_INT_DENSE_MIN_M = 2048
+# K7's tile: 32 rows (two m16 MMA tiles) x 64 columns; enough split-K
+# slices are launched to put about this many CTAs on each SM
+_K7_BM, _K7_BN, _K7_CTAS_PER_SM = 32, 64, 4
+_SM_COUNT: dict = {}
 
 
 def quant_matmul_reference(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
@@ -108,3 +139,265 @@ def quant_matmul(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
 
 
 quant_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# integer-activation path (W4A4 / W6A6)
+
+
+def quantize_act_int(x: torch.Tensor, cfg) -> tuple:
+    """Per-token activation codes on exactly the ``fake_quant_act`` grid,
+    computed in x's dtype: returns (centered int8 codes xq - zero_point of
+    x's shape, f32 scale (..., 1)). Needs n_bits <= 7 and no groups."""
+    if cfg.n_bits > 7 or cfg.group_size:
+        raise ValueError("integer activation codes need per-token "
+                         "quantization at n_bits <= 7")
+    xmin = x.amin(dim=-1, keepdim=True)
+    xmax = x.amax(dim=-1, keepdim=True)
+    scale, rzp = _scale_zp(xmin, xmax, cfg)
+    xq = torch.clamp(torch.round(x / scale) + rzp, 0, cfg.qmax)
+    # a zero-range row (scale CLIPMIN, |zero point| up to 1e4) leaves int8;
+    # saturate as XLA's float -> int8 conversion does
+    return torch.clamp(xq - rzp, -128, 127).to(torch.int8), scale.float()
+
+
+def int_route(m: int, pw: PackedWeight, act_cfg) -> str:
+    """Which route ``quant_matmul_int`` takes for m rows: "dense" (K8 + K9),
+    "fused" (K7) or "fake_quant" (fake-quantized activations into K1)."""
+    eligible = (
+        act_cfg is not None and act_cfg.enabled and not act_cfg.group_size
+        and act_cfg.n_bits <= 7 and act_cfg.metric == "minmax"
+        and pw.qweight.shape[1] % 128 == 0 and pw.bits <= 8)
+    if eligible and m >= _INT_DENSE_MIN_M:
+        return "dense"
+    return "fused" if eligible and pw.layout == "planar" else "fake_quant"
+
+
+def unpack_to_int8_plain(pw: PackedWeight) -> torch.Tensor:
+    """Plain version of K8: every packed row's code minus 2^{b-1}, int8
+    (k_pad, N)."""
+    codes = unpack_codes(pw.qweight, pw.bits, pw.k_pad, pw.group_size,
+                         pw.tile_k, pw.layout)
+    return (codes - 2 ** (pw.bits - 1)).to(torch.int8)
+
+
+def quant_matmul_int_dense_plain(xc, xs, w8, pw: PackedWeight,
+                                 out_dtype=torch.bfloat16,
+                                 magnitude: bool = False):
+    """Plain version of K9: codes xc (m, K) int8 and scales xs (m, 1) f32
+    against the centered weight codes w8 (k_pad, N) with pw's scales and
+    zeros; (m, N) in out_dtype, no bias. The algebra in f32, in the JAX
+    kernels' order: per K tile xsum . off2, plus each group's dot * sc,
+    summed over the tiles, times xs, cast to out_dtype. xc is zero-padded
+    to k_pad; the groups of the layout padding repeat the last group's
+    scales (their codes and xsum are 0 there). The dots are sums of
+    integer products below 2^24, so exact in f32.
+
+    With ``magnitude`` it returns (y, xs * sum_g (|dot_g| |sc_g| +
+    |xsum_g off2_g|)) in f32: the size of the terms whose f32 order a
+    kernel may change, which ``kernels/tolerance.py`` scales to a slack."""
+    m = xc.shape[0]
+    k_pad, n = w8.shape
+    if xc.shape[1] != k_pad:
+        xc = torch.nn.functional.pad(xc, (0, k_pad - xc.shape[1]))
+    gs = pw.group_size or pw.tile_k
+    n_g = pw.tile_k // gs
+    n_groups = k_pad // gs
+    sc = pw.scales.t().float()
+    # off2 rounded in the scales' dtype, then widened, as JAX forms it
+    off2 = ((2 ** (pw.bits - 1) - pw.zeros) * pw.scales).t().float()
+    idx = torch.arange(n_groups, device=sc.device).clamp_max(sc.shape[0] - 1)
+    sc, off2 = sc[idx], off2[idx]
+    xsum = xc.reshape(m, n_groups, gs).sum(-1, dtype=torch.int32).float()
+    xf, wf = xc.float(), w8.float()
+    acc = torch.zeros(m, n, dtype=torch.float32, device=xc.device)
+    mag = torch.zeros_like(acc) if magnitude else None
+    for t in range(k_pad // pw.tile_k):
+        tg = slice(t * n_g, (t + 1) * n_g)
+        part = xsum[:, tg] @ off2[tg]
+        if magnitude:
+            mag += xsum[:, tg].abs() @ off2[tg].abs()
+        for g in range(t * n_g, (t + 1) * n_g):
+            rows = slice(g * gs, (g + 1) * gs)
+            dot = xf[:, rows] @ wf[rows]
+            part = part + dot * sc[g]
+            if magnitude:
+                mag += dot.abs() * sc[g].abs()
+        acc = acc + part
+    y = (acc * xs).to(out_dtype)
+    return (y, mag * xs) if magnitude else y
+
+
+def quant_matmul_int_plain(xc, xs, pw: PackedWeight,
+                           out_dtype=torch.bfloat16, magnitude: bool = False):
+    """Plain version of K7: K9's algebra on the unpacked codes."""
+    return quant_matmul_int_dense_plain(xc, xs, unpack_to_int8_plain(pw), pw,
+                                        out_dtype, magnitude)
+
+
+def _check_int_weight(pw: PackedWeight, name: str) -> None:
+    if not (pw.qweight.is_cuda and pw.qweight.dtype == torch.int32
+            and pw.qweight.is_contiguous() and pw.qweight.data_ptr() % 16 == 0):
+        raise ValueError(f"{name}: qweight must be a contiguous, 16-byte "
+                         "aligned int32 CUDA tensor")
+    if not pw.scales.dtype == pw.zeros.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{name} takes bf16 scales and zeros (a bf16 engine rounds them "
+            f"so); got {pw.scales.dtype} and {pw.zeros.dtype}")
+
+
+def _check_int_acts(xc, xs, pw, out_dtype, name: str) -> None:
+    gs = pw.group_size or pw.tile_k
+    if gs % _CUDA_GROUP_MULTIPLE:
+        raise NotImplementedError(
+            f"{name}: group of {gs} rows is not a multiple of "
+            f"{_CUDA_GROUP_MULTIPLE}")
+    m, K = xc.shape
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"{name} gives bf16 out, not {out_dtype}")
+    if not (xc.dtype == torch.int8 and xc.is_contiguous()
+            and xs.dtype == torch.float32 and xs.is_contiguous()
+            and xs.numel() == m):
+        raise ValueError(f"{name}: codes must be contiguous int8 (m, K) and "
+                         "scales contiguous f32 (m, 1)")
+    if K > pw.k_pad or pw.scales.shape != pw.zeros.shape or (
+            pw.scales.shape[0] != pw.qweight.shape[1]):
+        raise ValueError(f"{name}: codes, qweight and scales disagree on the "
+                         "geometry")
+
+
+def _unpack_to_int8(pw: PackedWeight) -> torch.Tensor:
+    """K8: packed words -> centered int8 codes (k_pad, N), every layout and
+    width the packing makes. On a CUDA tensor the kernel, on a CPU tensor
+    its plain version."""
+    if not pw.qweight.is_cuda:
+        return unpack_to_int8_plain(pw)
+    _check_int_weight(pw, "_unpack_to_int8")
+    N = pw.qweight.shape[1]
+    if N % 4:
+        raise ValueError(f"_unpack_to_int8 takes N % 4 == 0, not {N}")
+    out = torch.empty((pw.k_pad, N), dtype=torch.int8,
+                      device=pw.qweight.device)
+    _build.launch("quant_matmul_int", "unpack_to_int8", "ppiiiii",
+                  pw.qweight.data_ptr(), out.data_ptr(), N, pw.k_pad,
+                  pw.tile_k, pw.bits, int(pw.layout == "pairs"))
+    _unpack_to_int8.launches += 1
+    return out
+
+
+def _qmm_int_dense_cuda(xc, xs, w8, pw: PackedWeight,
+                        out_dtype) -> torch.Tensor:
+    """Launch K9 on codes xc (m, K) and K8's codes w8 (k_pad, N); no
+    bias."""
+    _check_int_weight(pw, "_quant_matmul_int_dense")
+    _check_int_acts(xc, xs, pw, out_dtype, "_quant_matmul_int_dense")
+    m, K = xc.shape
+    n = w8.shape[1]
+    if not (w8.is_cuda and w8.dtype == torch.int8 and w8.is_contiguous()
+            and w8.shape[0] == pw.k_pad and n % 128 == 0):
+        raise ValueError("w8 must be contiguous int8 (k_pad, N) on the card "
+                         "with N % 128 == 0")
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=xc.device)
+    _build.launch(
+        "quant_matmul_int", "qmm_int_dense", "ppppppiiiiiii",
+        xc.data_ptr(), xs.data_ptr(), w8.data_ptr(),
+        pw.scales.contiguous().data_ptr(), pw.zeros.contiguous().data_ptr(),
+        y.data_ptr(), m, K, n, pw.k_pad, pw.scales.shape[1],
+        pw.group_size or pw.tile_k, pw.bits)
+    return y
+
+
+def _quant_matmul_int_dense(x: torch.Tensor, pw: PackedWeight,
+                            act_cfg) -> torch.Tensor:
+    """The large-m integer route: activation codes, the weight unpacked once
+    (K8), then the dense s8 x s8 product with the group algebra (K9; the
+    kernel forms xsum from its own activation tiles). Bias added after, in
+    x's dtype."""
+    lead = x.shape[:-1]
+    n = pw.qweight.shape[1]
+    m = math.prod(lead)
+    xc, xs = quantize_act_int(x.reshape(m, x.shape[-1]), act_cfg)
+    w8 = _unpack_to_int8(pw)
+    if not xc.is_cuda:
+        y = quant_matmul_int_dense_plain(xc, xs, w8, pw, x.dtype)
+    else:
+        y = _qmm_int_dense_cuda(xc, xs, w8, pw, x.dtype)
+        _quant_matmul_int_dense.launches += 1
+    if pw.bias is not None:
+        y = y + pw.bias.to(y.dtype)
+    return y.reshape(*lead, n)
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else 0
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _qmm_int_cuda(xc, xs, pw: PackedWeight, out_dtype) -> torch.Tensor:
+    """Launch K7 on codes xc (m, K); no bias. The K tiles are split over
+    enough CTAs to fill the card; with more than one slice each writes f32
+    partial sums that a second pass adds in a fixed order."""
+    if pw.layout != "planar" or pw.bits not in (2, 3, 4, 6, 8):
+        raise NotImplementedError(
+            f"the fused integer kernel takes planar 2/3/4/6/8-bit weights; "
+            f"got {pw.layout} at {pw.bits} bits")
+    _check_int_weight(pw, "quant_matmul_int")
+    _check_int_acts(xc, xs, pw, out_dtype, "quant_matmul_int")
+    T = pw.tile_k
+    lo_bits = {3: 2, 6: 4}.get(pw.bits, pw.bits)
+    if T % 32 or (T * lo_bits // 32) % 4 or T > 1024:
+        raise NotImplementedError(
+            f"quant_matmul_int: pack tile {T} is not supported (a multiple "
+            "of 32 rows, whole word quads per plane, at most 1024 rows)")
+    m, K = xc.shape
+    n = pw.qweight.shape[1]
+    n_tiles = pw.k_pad // T
+    ctas = (n // _K7_BN) * -(-m // _K7_BM)
+    splits = max(1, min(n_tiles, -(-_K7_CTAS_PER_SM * _sm_count(xc.device)
+                                    // ctas)))
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=xc.device)
+    part = (torch.empty((splits, m, n), dtype=torch.float32, device=xc.device)
+            if splits > 1 else None)
+    _build.launch(
+        "quant_matmul_int", "qmm_int_planar", "pppppppiiiiiiiii",
+        xc.data_ptr(), xs.data_ptr(), pw.qweight.data_ptr(),
+        pw.scales.contiguous().data_ptr(), pw.zeros.contiguous().data_ptr(),
+        None if part is None else part.data_ptr(), y.data_ptr(), m, K, n,
+        pw.k_pad, pw.scales.shape[1], pw.group_size or T, T, pw.bits, splits)
+    return y
+
+
+def quant_matmul_int(x: torch.Tensor, pw: PackedWeight,
+                     act_cfg) -> torch.Tensor:
+    """y = fake_quant_act(x) @ dequant(pw) (+ bias), evaluated on the
+    integer codes where the route allows (see the module docstring)."""
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    route = int_route(m, pw, act_cfg)
+    if route == "dense":
+        return _quant_matmul_int_dense(x, pw, act_cfg)
+    if route == "fake_quant":
+        if x.is_cuda and pw.layout != "pairs":
+            raise NotImplementedError(
+                "this call takes fake-quantized activations into the packed "
+                "matmul, whose CUDA kernel takes only the pairs layout; got "
+                f"a {pw.layout} weight")
+        return quant_matmul(fake_quant_act(x, act_cfg), pw)
+    n = pw.qweight.shape[1]
+    xc, xs = quantize_act_int(x.reshape(m, x.shape[-1]), act_cfg)
+    if xc.is_cuda:
+        y = _qmm_int_cuda(xc, xs, pw, x.dtype)
+        quant_matmul_int.launches += 1
+    else:
+        y = quant_matmul_int_plain(xc, xs, pw, x.dtype)
+    if pw.bias is not None:
+        y = y + pw.bias.to(y.dtype)
+    return y.reshape(*lead, n)
+
+
+quant_matmul_int.launches = 0
+_unpack_to_int8.launches = 0
+_quant_matmul_int_dense.launches = 0

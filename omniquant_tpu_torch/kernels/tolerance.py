@@ -1,13 +1,14 @@
 """How far a CUDA kernel may stray from its plain PyTorch version.
 
-quant_matmul, flash_attention and decode_attention_int8 sum in f32 in both
+quant_matmul, flash_attention, decode_attention_int8 and the integer
+products (quant_matmul_int, _quant_matmul_int_dense) sum in f32 in both
 versions and round each output to bf16 once, so an element may differ by a
 rounding step of its own size. The bound is per element, never a share of
 the tensor's largest value, so small outputs (late rows of causal
 attention) are held as tightly as large ones. Each kernel adds a slack for
 what it rounds that its plain version does not. ``chip_smoke.py`` and the
 card tests use these rules; the KV-cache writes are copies and are held
-exact.
+exact, and so is _unpack_to_int8.
 """
 from __future__ import annotations
 
@@ -28,6 +29,16 @@ QUANT_MATMUL_SLACK = 2.0 ** -10
 # summation order and the fast exp differ, ~1e-6 of the largest |v|, so it
 # is held like quant_matmul.
 DECODE_ATTENTION_SLACK = 2.0 ** -10
+
+# the integer products: the group dots are exact int32 in both versions,
+# and only the order of the f32 sum of the terms dot_g * sc_g and
+# xsum_g * off2_g differs (per split-K slice and per group in the kernels,
+# per K tile in the plain versions). Up to ~2 adds per group (176 at K =
+# 11264) each round by 2^-24 of a partial sum no larger than the sum of the
+# terms' magnitudes: 2^-14 of that sum leaves a margin of 4. The slack of an
+# element is this times xs * sum_g (|dot_g| |sc_g| + |xsum_g off2_g|), which
+# the plain versions return with ``magnitude=True``.
+INT_MATMUL_SLACK = 2.0 ** -14
 
 
 def bf16_ulp(a: torch.Tensor) -> torch.Tensor:
@@ -56,3 +67,4 @@ def flash_attention_slack(q, k, v, sm_scale: Optional[float] = None,
     the plain attention over |v|, times 2^-9. The slack is twice that."""
     return 2.0 ** -8 * flash_attention_plain(
         q.float(), k.float(), v.float().abs(), sm_scale, causal, alibi_slopes)
+

@@ -46,14 +46,14 @@ def maybe_quant(x: torch.Tensor, cfg: Optional[QuantConfig]) -> torch.Tensor:
 
 def linear(x: torch.Tensor, fc, act_cfg: Optional[QuantConfig] = None):
     """Linear forward: fake-quant the input per token when act_cfg is set,
-    then x @ W.T + b; a PackedWeight runs the packed matmul kernel."""
+    then x @ W.T + b. A PackedWeight runs the packed matmul kernel, or with
+    an enabled act_cfg the integer path (``quant_matmul_int``: activation
+    codes against the packed codes, W4A4 / W6A6)."""
     if isinstance(fc, PackedWeight):
-        if act_cfg is not None and act_cfg.enabled:
-            raise NotImplementedError(
-                "packed weights with quantized activations take the integer "
-                "(W4A4/W6A6) path, which is not ported yet")
-        from ..kernels.quant_matmul import quant_matmul
+        from ..kernels.quant_matmul import quant_matmul, quant_matmul_int
 
+        if act_cfg is not None and act_cfg.enabled:
+            return quant_matmul_int(x, fc, act_cfg)
         return quant_matmul(x, fc)
     x = maybe_quant(x, act_cfg)
     y = x @ fc["weight"].t()

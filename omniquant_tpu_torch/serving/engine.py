@@ -5,7 +5,12 @@ Counterpart of ``omniquant_tpu/serving/engine.py::LlamaEngine``. PyTorch
 runs eagerly, so the jitted step programs become plain methods; the
 bucketing of prompt lengths and attention windows is kept so the port
 computes on the same shapes as the reference. Weights may be dense or
-PackedWeight (``models.common.linear``); the cache is updated IN PLACE by
+PackedWeight (``models.common.linear``). With an activation spec
+(``ActQuantSpec.from_bits(4)`` or ``(6)``: W4A4, W6A6) every packed linear,
+the fused qkv and gate+up included, takes the integer path
+(``quant_matmul_int``), and q/k/v are fake-quantized before the cache
+commit; from_bits' 16-bit softmax quantizer is the identity, so the flash
+and fused attention paths stay on. The cache is updated IN PLACE by
 the kv_update kernels (the JAX engine donates and aliases its buffers). The
 CUDA kernels take bf16, so an engine on the card runs at the default
 ``dtype=torch.bfloat16``; other dtypes run on the CPU.
@@ -110,6 +115,23 @@ def _quantize_kv(x: torch.Tensor):
     return codes, scale.float()
 
 
+def _to_engine(x, device, dtype):
+    """A parameter tree on ``device`` with its floating tensors in ``dtype``.
+    A module-level function: a nested recursive one closing over the engine
+    would form a reference cycle that keeps a deleted engine, and its KV
+    cache, alive until the cyclic garbage collector runs."""
+    if isinstance(x, PackedWeight):
+        return x.map_tensors(lambda t: _to_engine(t, device, dtype))
+    if isinstance(x, torch.Tensor):
+        x = x.to(device)
+        return x.to(dtype) if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: _to_engine(v, device, dtype) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_engine(v, device, dtype) for v in x]
+    return x
+
+
 def _pow2_bucket(n: int, floor: int) -> int:
     return max(floor, 1 << int(np.ceil(np.log2(n))))
 
@@ -162,19 +184,7 @@ class LlamaEngine:
         (PackedWeight scales, zeros and bias included, as the JAX engine
         does: a bf16 engine serves bf16-rounded scales) and fuse the packed
         qkv and gate+up projections."""
-        def prep(x):
-            if isinstance(x, PackedWeight):
-                return x.map_tensors(prep)
-            if isinstance(x, torch.Tensor):
-                x = x.to(self.device)
-                return x.to(self.dtype) if x.is_floating_point() else x
-            if isinstance(x, dict):
-                return {k: prep(v) for k, v in x.items()}
-            if isinstance(x, list):
-                return [prep(v) for v in x]
-            return x
-
-        params = prep(params)
+        params = _to_engine(params, self.device, self.dtype)
         for p in params["layers"]:
             qkv = fuse_packed([p["q_proj"], p["k_proj"], p["v_proj"]])
             if qkv is not None:

@@ -232,6 +232,26 @@ def test_unported_options_raise(packed):
         TEngine(tp, cfg, auto_grow=True, device="cpu")
 
 
+def test_deleted_engine_is_freed_at_once(packed):
+    """An engine (and its KV cache) is freed when its last reference goes,
+    without waiting for the cyclic garbage collector: no reference cycle
+    holds it (a recursive closure over the engine in _prep_params did)."""
+    import gc
+    import weakref
+
+    _, tp = packed
+    gc.disable()
+    try:
+        te = TEngine(tp, tllama.LlamaConfig(**CFG), max_batch=2, max_len=64,
+                     dtype=torch.float32, device="cpu")
+        te.generate([1, 2, 3], max_new_tokens=2)
+        ref, cache = weakref.ref(te), weakref.ref(te.cache.k[0])
+        del te
+        assert ref() is None and cache() is None
+    finally:
+        gc.enable()
+
+
 def test_capacity_guard(packed):
     """A decode that would write at max_len is refused, never clamped."""
     _, te = engines(packed, max_batch=1, max_len=32)
@@ -366,3 +386,98 @@ def test_verify_step_logits_match_jax(packed, kv_dtype):
         assert got.dtype == np.float32 and got.shape == (3, CFG["vocab_size"])
         rtol = 1e-3 if kv_dtype == "int8" else 1e-4
         np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol / 10)
+
+
+# ---------------------------------------------------------------------------
+# integer activations: W4A4 (pairs weights) and W6A6 (planar weights)
+
+
+@pytest.fixture(scope="module")
+def packed_w6():
+    """The same dense model packed W6 g128 (planar layout) in both
+    packages."""
+    jp = j_pack_model(J_LLAMA, _to_jax(numpy_llama()),
+                      JQuantConfig(n_bits=6, group_size=128))
+    np_tree = jax.tree.map(lambda a: None if a is None else np.asarray(a), jp,
+                           is_leaf=lambda a: a is None)
+    return jp, from_jax_params(np_tree, device="cpu")
+
+
+def int_engines(request, monkeypatch, scheme, **kw):
+    """A W4A4 or W6A6 engine in each package, with the dense integer route
+    from 16 rows on in both, so a tiny prefill takes K8 + K9 while decode
+    takes fake-quant + K1 (W4A4, pairs) or K7 (W6A6, planar). Returns the
+    engines and the port's route log."""
+    from omniquant_tpu.models.common import ActQuantSpec as JSpec
+    from omniquant_tpu_torch.kernels import quant_matmul as tqm
+    from omniquant_tpu_torch.models.common import ActQuantSpec as TSpec
+
+    jqm = __import__("importlib").import_module(
+        "omniquant_tpu.kernels.quant_matmul")
+    monkeypatch.setattr(jqm, "_INT_DENSE_MIN_M", 16)
+    monkeypatch.setattr(tqm, "_INT_DENSE_MIN_M", 16)
+    routes = []
+    real_route = tqm.int_route
+
+    def spy(m, pw, cfg):
+        routes.append(real_route(m, pw, cfg))
+        return routes[-1]
+
+    monkeypatch.setattr(tqm, "int_route", spy)
+    abits = 4 if scheme == "w4a4" else 6
+    jp, tp = request.getfixturevalue("packed" if abits == 4 else "packed_w6")
+    je = JEngine(jp, jllama.LlamaConfig(**CFG), dtype=jnp.float32,
+                 spec=JSpec.from_bits(abits), **kw)
+    te = TEngine(tp, tllama.LlamaConfig(**CFG), dtype=torch.float32,
+                 device="cpu", spec=TSpec.from_bits(abits), **kw)
+    assert not te._p_quant_active and not je._p_quant_active
+    return je, te, routes
+
+
+@pytest.mark.parametrize("scheme", ["w4a4", "w6a6"])
+def test_int_generate_matches_jax(request, monkeypatch, scheme):
+    """generate: a 20-token prompt (bucket 32: the dense route), then single
+    steps (two slots: fake-quant + K1 for W4A4, K7 for W6A6); equal greedy
+    streams, as JAX's own W4A4 engine test holds its engine to its eval
+    forward."""
+    je, te, routes = int_engines(request, monkeypatch, scheme, max_batch=2,
+                                 max_len=64)
+    prompt = [(29 * i + 3) % 256 for i in range(20)]
+    assert te.generate(prompt, max_new_tokens=8) == je.generate(
+        prompt, max_new_tokens=8)
+    small = "fake_quant" if scheme == "w4a4" else "fused"
+    assert set(routes) == {"dense", small}
+
+
+@pytest.mark.parametrize("scheme", ["w4a4", "w6a6"])
+def test_int_batching_and_step_n_match_jax(request, monkeypatch, scheme):
+    """Continuous batching (slots joining and leaving between steps) and a
+    batched prefill of three prompts followed by step_n(., 4) twice: equal
+    greedy streams."""
+    je, te, _ = int_engines(request, monkeypatch, scheme, max_batch=3,
+                            max_len=64)
+    assert continuous_batching(te) == continuous_batching(je)
+    je, te, _ = int_engines(request, monkeypatch, scheme, max_batch=4,
+                            max_len=64)
+    assert add_requests_step_n(te) == add_requests_step_n(je)
+
+
+@pytest.mark.parametrize("scheme", ["w4a4", "w6a6"])
+def test_int_verify_logits_match_jax(request, monkeypatch, scheme):
+    """verify_step_logits after a batched prefill: f32 rows within rtol
+    1e-3 (atol 1e-4) of JAX's. Each activation is rounded to a 4- or 6-bit
+    grid, and the f32 sums of the two packages, taken in different orders,
+    differ by ~1e-7: an activation on a rounding tie may land on the other
+    grid point (tests/test_torch_models.py), which moves a logit by up to
+    ~1e-4 here."""
+    je, te, _ = int_engines(request, monkeypatch, scheme, max_batch=2,
+                            max_len=64)
+    rows = []
+    for eng in (je, te):
+        slots = eng.add_requests([[5, 6, 7, 8, 9] * 4, [10, 20, 30]])
+        rows.append(eng.verify_step_logits(
+            {s: [11 + s, 12, 13] for s in slots}))
+    for s, want in rows[0].items():
+        got = rows[1][s]
+        assert got.dtype == np.float32 and got.shape == (3, CFG["vocab_size"])
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)

@@ -35,8 +35,24 @@ def test_no_jax_or_jax_package_loaded():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for sub in ("quant.packing", "kernels.quant_matmul", "kernels._build",
-                "serving.engine", "utils.convert", "models.llama"):
+                "kernels.tolerance", "kernels.decode_attention",
+                "serving.engine", "utils.convert", "models.llama",
+                "models.common"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """Each csrc/*.cu is in the build's source list, and the integer path's
+    three wrappers count their launches under the JAX kernels' names."""
+    from omniquant_tpu_torch.kernels import KERNEL_WRAPPERS, _build
+
+    srcs = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert srcs == sorted(_build.SOURCES)
+    assert "quant_matmul_int" in srcs
+    for name in ("quant_matmul_int", "_unpack_to_int8",
+                 "_quant_matmul_int_dense"):
+        assert KERNEL_WRAPPERS[name].__name__ == name
+        assert KERNEL_WRAPPERS[name].launches == 0
 
 
 def test_default_device_raises_without_a_card():

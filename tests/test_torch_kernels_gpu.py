@@ -8,14 +8,16 @@ machine with the card run them with
 does not have; nothing here imports JAX.)
 
 Tolerances: the products (quant_matmul, flash_attention,
-decode_attention_int8) round an f32 sum to bf16 once in both versions, so each element may differ by 2 bf16 ulps of
-its own size plus the kernel's slack (``kernels/tolerance.py``); the cache
-writes are copies and must be exact.
+decode_attention_int8, quant_matmul_int, _quant_matmul_int_dense) round an
+f32 sum to bf16 once in both versions, so each element may differ by 2 bf16
+ulps of its own size plus the kernel's slack (``kernels/tolerance.py``); the
+cache writes and _unpack_to_int8 are copies and must be exact.
 """
 import pytest
 import torch
 
 from omniquant_tpu_torch.kernels import kv_update, tolerance
+from omniquant_tpu_torch.kernels import quant_matmul as qmm
 from omniquant_tpu_torch.kernels.decode_attention import (
     decode_attention_int8, decode_attention_int8_plain)
 from omniquant_tpu_torch.kernels.flash_attention import (
@@ -23,6 +25,7 @@ from omniquant_tpu_torch.kernels.flash_attention import (
 from omniquant_tpu_torch.kernels.quant_matmul import (
     quant_matmul, quant_matmul_reference)
 from omniquant_tpu_torch.models import LLAMA, llama
+from omniquant_tpu_torch.models.common import ActQuantSpec
 from omniquant_tpu_torch.quant import QuantConfig, pack_weight
 from omniquant_tpu_torch.serving import LlamaEngine, pack_model
 
@@ -294,3 +297,175 @@ def test_engine_on_the_card_matches_plain_versions(cuda):
         logits.append(lg.float().cpu())
     d = logits[1] - logits[0]
     assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 3e-2
+
+
+# ---------------------------------------------------------------------------
+# the integer-activation path: K7, K8, K9
+
+
+def _int_packed(cuda, bits, group_size, out_f, in_f, layout, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn(out_f, in_f, generator=gen, device=cuda) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout=layout)
+    return pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+
+
+@pytest.mark.parametrize("bits,group_size,layout", [
+    (2, 128, "planar"), (3, 128, "planar"), (4, 64, "planar"),
+    (6, 128, "planar"), (6, None, "planar"), (8, None, "planar"),
+    (2, None, "pairs"), (3, 128, "pairs"), (4, 128, "pairs")])
+def test_unpack_to_int8_kernel_exact(cuda, bits, group_size, layout):
+    """K8 equals its plain version for every width and layout, with K
+    (1100 or 1152) padded up to the pack tile."""
+    in_f = 1152 if group_size else 1100  # both pad up to the pack tile
+    pw = _int_packed(cuda, bits, group_size, 384, in_f, layout, seed=bits)
+    before = qmm._unpack_to_int8.launches
+    got = qmm._unpack_to_int8(pw)
+    want = qmm.unpack_to_int8_plain(pw)
+    torch.cuda.synchronize()
+    assert qmm._unpack_to_int8.launches == before + 1
+    assert got.shape == (pw.k_pad, 384) and torch.equal(got, want)
+
+
+def _int_check(got, x, pw, cfg, w8=None):
+    xc, xs = qmm.quantize_act_int(x.reshape(-1, x.shape[-1]), cfg)
+    w8 = qmm.unpack_to_int8_plain(pw) if w8 is None else w8
+    want, mag = qmm.quant_matmul_int_dense_plain(xc, xs, w8, pw,
+                                                 magnitude=True)
+    ok, err, worst = tolerance.bf16_close(got.reshape(want.shape), want,
+                                          tolerance.INT_MATMUL_SLACK * mag)
+    assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("m", [1, 31, 33, 2047, 2048])
+@pytest.mark.parametrize("bits,group_size,abits", [
+    (6, 128, 6), (4, 64, 4), (2, 128, 4), (3, 128, 6), (8, None, 4),
+    (6, None, 6)])
+def test_quant_matmul_int_kernels(cuda, bits, group_size, abits, m):
+    """quant_matmul_int on planar weights: below 2048 rows one K7 launch,
+    from 2048 rows K8 + K9; each against its plain version (K = 1100 or
+    1152, padded up to the pack tile)."""
+    in_f = 1152 if group_size else 1100  # both pad up to the pack tile
+    pw = _int_packed(cuda, bits, group_size, 384, in_f, "planar",
+                     seed=bits + m)
+    cfg = QuantConfig(n_bits=abits)
+    x = torch.randn(m, in_f, device=cuda).to(torch.bfloat16)
+    counts = (qmm.quant_matmul_int.launches, qmm._unpack_to_int8.launches,
+              qmm._quant_matmul_int_dense.launches)
+    got = qmm.quant_matmul_int(x, pw, cfg)
+    torch.cuda.synchronize()
+    dense = m >= 2048
+    assert (qmm.quant_matmul_int.launches - counts[0],
+            qmm._unpack_to_int8.launches - counts[1],
+            qmm._quant_matmul_int_dense.launches - counts[2]) == (
+        (0, 1, 1) if dense else (1, 0, 0))
+    assert got.dtype == torch.bfloat16 and got.shape == (m, 384)
+    _int_check(got, x, pw, cfg)
+
+
+@pytest.mark.parametrize("m", [1, 33, 300])
+@pytest.mark.parametrize("bits,group_size,layout", [
+    (4, 128, "pairs"), (4, None, "pairs"), (3, 128, "pairs"),
+    (6, 128, "planar"), (2, 64, "planar")])
+def test_quant_matmul_int_dense_kernel(cuda, bits, group_size, layout, m):
+    """K9 called directly (through _quant_matmul_int_dense, as the JAX tests
+    call the dense route) at small and ragged m, with a bias."""
+    in_f = 1152 if group_size else 1100  # both pad up to the pack tile
+    pw = _int_packed(cuda, bits, group_size, 256, in_f, layout, seed=m)
+    bias = torch.randn(256, device=cuda).to(torch.bfloat16)
+    pw.bias = bias
+    cfg = QuantConfig(n_bits=4)
+    x = torch.randn(m, in_f, device=cuda).to(torch.bfloat16)
+    before = qmm._quant_matmul_int_dense.launches
+    got = qmm._quant_matmul_int_dense(x, pw, cfg)
+    torch.cuda.synchronize()
+    assert qmm._quant_matmul_int_dense.launches == before + 1
+    pw.bias = None
+    nobias = qmm._quant_matmul_int_dense(x, pw, cfg)
+    _int_check(nobias, x, pw, cfg)
+    assert torch.equal(got, nobias + bias)  # added after, in bf16
+
+
+def test_ineligible_int_calls_raise_on_the_card(cuda):
+    """A planar weight whose call cannot take the integer kernels (8-bit or
+    grouped activation quantizers, N % 128 != 0) would need K1 on the
+    planar layout, which the card does not have: it raises, never runs a
+    plain version. So do K7 and K9 on groups of 32 rows: like K1 they take
+    groups of a multiple of 64."""
+    x = torch.randn(4, 256, device=cuda).to(torch.bfloat16)
+    pw = _int_packed(cuda, 4, 128, 256, 256, "planar", seed=0)
+    odd = _int_packed(cuda, 4, 128, 192, 256, "planar", seed=1)
+    g32 = _int_packed(cuda, 6, 32, 256, 256, "planar", seed=2)
+    for w, cfg in ((pw, QuantConfig(n_bits=8)),
+                   (pw, QuantConfig(n_bits=4, group_size=128)),
+                   (odd, QuantConfig(n_bits=4)),
+                   (g32, QuantConfig(n_bits=6))):
+        with pytest.raises(NotImplementedError):
+            qmm.quant_matmul_int(x, w, cfg)
+    with pytest.raises(NotImplementedError):
+        qmm._quant_matmul_int_dense(x, g32, QuantConfig(n_bits=6))
+
+
+def _tiny_int_engine(dev, abits, seed, monkeypatch, **kw):
+    """A tiny W4A4 (pairs) or W6A6 (planar) bf16 engine whose prefill takes
+    the dense integer route (from 16 rows on)."""
+    monkeypatch.setattr(qmm, "_INT_DENSE_MIN_M", 16)
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=2,
+                            num_attention_heads=2, num_key_value_heads=2)
+    dense = llama.init_params(torch.Generator().manual_seed(seed), cfg,
+                              device="cpu")
+    wbits = 4 if abits == 4 else 6
+    packed = pack_model(LLAMA, dense,
+                        QuantConfig(n_bits=wbits, group_size=128),
+                        device="cpu")
+    return LlamaEngine(packed, cfg, dtype=torch.bfloat16,
+                       spec=ActQuantSpec.from_bits(abits), device=dev, **kw)
+
+
+@pytest.mark.parametrize("abits", [4, 6])
+def test_int_decode_does_not_synchronize(cuda, monkeypatch, abits):
+    """The W4A4 and W6A6 decode step, step_n and the verify pass queue their
+    work (activation quantizers, K1 or K7) without a host synchronisation
+    inside the layer loop."""
+    eng = _tiny_int_engine(cuda, abits, 3, monkeypatch, max_batch=4,
+                           max_len=128)
+    slots = eng.add_requests([[1, 2, 3, 4, 5], [6, 7, 8]])
+    toks, lens = eng._device_tokens({s: 9 for s in slots})
+    verify = torch.full((4, 3), 5, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_impl(toks, lens, 64)
+        eng._decode_multi_impl(toks, lens + 1, 64, 4, False)
+        eng._verify_impl(verify, lens + 5, 64, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("abits", [4, 6])
+def test_int_engine_on_the_card_matches_plain_versions(cuda, monkeypatch,
+                                                       abits):
+    """A tiny W4A4 / W6A6 bf16 engine on the card (K8 + K9 at prefill, K1 or
+    K7 at decode) against the same engine on the CPU (every plain version):
+    the prefill logits and the first decode logits. The two round bf16
+    activations in other orders, and a 4-bit activation code may flip on
+    that, so the bound is on the rms error (5e-2 of the logits' rms)."""
+    reqs = [[(7 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12))]
+    logits = []
+    for dev in ("cpu", "cuda"):
+        eng = _tiny_int_engine(dev, abits, 4, monkeypatch, max_batch=4,
+                               max_len=128)
+        before = qmm._quant_matmul_int_dense.launches
+        slots, lg = eng.add_requests(reqs, return_logits=True)
+        toks, lens = eng._device_tokens({s: 1 for s in slots})
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))[:len(slots)]
+        logits.append(torch.cat([lg.float().cpu(), dec.float().cpu()]))
+        if dev == "cuda":
+            assert qmm._quant_matmul_int_dense.launches > before
+    d = logits[1] - logits[0]
+    assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 5e-2
