@@ -52,6 +52,11 @@ prints no result. Any failure raises, so the exit code is non-zero.
               (rms and largest error, cosine, norm ratio), and at 4 x 512
               the same engines on the CPU (every plain version) showing the
               same error.
+5. profile -- last, so that no timed run follows a profiler session: A and
+              E rebuilt on a fresh W4 model, prefilled as in serve, two
+              step_n(., 8) on the host clock, then one under torch.profiler:
+              the device's busy share of a decode step, the kernel launches
+              per step and the kernels that took the most device time.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line ``{"kernels": [...]}``; the last line is
@@ -272,8 +277,10 @@ def _seven_b_shapes(dims):
 
 
 def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
-    """K1 at the decode (m = 32) and prefill shapes of the serving path;
-    the JSON entry sums one decoder layer's four decode products."""
+    """K1 at the decode (m = 32 and 8) and prefill shapes of the serving
+    path; at decode two calls must give the same bits (the split-K slices
+    are added in a fixed order). The JSON entry sums one decoder layer's
+    four decode products at m = 32; the log also sums the four at m = 8."""
     from omniquant_tpu_torch.kernels import tolerance
     from omniquant_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_reference)
@@ -282,12 +289,13 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
 
     shapes = _seven_b_shapes(dims)
     ms_list = [(32, ("qkv", "o", "gate_up", "down")),
+               (8, ("qkv", "o", "gate_up", "down")),
                (dims["prefill_m"], ("qkv", "o", "down")),
                (dims["flash_m"], ("qkv", "o", "down"))]
     gen = torch.Generator(device=device).manual_seed(1234)
     rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                        "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                       "max_abs_err": 0.0}
+                       "max_abs_err": 0.0, "m8_ms": 0.0, "m8_library_ms": 0.0}
     wcfg = QuantConfig(n_bits=4, group_size=128)
     for name, (K, N) in shapes.items():
         w = torch.randn(N, K, generator=gen, device=device) * 0.02
@@ -312,6 +320,12 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
                 raise AssertionError(
                     f"quant_matmul {name} m={m}: max abs err {err}, "
                     f"{worst:.3g} x its per-element bound")
+            if m <= 32:
+                again = quant_matmul(x, pw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"quant_matmul {name} m={m}: two "
+                                         "calls differ")
             lbl = f"quant_matmul {name} m={m}"
             t = timer(lambda: quant_matmul(x, pw), lbl)
             t_plain = timer(lambda: quant_matmul_reference(x, pw),
@@ -335,9 +349,16 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
                     total[k_] += v_
                 total["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
                 total["ops_ms"] += flops / BF16_FLOPS_PER_S * 1e3
+            elif m == 8:
+                total["m8_ms"] += t
+                total["m8_library_ms"] += t_lib
             total["max_abs_err"] = max(total["max_abs_err"], err)
         del pw, w_lib
     out["quant_matmul_shapes"] = rows
+    log(f"  quant_matmul four decode products: m=32 kernel {total['ms']:.4f} "
+        f"ms, library {total['library_ms']:.4f}, bound "
+        f"{total['bound_ms']:.4f}; m=8 kernel {total['m8_ms']:.4f} ms, "
+        f"library {total['m8_library_ms']:.4f}")
     return dict(
         ms=total["ms"], plain_ms=total["plain_ms"],
         library_ms=total["library_ms"], bound_ms=total["bound_ms"],
@@ -842,13 +863,81 @@ def prompts(torch, n, length, vocab, seed):
     return torch.randint(1, vocab, (n, length), generator=gen).tolist()
 
 
+def profile_step(torch, eng, last: dict, n: int, step_s: float) -> dict:
+    """One ``step_n(last, n)`` under torch.profiler: the device time of the
+    kernels it ran, over the unprofiled step time ``step_s`` of the same
+    engine (the device's busy share; the rest of the step the device waits
+    on the host loop), the kernel launches per step and the kernels that
+    took the most device time. The busy share is "not measured" where the
+    profiler sees no device time. Nothing timed should follow it in the
+    process: a profiler session may leave launches slower after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        eng.step_n(last, n)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")) / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(
+        device_ms_per_step=dev_ms, step_ms=step_s * 1e3,
+        profiled_step_ms=wall * 1e3 / n, launches_per_step=launches,
+        busy_share=dev_ms / (step_s * 1e3) if dev_ms > 0 else "not measured",
+        top_kernels=[(e.key[:60], e.self_device_time_total / 1e3 / n)
+                     for e in top])
+
+
+def serve_plans(dims) -> dict:
+    """Engine name -> (LlamaEngine keywords, serve's run keywords)."""
+    from omniquant_tpu_torch.models.common import ActQuantSpec
+
+    return {
+        "A": (dict(max_batch=dims["batch"], max_len=dims["max_len"]),
+              dict(n=dims["batch"], length=dims["prompt_len"],
+                   steps=dims["decode_steps"], step_n=8)),
+
+        "B": (dict(max_batch=dims["flash_batch"],
+                   max_len=2 * dims["flash_len"]),
+              dict(n=dims["flash_batch"], length=dims["flash_len"], steps=8,
+                   step_n=8)),
+        "C": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
+                   kv_dtype="int8"),
+              dict(n=dims["batch"], length=dims["prompt_len"],
+                   steps=dims["decode_steps"], step_n=8, single_step=True,
+                   verify=4)),
+        "D": (dict(max_batch=dims["flash_batch"],
+                   max_len=2 * dims["flash_len"], kv_dtype="int8"),
+              dict(n=dims["flash_batch"], length=dims["flash_len"], steps=16,
+                   step_n=8)),
+        "E": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
+                   spec=ActQuantSpec.from_bits(4)),
+              dict(n=dims["batch"], length=dims["prompt_len"],
+                   steps=dims["decode_steps"], step_n=8)),
+        "F": (dict(max_batch=dims["flash_batch"],
+                   max_len=2 * dims["flash_len"],
+                   spec=ActQuantSpec.from_bits(4)),
+              dict(n=dims["flash_batch"], length=dims["flash_len"], steps=8,
+                   step_n=8)),
+        "G": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
+                   spec=ActQuantSpec.from_bits(6)),
+              dict(n=dims["batch"], length=dims["prompt_len"],
+                   steps=dims["decode_steps"], step_n=8, verify=4)),
+    }
+
+
 def serve(torch, device, cfg, dims, seed, out: dict) -> dict:
     """The main path: seven engines (SERVE_PATHS) through their user entry
     points, one after another: A-F on one W4 g128 model (E and F with
     4-bit activations), G on a W6 g128 model packed once A-F's is freed.
     Returns the launch counts summed over the seven runs."""
     from omniquant_tpu_torch import kernels
-    from omniquant_tpu_torch.models.common import ActQuantSpec
     from omniquant_tpu_torch.serving import LlamaEngine
 
     def pack(bits):
@@ -913,37 +1002,7 @@ def serve(torch, device, cfg, dims, seed, out: dict) -> dict:
         log(line)
         return res
 
-    plans = {
-        "A": (dict(max_batch=dims["batch"], max_len=dims["max_len"]),
-              dict(n=dims["batch"], length=dims["prompt_len"],
-                   steps=dims["decode_steps"], step_n=8)),
-        "B": (dict(max_batch=dims["flash_batch"],
-                   max_len=2 * dims["flash_len"]),
-              dict(n=dims["flash_batch"], length=dims["flash_len"], steps=8,
-                   step_n=8)),
-        "C": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
-                   kv_dtype="int8"),
-              dict(n=dims["batch"], length=dims["prompt_len"],
-                   steps=dims["decode_steps"], step_n=8, single_step=True,
-                   verify=4)),
-        "D": (dict(max_batch=dims["flash_batch"],
-                   max_len=2 * dims["flash_len"], kv_dtype="int8"),
-              dict(n=dims["flash_batch"], length=dims["flash_len"], steps=16,
-                   step_n=8)),
-        "E": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
-                   spec=ActQuantSpec.from_bits(4)),
-              dict(n=dims["batch"], length=dims["prompt_len"],
-                   steps=dims["decode_steps"], step_n=8)),
-        "F": (dict(max_batch=dims["flash_batch"],
-                   max_len=2 * dims["flash_len"],
-                   spec=ActQuantSpec.from_bits(4)),
-              dict(n=dims["flash_batch"], length=dims["flash_len"], steps=8,
-                   step_n=8)),
-        "G": (dict(max_batch=dims["batch"], max_len=dims["max_len"],
-                   spec=ActQuantSpec.from_bits(6)),
-              dict(n=dims["batch"], length=dims["prompt_len"],
-                   steps=dims["decode_steps"], step_n=8, verify=4)),
-    }
+    plans = serve_plans(dims)
     total, packed, packed_bits = {}, None, None
     for name, (eng_kw, run_kw) in plans.items():
         bits = 6 if name == "G" else 4
@@ -1173,6 +1232,45 @@ def e2e_int(torch, device, cfg, seed, abits, held):
 
 
 # ---------------------------------------------------------------------------
+def profile_decode(torch, device, cfg, dims, seed, out: dict) -> None:
+    """Engines A and E of serve_plans, rebuilt on a fresh W4 model and
+    prefilled as serve prefills them: after one step_n to warm up, two
+    step_n(., 8) on the host clock give the step time, then one more runs
+    under torch.profiler (profile_step). This phase runs last, so that no
+    timed run follows a profiler session."""
+    from omniquant_tpu_torch.serving import LlamaEngine
+
+    packed = make_packed(torch, cfg, device, seed, 4)
+    plans = serve_plans(dims)
+    for name in ("A", "E"):
+        eng_kw, run_kw = plans[name]
+        n, length, step_n = run_kw["n"], run_kw["length"], run_kw["step_n"]
+        eng = LlamaEngine(packed, cfg, dtype=torch.bfloat16, seed=seed,
+                          device=device, **eng_kw)
+        slots = eng.add_requests(prompts(torch, n, length, cfg.vocab_size,
+                                         seed + length))
+        last = {s: eng._pending_next[s] for s in slots}
+        reps, t = 2, 0.0
+        for i in range(1 + reps):
+            if i == 1:
+                torch.cuda.synchronize()
+                t = time.time()
+            last = {s: r[-1] for s, r in eng.step_n(last, step_n).items()}
+        torch.cuda.synchronize()
+        step_s = (time.time() - t) / (reps * step_n)
+        p = out[f"profile_{name}"] = profile_step(torch, eng, last, step_n,
+                                                  step_s)
+        busy = p["busy_share"]
+        log(f"  engine {name} profiled step_n({step_n}): device "
+            f"{p['device_ms_per_step']:.2f} ms of a {p['step_ms']:.2f} ms "
+            f"step ({busy if isinstance(busy, str) else f'{busy:.1%}'} "
+            f"busy), {p['launches_per_step']:.0f} launches per step; "
+            "most device time: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in p["top_kernels"]))
+        del eng
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1242,6 +1340,9 @@ def main(argv=None) -> int:
         vocab_size=32000, hidden_size=4096, intermediate_size=11008,
         num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=32),
         args.seed, out)
+
+    log("profile: one decode step of engines A and E under torch.profiler")
+    profile_decode(torch, device, cfg, dims, args.seed, out)
 
     entries = []
     for name, (replaces, source, tol) in KERNELS.items():

@@ -37,13 +37,15 @@
 //      pack tiles (split-K, so that several CTAs sit on every SM); each tile's
 //      words are unpacked straight into the B fragment layout in shared
 //      memory (never written to device memory). Slices write f32 partial
-//      sums that a second pass adds in a fixed order.
+//      sums that a second pass (splitk_sum.cuh) adds in a fixed order.
 // No cp.async/TMA/wgmma pipeline yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "splitk_sum.cuh"
 
 namespace {
 
@@ -529,28 +531,6 @@ qmm_int_planar_kernel(const int8_t* __restrict__ xc,
   }
 }
 
-// the split-K slices' partial sums, added in slice order, times xs, to bf16
-__global__ void __launch_bounds__(256)
-splitk_reduce_kernel(const float* __restrict__ part,
-                     const float* __restrict__ xs,
-                     __nv_bfloat16* __restrict__ y, int m, int N, int splits) {
-  const long long pairs = (long long)m * N / 2;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < pairs; i += (long long)gridDim.x * blockDim.x) {
-    const size_t e = (size_t)i * 2;
-    float2 s = make_float2(0.f, 0.f);
-    for (int k = 0; k < splits; ++k) {
-      const float2 p =
-          *reinterpret_cast<const float2*>(&part[(size_t)k * m * N + e]);
-      s.x += p.x;
-      s.y += p.y;
-    }
-    const float sc = xs[e / N];
-    *reinterpret_cast<__nv_bfloat162*>(&y[e]) =
-        __floats2bfloat162_rn(s.x * sc, s.y * sc);
-  }
-}
-
 template <int BITS>
 int launch_planar(const void* xc, const void* xs, const void* qw,
                   const void* scales, const void* zeros, void* part, void* y,
@@ -575,12 +555,9 @@ int launch_planar(const void* xc, const void* xs, const void* qw,
       splits, x_vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long pairs = (long long)m * N / 2;
-  const int blocks = (int)std::min<long long>((pairs + 255) / 256, 132LL * 8);
-  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<const float*>(xs),
-      static_cast<__nv_bfloat16*>(y), m, N, splits);
-  return (int)cudaGetLastError();
+  return splitk_sum(static_cast<const float*>(part),
+                    static_cast<const float*>(xs),
+                    static_cast<__nv_bfloat16*>(y), m, N, splits, st);
 }
 
 }  // namespace

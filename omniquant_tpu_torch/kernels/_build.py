@@ -7,8 +7,9 @@ first use with
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/`` at the root of the checkout, then loaded with ``ctypes``.
-The library name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded. ``build_all`` starts one
+The library name carries a hash of its source and of the shared
+``csrc/*.cuh`` headers, so an edited source is rebuilt and a stale library
+is never loaded. ``build_all`` starts one
 ``nvcc`` per source, all at once, so a cold start pays for the slowest
 source rather than the sum.
 
@@ -49,7 +50,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's hash
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"{name}-{digest[:12]}.so"
 

@@ -9,8 +9,18 @@ the same host routing:
   JAX package hands that case to XLA;
 * everything else runs the fused kernel: on a CUDA tensor the hand-written
   ``csrc/quant_matmul.cu`` (pairs layout, bits 2/3/4, bf16 activations,
-  scales and zeros), on
-  a CPU tensor its plain version ``quant_matmul_reference``.
+  scales and zeros), on a CPU tensor its plain version
+  ``quant_matmul_reference``.
+
+The kernel has two tiles. At m <= 32 (decode) it is bound by the bytes of
+the packed words: the decode tile reads each word once through a 2-stage
+cp.async ring and splits K on pack-tile boundaries (``decode_plan``: about
+three CTAs of 128 columns on each SM); the slices' f32 partial sums go to a
+(splits, m, N) workspace allocated here and are added in slice order
+(``csrc/splitk_sum.cuh``, shared with K7), so two calls give bitwise equal
+results. At m > 32 the 128 x 128 prefill tile runs unsplit. Both tiles take
+pack tiles of a multiple of 8 words per column, as ``pack_tile`` makes them,
+and groups of a multiple of 64 rows or per-channel scales.
 
 Geometry comes from the tensor shapes (qweight's column count is N), as in
 the JAX package. x's last dim is the logical in_features; rows past it up to
@@ -42,6 +52,7 @@ K7, K8 and K9 live in ``csrc/quant_matmul_int.cu`` (s8 x s8 -> s32
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,7 +60,14 @@ from ..quant.packing import PackedWeight, dequantize_packed, unpack_codes
 from ..quant.quantizer import _scale_zp, fake_quant_act
 from . import _build
 
-_CUDA_GROUP_MULTIPLE = 64  # deepest K step of the CUDA kernels' tile shapes
+# groups a multiple of 64 rows: a run of K1's decode tile (up to 64 rows)
+# and the K steps of the other tiles must lie inside one group
+_CUDA_GROUP_MULTIPLE = 64
+# K1's decode tile: 128 columns per CTA, split-K to about this many CTAs on
+# each SM, and at most this many quant groups per slice (their scales and
+# zeros sit in shared memory beside a 2-stage ring of ~34 KB stages, and
+# three such CTAs fit on an SM)
+_K1_BN, _K1_CTAS_PER_SM, _K1_SLICE_GROUPS = 128, 3, 8
 # column blocks of the JAX kernel, widest first: N's widest divisor among
 # them decides the dequantize-once route at m >= 4096, as it does there
 _BLOCK_N = (2048, 1024, 512, 256, 128)
@@ -75,8 +93,44 @@ def quant_matmul_reference(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     return y
 
 
+class DecodePlan(NamedTuple):
+    """How K1's decode tile (m <= 32) cuts K: ``splits`` slices of
+    ``per`` pack tiles (the last may be shorter), and the (splits, m, N) f32
+    workspace of their partial sums when there is more than one slice."""
+    splits: int
+    per: int
+    n_tiles: int
+    workspace: Optional[tuple]
+
+    def slices(self) -> list:
+        """(first tile, end tile) of each slice, as the kernel takes them."""
+        return [(s * self.per, min((s + 1) * self.per, self.n_tiles))
+                for s in range(self.splits)]
+
+
+def decode_plan(m: int, n: int, k_pad: int, tile_k: int,
+                group_rows: int, sm_count: int) -> DecodePlan:
+    """The split-K plan of K1 for m rows: enough slices to put about
+    ``_K1_CTAS_PER_SM`` CTAs of 128 columns on each SM, on pack-tile
+    boundaries, with at most ``_K1_SLICE_GROUPS`` quant groups per slice
+    (the slice's scales sit in shared memory). One slice for the prefill
+    tile (m > 32)."""
+    n_tiles = k_pad // tile_k
+    if m > 32:
+        return DecodePlan(1, n_tiles, n_tiles, None)
+    ctas = n // _K1_BN
+    want = max(1, min(n_tiles, -(-_K1_CTAS_PER_SM * sm_count // ctas)))
+    per = min(-(-n_tiles // want),
+              max(1, _K1_SLICE_GROUPS * group_rows // tile_k))
+    splits = -(-n_tiles // per)
+    return DecodePlan(splits, per, n_tiles,
+                      (splits, m, n) if splits > 1 else None)
+
+
 def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
-    """Launch the CUDA kernel on x2 (m, K) bf16; no bias."""
+    """Launch the CUDA kernel on x2 (m, K) bf16; no bias. At m <= 32 the
+    decode tile splits K per ``decode_plan`` and adds the slices' f32
+    partial sums in slice order."""
     if pw.layout != "pairs" or pw.bits not in (2, 3, 4):
         raise NotImplementedError(
             f"the CUDA quant_matmul takes the pairs layout at 2/3/4 bits; "
@@ -87,14 +141,20 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
         raise NotImplementedError(
             f"group_size {pw.group_size} is not a multiple of "
             f"{_CUDA_GROUP_MULTIPLE}")
+    fields = 5 if pw.bits == 3 else 16 // pw.bits  # codes per half word
+    if (pw.tile_k // (2 * fields)) % 8:
+        raise NotImplementedError(
+            f"pack tile of {pw.tile_k} rows is not a multiple of 8 words per "
+            "column (pack_tile makes only such tiles)")
     if not pw.scales.dtype == pw.zeros.dtype == torch.bfloat16:
         raise NotImplementedError(
             "the CUDA quant_matmul takes bf16 scales and zeros (a bf16 engine "
             f"rounds them so); got {pw.scales.dtype} and {pw.zeros.dtype}")
     qweight = pw.qweight
     if not (qweight.is_cuda and qweight.dtype == torch.int32
-            and qweight.is_contiguous()):
-        raise ValueError("qweight must be a contiguous int32 CUDA tensor")
+            and qweight.is_contiguous() and qweight.data_ptr() % 16 == 0):
+        raise ValueError("qweight must be a contiguous, 16-byte aligned int32 "
+                         "CUDA tensor")
     x2 = x2.contiguous()
     m, K = x2.shape
     k_pad = pw.k_pad
@@ -103,13 +163,19 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     if K > k_pad or pw.scales.shape[0] != N or pw.zeros.shape != pw.scales.shape:
         raise ValueError("x, qweight and scales disagree on the geometry")
     scales, zeros = pw.scales.contiguous(), pw.zeros.contiguous()
+    group_rows = pw.group_size or k_pad
+    plan = decode_plan(m, N, k_pad, pw.tile_k, group_rows,
+                       _sm_count(x2.device))
     y = torch.empty((m, N), dtype=x2.dtype, device=x2.device)
+    part = (None if plan.workspace is None else
+            torch.empty(plan.workspace, dtype=torch.float32, device=x2.device))
     x_vec = int(K % 8 == 0 and x2.data_ptr() % 16 == 0)
     _build.launch(
-        "quant_matmul", "qmm_pairs_bf16", "pppppiiiiiiiii",
+        "quant_matmul", "qmm_pairs_bf16", "ppppppiiiiiiiiiii",
         x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-        zeros.data_ptr(), y.data_ptr(), m, K, N, k_pad, G,
-        pw.group_size or k_pad, pw.tile_k, pw.bits, x_vec)
+        zeros.data_ptr(), None if part is None else part.data_ptr(),
+        y.data_ptr(), m, K, N, k_pad, G, group_rows, pw.tile_k, pw.bits,
+        x_vec, plan.splits, plan.per)
     quant_matmul.launches += 1
     return y
 

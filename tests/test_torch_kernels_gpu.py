@@ -13,6 +13,8 @@ f32 sum to bf16 once in both versions, so each element may differ by 2 bf16
 ulps of its own size plus the kernel's slack (``kernels/tolerance.py``); the
 cache writes and _unpack_to_int8 are copies and must be exact.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -49,23 +51,55 @@ def _packed(cuda, bits, group_size, out_f, in_f, seed, bias=False):
         lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
 
 
-@pytest.mark.parametrize("m", [1, 7, 32, 33, 300])
-@pytest.mark.parametrize("bits,group_size,in_f", [
-    (4, 128, 1024), (4, 128, 640), (3, 128, 1280), (2, 128, 1024),
-    (4, None, 1024), (3, None, 640), (2, 256, 1024)])
-def test_quant_matmul_kernel(cuda, bits, group_size, in_f, m):
-    pw = _packed(cuda, bits, group_size, 384, in_f, seed=bits + m,
+@pytest.mark.parametrize("m", [1, 7, 8, 16, 32, 33, 300])
+@pytest.mark.parametrize("bits,group_size,in_f,out_f", [
+    (4, 128, 1024, 384), (4, 128, 640, 384), (3, 128, 1280, 384),
+    (2, 128, 1024, 384), (4, None, 1024, 384), (3, None, 640, 384),
+    (2, 256, 1024, 384), (4, 64, 1024, 384), (2, 64, 1024, 384),
+    # per-channel with one pack tile of 160 rows (k_pad not a multiple of 64)
+    (3, None, 160, 384),
+    # K not a multiple of the 512-row pack tile, several split-K slices
+    (4, 128, 1408, 1024)])
+def test_quant_matmul_kernel(cuda, bits, group_size, in_f, out_f, m):
+    """The kernel's product against the plain one. With a bias (m = 7) both
+    versions round the product to bf16 and then add the bias in bf16; where
+    the bias cancels the product, a one-ulp difference of the product
+    exceeds the bound of the small sum. So the product is held to the bound
+    and the bias add, done outside the kernel, to exact equality."""
+    pw = _packed(cuda, bits, group_size, out_f, in_f, seed=bits + m,
                  bias=m == 7)
-    x = torch.randn(m, in_f, device=cuda).to(torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(in_f + m)
+    x = torch.randn(m, in_f, generator=gen, device=cuda).to(torch.bfloat16)
     before = quant_matmul.launches
     got = quant_matmul(x, pw)
-    want = quant_matmul_reference(x, pw)
     torch.cuda.synchronize()
     assert quant_matmul.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == (m, 384)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, out_f)
+    if pw.bias is not None:
+        bias = pw.bias
+        pw = dataclasses.replace(pw, bias=None)
+        product = quant_matmul(x, pw)
+        assert torch.equal(got, product + bias.to(torch.bfloat16))
+        got = product
+    want = quant_matmul_reference(x, pw)
     ok, err, worst = tolerance.bf16_close(got, want,
                                           tolerance.QUANT_MATMUL_SLACK)
     assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("m", [8, 32])
+def test_quant_matmul_decode_is_bitwise_repeatable(cuda, m):
+    """The decode tile's split-K slices are added in a fixed order, so two
+    calls on the same inputs give the same bits."""
+    pw = _packed(cuda, 4, 128, 1024, 11008, seed=m)
+    plan = qmm.decode_plan(m, 1024, pw.k_pad, pw.tile_k, 128,
+                           qmm._sm_count(cuda))
+    assert plan.splits > 1
+    x = torch.randn(m, 11008, device=cuda).to(torch.bfloat16)
+    first = quant_matmul(x, pw)
+    second = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_quant_matmul_kernel_refuses_what_it_does_not_take(cuda):

@@ -100,3 +100,67 @@ def test_bf16_input_close_to_f32_reference():
                                        interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(
         want).max())
+
+
+SEVEN_B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
+           "down": (11008, 4096)}
+
+
+@pytest.mark.parametrize("sm_count", [132, 114])
+@pytest.mark.parametrize("m", [1, 8, 32])
+@pytest.mark.parametrize("shape", sorted(SEVEN_B))
+def test_decode_plan_covers_every_tile_once(shape, m, sm_count):
+    """K1's split-K plan for the decode tile (m <= 32), on the four 7B
+    projections packed W4 g128: its slices lie on pack-tile boundaries,
+    cover every tile exactly once and in order, hold at most
+    _K1_SLICE_GROUPS quant groups, and the workspace is the (splits, m, N)
+    f32 block the kernel writes (none for one slice)."""
+    K, N = SEVEN_B[shape]
+    tile_k = 512
+    k_pad = -(-K // tile_k) * tile_k
+    plan = tqm.decode_plan(m, N, k_pad, tile_k, 128, sm_count)
+    slices = plan.slices()
+    assert plan.n_tiles == k_pad // tile_k
+    assert len(slices) == plan.splits >= 1
+    covered = [t for lo, hi in slices for t in range(lo, hi)]
+    assert covered == list(range(plan.n_tiles))
+    assert all(hi > lo for lo, hi in slices)
+    assert all((hi - lo) * tile_k // 128 <= tqm._K1_SLICE_GROUPS
+               for lo, hi in slices)
+    # the kernel takes slice s as tiles [s * per, min((s + 1) * per, n))
+    assert (plan.splits - 1) * plan.per < plan.n_tiles <= plan.splits * plan.per
+    assert plan.workspace == ((plan.splits, m, N) if plan.splits > 1
+                              else None)
+    # enough CTAs of 128 columns to put work on every SM
+    assert (N // tqm._K1_BN) * plan.splits >= min(
+        sm_count, (N // tqm._K1_BN) * plan.n_tiles)
+
+
+def test_decode_plan_prefill_and_per_channel():
+    """m > 32 (the prefill tile) runs unsplit; per-channel scales (one group
+    over k_pad) put no cap on a slice's tiles."""
+    plan = tqm.decode_plan(33, 4096, 11264, 512, 128, 132)
+    assert plan.splits == 1 and plan.workspace is None
+    assert plan.slices() == [(0, 22)]
+    grouped = tqm.decode_plan(8, 22016, 11264, 512, 128, 132)
+    chan = tqm.decode_plan(8, 22016, 11264, 512, 11264, 132)
+    assert grouped.per * 512 // 128 <= tqm._K1_SLICE_GROUPS
+    assert chan.per > grouped.per
+    assert chan.slices() == [(0, 8), (8, 16), (16, 22)]
+
+
+def test_cuda_wrapper_refuses_a_tile_of_other_than_8_word_multiples():
+    """Both CUDA tiles take pack tiles of a multiple of 8 words per column,
+    as pack_tile makes them; the wrapper refuses any other before it looks
+    for the card."""
+    from omniquant_tpu_torch.quant import QuantConfig, pack_weight
+
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (128, 64)).astype(np.float32))
+    pw = pack_weight(w, QuantConfig(n_bits=4, group_size=None),
+                     layout="pairs", tile_k=32)  # 4 words per column
+    pw = pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    x = torch.zeros(8, 64, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="8 words"):
+        tqm._qmm_cuda(x, pw)
