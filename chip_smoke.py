@@ -17,12 +17,16 @@ prints no result. Any failure raises, so the exit code is non-zero.
               the kernel, the plain version and one PyTorch library call as
               a yardstick (CUDA events, launches queued behind a device
               sleep so no host time falls inside), beside the least time
-              the card could take for this run's inputs.
+              the card could take for this run's inputs. K1 runs on pairs
+              words (W4 g128) and on planar words (W2/W3/W4 g64, W6 g128,
+              W8 per-channel: the four decode products at m = 32 and 8;
+              W2 and W4 g64 also at the m = 4096 prefill).
 3. serve   -- LLaMA-7B widths and depth (vocab 32000, hidden 4096, inter
               11008, 32 layers, 32/32 heads), random weights from a seeded
-              torch.Generator, packed g128 by pack_model: W4 (pairs layout)
-              for engines A-F, then, once that model is freed, W6 (planar)
-              for G; engines built and freed one after another:
+              torch.Generator, packed by pack_model's auto layout: W4 g128
+              (pairs layout) for engines A-F, then, once that model is
+              freed, W6 g128 (planar) for G, then W2 g64 (planar) for H;
+              engines built and freed one after another:
               A  bf16 KV, max_batch 32, max_len 512: add_requests of 32
                  prompts of 128 tokens, 32 tokens by step_n(., 8);
               B  bf16 KV, max_batch 8, max_len 2048: 8 prompts of 1024
@@ -39,7 +43,11 @@ prints no result. Any failure raises, so the exit code is non-zero.
                  and K2, 8 tokens by step_n(., 8);
               G  W6A6 on the W6 model, bf16 KV, as A plus verify_step of 4
                  tokens: prefill K8 + K9, decode (m = 32) and verify
-                 (m = 128) through K7.
+                 (m = 128) through K7;
+              H  W2A16 g64 on the W2 model, bf16 KV, as G: planar K1's
+                 prefill tile at the m = 4096 prefill (qkv, o, down; gate_up
+                 dequantizes once) and the m = 128 verify, its decode tile
+                 at m = 32.
               Each engine's run starts with the launch counts set to 0 and
               ends by reading them; every kernel of its path must have
               launched.
@@ -47,7 +55,8 @@ prints no result. Any failure raises, so the exit code is non-zero.
               decode logits of a bf16-KV and an int8-KV engine against a
               forward of the same packed model composed of plain PyTorch ops
               in f32, and the int8 engine's fused decode attention against
-              its dequantized dense path; then W4A4 and W6A6 engines
+              its dequantized dense path; W2A16 and W4A16 g64 engines
+              (planar words) likewise; then W4A4 and W6A6 engines
               against the f32 forward with the same activation quantizers
               (rms and largest error, cosine, norm ratio), and at 4 x 512
               the same engines on the CPU (every plain version) showing the
@@ -87,6 +96,13 @@ KERNELS = {
         "omniquant_tpu_torch/csrc/quant_matmul.cu",
         "per element 2 bf16 ulps of |plain| + 2^-10 (both round an f32 sum "
         "to bf16 once)"),
+    # K1 on planar words: the same kernel source and pallas_call, its own
+    # decode tile and prefill staging, counted apart
+    "quant_matmul_planar": (
+        "omniquant_tpu/kernels/quant_matmul.py:276",
+        "omniquant_tpu_torch/csrc/quant_matmul.cu",
+        "per element 2 bf16 ulps of |plain| + 2^-10, as quant_matmul (exact "
+        "codes, exact products, f32 sums)"),
     "flash_attention": (
         "omniquant_tpu/kernels/flash_attention.py:146",
         "omniquant_tpu_torch/csrc/flash_attention.cu",
@@ -137,6 +153,9 @@ SERVE_PATHS = {
           "quant_matmul", "kv_cache_prefill_write", "kv_cache_write"),
     "G": ("_unpack_to_int8", "_quant_matmul_int_dense", "quant_matmul_int",
           "kv_cache_prefill_write", "kv_cache_write", "kv_cache_write_span"),
+    # planar K1 by tile: decode (m <= 32) and prefill / verify (m > 32)
+    "H": ("quant_matmul_planar_decode", "quant_matmul_planar_prefill",
+          "kv_cache_prefill_write", "kv_cache_write"),
 }
 
 # e2e tolerance on logits, relative to the reference's rms / max magnitude:
@@ -276,96 +295,155 @@ def _seven_b_shapes(dims):
             "down": (I, H)}
 
 
-def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
-    """K1 at the decode (m = 32 and 8) and prefill shapes of the serving
-    path; at decode two calls must give the same bits (the split-K slices
-    are added in a fixed order). The JSON entry sums one decoder layer's
-    four decode products at m = 32; the log also sums the four at m = 8."""
+def _k1_row(torch, timer, label, pw, w_lib, x) -> dict:
+    """One K1 product (x @ dequant(pw)) held per element to its plain
+    version, at m <= 32 called twice for equal bits; device times of the
+    kernel, the plain version and bf16 torch.matmul on the dequantized
+    weight, beside the bound for this run's inputs."""
     from omniquant_tpu_torch.kernels import tolerance
     from omniquant_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_reference)
-    from omniquant_tpu_torch.quant import QuantConfig, dequantize_packed
-    from omniquant_tpu_torch.quant import pack_weight
 
+    m, K = x.shape
+    N = pw.qweight.shape[1]
+    got = quant_matmul(x, pw)
+    want = quant_matmul_reference(x, pw)
+    torch.cuda.synchronize()
+    ok, err, worst = tolerance.bf16_close(got, want,
+                                          tolerance.QUANT_MATMUL_SLACK)
+    rel = rms_rel_err(got, want)
+    if not (ok and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{label}: max abs err {err}, {worst:.3g} x its "
+                             "per-element bound")
+    if m <= 32:
+        again = quant_matmul(x, pw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two calls differ")
+    del got, want
+    t = timer(lambda: quant_matmul(x, pw), label)
+    t_plain = timer(lambda: quant_matmul_reference(x, pw), label + " plain",
+                    iters=3)
+    t_lib = timer(lambda: torch.matmul(x, w_lib), label + " library")
+    nbytes = (pw.qweight.numel() * 4 + pw.scales.numel() * 2
+              + pw.zeros.numel() * 2 + x.numel() * 2 + m * N * 2)
+    flops = 2.0 * m * K * N
+    b, by = bound_ms(nbytes, flops)
+    log(f"  {label:34s} K={K:5d} N={N:5d}: max abs err {err:.3g} "
+        f"({worst:.3g} x bound, rms rel {rel:.2g})  kernel {t:.4f} ms  plain "
+        f"{t_plain:.4f}  library {t_lib:.4f}  bound {b:.4f} ({by})")
+    return dict(m=m, K=K, N=N, ms=t, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b, bound_by=by, max_abs_err=err, err_over_bound=worst,
+                rms_rel=rel, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=flops / BF16_FLOPS_PER_S * 1e3)
+
+
+def _k1_weight(torch, device, gen, bits, group_size, K, N):
+    """A random (N, K) projection packed by pack_weight's auto layout, with
+    the bf16-rounded scales and zeros a bf16 engine serves, and its bf16
+    dequantized weight (the library call's operand)."""
+    from omniquant_tpu_torch.quant import (QuantConfig, dequantize_packed,
+                                           pack_weight)
+
+    w = torch.randn(N, K, generator=gen, device=device) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout="auto")
+    del w
+    pw = pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    return pw, dequantize_packed(pw, dtype=torch.bfloat16)  # (K, N)
+
+
+def _k1_total(rows, all_rows, shape) -> dict:
+    """The JSON entry: times and bound summed over ``rows``, the largest
+    error over every row checked."""
+    tot = _totals(rows, ("ms", "plain_ms", "library_ms", "bound_ms"))
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in all_rows)
+    tot["shape"] = shape
+    return tot
+
+
+def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
+    """K1 on pairs words (W4 g128) at the decode (m = 32 and 8) and prefill
+    shapes of the serving path; at decode two calls must give the same bits
+    (the split-K slices are added in a fixed order). The JSON entry sums one
+    decoder layer's four decode products at m = 32; the log also sums the
+    four at m = 8."""
     shapes = _seven_b_shapes(dims)
     ms_list = [(32, ("qkv", "o", "gate_up", "down")),
                (8, ("qkv", "o", "gate_up", "down")),
                (dims["prefill_m"], ("qkv", "o", "down")),
                (dims["flash_m"], ("qkv", "o", "down"))]
     gen = torch.Generator(device=device).manual_seed(1234)
-    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                       "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                       "max_abs_err": 0.0, "m8_ms": 0.0, "m8_library_ms": 0.0}
-    wcfg = QuantConfig(n_bits=4, group_size=128)
+    rows = []
     for name, (K, N) in shapes.items():
-        w = torch.randn(N, K, generator=gen, device=device) * 0.02
-        pw = pack_weight(w, wcfg, layout="auto")
-        del w
-        # the engine serves bf16-rounded scales and zeros
-        pw = pw.map_tensors(
-            lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
-        w_lib = dequantize_packed(pw, dtype=torch.bfloat16)  # (K, N)
+        pw, w_lib = _k1_weight(torch, device, gen, 4, 128, K, N)
+        assert pw.layout == "pairs"
         for m, names in ms_list:
             if name not in names:
                 continue
             x = torch.randn(m, K, generator=gen, device=device).to(
                 torch.bfloat16)
-            got = quant_matmul(x, pw)
-            want = quant_matmul_reference(x, pw)
-            torch.cuda.synchronize()
-            ok, err, worst = tolerance.bf16_close(
-                got, want, tolerance.QUANT_MATMUL_SLACK)
-            rel = rms_rel_err(got, want)
-            if not ok:
-                raise AssertionError(
-                    f"quant_matmul {name} m={m}: max abs err {err}, "
-                    f"{worst:.3g} x its per-element bound")
-            if m <= 32:
-                again = quant_matmul(x, pw)
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"quant_matmul {name} m={m}: two "
-                                         "calls differ")
-            lbl = f"quant_matmul {name} m={m}"
-            t = timer(lambda: quant_matmul(x, pw), lbl)
-            t_plain = timer(lambda: quant_matmul_reference(x, pw),
-                            lbl + " plain", iters=3)
-            t_lib = timer(lambda: torch.matmul(x, w_lib), lbl + " library")
-            nbytes = (pw.qweight.numel() * 4 + pw.scales.numel() * 2
-                      + pw.zeros.numel() * 2 + x.numel() * 2 + m * N * 2)
-            flops = 2.0 * m * K * N
-            b, by = bound_ms(nbytes, flops)
-            row = dict(shape=name, m=m, K=K, N=N, ms=t, plain_ms=t_plain,
-                       library_ms=t_lib, bound_ms=b, bound_by=by,
-                       max_abs_err=err, err_over_bound=worst, rms_rel=rel)
-            rows.append(row)
-            log(f"  quant_matmul {name:7s} m={m:5d} K={K:5d} N={N:5d}: "
-                f"max abs err {err:.3g} ({worst:.3g} x bound, rms rel "
-                f"{rel:.2g})  kernel {t:.4f} ms  plain {t_plain:.4f}  "
-                f"library {t_lib:.4f}  bound {b:.4f} ({by})")
-            if m == 32:
-                for k_, v_ in (("ms", t), ("plain_ms", t_plain),
-                               ("library_ms", t_lib), ("bound_ms", b)):
-                    total[k_] += v_
-                total["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-                total["ops_ms"] += flops / BF16_FLOPS_PER_S * 1e3
-            elif m == 8:
-                total["m8_ms"] += t
-                total["m8_library_ms"] += t_lib
-            total["max_abs_err"] = max(total["max_abs_err"], err)
+            rows.append(dict(shape=name, **_k1_row(
+                torch, timer, f"quant_matmul {name} m={m}", pw, w_lib, x)))
         del pw, w_lib
     out["quant_matmul_shapes"] = rows
-    log(f"  quant_matmul four decode products: m=32 kernel {total['ms']:.4f} "
-        f"ms, library {total['library_ms']:.4f}, bound "
-        f"{total['bound_ms']:.4f}; m=8 kernel {total['m8_ms']:.4f} ms, "
-        f"library {total['m8_library_ms']:.4f}")
-    return dict(
-        ms=total["ms"], plain_ms=total["plain_ms"],
-        library_ms=total["library_ms"], bound_ms=total["bound_ms"],
-        bound_by="bytes" if total["bytes_ms"] >= total["ops_ms"]
-        else "operations", max_abs_err=total["max_abs_err"],
-        shape="one decoder layer at decode, m=32: qkv 4096x12288, o "
-              "4096x4096, gate_up 4096x22016, down 11008x4096")
+    m32 = [r for r in rows if r["m"] == 32]
+    m8 = [r for r in rows if r["m"] == 8]
+    tot = _k1_total(m32, rows,
+                    "one decoder layer at decode, m=32: qkv 4096x12288, o "
+                    "4096x4096, gate_up 4096x22016, down 11008x4096")
+    log(f"  quant_matmul four decode products: m=32 kernel {tot['ms']:.4f} "
+        f"ms, library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}; "
+        f"m=8 kernel {sum(r['ms'] for r in m8):.4f} ms, library "
+        f"{sum(r['library_ms'] for r in m8):.4f}")
+    return tot
+
+
+# planar weights of the kernels phase, (bits, group_size) -> whether they
+# also run the prefill rows (qkv, o, down at m = 4096) beside the four
+# decode products at m = 32 and 8
+PLANAR_K1 = {(2, 64): True, (3, 64): False, (4, 64): True, (6, 128): False,
+             (8, None): False}
+
+
+def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
+    """K1 on planar words (pack_model's auto layout for groups below 128
+    rows and for 6 and 8 bits): the four 7B decode products at m = 32 and 8
+    for W2 g64, W3 g64, W4 g64, W6 g128 and W8 per-channel, and qkv, o and
+    down at the prefill m = 4096 for W2 g64 and W4 g64, each held per element
+    to the plain version (two calls equal at m <= 32). The JSON entry sums
+    the four W2 g64 decode products at m = 32 (engine H's layer)."""
+    gen = torch.Generator(device=device).manual_seed(2345)
+    rows = []
+    for (bits, gs), prefill in PLANAR_K1.items():
+        tag = f"W{bits} {'g' + str(gs) if gs else 'per-channel'}"
+        for name, (K, N) in _seven_b_shapes(dims).items():
+            ms = [32, 8]
+            if prefill and name != "gate_up":
+                ms.append(dims["prefill_m"])
+            pw, w_lib = _k1_weight(torch, device, gen, bits, gs, K, N)
+            assert pw.layout == "planar", (bits, gs, pw.layout)
+            for m in ms:
+                x = torch.randn(m, K, generator=gen, device=device).to(
+                    torch.bfloat16)
+                rows.append(dict(weights=tag, shape=name, **_k1_row(
+                    torch, timer, f"quant_matmul {tag} {name} m={m}", pw,
+                    w_lib, x)))
+                del x
+            del pw, w_lib
+    out["quant_matmul_planar_shapes"] = rows
+    for tag in dict.fromkeys(r["weights"] for r in rows):
+        for m in (32, 8):
+            sel = [r for r in rows if r["weights"] == tag and r["m"] == m]
+            log(f"  quant_matmul {tag} four decode products m={m}: kernel "
+                f"{sum(r['ms'] for r in sel):.4f} ms, library "
+                f"{sum(r['library_ms'] for r in sel):.4f}, bound "
+                f"{sum(r['bound_ms'] for r in sel):.4f}")
+    return _k1_total(
+        [r for r in rows if r["weights"] == "W2 g64" and r["m"] == 32], rows,
+        "one decoder layer at decode, m=32, W2 g64 planar: qkv 4096x12288, "
+        "o 4096x4096, gate_up 4096x22016, down 11008x4096")
 
 
 def check_flash(torch, device, timer, dims) -> dict:
@@ -844,16 +922,18 @@ def check_int_dense(torch, device, timer, dims, out: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def make_packed(torch, cfg, device, seed, bits=4):
-    """Random dense weights from a seeded generator, packed g128 at ``bits``
-    (the "auto" layout: pairs for 4-bit, planar for 6-bit)."""
+def make_packed(torch, cfg, device, seed, bits=4, group_size=128):
+    """Random dense weights from a seeded generator, packed at ``bits`` and
+    ``group_size`` (the "auto" layout: pairs for 2/3/4-bit at g128, planar
+    for 6-bit and for groups below 128 rows)."""
     from omniquant_tpu_torch.models import LLAMA, llama
     from omniquant_tpu_torch.quant import QuantConfig
     from omniquant_tpu_torch.serving import pack_model
 
     gen = torch.Generator(device=device).manual_seed(seed)
     dense = llama.init_params(gen, cfg, dtype=torch.float32, device=device)
-    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=bits, group_size=128),
+    packed = pack_model(LLAMA, dense,
+                        QuantConfig(n_bits=bits, group_size=group_size),
                         device=device)
     return packed
 
@@ -929,24 +1009,35 @@ def serve_plans(dims) -> dict:
                    spec=ActQuantSpec.from_bits(6)),
               dict(n=dims["batch"], length=dims["prompt_len"],
                    steps=dims["decode_steps"], step_n=8, verify=4)),
+        "H": (dict(max_batch=dims["batch"], max_len=dims["max_len"]),
+              dict(n=dims["batch"], length=dims["prompt_len"],
+                   steps=dims["decode_steps"], step_n=8, verify=4)),
     }
 
 
+# the packed model each engine of the serve phase runs, (bits, group_size);
+# engines not named run W4 g128 (pairs)
+SERVE_MODELS = {"G": (6, 128), "H": (2, 64)}
+
+
 def serve(torch, device, cfg, dims, seed, out: dict) -> dict:
-    """The main path: seven engines (SERVE_PATHS) through their user entry
+    """The main path: eight engines (SERVE_PATHS) through their user entry
     points, one after another: A-F on one W4 g128 model (E and F with
-    4-bit activations), G on a W6 g128 model packed once A-F's is freed.
-    Returns the launch counts summed over the seven runs."""
+    4-bit activations), G on a W6 g128 model packed once A-F's is freed, H
+    on a W2 g64 model (planar) packed once G's is freed. Returns the launch
+    counts summed over the eight runs."""
     from omniquant_tpu_torch import kernels
     from omniquant_tpu_torch.serving import LlamaEngine
 
-    def pack(bits):
+    def pack(bits, gs):
         t0 = time.time()
-        packed = make_packed(torch, cfg, device, seed, bits)
+        packed = make_packed(torch, cfg, device, seed, bits, gs)
         torch.cuda.synchronize()
-        out[f"pack_w{bits}_s"] = time.time() - t0
-        log(f"serve: {cfg.num_hidden_layers}-layer model packed W{bits} g128 "
-            f"in {out[f'pack_w{bits}_s']:.1f} s")
+        key = f"pack_w{bits}g{gs}_s"
+        out[key] = time.time() - t0
+        layout = packed["layers"][0]["q_proj"].layout
+        log(f"serve: {cfg.num_hidden_layers}-layer model packed W{bits} g{gs} "
+            f"({layout}) in {out[key]:.1f} s")
         return packed
 
     def timed(fn):
@@ -1003,13 +1094,13 @@ def serve(torch, device, cfg, dims, seed, out: dict) -> dict:
         return res
 
     plans = serve_plans(dims)
-    total, packed, packed_bits = {}, None, None
+    total, packed, packed_as = {}, None, None
     for name, (eng_kw, run_kw) in plans.items():
-        bits = 6 if name == "G" else 4
-        if bits != packed_bits:
+        model = SERVE_MODELS.get(name, (4, 128))
+        if model != packed_as:
             del packed
             torch.cuda.empty_cache()
-            packed, packed_bits = pack(bits), bits
+            packed, packed_as = pack(*model), model
         base = torch.cuda.memory_allocated()
         eng = LlamaEngine(packed, cfg, dtype=torch.bfloat16, seed=seed,
                           device=device, **eng_kw)
@@ -1077,7 +1168,8 @@ def e2e(torch, device, cfg, seed, out: dict):
     against a plain f32 forward (models.llama.forward on dense dequantized
     weights), and the int8 engine's first decode through the fused
     attention (K4 + K6) against its dense path (attn_kernel=False) on the
-    same tokens."""
+    same tokens; then W2A16 and W4A16 g64 engines (planar words,
+    e2e_planar), and W4A4 and W6A6 ones (e2e_int)."""
     from omniquant_tpu_torch.models import llama
     from omniquant_tpu_torch.serving import LlamaEngine
 
@@ -1130,11 +1222,42 @@ def e2e(torch, device, cfg, seed, out: dict):
             del ref
     del packed, ref_params
     torch.cuda.empty_cache()
+    for bits in (2, 4):
+        e2e_planar(torch, device, cfg, seed, bits, held)
     for abits in (4, 6):
         failed += e2e_int(torch, device, cfg, seed, abits, held)
     out["e2e"] = res
     if failed:
         raise AssertionError(f"e2e outside tolerance: {failed}")
+
+
+def e2e_planar(torch, device, cfg, seed, bits, held):
+    """A W2A16 or W4A16 g64 bf16-KV engine (planar words: planar K1 at the
+    32 x 128 prefill and the first decode) against the plain f32 forward,
+    under E2E_TOL (``held`` records a miss)."""
+    from omniquant_tpu_torch.models import llama
+    from omniquant_tpu_torch.serving import LlamaEngine
+
+    packed = make_packed(torch, cfg, device, seed + 1, bits, 64)
+    assert packed["layers"][0]["q_proj"].layout == "planar"
+    ref_params = plain_reference_params(torch, packed)
+    n, length = 32, 128
+    reqs = prompts(torch, n, length, cfg.vocab_size, seed + 7 * length)
+    eng = LlamaEngine(packed, cfg, max_batch=n, max_len=2 * length,
+                      dtype=torch.bfloat16, seed=seed, device=device)
+    slots, prefill = eng.add_requests(reqs, return_logits=True)
+    first = [eng._pending_next[s] for s in slots]
+    toks, lens = eng._device_tokens(dict(zip(slots, first)))
+    dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+    del eng
+    full = torch.cat([torch.tensor(reqs, device=device),
+                      torch.tensor(first, device=device)[:, None]], dim=1)
+    with torch.no_grad():
+        ref = llama.forward(ref_params, full, cfg)
+    held(f"w{bits}g64_prefill_{n}x{length}", prefill, ref[:, length - 1])
+    held(f"w{bits}g64_decode_{n}x{length}", dec, ref[:, length])
+    del packed, ref_params, ref
+    torch.cuda.empty_cache()
 
 
 def e2e_int(torch, device, cfg, seed, abits, held):
@@ -1314,6 +1437,8 @@ def main(argv=None) -> int:
     timer = Timer(torch, device)
     results = {"quant_matmul": check_quant_matmul(torch, device, timer, dims,
                                                   out),
+               "quant_matmul_planar": check_quant_matmul_planar(
+                   torch, device, timer, dims, out),
                "flash_attention": check_flash(torch, device, timer, dims)}
     (results["kv_cache_prefill_write"], results["kv_cache_write"],
      results["kv_cache_write_span"]) = check_kv(torch, device, timer, dims,
@@ -1344,12 +1469,17 @@ def main(argv=None) -> int:
     log("profile: one decode step of engines A and E under torch.profiler")
     profile_decode(torch, device, cfg, dims, args.seed, out)
 
+    # the serve phase's launches per entry: K1's count holds both layouts
+    planar = (counts["quant_matmul_planar_decode"]
+              + counts["quant_matmul_planar_prefill"])
+    launches = dict(counts, quant_matmul=counts["quant_matmul"] - planar,
+                    quant_matmul_planar=planar)
     entries = []
     for name, (replaces, source, tol) in KERNELS.items():
         r = results[name]
         entries.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             tolerance=tol, shape=r["shape"]))

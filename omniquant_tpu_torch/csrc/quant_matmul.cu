@@ -1,20 +1,27 @@
-// Packed W2/W3/W4 (pairs layout) x bf16 activations -> bf16, for sm_90a.
+// Packed W2/W3/W4 (pairs layout) and W2/W3/W4/W6/W8 (planar layout) x bf16
+// activations -> bf16, for sm_90a.
 //
 // Replaces the TPU kernel omniquant_tpu/kernels/quant_matmul.py::quant_matmul
 // (_qmm_call / _qmm_kernel, pallas_call at :276): y = x @ dequant(W), with W
 // stored as packed int32 W^T words, per-group scales s and rounded zero
 // points z, dequant(c) = (c - z) * s.
 //
-// Both tiles evaluate, with codes turned into bf16 in registers and
+// Every tile evaluates, with codes turned into bf16 in registers and
 // multiplied on the tensor cores (mma.sync m16n8k16, f32 accumulation), the
 // scales applied per quant group in f32 after the products:
 //     y = sum_g s_g * (x_g . c_g) + xsum_g * off_g,   off_g = -z_g * s_g.
-// Codes < 16 are exact in bf16 and bf16 x bf16 products are exact in f32, so
-// nothing is rounded before the f32 sums (no bf16 rounding of scales or of
-// dequantised weights). A pairs-layout word holds two consecutive rows
-// (bits 16*h apart), which is exactly the k-pair an mma fragment register
-// holds, so one shift, one and-or and one bf16x2 subtract give a ready
-// fragment register.
+// Codes <= 255 are exact in bf16 and bf16 x bf16 products are exact in f32,
+// so nothing is rounded before the f32 sums (no bf16 rounding of scales or
+// of dequantised weights; the JAX fine-group branch rounds w = c*s + off to
+// bf16, this kernel does not). A pairs-layout word holds two consecutive
+// rows (bits 16*h apart), which is exactly the k-pair an mma fragment
+// register holds, so one shift, one and-or and one bf16x2 subtract give a
+// ready fragment register. In the planar layout (planar.cuh) rows k and k+1
+// sit in the same bit slot of two adjacent words; one byte permute of the
+// two words puts their low (high) halves side by side, and from there a
+// slot's pair of codes is the same shift, and-or and subtract (3-bit and
+// 6-bit codes OR in their high-plane bits first; 8-bit codes, up to 255,
+// go through f32, as 128 + c no longer fits bf16's mantissa).
 //
 // Decode tile (m <= 32). At decode the packed words are read once and each
 // is used by at most 32 rows, so the kernel is bound by the bytes of the
@@ -59,17 +66,35 @@
 //     would save the subtract but costs accuracy: the tensor cores sum the
 //     larger products with fewer spare bits, and on the card many more
 //     outputs then differed from the f32 reference by a bf16 step.)
-// The wrapper refuses, for both tiles, a pack tile whose word count per
+// The wrapper refuses, for both tiles, a pairs pack tile whose word count per
 // column is not a multiple of 8 (pack_tile never makes one).
+//
+// Planar decode tile (m <= 32), the same design on planar words. A step is
+// WS = 16*KB consecutive low-plane words w0.. of a pack tile (KB = 2 at 4
+// and 8 bits, else 1) for 128 columns; for 3-bit and 6-bit codes it also
+// takes the WS low words P/2 further on and the WS high-plane words both
+// blocks share, so each high word is read once too. Slot p of a block is a
+// run of WS consecutive rows (p*P + block start + w0 ...), aligned to WS <=
+// 32, so inside one quant group of a multiple of 32 rows; consecutive runs
+// of one group are closed together, with one scale per column. An A
+// fragment register's k-pair is slot p of words 2*t4 and 2*t4 + 1 (+8) of
+// the run. Steps are up to ~59 KB at m = 32 (3-bit: 48 words and 512 x
+// columns a step, so one CTA per SM). The tile takes a tile whose low block
+// (P, or P/2 with two planes) is a multiple of WS words; smaller tiles (in_features below 256 rows at 2 and 6 bits, 512 at 3,
+// 128 at 4, 64 at 8) run on the prefill tile at every m.
 //
 // Prefill tile (m > 32): ~2*m*K*N operations on the bf16 tensor cores bound
 // it. 128 x 128 tiles, K steps of 32 rows, the x tile and the unpacked codes
 // staged in shared memory (padded rows, no bank conflicts on the fragment
-// loads). No cp.async/TMA/wgmma pipeline yet.
+// loads); in the planar layout the staging loop reads the two words of a
+// row pair and forms each code with planar_code. Groups of a multiple of 32
+// rows close at the step where they end. No cp.async/TMA/wgmma pipeline
+// yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "planar.cuh"
 #include "splitk_sum.cuh"
 
 namespace {
@@ -97,15 +122,16 @@ __device__ __forceinline__ float bf16x2_sum(uint32_t v) {
   return __bfloat162float(h.x) + __bfloat162float(h.y);
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
+// PL_BITS: 0 for the pairs layout (bits at run time), else the planar width
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int PL_BITS>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
-qmm_pairs_kernel(const __nv_bfloat16* __restrict__ x,
-                 const int32_t* __restrict__ qw,
-                 const __nv_bfloat16* __restrict__ scales,
-                 const __nv_bfloat16* __restrict__ zeros,
-                 __nv_bfloat16* __restrict__ y,
-                 int m, int K, int N, int k_pad, int G, int gs_rows,
-                 int tile_k, int bits, int x_vec) {
+qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
+                   const int32_t* __restrict__ qw,
+                   const __nv_bfloat16* __restrict__ scales,
+                   const __nv_bfloat16* __restrict__ zeros,
+                   __nv_bfloat16* __restrict__ y,
+                   int m, int K, int N, int k_pad, int G, int gs_rows,
+                   int tile_k, int bits, int x_vec) {
   constexpr int NTHREADS = WARPS_M * WARPS_N * 32;
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   constexpr int MT = WM / 16, NT = WN / 8;
@@ -163,10 +189,34 @@ qmm_pairs_kernel(const __nv_bfloat16* __restrict__ x,
       uint32_t v = 0u;
       if (k < k_pad) {
         const int t = k / tile_k, n = k - t * tile_k;
-        const int j = n / part_rows, w = (n - j * part_rows) >> 1;
-        const uint32_t word = (uint32_t)__ldg(
-            qw + (size_t)(t * words_per_tile + w) * N + col0 + c);
-        v = codes_bf16x2(word >> (bits * j), mask2);
+        if constexpr (PL_BITS == 0) {
+          const int j = n / part_rows, w = (n - j * part_rows) >> 1;
+          const uint32_t word = (uint32_t)__ldg(
+              qw + (size_t)(t * words_per_tile + w) * N + col0 + c);
+          v = codes_bf16x2(word >> (bits * j), mask2);
+        } else {
+          // rows k, k+1: slot p of low words w, w+1 (w even, P even), and
+          // of high words w mod P/2 (+1) at slot 2p + w / (P/2)
+          using PL = Planar<PL_BITS>;
+          const int P = tile_k * PL::LO / 32;
+          const int p = n / P, w = n - p * P;
+          const int32_t* src =
+              qw + (size_t)(t * (tile_k * PL_BITS / 32) + w) * N + col0 + c;
+          uint32_t hi0 = 0u, hi1 = 0u;
+          int sel = 0;
+          if (PL::HI) {
+            const int half_p = P / 2;
+            sel = w / half_p;
+            const int32_t* h = src + (size_t)(P + w % half_p - w) * N;
+            hi0 = (uint32_t)__ldg(h);
+            hi1 = (uint32_t)__ldg(h + N);
+          }
+          const int c0 = planar_code<PL_BITS>((uint32_t)__ldg(src), hi0, p, sel);
+          const int c1 =
+              planar_code<PL_BITS>((uint32_t)__ldg(src + N), hi1, p, sel);
+          __nv_bfloat162 h2 = __floats2bfloat162_rn((float)c0, (float)c1);
+          v = *reinterpret_cast<uint32_t*>(&h2);
+        }
       }
       ws[rp * WS_LD + c] = v;
     }
@@ -244,12 +294,12 @@ qmm_pairs_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int PL_BITS = 0>
 void launch(const void* x, const void* qw, const void* scales,
             const void* zeros, void* y, int m, int K, int N, int k_pad, int G,
             int gs_rows, int tile_k, int bits, int x_vec, cudaStream_t st) {
   dim3 grid(N / BN, (m + BM - 1) / BM);
-  qmm_pairs_kernel<BM, BN, BK, WARPS_M, WARPS_N>
+  qmm_prefill_kernel<BM, BN, BK, WARPS_M, WARPS_N, PL_BITS>
       <<<grid, WARPS_M * WARPS_N * 32, 0, st>>>(
           static_cast<const __nv_bfloat16*>(x),
           static_cast<const int32_t*>(qw),
@@ -308,6 +358,100 @@ __device__ __forceinline__ void ldmatrix_b(uint32_t (&r)[4], const void* p) {
         : "r"(a));
 }
 
+// The slice's scales and zeros as (scale, zero) bf16 pairs, [group][column],
+// loaded once, SCALE_BATCH loads in flight per thread; each column's groups
+// are contiguous, and the groups of the layout padding (past G) reuse the
+// last group's.
+__device__ __forceinline__ void stage_scales(
+    uint32_t* sz, const __nv_bfloat16* __restrict__ scales,
+    const __nv_bfloat16* __restrict__ zeros, int col0, int G, int g0, int ng,
+    int tid) {
+  constexpr int SCALE_BATCH = 8;
+  for (int i0 = 0; i0 < ng * DEC_BN; i0 += SCALE_BATCH * DEC_THREADS) {
+    __nv_bfloat16 sv[SCALE_BATCH], zv[SCALE_BATCH];
+#pragma unroll
+    for (int u = 0; u < SCALE_BATCH; ++u) {
+      const int i = i0 + u * DEC_THREADS + tid;
+      if (i < ng * DEC_BN) {
+        const int c = i / ng, gi = i - c * ng;
+        const size_t src = (size_t)(col0 + c) * G + min(g0 + gi, G - 1);
+        sv[u] = scales[src];
+        zv[u] = zeros[src];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SCALE_BATCH; ++u) {
+      const int i = i0 + u * DEC_THREADS + tid;
+      if (i < ng * DEC_BN) {
+        const int c = i / ng, gi = i - c * ng;
+        __nv_bfloat162 v;
+        v.x = sv[u];
+        v.y = zv[u];
+        sz[gi * DEC_BN + c] = *reinterpret_cast<uint32_t*>(&v);
+      }
+    }
+  }
+}
+
+// Close a run (rows inside one quant group, whose staged (scale, zero)
+// row is sz_g) into the f32 sums: D rows are columns g and g + 8 of each
+// 16-column A tile, D columns the x rows 2*t4 and 2*t4 + 1 of each n8 tile.
+template <int MN>
+__device__ __forceinline__ void close_run(float (&acc)[2][MN][4],
+                                          const float (&pt)[2][MN][4],
+                                          const float (&xs)[MN][4],
+                                          const uint32_t* sz_g, int cw,
+                                          int g) {
+#pragma unroll
+  for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v = sz_g[cw + mc * 16 + g + 8 * h];
+      const __nv_bfloat162 p = *reinterpret_cast<__nv_bfloat162*>(&v);
+      const float s = __bfloat162float(p.x);
+      const float off = -__bfloat162float(p.y) * s;
+#pragma unroll
+      for (int nt = 0; nt < MN; ++nt) {
+        acc[mc][nt][2 * h] += pt[mc][nt][2 * h] * s + xs[nt][0] * off;
+        acc[mc][nt][2 * h + 1] += pt[mc][nt][2 * h + 1] * s + xs[nt][1] * off;
+      }
+    }
+}
+
+template <int MN>
+__device__ __forceinline__ void zero_run(float (&pt)[2][MN][4],
+                                         float (&xs)[MN][4]) {
+#pragma unroll
+  for (int nt = 0; nt < MN; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pt[0][nt][e] = pt[1][nt][e] = xs[nt][e] = 0.f;
+}
+
+// The warp's 32 columns (from col) of the decode tile's sums: bf16 into y,
+// or with split-K f32 into the slice's plane of the workspace.
+template <int MN>
+__device__ __forceinline__ void store_out(const float (&acc)[2][MN][4],
+                                          float* __restrict__ part,
+                                          __nv_bfloat16* __restrict__ y,
+                                          int m, int N, int col, int g,
+                                          int t4) {
+  const bool split = gridDim.y > 1;
+#pragma unroll
+  for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+    for (int nt = 0; nt < MN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = nt * 8 + 2 * t4 + (e & 1);
+        const int n = col + mc * 16 + g + 8 * (e >> 1);
+        if (r >= m) continue;
+        if (split)
+          part[((size_t)blockIdx.y * m + r) * N + n] = acc[mc][nt][e];
+        else
+          y[(size_t)r * N + n] = __float2bfloat16(acc[mc][nt][e]);
+      }
+}
+
 // MN: n8 tiles of x rows (m <= 8 * MN); KB: k16 blocks (8 words) per step
 template <int MN, int KB>
 __global__ void __launch_bounds__(DEC_THREADS)
@@ -319,7 +463,6 @@ qmm_decode_kernel(const __nv_bfloat16* __restrict__ x,
                   int m, int K, int N, int G, int gs_rows, int T, int bits,
                   int n_tiles, int per, int x_vec) {
   constexpr int WS = 8 * KB, MR = 8 * MN;
-  constexpr int SCALE_BATCH = 8;  // scale loads in flight per thread
   extern __shared__ __align__(16) unsigned char smem[];
   const int F = pairs_fields(bits);
   const int W = T / (2 * F);  // words per tile and column
@@ -379,33 +522,7 @@ qmm_decode_kernel(const __nv_bfloat16* __restrict__ x,
     if (s < n_steps) load_step(s);
     cp_async_commit();
   }
-  // the slice's scales and zeros, once, SCALE_BATCH loads in flight per
-  // thread; each column's groups are contiguous, and the groups of the
-  // layout padding (past G) reuse the last group's
-  for (int i0 = 0; i0 < ng * DEC_BN; i0 += SCALE_BATCH * DEC_THREADS) {
-    __nv_bfloat16 sv[SCALE_BATCH], zv[SCALE_BATCH];
-#pragma unroll
-    for (int u = 0; u < SCALE_BATCH; ++u) {
-      const int i = i0 + u * DEC_THREADS + tid;
-      if (i < ng * DEC_BN) {
-        const int c = i / ng, gi = i - c * ng;
-        const size_t src = (size_t)(col0 + c) * G + min(g0 + gi, G - 1);
-        sv[u] = scales[src];
-        zv[u] = zeros[src];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < SCALE_BATCH; ++u) {
-      const int i = i0 + u * DEC_THREADS + tid;
-      if (i < ng * DEC_BN) {
-        const int c = i / ng, gi = i - c * ng;
-        __nv_bfloat162 v;
-        v.x = sv[u];
-        v.y = zv[u];
-        sz[gi * DEC_BN + c] = *reinterpret_cast<uint32_t*>(&v);
-      }
-    }
-  }
+  stage_scales(sz, scales, zeros, col0, G, g0, ng, tid);
 
   float acc[2][MN][4];
 #pragma unroll
@@ -483,24 +600,8 @@ qmm_decode_kernel(const __nv_bfloat16* __restrict__ x,
             mma_16816(pt[mc][nt], a, b[nt][0], b[nt][1]);
         }
       }
-      // close the run (one quant group): D rows are columns g and g + 8,
-      // D columns the x rows 2*t4 and 2*t4 + 1 of each n8 tile
-      const int gi = (krow + j * PR) / gs_rows - g0;
-#pragma unroll
-      for (int mc = 0; mc < 2; ++mc)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint32_t v = sz[gi * DEC_BN + cw + mc * 16 + g + 8 * h];
-          const __nv_bfloat162 p = *reinterpret_cast<__nv_bfloat162*>(&v);
-          const float s = __bfloat162float(p.x);
-          const float off = -__bfloat162float(p.y) * s;
-#pragma unroll
-          for (int nt = 0; nt < MN; ++nt) {
-            acc[mc][nt][2 * h] += pt[mc][nt][2 * h] * s + xs[nt][0] * off;
-            acc[mc][nt][2 * h + 1] +=
-                pt[mc][nt][2 * h + 1] * s + xs[nt][1] * off;
-          }
-        }
+      close_run<MN>(acc, pt, xs, sz + ((krow + j * PR) / gs_rows - g0) * DEC_BN,
+                    cw, g);
     }
     ws0 += WS;
     if (ws0 == W) {
@@ -508,22 +609,7 @@ qmm_decode_kernel(const __nv_bfloat16* __restrict__ x,
       ++t;
     }
   }
-
-  const bool split = gridDim.y > 1;
-#pragma unroll
-  for (int mc = 0; mc < 2; ++mc)
-#pragma unroll
-    for (int nt = 0; nt < MN; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = nt * 8 + 2 * t4 + (e & 1);
-        const int n = col0 + cw + mc * 16 + g + 8 * (e >> 1);
-        if (r >= m) continue;
-        if (split)
-          part[((size_t)blockIdx.y * m + r) * N + n] = acc[mc][nt][e];
-        else
-          y[(size_t)r * N + n] = __float2bfloat16(acc[mc][nt][e]);
-      }
+  store_out<MN>(acc, part, y, m, N, col0 + cw, g, t4);
 }
 
 template <int MN, int KB>
@@ -579,14 +665,313 @@ int launch_decode_kb(const void* x, const void* qw, const void* scales,
                               G, gs_rows, T, bits, x_vec, splits, per, st);
 }
 
+
+// ---------------------------------------------------------------------------
+// Planar decode tile (m <= 32): see the note at the top of the file.
+constexpr int DEC_LDW_PL = DEC_BN + 4;  // words per staged row: the fragment
+                                        // reads of rows 2*t4 (+1) hit 32
+                                        // distinct banks
+
+// A step's geometry for one planar width: NSEL low blocks of WS words (two
+// for 3/6-bit: words w0.. and P/2 + w0..) plus, for two planes, the WS
+// high-plane words they share; RUNS runs of WS rows (slot p of block b).
+template <int BITS>
+struct PlanarStep {
+  static constexpr int NSEL = Planar<BITS>::HI ? 2 : 1;
+  static constexpr int KB = (BITS == 4 || BITS == 8) ? 2 : 1;
+  static constexpr int WS = 16 * KB;
+  static constexpr int NBLK = NSEL + (Planar<BITS>::HI ? 1 : 0);
+  static constexpr int RUNS = Planar<BITS>::V * NSEL;
+  static constexpr int LDX = RUNS * WS + 8;  // bf16 per staged x row
+  static constexpr int WORDS_BYTES = NBLK * WS * DEC_LDW_PL * 4;
+  __host__ __device__ static constexpr int stage_bytes(int mr) {
+    return WORDS_BYTES + mr * LDX * 2;
+  }
+};
+
+// Slot p of a k-pair as a bf16x2 fragment register, exact. lo[0] holds the
+// low 16-bit halves of the pair's two low-plane words side by side (row k
+// in the low lane, row k + 1 in the high lane), lo[1] their high halves;
+// hi likewise for their high-plane words, whose slot is 2p + sel.
+template <int BITS>
+__device__ __forceinline__ uint32_t planar_pair(const uint32_t (&lo)[2],
+                                                const uint32_t (&hi)[2],
+                                                int p, int sel) {
+  using PL = Planar<BITS>;
+  constexpr int HS = PL::V / 2;  // low-plane slots per 16-bit half
+  constexpr uint32_t MLO = ((1u << PL::LO) - 1u) * 0x00010001u;
+  uint32_t c =
+      (p < HS ? lo[0] >> (PL::LO * p) : lo[1] >> (PL::LO * (p - HS))) & MLO;
+  if constexpr (PL::HI > 0) {
+    constexpr int HF = 16 / PL::HI;  // high-plane slots per 16-bit half
+    constexpr uint32_t MHI = ((1u << PL::HI) - 1u) * 0x00010001u;
+    const int f = 2 * p + sel;
+    c |= ((f < HF ? hi[0] >> (PL::HI * f) : hi[1] >> (PL::HI * (f - HF))) &
+          MHI)
+         << PL::LO;
+  }
+  if constexpr (BITS == 8) {
+    // 2^23 + c is exact in f32; bf16 holds every integer up to 256
+    const float f0 = __uint_as_float(0x4b000000u | (c & 0xffffu)) - 8388608.f;
+    const float f1 = __uint_as_float(0x4b000000u | (c >> 16)) - 8388608.f;
+    __nv_bfloat162 h = __floats2bfloat162_rn(f0, f1);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    return codes_bf16x2(c, 0x007f007fu);  // c < 64
+  }
+}
+
+template <int BITS, int MN>
+__global__ void __launch_bounds__(DEC_THREADS)
+qmm_planar_decode_kernel(const __nv_bfloat16* __restrict__ x,
+                         const int32_t* __restrict__ qw,
+                         const __nv_bfloat16* __restrict__ scales,
+                         const __nv_bfloat16* __restrict__ zeros,
+                         float* __restrict__ part,
+                         __nv_bfloat16* __restrict__ y, int m, int K, int N,
+                         int G, int gs_rows, int T, int n_tiles, int per,
+                         int x_vec) {
+  using S = PlanarStep<BITS>;
+  constexpr int WS = S::WS, KB = S::KB, NSEL = S::NSEL, MR = 8 * MN;
+  constexpr int LDX = S::LDX, STAGE = S::stage_bytes(MR);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = T * Planar<BITS>::LO / 32;  // low-plane words per tile
+  const int B = P / NSEL;                   // low words per block
+  const int WPT = T * BITS / 32;            // words per tile and column
+  const int steps_per_tile = B / WS;
+  // (scale, zero) bf16 pairs of the slice's groups, [group][column]
+  uint32_t* sz = reinterpret_cast<uint32_t*>(smem + DEC_STAGES * STAGE);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int col0 = blockIdx.x * DEC_BN, cw = warp * 32;
+  const int t_begin = blockIdx.y * per;
+  const int t_end = min(t_begin + per, n_tiles);
+  const int n_steps = (t_end - t_begin) * steps_per_tile;
+  const int g0 = t_begin * T / gs_rows;
+  const int ng = (t_end * T - 1) / gs_rows - g0 + 1;
+
+  auto load_step = [&](int step) {
+    const int tt = step / steps_per_tile;
+    const int t = t_begin + tt, w0 = (step - tt * steps_per_tile) * WS;
+    unsigned char* base = smem + (step % DEC_STAGES) * STAGE;
+    uint32_t* wsm = reinterpret_cast<uint32_t*>(base);
+    __nv_bfloat16* xsm = reinterpret_cast<__nv_bfloat16*>(base + S::WORDS_BYTES);
+    // block b < NSEL: low words b*B + w0 ..; block NSEL: high words P + w0 ..
+    const int32_t* src = qw + (size_t)t * WPT * N + col0;
+    for (int i = tid; i < S::NBLK * WS * (DEC_BN / 4); i += DEC_THREADS) {
+      const int r = i / (DEC_BN / 4), c4 = (i % (DEC_BN / 4)) * 4;
+      const int b = r / WS;
+      const int row = (b < NSEL ? b * B : P) + w0 + (r - b * WS);
+      cp_async16(wsm + r * DEC_LDW_PL + c4, src + (size_t)row * N + c4, 16);
+    }
+    // x columns of each run (slot p of block b: tile rows p*P + b*B + w0 ..),
+    // zero at rows >= m and columns >= K (the packed rows past in_features
+    // carry code 0 but enter xsum)
+    const int kt = t * T + w0;
+    constexpr int PER_RUN = MR * (WS / 8);
+    for (int i = tid; i < S::RUNS * PER_RUN; i += DEC_THREADS) {
+      const int run = i / PER_RUN, rem = i - run * PER_RUN;
+      const int r = rem / (WS / 8), c8 = (rem % (WS / 8)) * 8;
+      const int p = run / NSEL, b = run - p * NSEL;
+      const int gc = kt + p * P + b * B + c8;
+      __nv_bfloat16* dst = xsm + r * LDX + run * WS + c8;
+      if (x_vec) {
+        const bool in = r < m && gc < K;
+        cp_async16(dst, in ? x + (size_t)r * K + gc : x, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (r < m && gc + e < K) ? x[(size_t)r * K + gc + e]
+                                         : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < DEC_STAGES - 1; ++s) {
+    if (s < n_steps) load_step(s);
+    cp_async_commit();
+  }
+  stage_scales(sz, scales, zeros, col0, G, g0, ng, tid);
+
+  float acc[2][MN][4];
+#pragma unroll
+  for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+    for (int nt = 0; nt < MN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mc][nt][e] = 0.f;
+  const uint32_t ones[4] = {0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
+                            0x3f803f80u};  // bf16 1.0 pairs
+  const int lm_row = ((lane >> 4) * 8 + (lane & 7)), lm_half = (lane >> 3) & 1;
+
+  int t = t_begin, w0 = 0;
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();  // step's stage landed; step - 1's stage is free
+    if (step + DEC_STAGES - 1 < n_steps) load_step(step + DEC_STAGES - 1);
+    cp_async_commit();
+
+    const unsigned char* base = smem + (step % DEC_STAGES) * STAGE;
+    const uint32_t* wsm = reinterpret_cast<const uint32_t*>(base);
+    const __nv_bfloat16* xsm =
+        reinterpret_cast<const __nv_bfloat16*>(base + S::WORDS_BYTES);
+    // the k-pairs of A register e (column g + 8*(e & 1), block words
+    // 16kb + 2*t4 + 8*(e >> 1) and the next), low and high halves
+    // permuted side by side: lw for the low blocks, hw for the high block
+    uint32_t lw[NSEL][KB][2][4][2], hw[KB][2][4][2];
+#pragma unroll
+    for (int b = 0; b < S::NBLK; ++b)
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb)
+#pragma unroll
+        for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t* q =
+                wsm + (b * WS + 16 * kb + 2 * t4 + 8 * (e >> 1)) * DEC_LDW_PL +
+                cw + mc * 16 + g + 8 * (e & 1);
+            const uint32_t wa = q[0], wb = q[DEC_LDW_PL];
+            uint32_t(&d)[2] = b < NSEL ? lw[b < NSEL ? b : 0][kb][mc][e]
+                                       : hw[kb][mc][e];
+            d[0] = __byte_perm(wa, wb, 0x5410);
+            d[1] = __byte_perm(wa, wb, 0x7632);
+          }
+    // runs go in slot order; consecutive runs of one group (slots 2q and
+    // 2q + 1 of a 512-row tile at g64 and 2 bits, every run of a step with
+    // per-channel scales) sum into pt and xs, and the group closes once,
+    // where the next run starts another group
+    const int krow = t * T + w0;
+    float pt[2][MN][4], xs[MN][4];
+    zero_run<MN>(pt, xs);
+    // the group of the runs summing in pt and xs, and its rows [g_lo, g_hi)
+    int gi = krow / gs_rows;
+    int g_lo = gi * gs_rows, g_hi = g_lo + gs_rows;
+#pragma unroll
+    for (int run = 0; run < S::RUNS; ++run) {
+      const int p = run / NSEL, b = run % NSEL;
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        uint32_t bf[MN][2];
+#pragma unroll
+        for (int nt = 0; nt < MN; nt += 2) {
+          uint32_t r[4];
+          ldmatrix_b<MN == 1>(r, xsm + (nt * 8 + lm_row) * LDX + run * WS +
+                                     16 * kb + 8 * lm_half);
+          bf[nt][0] = r[0];
+          bf[nt][1] = r[1];
+          if (MN > 1) {
+            bf[nt + 1][0] = r[2];
+            bf[nt + 1][1] = r[3];
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < MN; ++nt)
+          mma_16816(xs[nt], ones, bf[nt][0], bf[nt][1]);
+#pragma unroll
+        for (int mc = 0; mc < 2; ++mc) {
+          uint32_t a[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            a[e] = planar_pair<BITS>(lw[b][kb][mc][e], hw[kb][mc][e], p, b);
+#pragma unroll
+          for (int nt = 0; nt < MN; ++nt)
+            mma_16816(pt[mc][nt], a, bf[nt][0], bf[nt][1]);
+        }
+      }
+      const int next = krow + ((run + 1) / NSEL) * P + ((run + 1) % NSEL) * B;
+      if (run + 1 == S::RUNS || next < g_lo || next >= g_hi) {
+        // the group ends here: close it, open the next run's
+        close_run<MN>(acc, pt, xs, sz + (gi - g0) * DEC_BN, cw, g);
+        zero_run<MN>(pt, xs);
+        if (run + 1 < S::RUNS) {
+          gi = next / gs_rows;
+          g_lo = gi * gs_rows;
+          g_hi = g_lo + gs_rows;
+        }
+      }
+    }
+    w0 += WS;
+    if (w0 == B) {
+      w0 = 0;
+      ++t;
+    }
+  }
+  store_out<MN>(acc, part, y, m, N, col0 + cw, g, t4);
+}
+
+template <int BITS, int MN>
+int launch_planar_decode(const void* x, const void* qw, const void* scales,
+                         const void* zeros, void* part, void* y, int m, int K,
+                         int N, int k_pad, int G, int gs_rows, int T,
+                         int x_vec, int splits, int per, cudaStream_t st) {
+  // the largest scale block a slice of per tiles can span
+  const int ng = T % gs_rows ? (per * T - 1) / gs_rows + 2 : per * T / gs_rows;
+  const int smem = DEC_STAGES * PlanarStep<BITS>::stage_bytes(8 * MN) +
+                   ng * DEC_BN * 4;
+  static int smem_set = 0;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        qmm_planar_decode_kernel<BITS, MN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(qmm_planar_decode_kernel<BITS, MN>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dim3 grid(N / DEC_BN, splits);
+  qmm_planar_decode_kernel<BITS, MN><<<grid, DEC_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(qw),
+      static_cast<const __nv_bfloat16*>(scales),
+      static_cast<const __nv_bfloat16*>(zeros), static_cast<float*>(part),
+      static_cast<__nv_bfloat16*>(y), m, K, N, G, gs_rows, T, k_pad / T, per,
+      x_vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return splitk_sum(static_cast<const float*>(part), nullptr,
+                    static_cast<__nv_bfloat16*>(y), m, N, splits, st);
+}
+
+// The decode tile at m <= 32 where the tile's low blocks hold whole steps,
+// else the prefill tile (one slice).
+template <int BITS>
+int planar_entry(const void* x, const void* qw, const void* scales,
+                 const void* zeros, void* part, void* y, int m, int K, int N,
+                 int k_pad, int G, int gs_rows, int T, int x_vec, int splits,
+                 int per, cudaStream_t st) {
+  using S = PlanarStep<BITS>;
+  const int P = T * Planar<BITS>::LO / 32;
+  if (m <= 32 && (P / S::NSEL) % S::WS == 0) {
+#define PL_CASE(MN)                                                          \
+  return launch_planar_decode<BITS, MN>(x, qw, scales, zeros, part, y, m, K, \
+                                        N, k_pad, G, gs_rows, T, x_vec,      \
+                                        splits, per, st)
+    if (m <= 8) PL_CASE(1);
+    if (m <= 16) PL_CASE(2);
+    PL_CASE(4);
+#undef PL_CASE
+  }
+  if (splits != 1) return (int)cudaErrorInvalidValue;
+  launch<128, 128, 32, 2, 4, BITS>(x, qw, scales, zeros, y, m, K, N, k_pad, G,
+                                   gs_rows, T, BITS, x_vec, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// N must be a multiple of 128; scales/zeros are (N, G) bf16 (a bf16 engine
-// serves bf16-rounded scales); gs_rows is the group size (a multiple of 64),
-// or k_pad for per-channel scales (G == 1). A pack tile holds a multiple of
-// 8 words per column. For m <= 32 the K tiles are split into ``splits``
-// slices of ``per`` tiles (the last may be shorter); with splits > 1, part
-// is a (splits, m, N) f32 workspace. qweight must be 16-byte aligned.
+// Both entries: N a multiple of 128; scales/zeros (N, G) bf16 (a bf16
+// engine serves bf16-rounded scales); gs_rows the group size, or k_pad for
+// per-channel scales (G == 1). For m <= 32 the decode tile splits the K
+// tiles into ``splits`` slices of ``per`` tiles (the last may be shorter);
+// with splits > 1, part is a (splits, m, N) f32 workspace. qweight must be
+// 16-byte aligned.
+//
+// Pairs layout, bits 2/3/4: groups a multiple of 64 rows (a decode run of up
+// to 64 rows lies inside one group), a pack tile of a multiple of 8 words
+// per column.
 extern "C" int qmm_pairs_bf16(const void* x, const void* qw,
                               const void* scales, const void* zeros,
                               void* part, void* y, int m, int K, int N,
@@ -620,4 +1005,36 @@ extern "C" int qmm_pairs_bf16(const void* x, const void* qw,
   launch<128, 128, 32, 2, 4>(x, qw, scales, zeros, y, m, K, N, k_pad, G,
                              gs_rows, tile_k, bits, x_vec, st);
   return (int)cudaGetLastError();
+}
+
+// Planar layout, bits 2/3/4/6/8: groups a multiple of 32 rows (a decode run
+// of up to 32 rows, a prefill K step of 32, lies inside one group), a pack
+// tile of a multiple of 32 rows whose low plane holds a multiple of 8 words
+// per column (pack_tile makes only such tiles).
+extern "C" int qmm_planar_bf16(const void* x, const void* qw,
+                               const void* scales, const void* zeros,
+                               void* part, void* y, int m, int K, int N,
+                               int k_pad, int G, int gs_rows, int tile_k,
+                               int bits, int x_vec, int splits, int per,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int lo = bits == 3 ? 2 : (bits == 6 ? 4 : bits);
+  if (N % DEC_BN || tile_k % 32 || k_pad % tile_k || (tile_k * lo / 32) % 8 ||
+      (gs_rows < k_pad && gs_rows % 32) || splits < 1 || per < 1 ||
+      (splits - 1) * per >= k_pad / tile_k || splits * per < k_pad / tile_k ||
+      (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define PL_BITS_CASE(B)                                                      \
+  case B:                                                                    \
+    return planar_entry<B>(x, qw, scales, zeros, part, y, m, K, N, k_pad, G, \
+                           gs_rows, tile_k, x_vec, splits, per, st);
+  switch (bits) {
+    PL_BITS_CASE(2)
+    PL_BITS_CASE(3)
+    PL_BITS_CASE(4)
+    PL_BITS_CASE(6)
+    PL_BITS_CASE(8)
+  }
+#undef PL_BITS_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -45,6 +45,7 @@
 
 #include <algorithm>
 
+#include "planar.cuh"
 #include "splitk_sum.cuh"
 
 namespace {
@@ -62,28 +63,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ float off2_bf16(float s, float z, float half) {
   const float d = __bfloat162float(__float2bfloat16_rn(half - z));
   return __bfloat162float(__float2bfloat16_rn(d * s));
-}
-
-// planar widths: the low plane (the only one for 2/4/8 bits) and the high
-// plane of 3-bit (2 + 1) and 6-bit (4 + 2) codes
-template <int BITS>
-struct Planar {
-  static constexpr int LO = BITS == 3 ? 2 : (BITS == 6 ? 4 : BITS);
-  static constexpr int HI = BITS - LO;
-  static constexpr int V = 32 / LO;  // codes per low-plane word
-};
-
-// Code v of a low-plane word (tile row v*P + w, P low words per tile). For
-// two planes, hi is the high-plane word of that row (word w mod P/2 of the
-// high plane) and sel = w / (P/2) picks its slot 2v + sel.
-template <int BITS>
-__device__ __forceinline__ int planar_code(uint32_t lo, uint32_t hi, int v,
-                                           int sel) {
-  using PL = Planar<BITS>;
-  int c = (lo >> (PL::LO * v)) & ((1u << PL::LO) - 1u);
-  if (PL::HI)
-    c |= ((hi >> (PL::HI * (2 * v + sel))) & ((1u << PL::HI) - 1u)) << PL::LO;
-  return c;
 }
 
 __device__ __forceinline__ uint32_t pack4(int c0, int c1, int c2, int c3) {

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels (``csrc/``) with their wrappers and plain
 PyTorch versions, one module each. Each wrapper counts its kernel launches
-in its ``launches`` attribute."""
+in its ``launches`` attribute; ``quant_matmul`` also counts its launches on
+planar words, by tile, in ``launches_planar_decode`` (m <= 32) and
+``launches_planar_prefill`` (m > 32)."""
 from . import decode_attention, flash_attention, kv_update, quant_matmul
 
 KERNEL_WRAPPERS = {
@@ -15,12 +17,20 @@ KERNEL_WRAPPERS = {
     "_quant_matmul_int_dense": quant_matmul._quant_matmul_int_dense,
 }
 
+# count name -> (wrapper, attribute)
+_COUNTERS = {name: (f, "launches") for name, f in KERNEL_WRAPPERS.items()}
+_COUNTERS["quant_matmul_planar_decode"] = (quant_matmul.quant_matmul,
+                                           "launches_planar_decode")
+_COUNTERS["quant_matmul_planar_prefill"] = (quant_matmul.quant_matmul,
+                                            "launches_planar_prefill")
+
 
 def launch_counts() -> dict:
-    """{wrapper name: kernel launches since the last reset}."""
-    return {name: f.launches for name, f in KERNEL_WRAPPERS.items()}
+    """{count name: kernel launches since the last reset}: one per wrapper,
+    and quant_matmul's planar launches by tile."""
+    return {name: getattr(f, attr) for name, (f, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for f in KERNEL_WRAPPERS.values():
-        f.launches = 0
+    for f, attr in _COUNTERS.values():
+        setattr(f, attr, 0)

@@ -8,9 +8,10 @@ the same host routing:
   N = 22016) dequantizes the weight once and calls ``torch.matmul``, as the
   JAX package hands that case to XLA;
 * everything else runs the fused kernel: on a CUDA tensor the hand-written
-  ``csrc/quant_matmul.cu`` (pairs layout, bits 2/3/4, bf16 activations,
-  scales and zeros), on a CPU tensor its plain version
-  ``quant_matmul_reference``.
+  ``csrc/quant_matmul.cu`` (pairs layout at bits 2/3/4 with groups of a
+  multiple of 64 rows, planar layout at bits 2/3/4/6/8 with groups of a
+  multiple of 32 rows, per-channel scales in both; bf16 activations, scales
+  and zeros), on a CPU tensor its plain version ``quant_matmul_reference``.
 
 The kernel has two tiles. At m <= 32 (decode) it is bound by the bytes of
 the packed words: the decode tile reads each word once through a 2-stage
@@ -18,9 +19,14 @@ cp.async ring and splits K on pack-tile boundaries (``decode_plan``: about
 three CTAs of 128 columns on each SM); the slices' f32 partial sums go to a
 (splits, m, N) workspace allocated here and are added in slice order
 (``csrc/splitk_sum.cuh``, shared with K7), so two calls give bitwise equal
-results. At m > 32 the 128 x 128 prefill tile runs unsplit. Both tiles take
-pack tiles of a multiple of 8 words per column, as ``pack_tile`` makes them,
-and groups of a multiple of 64 rows or per-channel scales.
+results. At m > 32 the 128 x 128 prefill tile runs unsplit. Pairs tiles must
+hold a multiple of 8 words per column; a planar tile must hold a multiple
+of 8 low-plane words per column (``pack_tile`` makes only such tiles), and
+one whose low blocks are too small for a decode step (``_planar_decode``:
+in_features below 256 rows at 2 and 6 bits, 512 at 3, 128 at 4, 64 at 8)
+runs on the prefill tile at every m. Each launch counts in
+``quant_matmul.launches``; planar ones also in ``launches_planar_decode``
+(m <= 32) or ``launches_planar_prefill`` (m > 32).
 
 Geometry comes from the tensor shapes (qweight's column count is N), as in
 the JAX package. x's last dim is the logical in_features; rows past it up to
@@ -43,8 +49,8 @@ activation codes. ``quant_matmul_int`` routes as the JAX function does:
   the dense product (K9), for either layout;
 * eligible, smaller m, planar layout -> the fused kernel (K7), which unpacks
   each K tile in shared memory;
-* anything else -> ``fake_quant_act`` then ``quant_matmul`` (K1). K1 takes
-  only the pairs layout on the card, so a planar weight there raises.
+* anything else -> ``fake_quant_act`` then ``quant_matmul`` (K1), on either
+  layout.
 
 K7, K8 and K9 live in ``csrc/quant_matmul_int.cu`` (s8 x s8 -> s32
 ``mma.sync``); their plain versions evaluate the same algebra in f32.
@@ -60,9 +66,13 @@ from ..quant.packing import PackedWeight, dequantize_packed, unpack_codes
 from ..quant.quantizer import _scale_zp, fake_quant_act
 from . import _build
 
-# groups a multiple of 64 rows: a run of K1's decode tile (up to 64 rows)
-# and the K steps of the other tiles must lie inside one group
+# groups a multiple of 64 rows for K1 on pairs words, K7 and K9: a run of
+# K1's pairs decode tile (up to 64 rows) and the K steps of K7 and K9 (64
+# rows) must lie inside one group
 _CUDA_GROUP_MULTIPLE = 64
+# K1 on planar words: a decode run (16 or 32 rows) and a prefill K step (32
+# rows) must lie inside one group
+_K1_PLANAR_GROUP_MULTIPLE = 32
 # K1's decode tile: 128 columns per CTA, split-K to about this many CTAs on
 # each SM, and at most this many quant groups per slice (their scales and
 # zeros sit in shared memory beside a 2-stage ring of ~34 KB stages, and
@@ -112,9 +122,11 @@ def decode_plan(m: int, n: int, k_pad: int, tile_k: int,
                 group_rows: int, sm_count: int) -> DecodePlan:
     """The split-K plan of K1 for m rows: enough slices to put about
     ``_K1_CTAS_PER_SM`` CTAs of 128 columns on each SM, on pack-tile
-    boundaries, with at most ``_K1_SLICE_GROUPS`` quant groups per slice
-    (the slice's scales sit in shared memory). One slice for the prefill
-    tile (m > 32)."""
+    boundaries, with at most ``_K1_SLICE_GROUPS`` quant groups per slice, or
+    one pack tile where a tile holds more (planar g32: 16 groups of a
+    512-row tile); the slice's scales sit in shared memory. Either layout:
+    ``group_rows`` is the group size, or k_pad for per-channel scales. One
+    slice for the prefill tile (m > 32)."""
     n_tiles = k_pad // tile_k
     if m > 32:
         return DecodePlan(1, n_tiles, n_tiles, None)
@@ -127,29 +139,67 @@ def decode_plan(m: int, n: int, k_pad: int, tile_k: int,
                       (splits, m, n) if splits > 1 else None)
 
 
-def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
-    """Launch the CUDA kernel on x2 (m, K) bf16; no bias. At m <= 32 the
-    decode tile splits K per ``decode_plan`` and adds the slices' f32
-    partial sums in slice order."""
-    if pw.layout != "pairs" or pw.bits not in (2, 3, 4):
-        raise NotImplementedError(
-            f"the CUDA quant_matmul takes the pairs layout at 2/3/4 bits; "
-            f"got {pw.layout} at {pw.bits} bits")
-    if x2.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA quant_matmul takes bf16 x, not {x2.dtype}")
-    if pw.group_size and pw.group_size % _CUDA_GROUP_MULTIPLE:
-        raise NotImplementedError(
-            f"group_size {pw.group_size} is not a multiple of "
-            f"{_CUDA_GROUP_MULTIPLE}")
-    fields = 5 if pw.bits == 3 else 16 // pw.bits  # codes per half word
-    if (pw.tile_k // (2 * fields)) % 8:
-        raise NotImplementedError(
-            f"pack tile of {pw.tile_k} rows is not a multiple of 8 words per "
-            "column (pack_tile makes only such tiles)")
+def _planar_geometry(bits: int, tile_k: int) -> tuple:
+    """(low-plane words per tile and column, words per decode-tile step
+    block, low blocks per step) of K1's planar tiles: two blocks P/2 apart
+    for the two-plane widths (3 and 6 bits), whose high words both share."""
+    lo = {3: 2, 6: 4}.get(bits, bits)
+    return (tile_k * lo // 32, 32 if bits in (4, 8) else 16,
+            2 if bits in (3, 6) else 1)
+
+
+def _planar_decode(pw: PackedWeight) -> bool:
+    """Whether K1's decode tile takes this planar weight at m <= 32: its
+    low blocks hold whole steps (else the prefill tile serves every m)."""
+    P, ws, nsel = _planar_geometry(pw.bits, pw.tile_k)
+    return (P // nsel) % ws == 0
+
+
+def _check_k1_weight(pw: PackedWeight) -> None:
+    """What K1 takes, per layout; raises on anything else, before it looks
+    at the card."""
+    gs = pw.group_size
+    if pw.layout == "pairs":
+        if pw.bits not in (2, 3, 4):
+            raise NotImplementedError(
+                f"the CUDA quant_matmul takes the pairs layout at 2/3/4 bits, "
+                f"not {pw.bits}")
+        if gs and gs % _CUDA_GROUP_MULTIPLE:
+            raise NotImplementedError(
+                f"pairs group_size {gs} is not a multiple of "
+                f"{_CUDA_GROUP_MULTIPLE}")
+        fields = 5 if pw.bits == 3 else 16 // pw.bits  # codes per half word
+        if (pw.tile_k // (2 * fields)) % 8:
+            raise NotImplementedError(
+                f"pack tile of {pw.tile_k} rows is not a multiple of 8 words "
+                "per column (pack_tile makes only such tiles)")
+    else:
+        if pw.bits not in (2, 3, 4, 6, 8):
+            raise NotImplementedError(
+                f"the CUDA quant_matmul takes the planar layout at 2/3/4/6/8 "
+                f"bits, not {pw.bits}")
+        if gs and gs % _K1_PLANAR_GROUP_MULTIPLE:
+            raise NotImplementedError(
+                f"planar group_size {gs} is not a multiple of "
+                f"{_K1_PLANAR_GROUP_MULTIPLE}")
+        if pw.tile_k % 32 or _planar_geometry(pw.bits, pw.tile_k)[0] % 8:
+            raise NotImplementedError(
+                f"pack tile of {pw.tile_k} rows is not a multiple of 32 rows "
+                "and 8 low-plane words per column (pack_tile makes only such "
+                "tiles)")
     if not pw.scales.dtype == pw.zeros.dtype == torch.bfloat16:
         raise NotImplementedError(
             "the CUDA quant_matmul takes bf16 scales and zeros (a bf16 engine "
             f"rounds them so); got {pw.scales.dtype} and {pw.zeros.dtype}")
+
+
+def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+    """Launch the CUDA kernel on x2 (m, K) bf16; no bias. At m <= 32 the
+    decode tile splits K per ``decode_plan`` and adds the slices' f32
+    partial sums in slice order."""
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA quant_matmul takes bf16 x, not {x2.dtype}")
+    _check_k1_weight(pw)
     qweight = pw.qweight
     if not (qweight.is_cuda and qweight.dtype == torch.int32
             and qweight.is_contiguous() and qweight.data_ptr() % 16 == 0):
@@ -164,19 +214,28 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
         raise ValueError("x, qweight and scales disagree on the geometry")
     scales, zeros = pw.scales.contiguous(), pw.zeros.contiguous()
     group_rows = pw.group_size or k_pad
-    plan = decode_plan(m, N, k_pad, pw.tile_k, group_rows,
-                       _sm_count(x2.device))
+    planar = pw.layout == "planar"
+    if m <= 32 and (not planar or _planar_decode(pw)):
+        plan = decode_plan(m, N, k_pad, pw.tile_k, group_rows,
+                           _sm_count(x2.device))
+    else:  # the prefill tile, unsplit
+        plan = DecodePlan(1, k_pad // pw.tile_k, k_pad // pw.tile_k, None)
     y = torch.empty((m, N), dtype=x2.dtype, device=x2.device)
     part = (None if plan.workspace is None else
             torch.empty(plan.workspace, dtype=torch.float32, device=x2.device))
     x_vec = int(K % 8 == 0 and x2.data_ptr() % 16 == 0)
     _build.launch(
-        "quant_matmul", "qmm_pairs_bf16", "ppppppiiiiiiiiiii",
+        "quant_matmul", "qmm_planar_bf16" if planar else "qmm_pairs_bf16",
+        "ppppppiiiiiiiiiii",
         x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
         zeros.data_ptr(), None if part is None else part.data_ptr(),
         y.data_ptr(), m, K, N, k_pad, G, group_rows, pw.tile_k, pw.bits,
         x_vec, plan.splits, plan.per)
     quant_matmul.launches += 1
+    if planar and m <= 32:
+        quant_matmul.launches_planar_decode += 1
+    elif planar:
+        quant_matmul.launches_planar_prefill += 1
     return y
 
 
@@ -205,6 +264,8 @@ def quant_matmul(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
 
 
 quant_matmul.launches = 0
+quant_matmul.launches_planar_decode = 0
+quant_matmul.launches_planar_prefill = 0
 
 
 # ---------------------------------------------------------------------------
@@ -446,11 +507,6 @@ def quant_matmul_int(x: torch.Tensor, pw: PackedWeight,
     if route == "dense":
         return _quant_matmul_int_dense(x, pw, act_cfg)
     if route == "fake_quant":
-        if x.is_cuda and pw.layout != "pairs":
-            raise NotImplementedError(
-                "this call takes fake-quantized activations into the packed "
-                "matmul, whose CUDA kernel takes only the pairs layout; got "
-                f"a {pw.layout} weight")
         return quant_matmul(fake_quant_act(x, act_cfg), pw)
     n = pw.qweight.shape[1]
     xc, xs = quantize_act_int(x.reshape(m, x.shape[-1]), act_cfg)

@@ -18,8 +18,9 @@ import torch
 
 from .flash_attention import flash_attention_plain
 
-# quant_matmul: both versions sum exact bf16 x code products in f32 and only
-# the order differs (per-group scales applied after the group's sum, or
+# quant_matmul, on pairs and on planar words alike: both versions sum exact
+# bf16 x code products in f32 (every code up to 255 is exact in bf16) and
+# only the order differs (per-group scales applied after each run's sum, or
 # dequantized weights), ~1e-6 at outputs of order 1; this floor covers the
 # elements whose own rounding step is smaller than that.
 QUANT_MATMUL_SLACK = 2.0 ** -10

@@ -481,3 +481,39 @@ def test_int_verify_logits_match_jax(request, monkeypatch, scheme):
         got = rows[1][s]
         assert got.dtype == np.float32 and got.shape == (3, CFG["vocab_size"])
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# a planar weight-only model: W2A16 g64 (pack_model's auto layout is planar
+# for groups below 128 rows)
+
+
+def test_w2a16g64_planar_engine_matches_jax():
+    """The same dense model packed W2 g64 by each package's pack_model
+    (planar in both, the same words): greedy streams of generate equal
+    JAX's, and a batched prefill's logits its forward's (rtol 1e-4)."""
+    dense = numpy_llama(seed=5)
+    jp = j_pack_model(J_LLAMA, _to_jax(dense), JQuantConfig(n_bits=2,
+                                                            group_size=64))
+    tree = jax.tree.map(lambda a: None if a is None else torch.from_numpy(a),
+                        dense, is_leaf=lambda a: a is None)
+    tp = t_pack_model(T_LLAMA, tree, TQuantConfig(n_bits=2, group_size=64),
+                      device="cpu")
+    for jl, tl in zip(jp["layers"], tp["layers"]):
+        for name in tllama.LINEAR_NAMES:
+            assert jl[name].layout == tl[name].layout == "planar"
+            np.testing.assert_array_equal(np.asarray(jl[name].qweight),
+                                          tl[name].qweight.numpy())
+    packed_w2 = (jp, tp)
+    je, te = engines(packed_w2, max_batch=2, max_len=64)
+    prompt = [(31 * i + 5) % 256 for i in range(12)]
+    assert te.generate(prompt, max_new_tokens=8) == je.generate(
+        prompt, max_new_tokens=8)
+    je, te = engines(packed_w2, max_batch=2, max_len=64)
+    prompts = [[5, 6, 7, 8, 9], [10, 20, 30]]
+    _, t_logits = te.add_requests(prompts, return_logits=True)
+    ref = [np.asarray(jllama.forward(je.params, jnp.asarray([p], jnp.int32),
+                                     jllama.LlamaConfig(**CFG))[0, -1])
+           for p in prompts]
+    np.testing.assert_allclose(t_logits.numpy(), np.stack(ref), rtol=1e-4,
+                               atol=1e-5)

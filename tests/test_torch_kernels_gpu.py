@@ -29,6 +29,7 @@ from omniquant_tpu_torch.kernels.quant_matmul import (
 from omniquant_tpu_torch.models import LLAMA, llama
 from omniquant_tpu_torch.models.common import ActQuantSpec
 from omniquant_tpu_torch.quant import QuantConfig, pack_weight
+from omniquant_tpu_torch.quant.quantizer import fake_quant_act
 from omniquant_tpu_torch.serving import LlamaEngine, pack_model
 
 pytestmark = pytest.mark.gpu
@@ -103,19 +104,96 @@ def test_quant_matmul_decode_is_bitwise_repeatable(cuda, m):
 
 
 def test_quant_matmul_kernel_refuses_what_it_does_not_take(cuda):
+    """f32 x and f32 scales raise; a planar weight (bf16 scales) runs the
+    planar kernel and matches the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     w = torch.randn(256, 512, generator=gen, device=cuda)
     planar = pack_weight(w, QuantConfig(n_bits=4, group_size=128),
-                         layout="planar")
-    x = torch.randn(4, 512, device=cuda).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        quant_matmul(x, planar)
+                         layout="planar").map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    x = torch.randn(4, 512, generator=gen, device=cuda).to(torch.bfloat16)
+    before = quant_matmul.launches_planar_decode
+    got = quant_matmul(x, planar)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches_planar_decode == before + 1
+    ok, err, worst = tolerance.bf16_close(
+        got, quant_matmul_reference(x, planar), tolerance.QUANT_MATMUL_SLACK)
+    assert ok, (err, worst)
     pairs = pack_weight(w, QuantConfig(n_bits=4, group_size=128),
                         layout="pairs")
     with pytest.raises(ValueError):
         quant_matmul(x.float(), pairs)
     with pytest.raises(NotImplementedError):  # f32 scales: a bf16 engine
         quant_matmul(x, pairs)                # serves bf16 ones
+
+
+def _planar(cuda, bits, group_size, out_f, in_f, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn(out_f, in_f, generator=gen, device=cuda) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout="planar")
+    return pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+
+
+def _planar_case(cuda, bits, group_size, in_f, out_f, m):
+    """One planar K1 call against the plain version: its launch counted
+    under its tile, and at m <= 32 a second call gives the same bits."""
+    pw = _planar(cuda, bits, group_size, out_f, in_f, seed=bits * 100 + m)
+    assert pw.layout == "planar"
+    gen = torch.Generator(device=cuda).manual_seed(in_f + m)
+    x = torch.randn(m, in_f, generator=gen, device=cuda).to(torch.bfloat16)
+    counts = (quant_matmul.launches_planar_decode,
+              quant_matmul.launches_planar_prefill)
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert (quant_matmul.launches_planar_decode - counts[0],
+            quant_matmul.launches_planar_prefill - counts[1]) == (
+        (1, 0) if m <= 32 else (0, 1))
+    assert got.dtype == torch.bfloat16 and got.shape == (m, out_f)
+    want = quant_matmul_reference(x, pw)
+    ok, err, worst = tolerance.bf16_close(got, want,
+                                          tolerance.QUANT_MATMUL_SLACK)
+    assert ok, (err, worst)
+    if m <= 32:
+        again = quant_matmul(x, pw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m", [1, 7, 8, 16, 32, 33, 300])
+@pytest.mark.parametrize("group_size", [32, 64, 128, None])
+@pytest.mark.parametrize("bits", [2, 3, 4, 6, 8])
+def test_quant_matmul_planar_kernel(cuda, bits, group_size, m):
+    """Planar K1 at in_features 640 (k_pad 1024: x is zero past 640, the
+    groups past in_features reuse the last group's scales)."""
+    _planar_case(cuda, bits, group_size, 640, 384, m)
+
+
+@pytest.mark.parametrize("m", [8, 32, 33])
+@pytest.mark.parametrize("bits,group_size", [
+    (2, 32), (2, 64), (3, 64), (4, 32), (6, 128), (8, None), (3, None)])
+def test_quant_matmul_planar_kernel_split_k(cuda, bits, group_size, m):
+    """K = 11008 (k_pad 11264, 22 tiles of 512 rows) across several split-K
+    slices at m <= 32; at g32 a tile holds 16 groups, more than
+    _K1_SLICE_GROUPS, and the slice's scale block still fits."""
+    pw = _planar(cuda, bits, group_size, 1024, 11008, seed=1)
+    if m <= 32:
+        plan = qmm.decode_plan(m, 1024, pw.k_pad, pw.tile_k,
+                               group_size or pw.k_pad, qmm._sm_count(cuda))
+        assert plan.splits > 1
+    _planar_case(cuda, bits, group_size, 11008, 1024, m)
+
+
+@pytest.mark.parametrize("m", [1, 32, 33])
+@pytest.mark.parametrize("bits,in_f", [(3, 256), (2, 128), (8, 32)])
+def test_quant_matmul_planar_small_tile(cuda, bits, in_f, m):
+    """A planar tile too small for a decode step (in_features 256 at 3
+    bits, 128 at 2, 32 at 8) runs on the prefill tile at every m; its launch
+    counts under its m all the same."""
+    pw = _planar(cuda, bits, None, 256, in_f, seed=m)
+    assert not qmm._planar_decode(pw)
+    _planar_case(cuda, bits, None, in_f, 256, m)
 
 
 @pytest.mark.parametrize("B,H,Hkv,S,D,causal,alibi", [
@@ -311,6 +389,40 @@ def test_int8_decode_does_not_synchronize(cuda):
     torch.cuda.synchronize()
 
 
+def test_planar_engine_on_the_card_matches_plain_versions(cuda):
+    """A tiny W2A16 g64 bf16 engine (pack_model's auto layout: planar) on
+    the card (planar K1 at m <= 32 and m > 32) against the same engine on
+    the CPU (every plain version): prefill logits within 3e-2 rms, and the
+    greedy tokens of a batched prefill and step_n(., 4) equal."""
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=2,
+                            num_attention_heads=2, num_key_value_heads=2)
+    dense = llama.init_params(torch.Generator().manual_seed(6), cfg,
+                              device="cpu")
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=2, group_size=64),
+                        device="cpu")
+    assert packed["layers"][0]["q_proj"].layout == "planar"
+    reqs = [[(7 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12))]
+    logits, tokens = [], []
+    for dev in ("cpu", "cuda"):
+        eng = LlamaEngine(packed, cfg, max_batch=4, max_len=128,
+                          dtype=torch.bfloat16, device=dev)
+        counts = (quant_matmul.launches_planar_decode,
+                  quant_matmul.launches_planar_prefill)
+        slots, lg = eng.add_requests(reqs, return_logits=True)
+        logits.append(lg.float().cpu())
+        first = [eng._pending_next[s] for s in slots]
+        out = eng.step_n(dict(zip(slots, first)), 4)
+        tokens.append(first + [t for s in slots for t in out[s]])
+        if dev == "cuda":
+            assert quant_matmul.launches_planar_decode > counts[0]
+            assert quant_matmul.launches_planar_prefill > counts[1]
+    d = logits[1] - logits[0]
+    assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 3e-2
+    assert tokens[1] == tokens[0]
+
+
 def test_engine_on_the_card_matches_plain_versions(cuda):
     """A tiny bf16 engine on the card (every kernel) against the same engine
     on the CPU (every plain version): prefill logits, dense and flash."""
@@ -424,20 +536,26 @@ def test_quant_matmul_int_dense_kernel(cuda, bits, group_size, layout, m):
 
 def test_ineligible_int_calls_raise_on_the_card(cuda):
     """A planar weight whose call cannot take the integer kernels (8-bit or
-    grouped activation quantizers, N % 128 != 0) would need K1 on the
-    planar layout, which the card does not have: it raises, never runs a
-    plain version. So do K7 and K9 on groups of 32 rows: like K1 they take
-    groups of a multiple of 64."""
+    grouped activation quantizers, N % 128 != 0) takes fake-quantized
+    activations into planar K1 (or, at odd N, the dense reference, as in
+    JAX) and matches that plain path. K7 and K9 on groups of 32 rows raise:
+    they take groups of a multiple of 64."""
     x = torch.randn(4, 256, device=cuda).to(torch.bfloat16)
     pw = _int_packed(cuda, 4, 128, 256, 256, "planar", seed=0)
     odd = _int_packed(cuda, 4, 128, 192, 256, "planar", seed=1)
     g32 = _int_packed(cuda, 6, 32, 256, 256, "planar", seed=2)
     for w, cfg in ((pw, QuantConfig(n_bits=8)),
                    (pw, QuantConfig(n_bits=4, group_size=128)),
-                   (odd, QuantConfig(n_bits=4)),
-                   (g32, QuantConfig(n_bits=6))):
-        with pytest.raises(NotImplementedError):
-            qmm.quant_matmul_int(x, w, cfg)
+                   (odd, QuantConfig(n_bits=4))):
+        assert qmm.int_route(4, w, cfg) == "fake_quant"
+        got = qmm.quant_matmul_int(x, w, cfg)
+        want = quant_matmul_reference(fake_quant_act(x, cfg), w)
+        torch.cuda.synchronize()
+        ok, err, worst = tolerance.bf16_close(got, want,
+                                              tolerance.QUANT_MATMUL_SLACK)
+        assert ok, (err, worst)
+    with pytest.raises(NotImplementedError):
+        qmm.quant_matmul_int(x, g32, QuantConfig(n_bits=6))
     with pytest.raises(NotImplementedError):
         qmm._quant_matmul_int_dense(x, g32, QuantConfig(n_bits=6))
 

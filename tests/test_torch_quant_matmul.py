@@ -15,6 +15,9 @@ import torch
 from omniquant_tpu.quant import QuantConfig as JQuantConfig
 from omniquant_tpu.quant import pack_weight as j_pack_weight
 from omniquant_tpu_torch.kernels import quant_matmul as tqm
+from omniquant_tpu_torch.kernels.tolerance import bf16_ulp
+from omniquant_tpu_torch.quant import QuantConfig, pack_weight
+from omniquant_tpu_torch.quant.packing import unpack_codes
 from omniquant_tpu_torch.utils.convert import from_jax_params
 
 # the JAX package's kernels/__init__ re-exports the function under the
@@ -43,6 +46,8 @@ def assert_close(got, want):
 @pytest.mark.parametrize("bits,group_size,layout", [
     (4, 128, "pairs"), (3, 128, "pairs"), (2, None, "pairs"),
     (4, 64, "planar"), (6, 128, "planar"), (8, None, "planar"),
+    (2, 64, "planar"), (3, 64, "planar"), (4, 32, "planar"),
+    (6, 64, "planar"), (8, 128, "planar"),
 ])
 def test_matches_jax_kernel(bits, group_size, layout, m):
     jw, tw = packed_pair(bits, group_size, 256, 640, layout, seed=bits)
@@ -102,6 +107,32 @@ def test_bf16_input_close_to_f32_reference():
         want).max())
 
 
+def test_planar_bf16_input_within_jax_weight_rounding():
+    """bf16 activations on a planar W2 g64 weight. JAX's fine-group branch
+    builds w = c*s + off in bf16 (s and off = -z*s rounded to bf16, the
+    product and the sum rounded again), the port sums exact products in f32
+    from the exact dequantized weight. Each step moves w by at most 2^-9 of
+    its operand, so |w_jax - w| <= (3|c| + 2|z|) |s| 2^-9 (+ higher order)
+    <= 2^-7 (|c| + |z|) |s|, and the outputs differ by at most 2^-7
+    sum_k |x_k| (|c_k| + |z|) |s| plus a rounding step of each (2 bf16 ulps
+    of JAX's output); the f32 order of the sums is far below that."""
+    jw, tw = packed_pair(2, 64, 256, 640, "planar", seed=7)
+    assert jw.layout == tw.layout == "planar"
+    x = np.random.default_rng(8).standard_normal((8, 640)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = tqm.quant_matmul(xb, tw).float().numpy()
+    want = np.asarray(jqm.quant_matmul(
+        jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16), jw,
+        interpret=True).astype(jnp.float32))
+    codes = unpack_codes(tw.qweight, 2, 640, 64, tw.tile_k).numpy()  # (K, N)
+    s = np.repeat(tw.scales.numpy().T, 64, axis=0)[:640]
+    z = np.repeat(tw.zeros.numpy().T, 64, axis=0)[:640]
+    mag = np.abs(xb.float().numpy()) @ ((np.abs(codes) + np.abs(z)) * np.abs(s))
+    bound = 2.0 ** -7 * mag + 2 * bf16_ulp(torch.tensor(want)).numpy()
+    assert np.all(np.abs(got - want) <= bound)
+    assert np.abs(got - want).max() > 0  # JAX's rounding of w shows
+
+
 SEVEN_B = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
            "down": (11008, 4096)}
 
@@ -153,8 +184,6 @@ def test_cuda_wrapper_refuses_a_tile_of_other_than_8_word_multiples():
     """Both CUDA tiles take pack tiles of a multiple of 8 words per column,
     as pack_tile makes them; the wrapper refuses any other before it looks
     for the card."""
-    from omniquant_tpu_torch.quant import QuantConfig, pack_weight
-
     w = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (128, 64)).astype(np.float32))
     pw = pack_weight(w, QuantConfig(n_bits=4, group_size=None),
@@ -164,3 +193,84 @@ def test_cuda_wrapper_refuses_a_tile_of_other_than_8_word_multiples():
     x = torch.zeros(8, 64, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="8 words"):
         tqm._qmm_cuda(x, pw)
+
+
+@pytest.mark.parametrize("group_rows", [32, 64, 11264])
+@pytest.mark.parametrize("m", [8, 32])
+@pytest.mark.parametrize("shape", sorted(SEVEN_B))
+def test_decode_plan_planar_groups(shape, m, group_rows):
+    """The plan for planar weights (512-row tiles at every width): g32 and
+    g64 groups, and per-channel scales (one group over k_pad). A slice holds
+    at most _K1_SLICE_GROUPS groups, or one tile where a tile holds more
+    (g32: 16), so its scale block fits in shared memory (at most 16 groups
+    x 128 columns x 4 bytes = 8 KB)."""
+    K, N = SEVEN_B[shape]
+    k_pad = -(-K // 512) * 512
+    plan = tqm.decode_plan(m, N, k_pad, 512, min(group_rows, k_pad), 132)
+    slices = plan.slices()
+    assert [t for lo, hi in slices for t in range(lo, hi)] == list(
+        range(plan.n_tiles))
+    groups = [-(-(hi - lo) * 512 // min(group_rows, k_pad)) for lo, hi in slices]
+    assert max(groups) <= max(tqm._K1_SLICE_GROUPS, 512 // group_rows)
+    assert max(groups) * 128 * 4 <= 8 * 1024
+    assert plan.workspace == ((plan.splits, m, N) if plan.splits > 1
+                              else None)
+
+
+def _bf16_packed(bits, group_size, in_f, layout, tile_k=None, out_f=128):
+    w = torch.from_numpy(np.random.default_rng(bits).standard_normal(
+        (out_f, in_f)).astype(np.float32))
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout=layout, tile_k=tile_k)
+    return pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+
+
+@pytest.mark.parametrize("bits,group_size,layout", [
+    (2, 32, "planar"), (2, 64, "planar"), (3, 64, "planar"),
+    (4, 32, "planar"), (6, 64, "planar"), (6, 128, "planar"),
+    (8, 128, "planar"), (8, None, "planar"), (3, None, "planar"),
+    (4, 64, "pairs"), (2, 128, "pairs"), (3, None, "pairs")])
+def test_cuda_wrapper_takes_each_layout(bits, group_size, layout):
+    """Every weight K1 takes passes its per-layout checks: on the CPU the
+    wrapper then stops only at the card (a CPU qweight)."""
+    pw = _bf16_packed(bits, group_size, 1024, layout)
+    assert pw.layout == layout
+    x = torch.zeros(4, 1024, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tqm._qmm_cuda(x, pw)
+
+
+@pytest.mark.parametrize("bits,group_size,layout,tile_k,match", [
+    (4, 32, "pairs", None, "multiple of 64"),
+    (4, 16, "planar", None, "multiple of 32"),
+    (8, None, "planar", 16, "8 low-plane words"),
+    (4, 128, "planar", None, "bf16 scales"),
+    (4, 128, "planar", None, "bf16 x")])
+def test_cuda_wrapper_refuses_per_layout(bits, group_size, layout, tile_k,
+                                         match):
+    """What K1 does not take raises with its reason before the wrapper looks
+    for the card: pairs groups below 64 rows, planar groups below 32, a
+    planar tile of fewer than 8 low-plane words per column, f32 scales and
+    f32 x."""
+    pw = _bf16_packed(bits, group_size, 256, layout, tile_k)
+    x = torch.zeros(4, 256, dtype=torch.bfloat16)
+    if match == "bf16 scales":
+        pw = pw.map_tensors(
+            lambda t: t.float() if t.is_floating_point() else t)
+    if match == "bf16 x":
+        x = x.float()
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        tqm._qmm_cuda(x, pw)
+
+
+@pytest.mark.parametrize("bits,in_f,decode", [
+    (2, 4096, True), (3, 4096, True), (4, 4096, True), (6, 11008, True),
+    (8, 4096, True), (2, 256, True), (3, 256, False), (6, 256, True),
+    (2, 128, False), (4, 64, False), (8, 32, False)])
+def test_planar_decode_tile_geometry(bits, in_f, decode):
+    """The decode tile takes a planar weight whose low blocks hold whole
+    steps (every width at the 7B tiles of 512 rows); smaller tiles run on
+    the prefill tile at every m."""
+    pw = _bf16_packed(bits, None, in_f, "planar")
+    assert tqm._planar_decode(pw) == decode
