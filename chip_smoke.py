@@ -18,9 +18,11 @@ prints no result. Any failure raises, so the exit code is non-zero.
               a yardstick (CUDA events, launches queued behind a device
               sleep so no host time falls inside), beside the least time
               the card could take for this run's inputs. K1 runs on pairs
-              words (W4 g128) and on planar words (W2/W3/W4 g64, W6 g128,
+              words (W4 g128: the four decode products at m = 32 and 8,
+              qkv, o and down at the m = 128 verify and the m = 4096 and
+              8192 prefills) and on planar words (W2/W3/W4 g64, W6 g128,
               W8 per-channel: the four decode products at m = 32 and 8;
-              W2 and W4 g64 also at the m = 4096 prefill).
+              W2 and W4 g64 also at m = 128 and 4096).
 3. serve   -- LLaMA-7B widths and depth (vocab 32000, hidden 4096, inter
               11008, 32 layers, 32/32 heads), random weights from a seeded
               torch.Generator, packed by pack_model's auto layout: W4 g128
@@ -138,22 +140,25 @@ KERNELS = {
         "sc_g + |xsum_g off2_g|), as quant_matmul_int"),
 }
 
-# kernels each engine of the serve phase must launch
+# kernels each engine of the serve phase must launch; quant_matmul_prefill
+# is pairs K1's prefill tile (m > 32: A-D's prefill, C's verify), and
+# planar K1 counts by tile: decode (m <= 32) and prefill / verify (m > 32)
 SERVE_PATHS = {
-    "A": ("quant_matmul", "kv_cache_prefill_write", "kv_cache_write"),
-    "B": ("quant_matmul", "flash_attention", "kv_cache_prefill_write",
+    "A": ("quant_matmul", "quant_matmul_prefill", "kv_cache_prefill_write",
           "kv_cache_write"),
-    "C": ("quant_matmul", "kv_cache_prefill_write", "kv_cache_write",
-          "kv_cache_write_span", "decode_attention_int8"),
-    "D": ("quant_matmul", "flash_attention", "kv_cache_prefill_write",
-          "kv_cache_write_span", "decode_attention_int8"),
+    "B": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+          "kv_cache_prefill_write", "kv_cache_write"),
+    "C": ("quant_matmul", "quant_matmul_prefill", "kv_cache_prefill_write",
+          "kv_cache_write", "kv_cache_write_span", "decode_attention_int8"),
+    "D": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+          "kv_cache_prefill_write", "kv_cache_write_span",
+          "decode_attention_int8"),
     "E": ("_unpack_to_int8", "_quant_matmul_int_dense", "quant_matmul",
           "kv_cache_prefill_write", "kv_cache_write"),
     "F": ("_unpack_to_int8", "_quant_matmul_int_dense", "flash_attention",
           "quant_matmul", "kv_cache_prefill_write", "kv_cache_write"),
     "G": ("_unpack_to_int8", "_quant_matmul_int_dense", "quant_matmul_int",
           "kv_cache_prefill_write", "kv_cache_write", "kv_cache_write_span"),
-    # planar K1 by tile: decode (m <= 32) and prefill / verify (m > 32)
     "H": ("quant_matmul_planar_decode", "quant_matmul_planar_prefill",
           "kv_cache_prefill_write", "kv_cache_write"),
 }
@@ -297,7 +302,7 @@ def _seven_b_shapes(dims):
 
 def _k1_row(torch, timer, label, pw, w_lib, x) -> dict:
     """One K1 product (x @ dequant(pw)) held per element to its plain
-    version, at m <= 32 called twice for equal bits; device times of the
+    version, called twice for equal bits; device times of the
     kernel, the plain version and bf16 torch.matmul on the dequantized
     weight, beside the bound for this run's inputs."""
     from omniquant_tpu_torch.kernels import tolerance
@@ -315,11 +320,11 @@ def _k1_row(torch, timer, label, pw, w_lib, x) -> dict:
     if not (ok and torch.isfinite(got.float()).all()):
         raise AssertionError(f"{label}: max abs err {err}, {worst:.3g} x its "
                              "per-element bound")
-    if m <= 32:
-        again = quant_matmul(x, pw)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"{label}: two calls differ")
+    again = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two calls differ")
+    del again
     del got, want
     t = timer(lambda: quant_matmul(x, pw), label)
     t_plain = timer(lambda: quant_matmul_reference(x, pw), label + " plain",
@@ -363,15 +368,27 @@ def _k1_total(rows, all_rows, shape) -> dict:
     return tot
 
 
+def _k1_prefill_sum(rows, m) -> dict:
+    """qkv + o + down at m rows (gate_up is dequantized once there): the
+    prefill tile's share of one decoder layer's prefill."""
+    sel = [r for r in rows if r["m"] == m]
+    tot = _totals(sel, ("ms", "plain_ms", "library_ms", "bound_ms"))
+    tot["m"] = m
+    return tot
+
+
 def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
-    """K1 on pairs words (W4 g128) at the decode (m = 32 and 8) and prefill
-    shapes of the serving path; at decode two calls must give the same bits
-    (the split-K slices are added in a fixed order). The JSON entry sums one
-    decoder layer's four decode products at m = 32; the log also sums the
-    four at m = 8."""
+    """K1 on pairs words (W4 g128) at the decode (m = 32 and 8), verify (m =
+    128) and prefill (m = 4096 and 8192) shapes of the serving path; two
+    calls must give the same bits (the decode tile's split-K slices are
+    added in a fixed order, the prefill tile runs unsplit). The JSON entry
+    sums one decoder layer's four decode products at m = 32, and under
+    ``prefill`` qkv + o + down at m = 4096; the log also sums the four at
+    m = 8."""
     shapes = _seven_b_shapes(dims)
     ms_list = [(32, ("qkv", "o", "gate_up", "down")),
                (8, ("qkv", "o", "gate_up", "down")),
+               (dims["verify_m"], ("qkv", "o", "down")),
                (dims["prefill_m"], ("qkv", "o", "down")),
                (dims["flash_m"], ("qkv", "o", "down"))]
     gen = torch.Generator(device=device).manual_seed(1234)
@@ -397,12 +414,20 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
         f"ms, library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}; "
         f"m=8 kernel {sum(r['ms'] for r in m8):.4f} ms, library "
         f"{sum(r['library_ms'] for r in m8):.4f}")
+    tot["prefill"] = _k1_prefill_sum(rows, dims["prefill_m"])
+    _log_prefill_sum("quant_matmul", tot["prefill"])
     return tot
 
 
+def _log_prefill_sum(label, p) -> None:
+    log(f"  {label} prefill qkv + o + down m={p['m']}: kernel {p['ms']:.4f} "
+        f"ms, plain {p['plain_ms']:.4f}, library {p['library_ms']:.4f}, "
+        f"bound {p['bound_ms']:.4f}")
+
+
 # planar weights of the kernels phase, (bits, group_size) -> whether they
-# also run the prefill rows (qkv, o, down at m = 4096) beside the four
-# decode products at m = 32 and 8
+# also run the verify and prefill rows (qkv, o, down at m = 128 and 4096)
+# beside the four decode products at m = 32 and 8
 PLANAR_K1 = {(2, 64): True, (3, 64): False, (4, 64): True, (6, 128): False,
              (8, None): False}
 
@@ -411,9 +436,10 @@ def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
     """K1 on planar words (pack_model's auto layout for groups below 128
     rows and for 6 and 8 bits): the four 7B decode products at m = 32 and 8
     for W2 g64, W3 g64, W4 g64, W6 g128 and W8 per-channel, and qkv, o and
-    down at the prefill m = 4096 for W2 g64 and W4 g64, each held per element
-    to the plain version (two calls equal at m <= 32). The JSON entry sums
-    the four W2 g64 decode products at m = 32 (engine H's layer)."""
+    down at the verify m = 128 and the prefill m = 4096 for W2 g64 and W4
+    g64, each held per element to the plain version (two calls equal). The
+    JSON entry sums the four W2 g64 decode products at m = 32 (engine H's
+    layer), and under ``prefill`` its qkv + o + down at m = 4096."""
     gen = torch.Generator(device=device).manual_seed(2345)
     rows = []
     for (bits, gs), prefill in PLANAR_K1.items():
@@ -421,7 +447,7 @@ def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
         for name, (K, N) in _seven_b_shapes(dims).items():
             ms = [32, 8]
             if prefill and name != "gate_up":
-                ms.append(dims["prefill_m"])
+                ms += [dims["verify_m"], dims["prefill_m"]]
             pw, w_lib = _k1_weight(torch, device, gen, bits, gs, K, N)
             assert pw.layout == "planar", (bits, gs, pw.layout)
             for m in ms:
@@ -440,10 +466,17 @@ def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
                 f"{sum(r['ms'] for r in sel):.4f} ms, library "
                 f"{sum(r['library_ms'] for r in sel):.4f}, bound "
                 f"{sum(r['bound_ms'] for r in sel):.4f}")
-    return _k1_total(
+    tot = _k1_total(
         [r for r in rows if r["weights"] == "W2 g64" and r["m"] == 32], rows,
         "one decoder layer at decode, m=32, W2 g64 planar: qkv 4096x12288, "
         "o 4096x4096, gate_up 4096x22016, down 11008x4096")
+    tot["prefill"] = _k1_prefill_sum(
+        [r for r in rows if r["weights"] == "W2 g64"], dims["prefill_m"])
+    _log_prefill_sum("quant_matmul W2 g64", tot["prefill"])
+    for tag in ("W4 g64",):
+        _log_prefill_sum(f"quant_matmul {tag}", _k1_prefill_sum(
+            [r for r in rows if r["weights"] == tag], dims["prefill_m"]))
+    return tot
 
 
 def check_flash(torch, device, timer, dims) -> dict:
@@ -1431,7 +1464,7 @@ def main(argv=None) -> int:
                             num_attention_heads=32, num_key_value_heads=32)
     dims = dict(hidden=4096, inter=11008, heads=32, batch=32, prompt_len=128,
                 max_len=512, decode_steps=32, flash_batch=8, flash_len=1024,
-                prefill_m=32 * 128, flash_m=8 * 1024, ring=8)
+                prefill_m=32 * 128, flash_m=8 * 1024, ring=8, verify_m=128)
 
     log("kernels: each against its plain version at the 7B serving shapes")
     timer = Timer(torch, device)
@@ -1482,7 +1515,8 @@ def main(argv=None) -> int:
             launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            tolerance=tol, shape=r["shape"]))
+            tolerance=tol, shape=r["shape"],
+            **({"prefill": r["prefill"]} if "prefill" in r else {})))
     out["kernels"] = entries
     out["total_s"] = time.time() - t_start
     log(f"total {out['total_s']:.1f} s")

@@ -84,12 +84,48 @@
 // 128 at 4, 64 at 8) run on the prefill tile at every m.
 //
 // Prefill tile (m > 32): ~2*m*K*N operations on the bf16 tensor cores bound
-// it. 128 x 128 tiles, K steps of 32 rows, the x tile and the unpacked codes
-// staged in shared memory (padded rows, no bank conflicts on the fragment
-// loads); in the planar layout the staging loop reads the two words of a
-// row pair and forms each code with planar_code. Groups of a multiple of 32
-// rows close at the step where they end. No cp.async/TMA/wgmma pipeline
-// yet.
+// it (qkv at m = 4096: 0.42 ms at the H100's dense bf16 peak). The words are
+// few next to the products (a CTA of 128 x 128 outputs uses each word for
+// 128 x rows), so the tile has to keep the tensor cores fed. What the design
+// does about it:
+//   * Field-major K loop. Field j of a pairs pack tile's W words is the
+//     contiguous row run [j*2W, (j+1)*2W); slot p of a planar tile's P low
+//     words is the run [p*P, (p+1)*P). So walking a tile's fields (slots) in
+//     order walks its rows in order: each step's x columns are contiguous,
+//     and the tile's words serve every field from shared memory.
+//   * Each word read from device memory once per CTA: a pack tile's words
+//     for the CTA's 128 columns (up to PF_WMAX per column) go into shared
+//     memory by 16-byte cp.async and stay for all its fields; two word
+//     stages, the next tile's riding in the cp.async group of the current
+//     tile's first step. Planar word pairs are byte-permuted once, in place,
+//     when their tile starts, so that a k-pair's codes sit in one word.
+//   * x through its own ring of 128 rows x KC columns (16-byte cp.async,
+//     zero past m and past K, as the down projection's padded rows need),
+//     one barrier per step; KC = 128 (2 stages) where the tile allows it,
+//     else 64 (3) or 32 / 16 (4). On the card wider steps were faster and
+//     more stages were not. A fragments by ldmatrix.x4.
+//   * B fragments unpacked in registers from the resident words by a
+//     shift, an and-or and a bf16 subtract (codes_bf16x2; 8-bit codes
+//     through f32). No code tile goes through shared memory: the two warps
+//     of a column band unpack the same codes, which costs issue slots but
+//     saves a store, a barrier and a load.
+//   * 8 warps as 2 x 4, 64 x 32 outputs each, one CTA per SM (128 f32 sums
+//     per thread; 64-row tiles with two CTAs per SM were slower).
+//   * Exact algebra as above: each group's sum closes once, scaled by the
+//     column's s in f32, where its rows end (groups of a multiple of 16
+//     rows; per-channel scales close at each tile's end, which is the same
+//     sum). Where a 128-column step holds whole groups the closes sit at
+//     fixed blocks of the step and the next group's first MMAs start from
+//     zero. xsum comes from the ones-row MMA, one m16 tile per warp (the
+//     four warps of a row band share the band's sums), into shared memory
+//     per group; at the tile's end sum_g xsum_g * off_g is added from there
+//     with the tile's staged scales and zeros ([group][column], loaded once
+//     per tile into registers and stored after the step's MMAs).
+//   * No split-K: two calls give the same bits.
+// On the card the group closes cost the most after the MMAs: the same
+// weight runs slower at g128 than per-channel and slower still at g64.
+// Still on mma.sync m16n8k16; wgmma fed by TMA, with the words and x moved
+// by the copy engine and a warp-specialised producer, is the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,6 +144,18 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a . b, the accumulator not read: the first k16 block of a sum
+__device__ __forceinline__ void mma_16816_first(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
 // (lo16, hi16) code fields of a shifted word -> bf16x2 (c_lo, c_hi), exact:
 // 0x4300 is bf16 128.0, and 128 + c (c < 128) carries c in its mantissa.
 __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t t, uint32_t mask2) {
@@ -115,198 +163,6 @@ __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t t, uint32_t mask2) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
   h = __hsub2(h, __floats2bfloat162_rn(128.f, 128.f));
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float bf16x2_sum(uint32_t v) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
-  return __bfloat162float(h.x) + __bfloat162float(h.y);
-}
-
-// PL_BITS: 0 for the pairs layout (bits at run time), else the planar width
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int PL_BITS>
-__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
-qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int32_t* __restrict__ qw,
-                   const __nv_bfloat16* __restrict__ scales,
-                   const __nv_bfloat16* __restrict__ zeros,
-                   __nv_bfloat16* __restrict__ y,
-                   int m, int K, int N, int k_pad, int G, int gs_rows,
-                   int tile_k, int bits, int x_vec) {
-  constexpr int NTHREADS = WARPS_M * WARPS_N * 32;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int MT = WM / 16, NT = WN / 8;
-  constexpr int XS_LD = BK + 8;  // bf16 per x row in smem
-  constexpr int WS_LD = BN + 8;  // code pairs per row pair in smem
-  static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 16 == 0, "tile shape");
-  __shared__ __align__(16) __nv_bfloat16 xs[BM * XS_LD];
-  __shared__ uint32_t ws[(BK / 2) * WS_LD];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  const int vpw = 2 * (16 / bits);
-  const int words_per_tile = tile_k / vpw;
-  const int part_rows = 2 * words_per_tile;  // rows sharing one bit offset
-  const uint32_t mask2 = ((1u << bits) - 1u) * 0x00010001u;
-
-  float acc[MT][NT][4], part[MT][NT][4], xsum[MT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    xsum[i][0] = xsum[i][1] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < k_pad; k0 += BK) {
-    // x tile (BM x BK), zero beyond m rows and K columns (the packed rows
-    // past in_features carry code 0 but a non-zero dequant value)
-    for (int i = tid; i < BM * (BK / 8); i += NTHREADS) {
-      const int r = i / (BK / 8), c8 = (i % (BK / 8)) * 8;
-      const int gr = row0 + r, gc = k0 + c8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < m) {
-        const __nv_bfloat16* src = x + (size_t)gr * K + gc;
-        if (x_vec && gc + 8 <= K) {
-          v = *reinterpret_cast<const uint4*>(src);
-        } else {
-          __align__(16) __nv_bfloat16 tmp[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            tmp[e] = (gc + e < K) ? src[e] : __float2bfloat16(0.f);
-          v = *reinterpret_cast<const uint4*>(tmp);
-        }
-      }
-      *reinterpret_cast<uint4*>(&xs[r * XS_LD + c8]) = v;
-    }
-    // codes of rows k0..k0+BK-1 as bf16 pairs (row k even, row k+1)
-    for (int i = tid; i < (BK / 2) * BN; i += NTHREADS) {
-      const int rp = i / BN, c = i % BN;
-      const int k = k0 + 2 * rp;
-      uint32_t v = 0u;
-      if (k < k_pad) {
-        const int t = k / tile_k, n = k - t * tile_k;
-        if constexpr (PL_BITS == 0) {
-          const int j = n / part_rows, w = (n - j * part_rows) >> 1;
-          const uint32_t word = (uint32_t)__ldg(
-              qw + (size_t)(t * words_per_tile + w) * N + col0 + c);
-          v = codes_bf16x2(word >> (bits * j), mask2);
-        } else {
-          // rows k, k+1: slot p of low words w, w+1 (w even, P even), and
-          // of high words w mod P/2 (+1) at slot 2p + w / (P/2)
-          using PL = Planar<PL_BITS>;
-          const int P = tile_k * PL::LO / 32;
-          const int p = n / P, w = n - p * P;
-          const int32_t* src =
-              qw + (size_t)(t * (tile_k * PL_BITS / 32) + w) * N + col0 + c;
-          uint32_t hi0 = 0u, hi1 = 0u;
-          int sel = 0;
-          if (PL::HI) {
-            const int half_p = P / 2;
-            sel = w / half_p;
-            const int32_t* h = src + (size_t)(P + w % half_p - w) * N;
-            hi0 = (uint32_t)__ldg(h);
-            hi1 = (uint32_t)__ldg(h + N);
-          }
-          const int c0 = planar_code<PL_BITS>((uint32_t)__ldg(src), hi0, p, sel);
-          const int c1 =
-              planar_code<PL_BITS>((uint32_t)__ldg(src + N), hi1, p, sel);
-          __nv_bfloat162 h2 = __floats2bfloat162_rn((float)c0, (float)c1);
-          v = *reinterpret_cast<uint32_t*>(&h2);
-        }
-      }
-      ws[rp * WS_LD + c] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r = wm * WM + mt * 16 + g, c = kk * 16 + t4 * 2;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(&xs[r * XS_LD + c]);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(&xs[(r + 8) * XS_LD + c]);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(&xs[r * XS_LD + c + 8]);
-        a[mt][3] =
-            *reinterpret_cast<const uint32_t*>(&xs[(r + 8) * XS_LD + c + 8]);
-        xsum[mt][0] += bf16x2_sum(a[mt][0]) + bf16x2_sum(a[mt][2]);
-        xsum[mt][1] += bf16x2_sum(a[mt][1]) + bf16x2_sum(a[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int cc = wn * WN + nt * 8 + g;
-        const uint32_t b0 = ws[(kk * 8 + t4) * WS_LD + cc];
-        const uint32_t b1 = ws[(kk * 8 + 4 + t4) * WS_LD + cc];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_16816(part[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-
-    const int k_next = k0 + BK;
-    if (k_next % gs_rows == 0 || k_next >= k_pad) {
-      // end of a quant group: scale its partial products, add the zero term
-      const int grp = min(k0 / gs_rows, G - 1);  // padded rows reuse the last
-      float rs[MT][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = xsum[mt][h];
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          rs[mt][h] = v;
-          xsum[mt][h] = 0.f;
-        }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = col0 + wn * WN + nt * 8 + t4 * 2 + e;
-          const float s = __bfloat162float(scales[(size_t)col * G + grp]);
-          const float off = -__bfloat162float(zeros[(size_t)col * G + grp]) * s;
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            acc[mt][nt][e] += part[mt][nt][e] * s + rs[mt][0] * off;
-            acc[mt][nt][e + 2] += part[mt][nt][e + 2] * s + rs[mt][1] * off;
-            part[mt][nt][e] = part[mt][nt][e + 2] = 0.f;
-          }
-        }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int r = row0 + wm * WM + mt * 16 + g;
-      const int c = col0 + wn * WN + nt * 8 + t4 * 2;
-      if (r < m)
-        *reinterpret_cast<__nv_bfloat162*>(&y[(size_t)r * N + c]) =
-            __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r + 8 < m)
-        *reinterpret_cast<__nv_bfloat162*>(&y[(size_t)(r + 8) * N + c]) =
-            __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-}
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, int PL_BITS = 0>
-void launch(const void* x, const void* qw, const void* scales,
-            const void* zeros, void* y, int m, int K, int N, int k_pad, int G,
-            int gs_rows, int tile_k, int bits, int x_vec, cudaStream_t st) {
-  dim3 grid(N / BN, (m + BM - 1) / BM);
-  qmm_prefill_kernel<BM, BN, BK, WARPS_M, WARPS_N, PL_BITS>
-      <<<grid, WARPS_M * WARPS_N * 32, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const int32_t*>(qw),
-          static_cast<const __nv_bfloat16*>(scales),
-          static_cast<const __nv_bfloat16*>(zeros),
-          static_cast<__nv_bfloat16*>(y), m, K, N, k_pad, G, gs_rows, tile_k,
-          bits, x_vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -342,10 +198,11 @@ __host__ __device__ __forceinline__ int dec_ldx(int fields, int ws) {
   return fields * 2 * ws + 8;
 }
 
-// four 8 x 8 bf16 tiles of x (rows from the lanes' addresses) as B
-// fragments, or two with X2
+// four 8 x 8 bf16 tiles of x (rows from the lanes' addresses) as
+// fragments, or two with X2: the decode tiles' B operand, the prefill
+// tile's A operand
 template <bool X2>
-__device__ __forceinline__ void ldmatrix_b(uint32_t (&r)[4], const void* p) {
+__device__ __forceinline__ void ldmatrix_x(uint32_t (&r)[4], const void* p) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   if (X2)
     asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
@@ -574,7 +431,7 @@ qmm_decode_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int nt = 0; nt < MN; nt += 2) {
           uint32_t r[4];
-          ldmatrix_b<MN == 1>(
+          ldmatrix_x<MN == 1>(
               r, xsm + (nt * 8 + lm_row) * LDX + j * 2 * WS + 16 * kb +
                      8 * lm_half);
           b[nt][0] = r[0];
@@ -689,6 +546,21 @@ struct PlanarStep {
   }
 };
 
+// A k-pair of planar codes (row k's in the low 16 bits) as a bf16x2
+// fragment register, exact.
+template <int BITS>
+__device__ __forceinline__ uint32_t planar_bf16x2(uint32_t c) {
+  if constexpr (BITS == 8) {
+    // 2^23 + c is exact in f32; bf16 holds every integer up to 256
+    const float f0 = __uint_as_float(0x4b000000u | (c & 0xffffu)) - 8388608.f;
+    const float f1 = __uint_as_float(0x4b000000u | (c >> 16)) - 8388608.f;
+    __nv_bfloat162 h = __floats2bfloat162_rn(f0, f1);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    return codes_bf16x2(c, 0x007f007fu);  // c < 64
+  }
+}
+
 // Slot p of a k-pair as a bf16x2 fragment register, exact. lo[0] holds the
 // low 16-bit halves of the pair's two low-plane words side by side (row k
 // in the low lane, row k + 1 in the high lane), lo[1] their high halves;
@@ -710,15 +582,7 @@ __device__ __forceinline__ uint32_t planar_pair(const uint32_t (&lo)[2],
           MHI)
          << PL::LO;
   }
-  if constexpr (BITS == 8) {
-    // 2^23 + c is exact in f32; bf16 holds every integer up to 256
-    const float f0 = __uint_as_float(0x4b000000u | (c & 0xffffu)) - 8388608.f;
-    const float f1 = __uint_as_float(0x4b000000u | (c >> 16)) - 8388608.f;
-    __nv_bfloat162 h = __floats2bfloat162_rn(f0, f1);
-    return *reinterpret_cast<uint32_t*>(&h);
-  } else {
-    return codes_bf16x2(c, 0x007f007fu);  // c < 64
-  }
+  return planar_bf16x2<BITS>(c);
 }
 
 template <int BITS, int MN>
@@ -857,7 +721,7 @@ qmm_planar_decode_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int nt = 0; nt < MN; nt += 2) {
           uint32_t r[4];
-          ldmatrix_b<MN == 1>(r, xsm + (nt * 8 + lm_row) * LDX + run * WS +
+          ldmatrix_x<MN == 1>(r, xsm + (nt * 8 + lm_row) * LDX + run * WS +
                                      16 * kb + 8 * lm_half);
           bf[nt][0] = r[0];
           bf[nt][1] = r[1];
@@ -935,6 +799,460 @@ int launch_planar_decode(const void* x, const void* qw, const void* scales,
                     static_cast<__nv_bfloat16*>(y), m, N, splits, st);
 }
 
+// ---------------------------------------------------------------------------
+// Prefill tile (m > 32, and planar tiles too small for a decode step at
+// every m): see the note at the top of the file.
+constexpr int PF_BN = 128;       // output columns per CTA
+constexpr int PF_MT = 4;         // m16 tiles per warp
+constexpr int PF_BM = 32 * PF_MT;  // x rows per CTA
+constexpr int PF_THREADS = 256;  // 8 warps as 2 x 4, 64 x 32 outputs each
+constexpr int PF_WMAX = 128;     // words per pack tile and column
+constexpr int PF_GMAX = 16;      // quant groups per pack tile
+constexpr int PF_SZ_PER_THREAD = PF_GMAX * PF_BN / PF_THREADS;
+constexpr int PF_SMEM_MAX = 232448;  // shared memory a block can have
+
+// A step of KC x columns (pf_step picks KC): the x ring's stages (2 of 128
+// columns, 3 of 64, else 4: on the card more stages did not help once a
+// step holds 64 columns) and their row pitch
+__host__ __device__ constexpr int pf_stages(int kc) {
+  return kc == 128 ? 2 : (kc == 64 ? 3 : 4);
+}
+__host__ __device__ constexpr int pf_xld(int kc) {
+  return kc + 8;  // bf16 per staged x row: the ldmatrix rows hit distinct
+                  // banks
+}
+
+// words per staged row: the B reads of 4 (pairs: rows t4) or 8 (planar:
+// rows 2*t4, 2*t4 + 1) word rows x 8 columns hit 32 distinct banks
+__host__ __device__ constexpr int pf_ldw(int planar) {
+  return planar ? PF_BN + 4 : PF_BN + 8;
+}
+
+// word rows per pack tile and column
+__host__ __device__ __forceinline__ int pf_words(int T, int bits,
+                                                 int planar) {
+  return planar ? T * bits / 32 : T / (2 * pairs_fields(bits));
+}
+
+// the dynamic shared memory of a step width: the x ring, two tiles' words,
+// two tiles' (scale, zero) pairs and the tile's xsum per group and row
+__host__ __device__ __forceinline__ int pf_smem(int kc, int wpt, int planar,
+                                                int ngt) {
+  return pf_stages(kc) * PF_BM * pf_xld(kc) * 2 + 2 * wpt * pf_ldw(planar) * 4 +
+         2 * ngt * PF_BN * 4 + ngt * PF_BM * 4;
+}
+
+// KG: k16 blocks per group where a group fits in a 128-column step (it
+// closes at a fixed block of the step, and the next group's first block
+// starts its sums afresh), 0 where a group spans whole steps (it closes
+// with the step where its rows end)
+template <int PL_BITS, int KC, int KG>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
+                   const int32_t* __restrict__ qw,
+                   const __nv_bfloat16* __restrict__ scales,
+                   const __nv_bfloat16* __restrict__ zeros,
+                   __nv_bfloat16* __restrict__ y, int m, int K, int N, int G,
+                   int gs_rows, int T, int bits, int n_tiles, int x_vec) {
+  constexpr int LDW = pf_ldw(PL_BITS), MT = PF_MT, BM = PF_BM;
+  constexpr int STAGES = pf_stages(KC), XLD = pf_xld(KC);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int WPT = pf_words(T, bits, PL_BITS);
+  // rows of one run: a pairs field (2 * WPT rows) or a planar slot (P)
+  const int PR = PL_BITS ? T * Planar<PL_BITS>::LO / 32 : 2 * WPT;
+  const int spt = T / KC;  // steps per pack tile
+  const int n_steps = n_tiles * spt;
+  const int gse = min(gs_rows, T);  // rows of a group inside a tile
+  const int ngt = T / gse;          // groups per tile
+  __nv_bfloat16* xr = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint32_t* wb =
+      reinterpret_cast<uint32_t*>(smem + STAGES * BM * XLD * 2);
+  uint32_t* sz = wb + 2 * WPT * LDW;  // [tile & 1][group][column]
+  float* xsg = reinterpret_cast<float*>(sz + 2 * ngt * PF_BN);  // [group][row]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * PF_BN;
+  const int cw = wn * 32;
+  const uint32_t mask2 = ((1u << bits) - 1u) * 0x00010001u;
+
+  // a tile's words: 16-byte cp.async, neighbouring threads on neighbouring
+  // columns
+  auto load_words = [&](int t) {
+    uint32_t* dst = wb + (t & 1) * WPT * LDW;
+    const int32_t* src = qw + (size_t)t * WPT * N + col0;
+    for (int i = tid; i < WPT * (PF_BN / 4); i += PF_THREADS) {
+      const int w = i >> 5, c4 = (i & 31) * 4;
+      cp_async16(dst + w * LDW + c4, src + (size_t)w * N + c4, 16);
+    }
+  };
+  // a step's x columns (KC consecutive rows of the weight; the steps of a
+  // tile are consecutive, so step s starts at row s * KC), zero at rows >=
+  // m and columns >= K (the packed rows past in_features carry code 0 but
+  // enter xsum)
+  auto load_x = [&](int step) {
+    const int k0 = step * KC;
+    __nv_bfloat16* dst = xr + (step % STAGES) * BM * XLD;
+    constexpr int PIECES = KC / 8;  // 16-byte pieces per row
+#pragma unroll
+    for (int i0 = 0; i0 < BM * PIECES; i0 += PF_THREADS) {
+      const int i = i0 + tid;
+      if (BM * PIECES < PF_THREADS && i >= BM * PIECES) break;
+      const int r = i / PIECES, c8 = (i % PIECES) * 8;
+      const int gr = row0 + r, gc = k0 + c8;
+      __nv_bfloat16* d = dst + r * XLD + c8;
+      if (x_vec) {
+        const bool in = gr < m && gc < K;
+        cp_async16(d, in ? x + (size_t)gr * K + gc : x, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          d[e] = (gr < m && gc + e < K) ? x[(size_t)gr * K + gc + e]
+                                        : __float2bfloat16(0.f);
+      }
+    }
+  };
+  // a tile's (scale, zero) bf16 pairs, [group][column], into registers (the
+  // groups of the layout padding, past G, reuse the last group's), and from
+  // there into shared memory once the step's products are issued; element
+  // i is group i % ngt of column i / ngt, so that neighbouring threads read
+  // a column's groups, which lie side by side
+  auto ldg_scales = [&](int t, uint32_t (&v)[PF_SZ_PER_THREAD]) {
+    const int gt = t * T / gs_rows;  // the tile's first group (0 per-channel)
+#pragma unroll
+    for (int u = 0; u < PF_SZ_PER_THREAD; ++u) {
+      const int i = u * PF_THREADS + tid;
+      if (i < ngt * PF_BN) {
+        const int c = i / ngt;
+        const size_t src =
+            (size_t)(col0 + c) * G + min(gt + i - c * ngt, G - 1);
+        __nv_bfloat162 p;
+        p.x = scales[src];
+        p.y = zeros[src];
+        v[u] = *reinterpret_cast<uint32_t*>(&p);
+      }
+    }
+  };
+  auto st_scales = [&](int t, const uint32_t (&v)[PF_SZ_PER_THREAD]) {
+#pragma unroll
+    for (int u = 0; u < PF_SZ_PER_THREAD; ++u) {
+      const int i = u * PF_THREADS + tid;
+      if (i < ngt * PF_BN) {
+        const int c = i / ngt;
+        sz[(t & 1) * ngt * PF_BN + (i - c * ngt) * PF_BN + c] = v[u];
+      }
+    }
+  };
+
+  load_words(0);
+  {
+    uint32_t v[PF_SZ_PER_THREAD];
+    ldg_scales(0, v);
+    st_scales(0, v);
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) load_x(s);
+    cp_async_commit();
+  }
+
+  // acc: the output; part: the open group's sum_k x c; xsr: its sum_k x
+  // over the 16 rows of m16 tile wn of the warp's row band (the band's four
+  // warps share its xsum)
+  float acc[MT][4][4], part[MT][4][4], xsr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
+  constexpr uint32_t ONES = 0x3f803f80u;  // bf16 1.0 pairs
+  const int band = wm * 16 * MT;  // the warp's first x row
+  const int a_row = band + (lane & 15), a_col = (lane >> 4) * 8;
+
+  int gl = 0, rg = 0;  // the open group inside the tile, its rows done
+  // the open group ends: its sums scaled into acc, its xsum kept for the
+  // tile's offsets
+  auto close_group = [&](const uint32_t* szt) {
+    // with KG, the next group's first MMAs overwrite part and xsr
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t v = szt[gl * PF_BN + cw + nt * 8 + 2 * t4 + e];
+        const float s =
+            __bfloat162float(reinterpret_cast<__nv_bfloat162*>(&v)->x);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          acc[mt][nt][e] += part[mt][nt][e] * s;
+          acc[mt][nt][e + 2] += part[mt][nt][e + 2] * s;
+          if (KG == 0) part[mt][nt][e] = part[mt][nt][e + 2] = 0.f;
+        }
+      }
+    if (t4 == 0) {
+      xsg[gl * BM + band + wn * 16 + g] = xsr[0];
+      xsg[gl * BM + band + wn * 16 + g + 8] = xsr[2];
+    }
+    if (KG == 0) xsr[0] = xsr[1] = xsr[2] = xsr[3] = 0.f;
+    rg = 0;
+    ++gl;
+  };
+
+  int t = 0, st = 0;    // tile, step inside it
+  int run = 0, rr = 0;  // the next k16 block: its run, its row in the run
+  for (int step = 0; step < n_steps; ++step) {
+    const bool first = st == 0;
+    // the next tile's words ride in the group of a tile's first step; a
+    // tile of fewer steps than the ring holds waits for them in full
+    if (first && spt < STAGES - 1)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step's stage landed; step - 1's stage is free
+    if (step + STAGES - 1 < n_steps) load_x(step + STAGES - 1);
+    const bool pre = first && t + 1 < n_tiles;
+    uint32_t sv[PF_SZ_PER_THREAD];
+    if (pre) {
+      load_words(t + 1);  // tile t - 1's stage: free since this barrier
+      ldg_scales(t + 1, sv);
+    }
+    cp_async_commit();
+
+    if constexpr (PL_BITS != 0) {
+      if (first) {
+        // planar: the tile's word pairs (rows 2r, 2r + 1) permuted once in
+        // place, so that row 2r holds their low 16-bit halves side by side
+        // and row 2r + 1 their high halves: a k-pair's codes then sit in one
+        // word, as in the pairs layout
+        uint32_t* wsm = wb + (t & 1) * WPT * LDW;
+        for (int i = tid; i < (WPT / 2) * PF_BN; i += PF_THREADS) {
+          uint32_t* q = wsm + 2 * (i >> 7) * LDW + (i & (PF_BN - 1));
+          const uint32_t wa = q[0], wb2 = q[LDW];
+          q[0] = __byte_perm(wa, wb2, 0x5410);
+          q[LDW] = __byte_perm(wa, wb2, 0x7632);
+        }
+        __syncthreads();
+      }
+    }
+    const __nv_bfloat16* xs = xr + (step % STAGES) * BM * XLD;
+    const uint32_t* ws = wb + (t & 1) * WPT * LDW;
+    const uint32_t* szt = sz + (t & 1) * ngt * PF_BN;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x<false>(a[mt],
+                          xs + (a_row + mt * 16) * XLD + kk * 16 + a_col);
+      {
+        // the band's xsum: this warp's m16 tile of it against a ones row
+        uint32_t ax[4];
+        ldmatrix_x<false>(ax, xs + (a_row + wn * 16) * XLD + kk * 16 + a_col);
+        if (KG > 0 && kk % KG == 0)
+          mma_16816_first(xsr, ax, ONES, ONES);
+        else
+          mma_16816(xsr, ax, ONES, ONES);
+      }
+      // B fragments: register h holds rows 2*t4 (+1) + 8h of the block,
+      // column g of each n8 tile
+      uint32_t b[4][2];
+      if constexpr (PL_BITS == 0) {
+        // field `run`, rows rr..: words rr/2 + t4 (+4), shifted to the field
+        const uint32_t* q = ws + (rr / 2 + t4) * LDW + cw + g;
+        const int sh = bits * run;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          b[nt][0] = codes_bf16x2(q[nt * 8] >> sh, mask2);
+          b[nt][1] = codes_bf16x2(q[4 * LDW + nt * 8] >> sh, mask2);
+        }
+      } else {
+        using PL = Planar<PL_BITS>;
+        constexpr int HS = PL::V / 2;  // low-plane slots per 16-bit half
+        constexpr uint32_t MLO = ((1u << PL::LO) - 1u) * 0x00010001u;
+        // rows rr + 8h .. + 7 lie in one slot (P is a multiple of 8): slot
+        // run, or run + 1 for h = 1 where a slot of 8 or 24 rows ends
+        // inside the block
+        const int wrap = rr + 8 >= PR;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // slot p of the permuted pair w, w + 1 (w even): row w holds slots
+          // below HS, row w + 1 the rest; with two planes, the permuted high
+          // pair of the same rows at slot 2p + sel
+          const int p = run + (h ? wrap : 0);
+          const int w = rr + 8 * h - (h && wrap ? PR : 0) + 2 * t4;
+          const int psh = PL::LO * (p < HS ? p : p - HS);
+          const uint32_t* q = ws + (w + (p >= HS)) * LDW + cw + g;
+          int hsh = 0;
+          const uint32_t* qh = q;
+          if constexpr (PL::HI > 0) {
+            constexpr int HF = 16 / PL::HI;  // high-plane slots per half
+            const int half = PR / 2;
+            const int sel = w >= half;
+            const int f = 2 * p + sel;
+            hsh = PL::HI * (f < HF ? f : f - HF);
+            qh = ws + (PR + w - sel * half + (f >= HF)) * LDW + cw + g;
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            uint32_t c = (q[nt * 8] >> psh) & MLO;
+            if constexpr (PL::HI > 0) {
+              constexpr uint32_t MHI = ((1u << PL::HI) - 1u) * 0x00010001u;
+              c |= ((qh[nt * 8] >> hsh) & MHI) << PL::LO;
+            }
+            b[nt][h] = planar_bf16x2<PL_BITS>(c);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          if (KG > 0 && kk % KG == 0)
+            mma_16816_first(part[mt][nt], a[mt], b[nt][0], b[nt][1]);
+          else
+            mma_16816(part[mt][nt], a[mt], b[nt][0], b[nt][1]);
+      rr += 16;
+      while (rr >= PR) {  // twice only where a planar slot has 8 rows
+        rr -= PR;
+        ++run;
+      }
+      if constexpr (KG > 0)
+        if ((kk + 1) % KG == 0) close_group(szt);
+    }
+    if constexpr (KG == 0) {
+      rg += KC;
+      if (rg == gse) close_group(szt);
+    }
+    if (pre) st_scales(t + 1, sv);  // tile t - 1's stage, last read before
+                                    // the barrier above
+    if (++st == spt) {
+      // the tile ends: sum_g xsum_g off_g over its groups, once every warp
+      // has written its rows' xsum
+      __syncthreads();
+      for (int q = 0; q < ngt; ++q) {
+        float off[4][2], xv[MT][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            uint32_t v = szt[q * PF_BN + cw + nt * 8 + 2 * t4 + e];
+            const __nv_bfloat162 pz = *reinterpret_cast<__nv_bfloat162*>(&v);
+            off[nt][e] = -__bfloat162float(pz.y) * __bfloat162float(pz.x);
+          }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            xv[mt][h] = xsg[q * BM + band + mt * 16 + g + 8 * h];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[mt][nt][e] += xv[mt][e >> 1] * off[nt][e & 1];
+      }
+      st = 0;
+      ++t;
+      run = rr = gl = 0;
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = row0 + band + mt * 16 + g;
+      const int c = col0 + cw + nt * 8 + t4 * 2;
+      if (r < m)
+        *reinterpret_cast<__nv_bfloat162*>(&y[(size_t)r * N + c]) =
+            __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
+      if (r + 8 < m)
+        *reinterpret_cast<__nv_bfloat162*>(&y[(size_t)(r + 8) * N + c]) =
+            __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+// The prefill tile's step width for a weight, 0 where it does not take
+// it: N a multiple of 128, one slice, a pack tile of a multiple of 16 rows
+// and at most PF_WMAX words per column that holds whole groups (at most
+// PF_GMAX, each a multiple of 16 rows) or runs under per-channel scales
+// (gs_rows == k_pad). 128 columns where the tile is a multiple of 128 rows
+// and its groups a multiple or a divisor of 128 rows (32 or 64: they close
+// inside a step), else the widest of 64/32/16 that divides the tile and its
+// groups (they close with a step); the shared memory must fit.
+int pf_step(int N, int k_pad, int gs_rows, int T, int bits, int planar,
+            int splits) {
+  const int wpt = pf_words(T, bits, planar);
+  if (N % PF_BN || T % 16 || k_pad % T || splits != 1 || wpt > PF_WMAX)
+    return 0;
+  const int gse = min(gs_rows, T), ngt = T / gse;
+  if (gs_rows < k_pad && (T % gs_rows || gs_rows % 16 || ngt > PF_GMAX))
+    return 0;
+  for (int kc = 128; kc >= 16; kc /= 2)
+    if (T % kc == 0 &&
+        (gse % kc == 0 || (kc == 128 && 128 % gse == 0 && gse >= 32)) &&
+        pf_smem(kc, wpt, planar, ngt) <= PF_SMEM_MAX)
+      return kc;
+  return 0;
+}
+
+template <int PL_BITS, int KC, int KG>
+int launch_prefill_kc(const void* x, const void* qw, const void* scales,
+                      const void* zeros, void* y, int m, int K, int N,
+                      int k_pad, int G, int gs_rows, int T, int bits,
+                      int x_vec, cudaStream_t st) {
+  const int smem =
+      pf_smem(KC, pf_words(T, bits, PL_BITS), PL_BITS, T / min(gs_rows, T));
+  static int smem_set = 0;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        qmm_prefill_kernel<PL_BITS, KC, KG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(qmm_prefill_kernel<PL_BITS, KC, KG>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dim3 grid(N / PF_BN, (m + PF_BM - 1) / PF_BM);
+  qmm_prefill_kernel<PL_BITS, KC, KG><<<grid, PF_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(qw),
+      static_cast<const __nv_bfloat16*>(scales),
+      static_cast<const __nv_bfloat16*>(zeros),
+      static_cast<__nv_bfloat16*>(y), m, K, N, G, gs_rows, T, bits, k_pad / T,
+      x_vec);
+  return (int)cudaGetLastError();
+}
+
+template <int PL_BITS>
+int launch_prefill(const void* x, const void* qw, const void* scales,
+                   const void* zeros, void* y, int m, int K, int N, int k_pad,
+                   int G, int gs_rows, int T, int bits, int x_vec,
+                   cudaStream_t st) {
+  const int kc = pf_step(N, k_pad, gs_rows, T, bits, PL_BITS != 0, 1);
+  const int gse = min(gs_rows, T);
+  const int kg = kc == 128 && gse <= 128 ? gse / 16 : 0;
+#define PF_CASE(KC, KG)                                                     \
+  if (kc == KC && kg == KG)                                                 \
+    return launch_prefill_kc<PL_BITS, KC, KG>(x, qw, scales, zeros, y, m, K, \
+                                              N, k_pad, G, gs_rows, T, bits, \
+                                              x_vec, st);
+  PF_CASE(128, 0)
+  PF_CASE(128, 8)
+  PF_CASE(128, 2)
+  PF_CASE(128, 4)
+  PF_CASE(64, 0)
+  PF_CASE(32, 0)
+  if constexpr (PL_BITS == 0) {
+    PF_CASE(16, 0)
+  }
+#undef PF_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 // The decode tile at m <= 32 where the tile's low blocks hold whole steps,
 // else the prefill tile (one slice).
 template <int BITS>
@@ -955,9 +1273,8 @@ int planar_entry(const void* x, const void* qw, const void* scales,
 #undef PL_CASE
   }
   if (splits != 1) return (int)cudaErrorInvalidValue;
-  launch<128, 128, 32, 2, 4, BITS>(x, qw, scales, zeros, y, m, K, N, k_pad, G,
-                                   gs_rows, T, BITS, x_vec, st);
-  return (int)cudaGetLastError();
+  return launch_prefill<BITS>(x, qw, scales, zeros, y, m, K, N, k_pad, G,
+                              gs_rows, T, BITS, x_vec, st);
 }
 
 }  // namespace
@@ -966,8 +1283,9 @@ int planar_entry(const void* x, const void* qw, const void* scales,
 // engine serves bf16-rounded scales); gs_rows the group size, or k_pad for
 // per-channel scales (G == 1). For m <= 32 the decode tile splits the K
 // tiles into ``splits`` slices of ``per`` tiles (the last may be shorter);
-// with splits > 1, part is a (splits, m, N) f32 workspace. qweight must be
-// 16-byte aligned.
+// with splits > 1, part is a (splits, m, N) f32 workspace. The prefill tile
+// takes one slice and what pf_step takes (else cudaErrorInvalidValue).
+// qweight must be 16-byte aligned.
 //
 // Pairs layout, bits 2/3/4: groups a multiple of 64 rows (a decode run of up
 // to 64 rows lies inside one group), a pack tile of a multiple of 8 words
@@ -1002,15 +1320,15 @@ extern "C" int qmm_pairs_bf16(const void* x, const void* qw,
 #undef DEC_CASE
     return (int)cudaErrorInvalidValue;
   }
-  launch<128, 128, 32, 2, 4>(x, qw, scales, zeros, y, m, K, N, k_pad, G,
-                             gs_rows, tile_k, bits, x_vec, st);
-  return (int)cudaGetLastError();
+  if (splits != 1) return (int)cudaErrorInvalidValue;
+  return launch_prefill<0>(x, qw, scales, zeros, y, m, K, N, k_pad, G, gs_rows,
+                           tile_k, bits, x_vec, st);
 }
 
 // Planar layout, bits 2/3/4/6/8: groups a multiple of 32 rows (a decode run
-// of up to 32 rows, a prefill K step of 32, lies inside one group), a pack
-// tile of a multiple of 32 rows whose low plane holds a multiple of 8 words
-// per column (pack_tile makes only such tiles).
+// of up to 32 rows lies inside one group), a pack tile of a multiple of 32
+// rows whose low plane holds a multiple of 8 words per column (pack_tile
+// makes only such tiles).
 extern "C" int qmm_planar_bf16(const void* x, const void* qw,
                                const void* scales, const void* zeros,
                                void* part, void* y, int m, int K, int N,

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels (``csrc/``) with their wrappers and plain
 PyTorch versions, one module each. Each wrapper counts its kernel launches
-in its ``launches`` attribute; ``quant_matmul`` also counts its launches on
-planar words, by tile, in ``launches_planar_decode`` (m <= 32) and
-``launches_planar_prefill`` (m > 32)."""
+in its ``launches`` attribute; ``quant_matmul`` also counts its prefill
+tile's launches on pairs words in ``launches_prefill`` (m > 32) and its
+launches on planar words, by tile, in ``launches_planar_decode`` (m <= 32)
+and ``launches_planar_prefill`` (m > 32)."""
 from . import decode_attention, flash_attention, kv_update, quant_matmul
 
 KERNEL_WRAPPERS = {
@@ -19,6 +20,8 @@ KERNEL_WRAPPERS = {
 
 # count name -> (wrapper, attribute)
 _COUNTERS = {name: (f, "launches") for name, f in KERNEL_WRAPPERS.items()}
+_COUNTERS["quant_matmul_prefill"] = (quant_matmul.quant_matmul,
+                                     "launches_prefill")
 _COUNTERS["quant_matmul_planar_decode"] = (quant_matmul.quant_matmul,
                                            "launches_planar_decode")
 _COUNTERS["quant_matmul_planar_prefill"] = (quant_matmul.quant_matmul,
@@ -27,7 +30,8 @@ _COUNTERS["quant_matmul_planar_prefill"] = (quant_matmul.quant_matmul,
 
 def launch_counts() -> dict:
     """{count name: kernel launches since the last reset}: one per wrapper,
-    and quant_matmul's planar launches by tile."""
+    quant_matmul's pairs prefill launches, and its planar launches by
+    tile."""
     return {name: getattr(f, attr) for name, (f, attr) in _COUNTERS.items()}
 
 

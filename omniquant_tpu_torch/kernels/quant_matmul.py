@@ -19,14 +19,16 @@ cp.async ring and splits K on pack-tile boundaries (``decode_plan``: about
 three CTAs of 128 columns on each SM); the slices' f32 partial sums go to a
 (splits, m, N) workspace allocated here and are added in slice order
 (``csrc/splitk_sum.cuh``, shared with K7), so two calls give bitwise equal
-results. At m > 32 the 128 x 128 prefill tile runs unsplit. Pairs tiles must
-hold a multiple of 8 words per column; a planar tile must hold a multiple
-of 8 low-plane words per column (``pack_tile`` makes only such tiles), and
-one whose low blocks are too small for a decode step (``_planar_decode``:
-in_features below 256 rows at 2 and 6 bits, 512 at 3, 128 at 4, 64 at 8)
-runs on the prefill tile at every m. Each launch counts in
-``quant_matmul.launches``; planar ones also in ``launches_planar_decode``
-(m <= 32) or ``launches_planar_prefill`` (m > 32).
+results. At m > 32 the 128 x 128 prefill tile runs unsplit, bound by the
+tensor cores: it keeps a pack tile's words in shared memory and walks the
+tile field by field (``prefill_plan``). Pairs tiles must hold a multiple of
+8 words per column; a planar tile must hold a multiple of 8 low-plane words
+per column (``pack_tile`` makes only such tiles), and one whose low blocks
+are too small for a decode step (``_planar_decode``: in_features below 256
+rows at 2 and 6 bits, 512 at 3, 128 at 4, 64 at 8) runs on the prefill
+tile at every m. Each launch counts in ``quant_matmul.launches``; pairs
+ones at m > 32 also in ``launches_prefill``, planar ones in
+``launches_planar_decode`` (m <= 32) or ``launches_planar_prefill``.
 
 Geometry comes from the tensor shapes (qweight's column count is N), as in
 the JAX package. x's last dim is the logical in_features; rows past it up to
@@ -78,6 +80,11 @@ _K1_PLANAR_GROUP_MULTIPLE = 32
 # zeros sit in shared memory beside a 2-stage ring of ~34 KB stages, and
 # three such CTAs fit on an SM)
 _K1_BN, _K1_CTAS_PER_SM, _K1_SLICE_GROUPS = 128, 3, 8
+# K1's prefill tile (m > 32): at most this many word rows per pack tile and
+# column (two tiles' words sit in shared memory beside the x ring) and quant
+# groups per pack tile (their scales, zeros and xsum sit there too); its
+# shared memory, at most what a block can have
+_K1_PF_WORDS, _K1_PF_GROUPS, _K1_PF_SMEM = 128, 16, 232448
 # column blocks of the JAX kernel, widest first: N's widest divisor among
 # them decides the dequantize-once route at m >= 4096, as it does there
 _BLOCK_N = (2048, 1024, 512, 256, 128)
@@ -139,6 +146,77 @@ def decode_plan(m: int, n: int, k_pad: int, tile_k: int,
                       (splits, m, n) if splits > 1 else None)
 
 
+class PrefillPlan(NamedTuple):
+    """How K1's prefill tile walks a pack tile (``csrc/quant_matmul.cu``,
+    ``pf_step``): steps of ``kc`` x columns (128 where the tile is a
+    multiple of 128 rows, its groups a multiple or a divisor of 128 rows,
+    and its shared memory fits; else the widest of 64, 32 and 16 that
+    divides the tile and its groups), a group closing every ``kg`` k16
+    blocks where a 128-column step holds whole groups (0: a group spans
+    whole steps and closes with the last), ``steps`` per tile through a
+    ring of ``stages``, runs of ``run_rows`` rows that share a bit offset
+    (a pairs field, 2W rows of W words; a planar slot, P rows of P low
+    words), ``words`` word rows per column held in shared memory,
+    ``groups`` quant groups closing inside the tile (1 for per-channel
+    scales, which close at each tile's end), and the ``smem`` bytes the
+    kernel asks for."""
+    kc: int
+    kg: int
+    steps: int
+    stages: int
+    run_rows: int
+    words: int
+    groups: int
+    smem: int
+
+
+def _prefill_smem(kc: int, words: int, planar: bool, groups: int) -> int:
+    """Shared memory of the prefill tile (csrc ``pf_smem``): the x ring of
+    128 rows, two tiles' words, two tiles' (scale, zero) pairs and the
+    tile's xsum per group and row."""
+    stages = {128: 2, 64: 3}.get(kc, 4)
+    return (stages * 128 * (kc + 8) * 2 + 2 * words * (132 if planar else 136)
+            * 4 + 2 * groups * 128 * 4 + groups * 128 * 4)
+
+
+def prefill_plan(layout: str, bits: int, tile_k: int, group_rows: int,
+                 k_pad: int) -> PrefillPlan:
+    """The prefill tile's schedule for a weight, or NotImplementedError
+    for a tile it does not take: more than ``_K1_PF_WORDS`` word rows per
+    column, more than ``_K1_PF_GROUPS`` groups per tile, a tile of other
+    than a multiple of 16 rows or one that splits a group. ``group_rows``
+    is the group size, or k_pad for per-channel scales."""
+    if layout == "pairs":
+        words = tile_k // (2 * (5 if bits == 3 else 16 // bits))
+        run_rows = 2 * words
+    else:
+        words = tile_k * bits // 32
+        run_rows = _planar_geometry(bits, tile_k)[0]
+    per_channel = group_rows >= k_pad
+    groups = 1 if per_channel else tile_k // group_rows
+    if tile_k % 16 or k_pad % tile_k or words > _K1_PF_WORDS or (
+            not per_channel and (tile_k % group_rows or group_rows % 16
+                                 or groups > _K1_PF_GROUPS)):
+        raise NotImplementedError(
+            f"the prefill tile takes pack tiles of a multiple of 16 rows, at "
+            f"most {_K1_PF_WORDS} words per column and {_K1_PF_GROUPS} whole "
+            f"groups; got {tile_k} rows, {words} words, groups of "
+            f"{group_rows} rows")
+    rows = min(group_rows, tile_k)
+    planar = layout == "planar"
+    fits = [c for c in (128, 64, 32, 16) if tile_k % c == 0 and (
+        rows % c == 0 or (c == 128 and 128 % rows == 0 and rows >= 32))
+        and _prefill_smem(c, words, planar, groups) <= _K1_PF_SMEM]
+    if not fits:
+        raise NotImplementedError(
+            f"the prefill tile's shared memory does not hold a pack tile of "
+            f"{tile_k} rows with {words} words per column")
+    kc = fits[0]
+    return PrefillPlan(kc, rows // 16 if kc == 128 and rows <= 128 else 0,
+                       tile_k // kc, {128: 2, 64: 3}.get(kc, 4), run_rows,
+                       words, groups, _prefill_smem(kc, words, planar, groups))
+
+
 def _planar_geometry(bits: int, tile_k: int) -> tuple:
     """(low-plane words per tile and column, words per decode-tile step
     block, low blocks per step) of K1's planar tiles: two blocks P/2 apart
@@ -196,26 +274,30 @@ def _check_k1_weight(pw: PackedWeight) -> None:
 def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     """Launch the CUDA kernel on x2 (m, K) bf16; no bias. At m <= 32 the
     decode tile splits K per ``decode_plan`` and adds the slices' f32
-    partial sums in slice order."""
+    partial sums in slice order; the prefill tile runs unsplit and takes
+    what ``prefill_plan`` takes."""
     if x2.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA quant_matmul takes bf16 x, not {x2.dtype}")
     _check_k1_weight(pw)
+    m, K = x2.shape
+    k_pad = pw.k_pad
+    group_rows = pw.group_size or k_pad
+    planar = pw.layout == "planar"
+    decode = m <= 32 and (not planar or _planar_decode(pw))
+    if not decode:  # raises on a pack tile the prefill tile does not take
+        prefill_plan(pw.layout, pw.bits, pw.tile_k, group_rows, k_pad)
     qweight = pw.qweight
     if not (qweight.is_cuda and qweight.dtype == torch.int32
             and qweight.is_contiguous() and qweight.data_ptr() % 16 == 0):
         raise ValueError("qweight must be a contiguous, 16-byte aligned int32 "
                          "CUDA tensor")
     x2 = x2.contiguous()
-    m, K = x2.shape
-    k_pad = pw.k_pad
     N = qweight.shape[1]
     G = pw.scales.shape[1]
     if K > k_pad or pw.scales.shape[0] != N or pw.zeros.shape != pw.scales.shape:
         raise ValueError("x, qweight and scales disagree on the geometry")
     scales, zeros = pw.scales.contiguous(), pw.zeros.contiguous()
-    group_rows = pw.group_size or k_pad
-    planar = pw.layout == "planar"
-    if m <= 32 and (not planar or _planar_decode(pw)):
+    if decode:
         plan = decode_plan(m, N, k_pad, pw.tile_k, group_rows,
                            _sm_count(x2.device))
     else:  # the prefill tile, unsplit
@@ -236,6 +318,8 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
         quant_matmul.launches_planar_decode += 1
     elif planar:
         quant_matmul.launches_planar_prefill += 1
+    elif m > 32:
+        quant_matmul.launches_prefill += 1
     return y
 
 
@@ -264,6 +348,7 @@ def quant_matmul(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
 
 
 quant_matmul.launches = 0
+quant_matmul.launches_prefill = 0
 quant_matmul.launches_planar_decode = 0
 quant_matmul.launches_planar_prefill = 0
 

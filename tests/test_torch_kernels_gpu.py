@@ -52,29 +52,38 @@ def _packed(cuda, bits, group_size, out_f, in_f, seed, bias=False):
         lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
 
 
-@pytest.mark.parametrize("m", [1, 7, 8, 16, 32, 33, 300])
+@pytest.mark.parametrize("m", [1, 7, 8, 16, 32, 33, 64, 100, 128, 300,
+                               4096])
 @pytest.mark.parametrize("bits,group_size,in_f,out_f", [
     (4, 128, 1024, 384), (4, 128, 640, 384), (3, 128, 1280, 384),
     (2, 128, 1024, 384), (4, None, 1024, 384), (3, None, 640, 384),
     (2, 256, 1024, 384), (4, 64, 1024, 384), (2, 64, 1024, 384),
-    # per-channel with one pack tile of 160 rows (k_pad not a multiple of 64)
-    (3, None, 160, 384),
+    # per-channel with one pack tile of 160 rows (k_pad not a multiple of
+    # 64) and of 80 rows (the prefill tile's 16-column steps)
+    (3, None, 160, 384), (3, None, 80, 256),
     # K not a multiple of the 512-row pack tile, several split-K slices
-    (4, 128, 1408, 1024)])
+    (4, 128, 1408, 1024),
+    # the down projection's K (k_pad 11264 > K: x zero past K)
+    (4, 128, 11008, 256)])
 def test_quant_matmul_kernel(cuda, bits, group_size, in_f, out_f, m):
-    """The kernel's product against the plain one. With a bias (m = 7) both
-    versions round the product to bf16 and then add the bias in bf16; where
-    the bias cancels the product, a one-ulp difference of the product
-    exceeds the bound of the small sum. So the product is held to the bound
-    and the bias add, done outside the kernel, to exact equality."""
+    """The kernel's product against the plain one, on the decode tile (m <=
+    32) and the prefill tile. With a bias (m = 7 and 100) both versions
+    round the product to bf16 and then add the bias in bf16; where the bias
+    cancels the product, a one-ulp difference of the product exceeds the
+    bound of the small sum. So the product is held to the bound and the
+    bias add, done outside the kernel, to exact equality. At m = 4096 the
+    weight is 1024 columns wide: a narrower one is dequantized once and
+    multiplied by torch.matmul, as the JAX package routes it."""
+    out_f = 1024 if m >= 4096 else out_f
     pw = _packed(cuda, bits, group_size, out_f, in_f, seed=bits + m,
-                 bias=m == 7)
+                 bias=m in (7, 100))
     gen = torch.Generator(device=cuda).manual_seed(in_f + m)
     x = torch.randn(m, in_f, generator=gen, device=cuda).to(torch.bfloat16)
-    before = quant_matmul.launches
+    before = quant_matmul.launches, quant_matmul.launches_prefill
     got = quant_matmul(x, pw)
     torch.cuda.synchronize()
-    assert quant_matmul.launches == before + 1
+    assert (quant_matmul.launches, quant_matmul.launches_prefill) == (
+        before[0] + 1, before[1] + (m > 32))
     assert got.dtype == torch.bfloat16 and got.shape == (m, out_f)
     if pw.bias is not None:
         bias = pw.bias
@@ -101,6 +110,68 @@ def test_quant_matmul_decode_is_bitwise_repeatable(cuda, m):
     second = quant_matmul(x, pw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("m", [128, 4096, 8192])
+@pytest.mark.parametrize("layout,bits,group_size", [
+    ("pairs", 4, 128), ("planar", 2, 64)])
+def test_quant_matmul_prefill_is_bitwise_repeatable(cuda, layout, bits,
+                                                    group_size, m):
+    """The prefill tile runs unsplit, so two calls on the same inputs give
+    the same bits, and both are held to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn(1024, 4096, generator=gen, device=cuda) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout=layout).map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    x = torch.randn(m, 4096, generator=gen, device=cuda).to(torch.bfloat16)
+    counts = (quant_matmul.launches_prefill,
+              quant_matmul.launches_planar_prefill)
+    first = quant_matmul(x, pw)
+    second = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert (quant_matmul.launches_prefill - counts[0],
+            quant_matmul.launches_planar_prefill - counts[1]) == (
+        (2, 0) if layout == "pairs" else (0, 2))
+    assert torch.equal(first, second)
+    ok, err, worst = tolerance.bf16_close(
+        first, quant_matmul_reference(x, pw), tolerance.QUANT_MATMUL_SLACK)
+    assert ok, (err, worst)
+
+
+def test_quant_matmul_prefill_narrows_its_step_to_fit(cuda):
+    """Pairs W2 g128 in 2048-row tiles (128 words per column, 16 groups):
+    128-column steps would not fit in shared memory, so the tile takes
+    64-column steps, and matches the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(256, 4096, generator=gen, device=cuda) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=2, group_size=128),
+                     layout="pairs", tile_k=2048).map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    assert qmm.prefill_plan("pairs", 2, 2048, 128, 4096).kc == 64
+    x = torch.randn(300, 4096, generator=gen, device=cuda).to(torch.bfloat16)
+    got = quant_matmul(x, pw)
+    ok, err, worst = tolerance.bf16_close(
+        got, quant_matmul_reference(x, pw), tolerance.QUANT_MATMUL_SLACK)
+    assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("m", [8, 300])
+@pytest.mark.parametrize("layout", ["pairs", "planar"])
+def test_quant_matmul_kernel_k_not_a_multiple_of_8(cuda, layout, m):
+    """in_features 100: x rows are not made of whole 16-byte pieces, so
+    both tiles stage x element by element (zero past K) instead of by
+    cp.async."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    w = torch.randn(256, 100, generator=gen, device=cuda) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=4, group_size=None),
+                     layout=layout).map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    x = torch.randn(m, 100, generator=gen, device=cuda).to(torch.bfloat16)
+    got = quant_matmul(x, pw)
+    ok, err, worst = tolerance.bf16_close(
+        got, quant_matmul_reference(x, pw), tolerance.QUANT_MATMUL_SLACK)
+    assert ok, (err, worst)
 
 
 def test_quant_matmul_kernel_refuses_what_it_does_not_take(cuda):
@@ -161,16 +232,18 @@ def _planar_case(cuda, bits, group_size, in_f, out_f, m):
         assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("m", [1, 7, 8, 16, 32, 33, 300])
+@pytest.mark.parametrize("m", [1, 7, 8, 16, 32, 33, 64, 100, 128, 300,
+                               4096])
 @pytest.mark.parametrize("group_size", [32, 64, 128, None])
 @pytest.mark.parametrize("bits", [2, 3, 4, 6, 8])
 def test_quant_matmul_planar_kernel(cuda, bits, group_size, m):
     """Planar K1 at in_features 640 (k_pad 1024: x is zero past 640, the
-    groups past in_features reuse the last group's scales)."""
-    _planar_case(cuda, bits, group_size, 640, 384, m)
+    groups past in_features reuse the last group's scales); 1024 columns at
+    m = 4096, where a narrower weight is dequantized once."""
+    _planar_case(cuda, bits, group_size, 640, 1024 if m >= 4096 else 384, m)
 
 
-@pytest.mark.parametrize("m", [8, 32, 33])
+@pytest.mark.parametrize("m", [8, 32, 33, 128])
 @pytest.mark.parametrize("bits,group_size", [
     (2, 32), (2, 64), (3, 64), (4, 32), (6, 128), (8, None), (3, None)])
 def test_quant_matmul_planar_kernel_split_k(cuda, bits, group_size, m):
@@ -185,12 +258,12 @@ def test_quant_matmul_planar_kernel_split_k(cuda, bits, group_size, m):
     _planar_case(cuda, bits, group_size, 11008, 1024, m)
 
 
-@pytest.mark.parametrize("m", [1, 32, 33])
-@pytest.mark.parametrize("bits,in_f", [(3, 256), (2, 128), (8, 32)])
+@pytest.mark.parametrize("m", [1, 32, 33, 300])
+@pytest.mark.parametrize("bits,in_f", [(3, 256), (2, 128), (8, 32), (4, 64)])
 def test_quant_matmul_planar_small_tile(cuda, bits, in_f, m):
     """A planar tile too small for a decode step (in_features 256 at 3
-    bits, 128 at 2, 32 at 8) runs on the prefill tile at every m; its launch
-    counts under its m all the same."""
+    bits, 128 at 2, 32 at 8, 64 at 4) runs on the prefill tile at every m;
+    its launch counts under its m all the same."""
     pw = _planar(cuda, bits, None, 256, in_f, seed=m)
     assert not qmm._planar_decode(pw)
     _planar_case(cuda, bits, None, in_f, 256, m)

@@ -274,3 +274,233 @@ def test_planar_decode_tile_geometry(bits, in_f, decode):
     the prefill tile at every m."""
     pw = _bf16_packed(bits, None, in_f, "planar")
     assert tqm._planar_decode(pw) == decode
+
+
+def _codes_bf16x2(v, sh, bits):
+    """The kernel's pairs unpack: a word shifted to a field, both 16-bit
+    halves masked (row k in the low half, row k + 1 in the high half)."""
+    v = (v >> sh) & (((1 << bits) - 1) * 0x00010001)
+    return v & 0xFFFF, v >> 16
+
+
+def _byte_perm(a, b, sel):
+    """__byte_perm for the two selectors the kernel uses: 0x5410 puts the
+    low 16-bit halves of a and b side by side, 0x7632 the high ones."""
+    if sel == 0x5410:
+        return (a & 0xFFFF) | ((b & 0xFFFF) << 16)
+    return (a >> 16) | (b & 0xFFFF0000)
+
+
+def _permute_pairs(ws):
+    """The prefill tile's in-place permute of a planar tile's word pairs
+    (rows 2r, 2r + 1): row 2r takes their low 16-bit halves side by side,
+    row 2r + 1 their high halves."""
+    out = ws.copy()
+    out[0::2] = _byte_perm(ws[0::2], ws[1::2], 0x5410)
+    out[1::2] = _byte_perm(ws[0::2], ws[1::2], 0x7632)
+    return out
+
+
+def _planar_pair(wp, w, hw, p, sel, bits, cols):
+    """The prefill tile's planar unpack of a k-pair from the permuted words
+    wp: slot p of pair w (w even) is in row w (slots below half a word's)
+    or w + 1, shifted and masked; with two planes the high pair at row hw,
+    slot f = 2p + sel, likewise, above the low bits."""
+    lo_bits = {3: 2, 6: 4}.get(bits, bits)
+    hi_bits = bits - lo_bits
+    hs = 32 // lo_bits // 2
+    assert w % 2 == 0 and hw % 2 == 0
+    c = (wp[w + (p >= hs), cols] >> (lo_bits * (p if p < hs else p - hs))) & (
+        ((1 << lo_bits) - 1) * 0x00010001)
+    if hi_bits:
+        hf, f = 16 // hi_bits, 2 * p + sel
+        hi = (wp[hw + (f >= hf), cols] >> (hi_bits * (f if f < hf else f - hf))
+              ) & (((1 << hi_bits) - 1) * 0x00010001)
+        c = c | (hi << lo_bits)
+    return c & 0xFFFF, c >> 16
+
+
+def _emulate_prefill(pw, group_rows):
+    """K1's prefill tile, emulated lane by lane for one CTA's 128 columns:
+    per pack tile the resident words, per step kc x columns, per k16 block
+    the run counters (run, rr) that pick each B register's word rows and
+    bit offset, the group counters (gl, rg) that close groups, and the
+    tile's (scale, zero) group per close. Returns (codes the MMAs see at
+    each row, times each row was fed, closes as (first row, end row, scale
+    group)) and checks the counters end each tile where the kernel resets
+    them."""
+    plan = tqm.prefill_plan(pw.layout, pw.bits, pw.tile_k, group_rows,
+                            pw.k_pad)
+    T, k_pad, bits, PR = pw.tile_k, pw.k_pad, pw.bits, plan.run_rows
+    words = pw.qweight.numpy().astype(np.int64) & 0xFFFFFFFF
+    cols = np.arange(128)  # cw + nt * 8 + g over the warps, tiles, lanes
+    G = pw.scales.shape[1]
+    gse = min(group_rows, T)
+    codes = np.full((k_pad, 128), -1, dtype=np.int64)
+    fed = np.zeros(k_pad, dtype=np.int64)
+    closes = []
+    for t in range(k_pad // T):
+        ws = words[t * plan.words:(t + 1) * plan.words]
+        if pw.layout == "planar":
+            ws = _permute_pairs(ws)
+        run = rr = gl = rg = 0
+        open_row = t * T
+        for step in range(plan.steps):
+            for kk in range(plan.kc // 16):
+                k16 = t * T + step * plan.kc + kk * 16  # the x columns
+                for h in range(2):
+                    for t4 in range(4):
+                        row = k16 + 2 * t4 + 8 * h
+                        if pw.layout == "pairs":
+                            lo, hi = _codes_bf16x2(
+                                ws[rr // 2 + t4 + 4 * h, cols], bits * run,
+                                bits)
+                        else:
+                            wrap = int(rr + 8 >= PR)
+                            p = run + (wrap if h else 0)
+                            w = rr + 8 * h - (PR if h and wrap else 0) + (
+                                2 * t4)
+                            sel, hw = 0, w
+                            if bits in (3, 6):
+                                sel = int(w >= PR // 2)
+                                hw = PR + w - sel * (PR // 2)
+                            lo, hi = _planar_pair(ws, w, hw, p, sel, bits,
+                                                  cols)
+                        codes[row], codes[row + 1] = lo, hi
+                        fed[row] += 1
+                        fed[row + 1] += 1
+                rr += 16
+                while rr >= PR:
+                    rr, run = rr - PR, run + 1
+                # a group closes after the block where its rows end: inside
+                # the step (every kg blocks) or with it
+                rg += 16
+                if (plan.kg and (kk + 1) % plan.kg == 0) or (
+                        not plan.kg and kk + 1 == plan.kc // 16
+                        and rg == gse):
+                    assert rg == gse
+                    end = k16 + 16
+                    closes.append((open_row, end,
+                                   min(t * T // group_rows + gl, G - 1)))
+                    open_row, rg, gl = end, 0, gl + 1
+        assert (rr, rg, gl) == (0, 0, plan.groups)
+        assert run * PR == T
+    return codes, fed, closes
+
+
+def _ring_waits_hold(n_tiles, spt, stages, full_wait_short=True):
+    """The cp.async schedule: group s + stages - 1 carries step s's x
+    columns, and a tile's first step also carries the next tile's words;
+    step s waits with wait_group<stages - 2> (wait_group<0> at a tile's
+    first step when a tile has fewer steps than the ring holds). Whether
+    every step finds its x columns and its tile's words landed."""
+    n_steps = n_tiles * spt
+    words_group = {0: 0}  # tile -> the group that carries its words
+    committed = stages - 1
+    for s in range(n_steps):
+        t, first = divmod(s, spt)[0], s % spt == 0
+        pending = (0 if full_wait_short and first and spt < stages - 1
+                   else stages - 2)
+        done = committed - 1 - pending  # every group up to this one landed
+        if s > done or words_group[t] > done:
+            return False
+        if first and t + 1 < n_tiles:
+            words_group[t + 1] = committed
+        committed += 1
+    return True
+
+
+PREFILL_CASES = [
+    # pairs: 4-bit g128 (7B), g64 (two groups per field), per-channel;
+    # 3-bit (640-row tiles, 5 fields); 2-bit (8 fields, 64-row runs);
+    # per-channel tiles of 160 and 80 rows (16-column steps) and 64 rows
+    ("pairs", 4, 128, 1408), ("pairs", 4, 64, 1408), ("pairs", 4, None, 1408),
+    ("pairs", 3, 128, 1408), ("pairs", 3, None, 1408), ("pairs", 2, 128, 1408),
+    ("pairs", 2, 256, 1280), ("pairs", 3, None, 160), ("pairs", 3, None, 80),
+    ("pairs", 4, None, 64),
+    # planar at every width and group, 512-row tiles and k_pad > K
+    *[("planar", b, g, 1408) for b in (2, 3, 4, 6, 8)
+      for g in (32, 64, 128, None)],
+    # tiles too small for a decode step (slots of 8 rows: a k16 block spans
+    # two slots), and 2-bit g192 (384-row tiles, slots of 24 rows)
+    ("planar", 3, None, 256), ("planar", 2, None, 128), ("planar", 8, None, 32),
+    ("planar", 4, None, 64), ("planar", 6, None, 256), ("planar", 2, 192, 768),
+]
+
+
+@pytest.mark.parametrize("layout,bits,group_size,in_f", PREFILL_CASES)
+def test_prefill_tile_emulation_feeds_every_code(layout, bits, group_size,
+                                                 in_f):
+    """K1's prefill tile (m > 32) in numpy, lane by lane: each B register's
+    word rows and bit offset, from the run counters, give the codes
+    unpack_codes gives for the rows of the x columns the step holds, for
+    every row of k_pad exactly once; each group closes once, where its rows
+    end (per-channel: at each tile's end), with the scales of its own group
+    (the padding past in_features reuses the last); and the cp.async ring
+    finds every step's x columns and words landed."""
+    w = torch.from_numpy(np.random.default_rng(bits * 7 + in_f).integers(
+        -8, 8, (128, in_f)).astype(np.float32))
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout=layout)
+    assert pw.layout == layout
+    group_rows = group_size or pw.k_pad
+    codes, fed, closes = _emulate_prefill(pw, group_rows)
+    want = unpack_codes(pw.qweight, bits, pw.k_pad, group_size, pw.tile_k,
+                        layout).numpy()
+    assert np.array_equal(fed, np.ones(pw.k_pad))
+    assert np.array_equal(codes, want)
+    assert [c[0] for c in closes[1:]] == [c[1] for c in closes[:-1]]
+    assert closes[0][0] == 0 and closes[-1][1] == pw.k_pad
+    G = pw.scales.shape[1]
+    for lo, hi, grp in closes:
+        if group_size:
+            assert hi - lo == group_size
+            assert grp == min(lo // group_size, G - 1)
+        else:
+            assert hi - lo == pw.tile_k and grp == 0
+    plan = tqm.prefill_plan(layout, bits, pw.tile_k, group_rows, pw.k_pad)
+    assert _ring_waits_hold(pw.k_pad // pw.tile_k, plan.steps, plan.stages)
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4])
+@pytest.mark.parametrize("n_tiles", [1, 2, 3, 22])
+@pytest.mark.parametrize("spt", [1, 2, 3, 4, 5, 8, 16, 20])
+def test_prefill_ring_schedule(n_tiles, spt, stages):
+    """The ring's waits hold for every tile length, and the shortcut that
+    waits for the group of the first step alone would not hold for tiles
+    shorter than the ring."""
+    assert _ring_waits_hold(n_tiles, spt, stages)
+    assert _ring_waits_hold(n_tiles, spt, stages, full_wait_short=False) == (
+        n_tiles == 1 or spt >= stages - 1)
+
+
+def test_prefill_plan_refuses_what_the_tile_does_not_take():
+    """A pack tile of more than 128 words per column (pairs W4 g2048) or
+    with more than 16 groups raises with its reason before the wrapper
+    looks for the card; the 7B tiles pass."""
+    assert tqm.prefill_plan("pairs", 4, 512, 128, 4096)[:7] == (
+        128, 8, 4, 2, 128, 64, 4)
+    assert tqm.prefill_plan("pairs", 4, 512, 4096, 4096)[:2] == (128, 0)
+    # 128-column steps close g64 groups every 4 k16 blocks inside a step
+    assert tqm.prefill_plan("planar", 2, 512, 64, 11264)[:7] == (
+        128, 4, 4, 2, 32, 32, 8)
+    assert tqm.prefill_plan("planar", 2, 512, 32, 11264)[:2] == (128, 2)
+    # 192-row groups: a 128-column step would split one
+    assert tqm.prefill_plan("planar", 2, 384, 192, 768)[:2] == (64, 0)
+    assert tqm.prefill_plan("pairs", 3, 80, 80, 80).kc == 16
+    # 128 words per column and 16 groups (pairs W2 g128 in 2048-row tiles)
+    # leave no room for 128-column steps: 64
+    w2 = tqm.prefill_plan("pairs", 2, 2048, 128, 4096)
+    assert (w2.words, w2.groups, w2.kc) == (128, 16, 64)
+    assert w2.smem <= tqm._K1_PF_SMEM < tqm._prefill_smem(128, 128, False, 16)
+    assert tqm.prefill_plan("planar", 8, 512, 11264, 11264).words == 128
+    with pytest.raises(NotImplementedError, match="128 words"):
+        tqm.prefill_plan("pairs", 4, 2048, 2048, 4096)
+    with pytest.raises(NotImplementedError, match="16 whole groups"):
+        tqm.prefill_plan("planar", 4, 1024, 32, 2048)
+    pw = _bf16_packed(4, 2048, 4096, "pairs")
+    assert pw.tile_k == 2048
+    with pytest.raises(NotImplementedError, match="prefill tile"):
+        tqm._qmm_cuda(torch.zeros(64, 4096, dtype=torch.bfloat16), pw)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # decode tile
+        tqm._qmm_cuda(torch.zeros(8, 4096, dtype=torch.bfloat16), pw)
