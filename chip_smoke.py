@@ -845,8 +845,9 @@ def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
 
 def check_unpack_int8(torch, device, timer, dims, out: dict) -> dict:
     """K8 on the four 7B projections packed W4 g128 (pairs, the W4A4
-    engines' prefill) and W6 g128 (planar, W6A6's), exact; the JSON entry
-    sums the four W4 projections. No single PyTorch call computes it."""
+    engines' prefill) and W6 g128 (planar, W6A6's): K-major codes (N,
+    k_pad), exact; the JSON entry sums the four W4 projections. No single
+    PyTorch call computes it."""
     from omniquant_tpu_torch.kernels import quant_matmul as qmm
 
     gen = torch.Generator(device=device).manual_seed(5432)
@@ -857,7 +858,7 @@ def check_unpack_int8(torch, device, timer, dims, out: dict) -> dict:
             got = qmm._unpack_to_int8(pw)
             want = qmm.unpack_to_int8_plain(pw)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if got.shape != (N, pw.k_pad) or not torch.equal(got, want):
                 raise AssertionError(f"_unpack_to_int8 W{bits} {name} "
                                      "differs from its plain version")
             lbl = f"_unpack_to_int8 W{bits} {pw.layout} {name}"
@@ -871,15 +872,15 @@ def check_unpack_int8(torch, device, timer, dims, out: dict) -> dict:
                              bound_ms=b, bound_by=by, max_abs_err=0.0,
                              bytes_ms=b, ops_ms=0.0))
             log(f"  _unpack_to_int8 W{bits} {pw.layout:6s} {name:7s} "
-                f"K={K:5d} N={N:5d}: exact  kernel {t:.4f} ms  plain "
-                f"{tp:.4f}  bound {b:.4f} ({by})")
+                f"K={K:5d} N={N:5d}: exact (N, k_pad)  kernel {t:.4f} ms  "
+                f"plain {tp:.4f}  bound {b:.4f} ({by})")
             del pw, got, want
     out["unpack_to_int8_shapes"] = rows
     tot = _totals([r for r in rows if r["bits"] == 4],
                   ("ms", "plain_ms", "bound_ms"))
     tot["library_ms"] = None
     tot["shape"] = ("four 7B projections packed W4 g128 pairs -> int8 "
-                    "(k_pad, N); no library call")
+                    "(N, k_pad), K-major; no library call")
     return tot
 
 
@@ -888,14 +889,18 @@ def check_int_dense(torch, device, timer, dims, out: dict) -> dict:
     pairs with 4-bit activations at the prefill rows of engines E (m =
     4096) and F (m = 8192), as the engine calls it: the activation
     quantizer, K8, then K9. Held to the plain path on the same x
-    (quantize_act_int, unpack_to_int8_plain, quant_matmul_int_dense_plain)
-    and timed whole; K8 alone (unpack_ms) and K9 alone on the same codes
-    (kernel_ms) give their shares. The JSON entry sums the four at m =
-    4096. Yardsticks: bf16 torch.matmul on the dequantized weight
-    (library_ms) and torch._int_mm on the same int8 codes (timed only,
-    without the group scaling)."""
+    (quantize_act_int, unpack_to_int8_plain, quant_matmul_int_dense_plain),
+    two calls bitwise equal, and timed whole; K8 alone (unpack_ms), K9 on
+    the same codes with its operands (xsum, sc, off2: kernel_ms) and K9's
+    launch alone on prepared operands (launch_ms, with its rate and share
+    of the int8 bound) give their shares. The JSON entry sums the four at
+    m = 4096. Yardsticks: bf16 torch.matmul on the dequantized weight
+    (library_ms) and torch._int_mm on the same int8 codes (int_mm_ms,
+    timed only: a plain s8 GEMM without the group scaling). Last, K9's
+    launch on a W4 g64 qkv weight, whose groups close twice as often."""
     from omniquant_tpu_torch.kernels import quant_matmul as qmm
-    from omniquant_tpu_torch.quant import QuantConfig, dequantize_packed
+    from omniquant_tpu_torch.quant import (QuantConfig, dequantize_packed,
+                                           pack_weight)
 
     gen = torch.Generator(device=device).manual_seed(6543)
     acfg = QuantConfig(n_bits=4)
@@ -917,37 +922,82 @@ def check_int_dense(torch, device, timer, dims, out: dict) -> dict:
                 lambda: qmm._quant_matmul_int_dense(x, pw, acfg), want, mag,
                 (0, 1, 1))
             del want, mag
+            again = [qmm._qmm_int_dense_cuda(xc, xs, w8, pw, torch.bfloat16)
+                     for _ in range(2)]
+            torch.cuda.synchronize()
+            if not torch.equal(*again):
+                raise AssertionError(f"{lbl}: two calls differ")
+            del again
+            ops_k9 = qmm.int_dense_operands(xc, pw)
             t = timer(lambda: qmm._quant_matmul_int_dense(x, pw, acfg), lbl)
             tk = timer(lambda: qmm._qmm_int_dense_cuda(xc, xs, w8, pw,
                                                        torch.bfloat16),
                        lbl + " kernel")
+            tn = timer(lambda: qmm._k9_launch(ops_k9, xs, w8, pw),
+                       lbl + " launch")
             tp = timer(lambda: qmm.quant_matmul_int_dense_plain(
                 *qmm.quantize_act_int(x, acfg), qmm.unpack_to_int8_plain(pw),
                 pw), lbl + " plain", iters=3)
             tl = timer(lambda: torch.matmul(x, w_lib), lbl + " library")
-            xpad = torch.nn.functional.pad(xc, (0, pw.k_pad - K))
-            ti = timer(lambda: torch._int_mm(xpad, w8), lbl + " _int_mm")
-            del xpad
+            w8t = w8.t()
+            ti = timer(lambda: torch._int_mm(ops_k9.xc, w8t), lbl + " _int_mm")
+            del ops_k9, w8t
             nbytes = _int_bytes(pw, m, K, N, pw.qweight.numel() * 4)
             ops = 2.0 * m * K * N
             b, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+            share = ops / INT8_OPS_PER_S * 1e3 / tn
             rows.append(dict(
-                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk, unpack_ms=tu,
-                plain_ms=tp, library_ms=tl, int_mm_ms=ti, bound_ms=b,
-                bound_by=by, max_abs_err=err, err_over_bound=worst,
+                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk, launch_ms=tn,
+                unpack_ms=tu, plain_ms=tp, library_ms=tl, int_mm_ms=ti,
+                bound_ms=b, bound_by=by, int8_peak_share=share,
+                max_abs_err=err, err_over_bound=worst,
                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 ops_ms=ops / INT8_OPS_PER_S * 1e3))
             log(f"  _quant_matmul_int_dense {name:7s} m={m:5d} K={K:5d} "
-                f"N={N:5d}: max abs err {err:.3g} ({worst:.3g} x bound)  "
-                f"wrapper {t:.4f} ms (K9 alone {tk:.4f}, "
-                f"{ops / tk / 1e9:.0f} TOP/s; K8 alone {tu:.4f})  plain "
-                f"{tp:.4f}  bf16 matmul {tl:.4f}  _int_mm {ti:.4f}  bound "
-                f"{b:.4f} ({by})")
+                f"N={N:5d}: max abs err {err:.3g} ({worst:.3g} x bound), "
+                f"bitwise repeatable  wrapper {t:.4f} ms (K9 with operands "
+                f"{tk:.4f}; launch alone {tn:.4f}, {ops / tn / 1e9:.0f} "
+                f"TOP/s, {share:.1%} of the int8 peak; K8 alone {tu:.4f})  "
+                f"plain {tp:.4f}  bf16 matmul {tl:.4f}  _int_mm {ti:.4f} "
+                f"({ops / ti / 1e9:.0f} TOP/s)  bound {b:.4f} ({by})")
         del pw, w8, w_lib
     out["quant_matmul_int_dense_shapes"] = rows
-    tot = _totals([r for r in rows if r["m"] == dims["prefill_m"]],
-                  ("ms", "kernel_ms", "unpack_ms", "plain_ms", "library_ms",
-                   "bound_ms"))
+    # groups of 64 rows close twice as often: K9's launch on a W4 g64
+    # (planar) qkv weight beside the g128 one
+    K, N = _seven_b_shapes(dims)["qkv"]
+    m = dims["prefill_m"]
+    w = torch.randn(N, K, generator=gen, device=device) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=4, group_size=64), layout="auto")
+    pw = pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    del w
+    x = torch.randn(m, K, generator=gen, device=device).to(torch.bfloat16)
+    xc, xs = qmm.quantize_act_int(x, acfg)
+    w8 = qmm._unpack_to_int8(pw)
+    ops_k9 = qmm.int_dense_operands(xc, pw)
+    t64 = timer(lambda: qmm._k9_launch(ops_k9, xs, w8, pw),
+                f"_quant_matmul_int_dense qkv m={m} g64 launch")
+    t128 = next(r["launch_ms"] for r in rows
+                if r["shape"] == "qkv" and r["m"] == m)
+    out["quant_matmul_int_dense_g64"] = dict(
+        shape="qkv", m=m, layout=pw.layout, launch_ms=t64, g128_ms=t128)
+    log(f"  _quant_matmul_int_dense qkv m={m} W4 g64 {pw.layout}: K9 launch "
+        f"{t64:.4f} ms ({t64 / t128:.2f} x the g128 pairs weight's "
+        f"{t128:.4f})")
+    del pw, w8, ops_k9, x, xc, xs
+    for m in (dims["prefill_m"], dims["flash_m"]):
+        at = [r for r in rows if r["m"] == m]
+        tot = _totals(at, ("ms", "kernel_ms", "launch_ms", "unpack_ms",
+                           "plain_ms", "library_ms", "int_mm_ms",
+                           "bound_ms"))
+        log(f"  _quant_matmul_int_dense four projections m={m}: K9 launch "
+            f"{tot['launch_ms']:.4f} ms (with operands {tot['kernel_ms']:.4f}"
+            f", bound {tot['bound_ms']:.4f}: "
+            f"{tot['bound_ms'] / tot['launch_ms']:.1%})  bf16 matmul "
+            f"{tot['library_ms']:.4f}  _int_mm {tot['int_mm_ms']:.4f}  "
+            f"wrapper {tot['ms']:.4f}")
+        out[f"quant_matmul_int_dense_total_m{m}"] = tot
+    tot = out[f"quant_matmul_int_dense_total_m{dims['prefill_m']}"]
     tot["shape"] = ("four 7B projections, W4 g128 pairs, bf16 x quantized to "
                     "4-bit codes in the wrapper, K8 then K9, m=4096; "
                     "library: bf16 torch.matmul on the dequantized weight")
@@ -1516,7 +1566,8 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             tolerance=tol, shape=r["shape"],
-            **({"prefill": r["prefill"]} if "prefill" in r else {})))
+            **({"prefill": r["prefill"]} if "prefill" in r else {}),
+            **({"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {})))
     out["kernels"] = entries
     out["total_s"] = time.time() - t_start
     log(f"total {out['total_s']:.1f} s")

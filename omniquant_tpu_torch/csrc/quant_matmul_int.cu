@@ -3,10 +3,12 @@
 //
 // Replaces three TPU kernels of omniquant_tpu/kernels/quant_matmul.py:
 //   K8 _unpack_to_int8 (pallas_call at :569): packed words -> centered int8
-//      codes (k_pad, N), every layout and width of quant/packing.py;
+//      codes, every layout and width of quant/packing.py, written K-major
+//      (N, k_pad) as wgmma takes 8-bit operands (the TPU kernel writes
+//      (k_pad, N));
 //   K9 _quant_matmul_int_dense (_qmm_int_dense_call, :644): the dense
-//      product of int8 activation codes (m, K) and K8's codes (the m >= 2048
-//      route);
+//      product of int8 activation codes (m, k_pad) and K8's codes (the
+//      m >= 2048 route);
 //   K7 quant_matmul_int (_qmm_int_call, :502): the same product with the
 //      planar words unpacked inside the kernel (the small-m route).
 // Both products evaluate, with xc the centered activation codes, xs their
@@ -14,31 +16,32 @@
 // off2 = (2^{b-1} - zero) * scale,
 //     y[m, n] = xs_m * sum_g [ dot(xc_g, wc_g)[m, n] * sc_g[n]
 //                              + xsum_g[m] * off2_g[n] ],
-// with each group's dot exact in int32 (mma.sync m16n8k32 s8.s8.s32) and
-// turned into f32 at the group's end. xsum_g (the group's sum of activation
-// codes) is formed by the kernels from their own activation fragments
-// (dp4a), and off2 from the bf16 scales and zeros, rounded to bf16 at each
-// step as a bf16 engine forms it. Group indices past the last group (the
-// rows of the layout padding, whose codes meet zero activations) reuse the
-// last group's scales, so no scale column past G is read.
+// with each group's dot exact in int32 and turned into f32 at the group's
+// end. off2 is rounded to bf16 at each step as a bf16 engine forms it.
+// Group indices past the last group (the rows of the layout padding, whose
+// codes meet zero activations) reuse the last group's scales. K7 forms
+// xsum_g (the group's sum of activation codes) from its own fragments
+// (dp4a) and off2 from the bf16 scales and zeros; K9 takes xsum, sc and
+// off2 as the wrapper forms them, as the JAX route does outside its kernel
+// (xsum and off2 as the bf16 operands of the offset term's product).
 //
 // What bounds them on an H100:
 //   K8 is a copy that reads the words once and writes one byte per code: it
-//      is bound by those bytes. One thread per (packed word, 4 columns):
-//      16-byte loads, 4-byte stores, contiguous along N.
+//      is bound by those bytes. A CTA stages 32 columns of a pack tile in
+//      shared memory and writes each column's codes as 16-byte runs of k.
 //   K9 at prefill (m >= 2048) does 2*m*K*N integer operations and is bound
-//      by the int8 tensor cores. 128 x 128 tiles, 8 warps of 64 x 32, K steps
-//      of 64 rows staged in shared memory (double buffered, the next
-//      step's loads held in registers while the current one multiplies).
-//      The weight tile is transposed to K-contiguous columns on the way in
-//      (byte permutes), as the B fragment wants.
+//      by the int8 tensor cores: wgmma m64n128k32 fed by TMA through a ring
+//      of mbarrier-guarded stages, a producer warpgroup and two consumer
+//      warpgroups whose group closes overlap each other's products, the
+//      offset term on the bf16 tensor cores (see the K9 section).
 //   K7 at decode (m = 32) reads each packed word once and is bound by those
 //      bytes. A CTA of 4 warps takes 32 rows x 64 columns and a slice of the
 //      pack tiles (split-K, so that several CTAs sit on every SM); each tile's
 //      words are unpacked straight into the B fragment layout in shared
 //      memory (never written to device memory). Slices write f32 partial
-//      sums that a second pass (splitk_sum.cuh) adds in a fixed order.
-// No cp.async/TMA/wgmma pipeline yet.
+//      sums that a second pass (splitk_sum.cuh) adds in a fixed order; its
+//      products are mma.sync m16n8k32.
+#include <cuda.h>  // CUtensorMap and its enums only: no driver library link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,65 +73,87 @@ __device__ __forceinline__ uint32_t pack4(int c0, int c1, int c2, int c3) {
          ((uint32_t)(c2 & 0xff) << 16) | ((uint32_t)(c3 & 0xff) << 24);
 }
 
-__device__ __forceinline__ uint32_t word_of(const uint4& u, int i) {
-  return i == 0 ? u.x : (i == 1 ? u.y : (i == 2 ? u.z : u.w));
-}
-
 // ---------------------------------------------------------------------------
-// K8: one thread per (tile, low-plane or pairs word, 4 columns)
+// K8: a CTA takes K8_NB columns of one pack tile. Phase 1: a thread reads
+// four consecutive words of one column (a warp: 32 consecutive columns, so
+// each word row is one 128-byte load) and stores each slot's codes, four
+// consecutive rows of k, as 4-byte words into a (K8_NB, T + 4) byte tile
+// (the row pitch is 1 or 17 words mod 32: the 32 columns hit 32 banks).
+// Phase 2: 16-byte runs of k, a warp taking 4 columns x 8 runs (conflict-
+// free shared loads, 128 contiguous bytes per column in device memory).
+constexpr int K8_NB = 32, K8_THREADS = 256;
+
 template <int BITS, bool PAIRS>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(K8_THREADS)
 unpack_int8_kernel(const int32_t* __restrict__ qw, int8_t* __restrict__ out,
-                   int N, int n_tiles, int T) {
+                   int N, int k_pad, int T) {
   constexpr int HALF = 1 << (BITS - 1);
   constexpr int PAIR_J = 16 / BITS;                       // pairs: slots j
+  extern __shared__ __align__(16) uint8_t k8_tile[];
   const int P = PAIRS ? T / (2 * PAIR_J) : T * Planar<BITS>::LO / 32;
   const int WPT = PAIRS ? P : T * BITS / 32;              // words per tile
-  const int nq = N / 4;
-  const long long items = (long long)n_tiles * P * nq;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < items; i += (long long)gridDim.x * blockDim.x) {
-    const int c4 = (int)(i % nq);
-    const long long tw = i / nq;
-    const int w = (int)(tw % P), t = (int)(tw / P);
-    const size_t col = (size_t)c4 * 4;
-    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(
-        qw + ((size_t)t * WPT + w) * N + col));
-    int8_t* dst = out + (size_t)t * T * N + col;
+  const int LD = T + 4;
+  const int t = blockIdx.y, col0 = blockIdx.x * K8_NB;
+  const int32_t* src = qw + (size_t)t * WPT * N + col0;
+  for (int i = threadIdx.x; i < (P / 4) * K8_NB; i += K8_THREADS) {
+    const int c = i % K8_NB, q = i / K8_NB;
+    uint32_t lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      lo[e] = (uint32_t)__ldg(src + (size_t)(4 * q + e) * N + c);
+    uint8_t* dst = k8_tile + c * LD;
     if (PAIRS) {
+      // word w holds rows j*2P + 2w + h at bits BITS*j + 16*h
 #pragma unroll
-      for (int j = 0; j < PAIR_J; ++j)
+      for (int j = 0; j < PAIR_J; ++j) {
+        int cd[8];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int sh = BITS * j + 16 * h;
-          int c[4];
+        for (int e = 0; e < 4; ++e)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            c[e] = (int)((word_of(lo, e) >> sh) & ((1u << BITS) - 1u)) - HALF;
-          *reinterpret_cast<uint32_t*>(dst + (size_t)(j * 2 * P + 2 * w + h) *
-                                                 N) =
-              pack4(c[0], c[1], c[2], c[3]);
-        }
+          for (int h = 0; h < 2; ++h)
+            cd[2 * e + h] =
+                (int)((lo[e] >> (BITS * j + 16 * h)) & ((1u << BITS) - 1u)) -
+                HALF;
+        uint32_t* d = reinterpret_cast<uint32_t*>(dst + j * 2 * P + 8 * q);
+        d[0] = pack4(cd[0], cd[1], cd[2], cd[3]);
+        d[1] = pack4(cd[4], cd[5], cd[6], cd[7]);
+      }
     } else {
-      uint4 hi = make_uint4(0u, 0u, 0u, 0u);
-      int sel = 0;
+      uint32_t hi[4] = {0u, 0u, 0u, 0u};
+      int sel[4] = {0, 0, 0, 0};
       if (Planar<BITS>::HI) {
         const int half_p = P / 2;
-        sel = w / half_p;
-        hi = __ldg(reinterpret_cast<const uint4*>(
-            qw + ((size_t)t * WPT + P + (w % half_p)) * N + col));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sel[e] = (4 * q + e) / half_p;
+          hi[e] = (uint32_t)__ldg(src + (size_t)(P + (4 * q + e) % half_p) *
+                                            N + c);
+        }
       }
 #pragma unroll
       for (int v = 0; v < Planar<BITS>::V; ++v) {
-        int c[4];
+        int cd[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          c[e] = planar_code<BITS>(word_of(lo, e), word_of(hi, e), v, sel) -
-                 HALF;
-        *reinterpret_cast<uint32_t*>(dst + (size_t)(v * P + w) * N) =
-            pack4(c[0], c[1], c[2], c[3]);
+          cd[e] = planar_code<BITS>(lo[e], hi[e], v, sel[e]) - HALF;
+        *reinterpret_cast<uint32_t*>(dst + v * P + 4 * q) =
+            pack4(cd[0], cd[1], cd[2], cd[3]);
       }
     }
+  }
+  __syncthreads();
+  const int CH = T / 16;  // 16-byte runs per column
+  const int n_items = (K8_NB / 4) * ((CH + 7) / 8) * 32;
+  for (int e = threadIdx.x; e < n_items; e += K8_THREADS) {
+    const int sub = e % 32, b = e / 32;
+    const int c = (b % (K8_NB / 4)) * 4 + sub / 8;
+    const int ch = (b / (K8_NB / 4)) * 8 + sub % 8;
+    if (ch >= CH) continue;
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(k8_tile + c * LD +
+                                                          ch * 16);
+    *reinterpret_cast<uint4*>(out + (size_t)(col0 + c) * k_pad +
+                              (size_t)t * T + ch * 16) =
+        make_uint4(s[0], s[1], s[2], s[3]);
   }
 }
 
@@ -136,11 +161,21 @@ template <int BITS, bool PAIRS>
 int launch_unpack(const void* qw, void* out, int N, int k_pad, int T,
                   cudaStream_t st) {
   const int P = PAIRS ? T / (2 * (16 / BITS)) : T * Planar<BITS>::LO / 32;
-  const long long items = (long long)(k_pad / T) * P * (N / 4);
-  const int blocks = (int)std::min<long long>((items + 255) / 256, 132LL * 16);
-  unpack_int8_kernel<BITS, PAIRS><<<blocks, 256, 0, st>>>(
-      static_cast<const int32_t*>(qw), static_cast<int8_t*>(out), N,
-      k_pad / T, T);
+  if (N % K8_NB || T % 16 || P % 4 || k_pad % T)
+    return (int)cudaErrorInvalidValue;
+  const int smem = K8_NB * (T + 4);
+  static int smem_set = 0;
+  if (smem > 48 * 1024 && smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        unpack_int8_kernel<BITS, PAIRS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dim3 grid(N / K8_NB, k_pad / T);
+  unpack_int8_kernel<BITS, PAIRS><<<grid, K8_THREADS, smem, st>>>(
+      static_cast<const int32_t*>(qw), static_cast<int8_t*>(out), N, k_pad,
+      T);
   return (int)cudaGetLastError();
 }
 
@@ -215,168 +250,418 @@ __device__ __forceinline__ uint4 load_x16(const int8_t* __restrict__ xc,
 }
 
 // ---------------------------------------------------------------------------
-// K9: dense int8 (m, K) x int8 (k_pad, N)
-constexpr int K9_BM = 128, K9_BN = 128, K9_THREADS = 256, BK = 64;
+// K9: dense int8 xc (m, k_pad) x K8's codes w8 (N, k_pad), both K-major, on
+// wgmma m64n128k32 s8.s8.s32 fed by TMA.
+//
+// A CTA of 384 threads takes a 128 x 128 output tile. Warpgroup 0 is the
+// producer: one thread walks the ring of K9_STAGES slots, waiting on a
+// slot's empty barrier, arming its full barrier with the position's bytes
+// and issuing two TMA boxes (128 rows x 128 bytes, 128-byte swizzle, zero
+// fill past the matrix). The first n_off positions of the walk carry the
+// offset term's bf16 operands, the rest the K stages of xc and w8 (128
+// bytes of k each), each with a bulk copy of the scales of the tile's
+// columns for every group that starts in the stage (512 bytes a group,
+// into slot 0 or 1 by the half of the stage where it starts).
+// Warpgroups 1 and 2 are the consumers, 64 rows x 128 columns each, with
+// setmaxnreg giving them the producer's registers:
+//  * the offset term sum_g xsum_g[row] * off2_g[col] goes to the tensor
+//    cores: the wrapper splits each xsum exactly as 65536 a + 256 b + c
+//    into bf16 columns (xo, rows x ko) against off2 repeated three times
+//    (wo, N x ko; off2 is bf16 on the card), and bf16 wgmma m64n128k16
+//    writes the products, exact, summed in f32, straight into the f32 sums;
+//  * then chunks of CHUNK bytes of k (a whole stage where the groups and
+//    k_pad are multiples of 128 rows, else half a stage; a chunk never
+//    spans two groups), each its own wgmma commit group into one s32
+//    accumulator set, with no branch around a wgmma (ptxas serializes
+//    those). At a group's first chunk the thread reads the group's 32
+//    scales of its columns from the stage into registers (scales read from
+//    L2 here would wait behind the TMA streams). After a chunk's wgmmas
+//    complete, its stage is freed at once if the chunk ends it, and at a
+//    group's end the group closes: accf += float(acc) * sc[col] (cvt and
+//    one FMA an element). The next group's first wgmma overwrites the
+//    accumulator.
+// The two consumers run unsynchronized, so one's close overlaps the
+// other's products; each consumer's own stage is still a serial chain
+// (issue, wait for its wgmmas, close), which is what bounds the kernel on
+// an H100 (PERF.md). The epilogue multiplies by xs and stores bf16 pairs.
+// The grid walks bands of K9_GM row tiles, rows fastest, so a band's
+// activations and a few weight tiles stay in L2.
+constexpr int K9_BM = 128, K9_BN = 128, K9_BK = 128, K9_STAGES = 6;
+constexpr int K9_THREADS = 384, K9_GM = 16;
+constexpr int K9_BOX = K9_BM * K9_BK;                       // 16 KB
+constexpr int K9_SC = K9_BN * 4;  // a group's scales of the tile's columns
+constexpr int K9_STAGE = 2 * K9_BOX + 2 * K9_SC;  // groups start <= 2 a stage
+constexpr int K9_OFF_K = 64;  // bf16 columns of the offset term a stage
+constexpr int K9_SMEM = K9_STAGES * K9_STAGE + 2 * K9_STAGES * 8 + 1024;
+static_assert(K9_STAGE % 1024 == 0, "swizzled boxes need 1024-byte bases");
 
-struct K9Loads {
-  static constexpr int A_CHUNKS = K9_BM * BK / 16 / K9_THREADS;   // uint4
-  static constexpr int B_BLOCKS = (BK / 32) * (K9_BN / 16) / 8;   // per warp
-  uint4 a[A_CHUNKS];
-  uint32_t b[B_BLOCKS][4];
-};
-
-__device__ __forceinline__ void k9_fetch(K9Loads& L,
-                                         const int8_t* __restrict__ xc,
-                                         const int8_t* __restrict__ w8, int m,
-                                         int K, int N, int row0, int col0,
-                                         int k0, bool x_vec, int tid) {
-#pragma unroll
-  for (int i = 0; i < K9Loads::A_CHUNKS; ++i) {
-    const int chunk = tid + i * K9_THREADS;
-    const int r = chunk / (BK / 16), c = (chunk % (BK / 16)) * 16;
-    L.a[i] = load_x16(xc, m, K, row0 + r, k0 + c, x_vec);
-  }
-  // each warp block is 32 k-rows x 16 columns; a lane takes 4 rows x 4
-  // columns (lane & 3: column quad, lane >> 2: row quad)
-  const int warp = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int i = 0; i < K9Loads::B_BLOCKS; ++i) {
-    const int blk = warp + i * 8;
-    const int kb = blk / (K9_BN / 16), nb = blk % (K9_BN / 16);
-    const int k = k0 + kb * 32 + (lane >> 2) * 4;
-    const int n = col0 + nb * 16 + (lane & 3) * 4;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      L.b[i][r] = __ldg(reinterpret_cast<const uint32_t*>(
-          w8 + (size_t)(k + r) * N + n));
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void k9_store(const K9Loads& L, int8_t* As,
-                                         int8_t* Bs, int tid) {
-  constexpr int LD = BK + 16;
-#pragma unroll
-  for (int i = 0; i < K9Loads::A_CHUNKS; ++i) {
-    const int chunk = tid + i * K9_THREADS;
-    const int r = chunk / (BK / 16), c = (chunk % (BK / 16)) * 16;
-    *reinterpret_cast<uint4*>(As + r * LD + c) = L.a[i];
-  }
-  const int warp = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int i = 0; i < K9Loads::B_BLOCKS; ++i) {
-    const int blk = warp + i * 8;
-    const int kb = blk / (K9_BN / 16), nb = blk % (K9_BN / 16);
-    const int k = kb * 32 + (lane >> 2) * 4;
-    const int n = nb * 16 + (lane & 3) * 4;
-    // 4 x 4 byte transpose: row words -> K-contiguous column words
-    const uint32_t t0 = __byte_perm(L.b[i][0], L.b[i][1], 0x5140);
-    const uint32_t t1 = __byte_perm(L.b[i][2], L.b[i][3], 0x5140);
-    const uint32_t t2 = __byte_perm(L.b[i][0], L.b[i][1], 0x7362);
-    const uint32_t t3 = __byte_perm(L.b[i][2], L.b[i][3], 0x7362);
-    *reinterpret_cast<uint32_t*>(Bs + (n + 0) * LD + k) =
-        __byte_perm(t0, t1, 0x5410);
-    *reinterpret_cast<uint32_t*>(Bs + (n + 1) * LD + k) =
-        __byte_perm(t0, t1, 0x7632);
-    *reinterpret_cast<uint32_t*>(Bs + (n + 2) * LD + k) =
-        __byte_perm(t2, t3, 0x5410);
-    *reinterpret_cast<uint32_t*>(Bs + (n + 3) * LD + k) =
-        __byte_perm(t2, t3, 0x7632);
-  }
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
 
-__global__ void __launch_bounds__(K9_THREADS)
-qmm_int_dense_kernel(const int8_t* __restrict__ xc,
+// a wait that never ends (a ring out of step) traps after 2^22 polls
+// (each try_wait suspends for up to microseconds: ~20 s on an H100), so
+// it fails the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  // a phase that has completed passes without try_wait's suspend latency
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  if (done) return;
+  int polls = 0;
+  do {
+    if (++polls == (1 << 22)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arm(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int k, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row)
+      : "memory");
+}
+
+// a K-major operand with the 128-byte swizzle: start >> 4, LBO 16 bytes
+// (unused for this layout), SBO 1024 bytes (8 rows of 128 bytes), layout 1
+__device__ __forceinline__ uint64_t k9_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// keep the compiler from moving accesses to the accumulators across the
+// asynchronous wgmma instructions
+__device__ __forceinline__ void fence_acc(int (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(float (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+#define K9_D64(c)                                                          \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),  \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),  \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]),          \
+      c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]),          \
+      c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]), c(d[32]),          \
+      c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]),          \
+      c(d[39]), c(d[40]), c(d[41]), c(d[42]), c(d[43]), c(d[44]),          \
+      c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]), c(d[50]),          \
+      c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),          \
+      c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define K9_REGS                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define K9_RW_INT(x) "+r"(x)
+#define K9_RW_F32(x) "+f"(x)
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " K9_REGS
+      ", %64, %65, p;\n}\n"
+      : K9_D64(K9_RW_INT)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " K9_REGS
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : K9_D64(K9_RW_F32)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// one chunk of CHUNK bytes of k: straight-line k32 steps from shared
+// addresses a, b; the group's first step overwrites the accumulator
+template <int CHUNK>
+__device__ __forceinline__ void k9_issue(int (&acc)[64], uint32_t a,
+                                         uint32_t b, bool first) {
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < CHUNK / 32; ++q)
+    wgmma_s8(acc, k9_desc(a + 32 * q), k9_desc(b + 32 * q),
+             (q == 0 && first) ? 0 : 1);
+  wgmma_commit();
+}
+
+
+template <int CHUNK>
+__global__ void __launch_bounds__(K9_THREADS, 1)
+qmm_int_dense_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_xo,
+                     const __grid_constant__ CUtensorMap map_wo,
+                     const float* __restrict__ sc,
                      const float* __restrict__ xs,
-                     const int8_t* __restrict__ w8,
-                     const __nv_bfloat16* __restrict__ scales,
-                     const __nv_bfloat16* __restrict__ zeros,
-                     __nv_bfloat16* __restrict__ y, int m, int K, int N,
-                     int k_pad, int G, int gs_rows, float half, int x_vec) {
-  constexpr int WARPS_N = 4, WM = 64, WN = 32, MT = WM / 16, NT = WN / 8;
-  constexpr int LD = BK + 16;  // row stride: conflict-free fragment loads
-  __shared__ __align__(16) int8_t As[2][K9_BM * LD];
-  __shared__ __align__(16) int8_t Bs[2][K9_BN * LD];
+                     __nv_bfloat16* __restrict__ y, int m, int N, int k_pad,
+                     int gs, int n_off) {
+  // no runtime division in the loops (a division by gs is a dependent
+  // MUFU sequence on the GPU): chunks of a group are counted instead
+  const int chunks_per_group = gs / CHUNK;
+  extern __shared__ uint8_t k9_raw[];
+  const uint32_t raw = smem_u32(k9_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = k9_raw + (base - raw);
+  const uint32_t bars = base + K9_STAGES * K9_STAGE;
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (K9_STAGES + i); };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = blockIdx.y * K9_BM, col0 = blockIdx.x * K9_BN;
+  // the tile: bands of K9_GM row tiles, rows fastest inside a band
+  const int n_tiles = N / K9_BN, m_tiles = (m + K9_BM - 1) / K9_BM;
+  const int band = K9_GM * n_tiles;
+  const int first = (int)blockIdx.x / band * K9_GM;
+  const int gm = min(m_tiles - first, K9_GM);
+  const int in_band = (int)blockIdx.x % band;
+  const int row0 = (first + in_band % gm) * K9_BM;
+  const int col0 = in_band / gm * K9_BN;
+  const int n_stages = (k_pad + K9_BK - 1) / K9_BK;
 
-  int acc[MT][NT][4], xsum[MT][2];
-  float accf[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    xsum[i][0] = xsum[i][1] = 0;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0, accf[i][j][e] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < K9_STAGES; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  K9Loads L;
-  k9_fetch(L, xc, w8, m, K, N, row0, col0, 0, x_vec, tid);
-  k9_store(L, As[0], Bs[0], tid);
   __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < k_pad; k0 += BK) {
-    const bool more = k0 + BK < k_pad;
-    if (more) k9_fetch(L, xc, w8, m, K, N, row0, col0, k0 + BK, x_vec, tid);
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        load_a(a[mt], xsum[mt], As[buf], LD, wm * WM + mt * 16 + g,
-               kk * 32 + t4 * 4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int8_t* bp = Bs[buf] + (wn * WN + nt * 8 + g) * LD + kk * 32 +
-                           t4 * 4;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 16);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][nt], a[mt], b0, b1);
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      // ring positions: n_off offset-term stages, then the K stages
+      for (int p = 0; p < n_off + n_stages; ++p) {
+        const int slot = p % K9_STAGES;
+        mbar_wait(empty(slot), ((p / K9_STAGES) & 1) ^ 1);
+        const uint32_t st = base + slot * K9_STAGE;
+        if (p < n_off) {
+          mbar_arm(full(slot), 2 * K9_BOX);
+          tma_box(st, &map_xo, full(slot), p * K9_OFF_K, row0);
+          tma_box(st + K9_BOX, &map_wo, full(slot), p * K9_OFF_K, col0);
+        } else {
+          // the groups that start in this stage (at half h), their scales
+          const int k0 = (p - n_off) * K9_BK;
+          bool starts[2];
+          for (int h = 0; h < 2; ++h)
+            starts[h] = k0 + 64 * h < k_pad && (k0 + 64 * h) % gs == 0;
+          mbar_arm(full(slot),
+                   2 * K9_BOX + (starts[0] + starts[1]) * K9_SC);
+          tma_box(st, &map_x, full(slot), k0, row0);
+          tma_box(st + K9_BOX, &map_w, full(slot), k0, col0);
+          for (int h = 0; h < 2; ++h)
+            if (starts[h])
+              bulk_copy(st + 2 * K9_BOX + h * K9_SC,
+                        sc + (size_t)((k0 + 64 * h) / gs) * N + col0, K9_SC,
+                        full(slot));
+        }
       }
     }
-    if ((k0 + BK) % gs_rows == 0)
-      close_group<MT, NT>(acc, accf, xsum, scales, zeros, G,
-                          (k0 + BK) / gs_rows - 1, col0 + wn * WN, t4, half);
-    if (more) {
-      k9_store(L, As[buf ^ 1], Bs[buf ^ 1], tid);
-      __syncthreads();
-      buf ^= 1;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;  // rows 64*cw of the tile
+    const int t = threadIdx.x % 128, lane = t & 31;
+    const int r0 = cw * 64 + (t >> 5) * 16 + (lane >> 2);  // and r0 + 8
+    const int col = 2 * (lane & 3);  // and + 1, + 8 j
+    int acc[64];
+    float accf[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0, accf[i] = 0.f;
+
+    // the offset term, straight into the f32 sums
+    for (int p = 0; p < n_off; ++p) {
+      const int slot = p % K9_STAGES;
+      const uint32_t a = base + slot * K9_STAGE + cw * 64 * K9_BK;
+      const uint32_t b = base + slot * K9_STAGE + K9_BOX;
+      mbar_wait(full(slot), (p / K9_STAGES) & 1);
+      fence_acc(accf);
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wgmma_bf16(accf, k9_desc(a + 32 * q), k9_desc(b + 32 * q),
+                   (p == 0 && q == 0) ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(accf);
+      mbar_arrive(empty(slot));
     }
-  }
+
+    float2 sc2[16];
+    const int n_chunks = k_pad / CHUNK;
+    // ring position of the K walk, its slot and phase; chunks of the group
+    int slot = n_off % K9_STAGES, phase = (n_off / K9_STAGES) & 1, in_g = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int k0 = c * CHUNK, k1 = k0 + CHUNK;
+      const int half = (k0 & (K9_BK - 1)) / 64;
+      if (half == 0) mbar_wait(full(slot), phase);
+      const uint32_t st = base + slot * K9_STAGE + 64 * half;
+      k9_issue<CHUNK>(acc, st + cw * 64 * K9_BK, st + K9_BOX, in_g == 0);
+      if (in_g == 0) {  // the group's scales, read while its wgmmas run
+        const float* g_sc = reinterpret_cast<const float*>(
+            smem + slot * K9_STAGE + 2 * K9_BOX + half * K9_SC);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          sc2[j] = *reinterpret_cast<const float2*>(g_sc + col + 8 * j);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if ((k1 & (K9_BK - 1)) == 0 || k1 == k_pad) {
+        mbar_arrive(empty(slot));
+        if (++slot == K9_STAGES) slot = 0, phase ^= 1;
+      }
+      if (++in_g == chunks_per_group) {  // the group's close
+        in_g = 0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          accf[4 * j] = fmaf((float)acc[4 * j], sc2[j].x, accf[4 * j]);
+          accf[4 * j + 1] =
+              fmaf((float)acc[4 * j + 1], sc2[j].y, accf[4 * j + 1]);
+          accf[4 * j + 2] =
+              fmaf((float)acc[4 * j + 2], sc2[j].x, accf[4 * j + 2]);
+          accf[4 * j + 3] =
+              fmaf((float)acc[4 * j + 3], sc2[j].y, accf[4 * j + 3]);
+        }
+      }
+    }
 
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r = row0 + wm * WM + mt * 16 + g;
-    const float s0 = r < m ? xs[r] : 0.f, s1 = r + 8 < m ? xs[r + 8] : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + r0 + 8 * h;
+      if (r >= m) continue;
+      const float s = xs[r];
+      __nv_bfloat16* dst = y + (size_t)r * N + col0 + col;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = col0 + wn * WN + nt * 8 + t4 * 2;
-      if (r < m)
-        *reinterpret_cast<__nv_bfloat162*>(&y[(size_t)r * N + c]) =
-            __floats2bfloat162_rn(accf[mt][nt][0] * s0, accf[mt][nt][1] * s0);
-      if (r + 8 < m)
-        *reinterpret_cast<__nv_bfloat162*>(&y[(size_t)(r + 8) * N + c]) =
-            __floats2bfloat162_rn(accf[mt][nt][2] * s1, accf[mt][nt][3] * s1);
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(accf[4 * j + 2 * h] * s,
+                                  accf[4 * j + 2 * h + 1] * s);
     }
   }
 }
 
-void launch_dense(const void* xc, const void* xs, const void* w8,
-                  const void* scales, const void* zeros, void* y, int m,
-                  int K, int N, int k_pad, int G, int gs_rows, float half,
-                  int x_vec, cudaStream_t st) {
-  dim3 grid(N / K9_BN, (m + K9_BM - 1) / K9_BM);
-  qmm_int_dense_kernel<<<grid, K9_THREADS, 0, st>>>(
-      static_cast<const int8_t*>(xc), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(w8),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const __nv_bfloat16*>(zeros),
-      static_cast<__nv_bfloat16*>(y), m, K, N, k_pad, G, gs_rows, half,
-      x_vec);
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (rows, cols) matrix of 1- or 2-byte elements, K-major, read as boxes of
+// 128 rows x 128 bytes with the 128-byte swizzle; past the matrix, zeros
+bool k9_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+            bool bf16) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const int elem = bf16 ? 2 : 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(K9_BK / elem), K9_BM};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map,
+             bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             2, const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int CHUNK>
+int launch_dense(const CUtensorMap (&maps)[4], const void* sc, const void* xs,
+                 void* y, int m, int N, int k_pad, int gs, int n_off,
+                 cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        qmm_int_dense_kernel<CHUNK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, K9_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const int grid = (N / K9_BN) * ((m + K9_BM - 1) / K9_BM);
+  qmm_int_dense_kernel<CHUNK><<<grid, K9_THREADS, K9_SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(sc),
+      static_cast<const float*>(xs), static_cast<__nv_bfloat16*>(y), m, N,
+      k_pad, gs, n_off);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -541,8 +826,9 @@ int launch_planar(const void* xc, const void* xs, const void* qw,
 
 }  // namespace
 
-// K8. qweight (k_pad*bits/32 rows, or k_pad/10 for pairs 3-bit, N) int32,
-// 16-byte aligned with N % 4 == 0; out (k_pad, N) int8.
+// K8. qweight (k_pad*bits/32 rows, or k_pad/10 for pairs 3-bit, N) int32
+// with N % 32 == 0 and a multiple of 4 low-plane (or pairs) words per pack
+// tile and column; out (N, k_pad) int8, K-major.
 extern "C" int unpack_to_int8(const void* qw, void* out, int N, int k_pad,
                               int tile_k, int bits, int pairs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -564,22 +850,31 @@ extern "C" int unpack_to_int8(const void* qw, void* out, int N, int k_pad,
   return (int)cudaErrorInvalidValue;
 }
 
-// K9. xc (m, K) int8, xs (m) f32, w8 (k_pad, N) int8, scales/zeros (N, G)
-// bf16, y (m, N) bf16; N % 128 == 0, gs_rows (the group, or the pack tile
-// for per-channel scales) a multiple of 64 dividing k_pad.
-extern "C" int qmm_int_dense(const void* xc, const void* xs, const void* w8,
-                             const void* scales, const void* zeros, void* y,
-                             int m, int K, int N, int k_pad, int G,
-                             int gs_rows, int bits, void* stream) {
+// K9. xc (m, k_pad) int8 and w8 (N, k_pad) int8, K-major; xo (m, ko) and
+// wo (N, ko) bf16, the offset term's operands (ko a multiple of 64); sc
+// (k_pad / gs, N) f32; xs (m) f32; y (m, N) bf16; every pointer 16-byte
+// aligned. N % 128 == 0, gs (the group, or the pack tile for per-channel
+// scales) a multiple of 64 dividing k_pad.
+extern "C" int qmm_int_dense(const void* xc, const void* w8, const void* xo,
+                             const void* wo, const void* sc, const void* xs,
+                             void* y, int m, int N, int k_pad, int gs,
+                             int ko, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N % K9_BN || gs_rows % BK || k_pad % gs_rows)
+  if (N % K9_BN || gs % 64 || k_pad % gs || ko % K9_OFF_K || ko <= 0)
     return (int)cudaErrorInvalidValue;
-  const int x_vec = (K % 16 == 0) &&
-                    (reinterpret_cast<uintptr_t>(xc) % 16 == 0);
-  const float half = (float)(1 << (bits - 1));
-  launch_dense(xc, xs, w8, scales, zeros, y, m, K, N, k_pad, G, gs_rows,
-               half, x_vec, st);
-  return (int)cudaGetLastError();
+  for (const void* p : {xc, w8, xo, wo, sc})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (!k9_map(&maps[0], xc, m, k_pad, false) ||
+      !k9_map(&maps[1], w8, N, k_pad, false) ||
+      !k9_map(&maps[2], xo, m, ko, true) || !k9_map(&maps[3], wo, N, ko, true))
+    return (int)cudaErrorInvalidValue;
+  // whole stages a chunk where groups and k_pad allow, else half stages
+  if (gs % K9_BK == 0 && k_pad % K9_BK == 0)
+    return launch_dense<128>(maps, sc, xs, y, m, N, k_pad, gs, ko / K9_OFF_K,
+                             st);
+  return launch_dense<64>(maps, sc, xs, y, m, N, k_pad, gs, ko / K9_OFF_K,
+                          st);
 }
 
 // K7. qweight planar (k_pad*bits/32, N) int32; part (splits, m, N) f32 when

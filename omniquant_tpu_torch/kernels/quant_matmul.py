@@ -54,8 +54,10 @@ activation codes. ``quant_matmul_int`` routes as the JAX function does:
 * anything else -> ``fake_quant_act`` then ``quant_matmul`` (K1), on either
   layout.
 
-K7, K8 and K9 live in ``csrc/quant_matmul_int.cu`` (s8 x s8 -> s32
-``mma.sync``); their plain versions evaluate the same algebra in f32.
+K7, K8 and K9 live in ``csrc/quant_matmul_int.cu`` (s8 x s8 -> s32: K7
+on ``mma.sync``, K9 on ``wgmma`` fed by TMA); their plain versions evaluate
+the same algebra in f32. K8 writes the centered codes K-major, (N, k_pad),
+as ``wgmma`` takes 8-bit operands (JAX's kernel writes them (k_pad, N)).
 """
 from __future__ import annotations
 
@@ -69,8 +71,8 @@ from ..quant.quantizer import _scale_zp, fake_quant_act
 from . import _build
 
 # groups a multiple of 64 rows for K1 on pairs words, K7 and K9: a run of
-# K1's pairs decode tile (up to 64 rows) and the K steps of K7 and K9 (64
-# rows) must lie inside one group
+# K1's pairs decode tile (up to 64 rows), the K steps of K7 (64 rows) and
+# the chunks of K9 (64 or 128 rows) must lie inside one group
 _CUDA_GROUP_MULTIPLE = 64
 # K1 on planar words: a decode run (16 or 32 rows) and a prefill K step (32
 # rows) must lie inside one group
@@ -387,41 +389,65 @@ def int_route(m: int, pw: PackedWeight, act_cfg) -> str:
 
 def unpack_to_int8_plain(pw: PackedWeight) -> torch.Tensor:
     """Plain version of K8: every packed row's code minus 2^{b-1}, int8
-    (k_pad, N)."""
+    (N, k_pad), K-major (each column's codes contiguous along k): JAX's
+    ``_unpack_to_int8`` codes, transposed."""
     codes = unpack_codes(pw.qweight, pw.bits, pw.k_pad, pw.group_size,
                          pw.tile_k, pw.layout)
-    return (codes - 2 ** (pw.bits - 1)).to(torch.int8)
+    return (codes - 2 ** (pw.bits - 1)).t().contiguous().to(torch.int8)
+
+
+class IntDenseOperands(NamedTuple):
+    """What the dense integer product reads besides the weight codes, as the
+    JAX route forms it outside its kernel: the activation codes zero-padded
+    to k_pad (m, k_pad) int8, their per-group sums xsum (m, n_groups)
+    int32, and the f32 slabs sc and off2 (n_groups, N) of the scales and of
+    off2 = (2^{b-1} - zero) * scale, formed in the scales' dtype (bf16 in a
+    bf16 engine, each step rounded) and widened. Groups of the layout
+    padding past the last scale column repeat the last group's scales;
+    per-channel scales count one group per pack tile."""
+    xc: torch.Tensor
+    xsum: torch.Tensor
+    sc: torch.Tensor
+    off2: torch.Tensor
+
+
+def int_dense_operands(xc: torch.Tensor, pw: PackedWeight) -> IntDenseOperands:
+    """The operands of K9 and its plain version for codes xc (m, K)."""
+    m, K = xc.shape
+    k_pad = pw.k_pad
+    if K != k_pad:
+        xc = torch.nn.functional.pad(xc, (0, k_pad - K))
+    gs = pw.group_size or pw.tile_k
+    n_groups = k_pad // gs
+    idx = torch.arange(n_groups, device=pw.scales.device).clamp_max(
+        pw.scales.shape[1] - 1)
+    sc = pw.scales.t().float()[idx]
+    off2 = ((2 ** (pw.bits - 1) - pw.zeros) * pw.scales).t().float()[idx]
+    xsum = xc.reshape(m, n_groups, gs).sum(-1, dtype=torch.int32)
+    return IntDenseOperands(xc, xsum, sc.contiguous(), off2.contiguous())
 
 
 def quant_matmul_int_dense_plain(xc, xs, w8, pw: PackedWeight,
                                  out_dtype=torch.bfloat16,
                                  magnitude: bool = False):
     """Plain version of K9: codes xc (m, K) int8 and scales xs (m, 1) f32
-    against the centered weight codes w8 (k_pad, N) with pw's scales and
+    against the centered weight codes w8 (N, k_pad) with pw's scales and
     zeros; (m, N) in out_dtype, no bias. The algebra in f32, in the JAX
     kernels' order: per K tile xsum . off2, plus each group's dot * sc,
-    summed over the tiles, times xs, cast to out_dtype. xc is zero-padded
-    to k_pad; the groups of the layout padding repeat the last group's
-    scales (their codes and xsum are 0 there). The dots are sums of
-    integer products below 2^24, so exact in f32.
+    summed over the tiles, times xs, cast to out_dtype. The operands are
+    ``int_dense_operands``'. The dots are sums of integer products below
+    2^24, so exact in f32.
 
     With ``magnitude`` it returns (y, xs * sum_g (|dot_g| |sc_g| +
     |xsum_g off2_g|)) in f32: the size of the terms whose f32 order a
     kernel may change, which ``kernels/tolerance.py`` scales to a slack."""
     m = xc.shape[0]
-    k_pad, n = w8.shape
-    if xc.shape[1] != k_pad:
-        xc = torch.nn.functional.pad(xc, (0, k_pad - xc.shape[1]))
+    n, k_pad = w8.shape
+    ops = int_dense_operands(xc, pw)
     gs = pw.group_size or pw.tile_k
     n_g = pw.tile_k // gs
-    n_groups = k_pad // gs
-    sc = pw.scales.t().float()
-    # off2 rounded in the scales' dtype, then widened, as JAX forms it
-    off2 = ((2 ** (pw.bits - 1) - pw.zeros) * pw.scales).t().float()
-    idx = torch.arange(n_groups, device=sc.device).clamp_max(sc.shape[0] - 1)
-    sc, off2 = sc[idx], off2[idx]
-    xsum = xc.reshape(m, n_groups, gs).sum(-1, dtype=torch.int32).float()
-    xf, wf = xc.float(), w8.float()
+    sc, off2, xsum = ops.sc, ops.off2, ops.xsum.float()
+    xf, wf = ops.xc.float(), w8.float()
     acc = torch.zeros(m, n, dtype=torch.float32, device=xc.device)
     mag = torch.zeros_like(acc) if magnitude else None
     for t in range(k_pad // pw.tile_k):
@@ -431,7 +457,7 @@ def quant_matmul_int_dense_plain(xc, xs, w8, pw: PackedWeight,
             mag += xsum[:, tg].abs() @ off2[tg].abs()
         for g in range(t * n_g, (t + 1) * n_g):
             rows = slice(g * gs, (g + 1) * gs)
-            dot = xf[:, rows] @ wf[rows]
+            dot = xf[:, rows] @ wf[:, rows].t()
             part = part + dot * sc[g]
             if magnitude:
                 mag += dot.abs() * sc[g].abs()
@@ -478,17 +504,31 @@ def _check_int_acts(xc, xs, pw, out_dtype, name: str) -> None:
                          "geometry")
 
 
+def _unpack_words(pw: PackedWeight) -> int:
+    """Low-plane (planar) or pairs words per pack tile and column: K8 reads
+    them four at a time."""
+    if pw.layout == "pairs":
+        return pw.tile_k // (2 * (5 if pw.bits == 3 else 16 // pw.bits))
+    return pw.tile_k * {3: 2, 6: 4}.get(pw.bits, pw.bits) // 32
+
+
 def _unpack_to_int8(pw: PackedWeight) -> torch.Tensor:
-    """K8: packed words -> centered int8 codes (k_pad, N), every layout and
-    width the packing makes. On a CUDA tensor the kernel, on a CPU tensor
-    its plain version."""
+    """K8: packed words -> centered int8 codes (N, k_pad), K-major, every
+    layout and width the packing makes. On a CUDA tensor the kernel (32
+    columns of one pack tile per CTA, staged in shared memory and written
+    as 16-byte runs of k), on a CPU tensor its plain version."""
     if not pw.qweight.is_cuda:
         return unpack_to_int8_plain(pw)
     _check_int_weight(pw, "_unpack_to_int8")
     N = pw.qweight.shape[1]
-    if N % 4:
-        raise ValueError(f"_unpack_to_int8 takes N % 4 == 0, not {N}")
-    out = torch.empty((pw.k_pad, N), dtype=torch.int8,
+    if N % 32:
+        raise ValueError(f"_unpack_to_int8 takes N % 32 == 0, not {N}")
+    if _unpack_words(pw) % 4:
+        raise NotImplementedError(
+            f"_unpack_to_int8 reads words in fours: a pack tile of "
+            f"{pw.tile_k} rows holds {_unpack_words(pw)} per column (every "
+            "tile of a multiple of 64 rows holds a multiple of 4)")
+    out = torch.empty((N, pw.k_pad), dtype=torch.int8,
                       device=pw.qweight.device)
     _build.launch("quant_matmul_int", "unpack_to_int8", "ppiiiii",
                   pw.qweight.data_ptr(), out.data_ptr(), N, pw.k_pad,
@@ -497,34 +537,65 @@ def _unpack_to_int8(pw: PackedWeight) -> torch.Tensor:
     return out
 
 
+def _k9_offset_operands(ops: IntDenseOperands) -> tuple:
+    """The offset term sum_g xsum_g[m] * off2_g[n] as a bf16 product for K9's
+    tensor cores: each code sum split exactly as 65536 a + 256 b + c (b, c in
+    [0, 255], every part exact in bf16), xo (m, ko) = [65536 a | 256 b | c]
+    and wo (N, ko) = [off2 | off2 | off2] transposed, zero-padded to ko, a
+    multiple of 64 columns. off2 is bf16-valued (a bf16 engine rounds it
+    so), so every product is exact and xo @ wo.T is the offset term up to
+    the order of its f32 sum."""
+    m, n_groups = ops.xsum.shape
+    ko = -(-3 * n_groups // 64) * 64
+    xsum = ops.xsum
+    parts = (65536 * (xsum >> 16), 256 * ((xsum >> 8) & 255), xsum & 255)
+    xo = torch.zeros((m, ko), dtype=torch.bfloat16, device=xsum.device)
+    wo = torch.zeros((ops.off2.shape[1], ko), dtype=torch.bfloat16,
+                     device=xsum.device)
+    off2_t = ops.off2.t()
+    for i, part in enumerate(parts):
+        xo[:, i * n_groups:(i + 1) * n_groups] = part
+        wo[:, i * n_groups:(i + 1) * n_groups] = off2_t
+    return xo, wo
+
+
+def _k9_launch(ops: IntDenseOperands, xs, w8, pw: PackedWeight) -> torch.Tensor:
+    """Launch K9 on prepared operands: xc (m, k_pad), the offset term's bf16
+    operands (``_k9_offset_operands``), the sc slab (n_groups, N) and K8's
+    codes w8 (N, k_pad)."""
+    m, k_pad = ops.xc.shape
+    n = w8.shape[0]
+    xo, wo = _k9_offset_operands(ops)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=ops.xc.device)
+    _build.launch(
+        "quant_matmul_int", "qmm_int_dense", "pppppppiiiii",
+        ops.xc.data_ptr(), w8.data_ptr(), xo.data_ptr(), wo.data_ptr(),
+        ops.sc.data_ptr(), xs.data_ptr(), y.data_ptr(), m, n, k_pad,
+        pw.group_size or pw.tile_k, xo.shape[1])
+    return y
+
+
 def _qmm_int_dense_cuda(xc, xs, w8, pw: PackedWeight,
                         out_dtype) -> torch.Tensor:
-    """Launch K9 on codes xc (m, K) and K8's codes w8 (k_pad, N); no
-    bias."""
+    """K9 on codes xc (m, K) and K8's codes w8 (N, k_pad): the operands
+    (``int_dense_operands``, as JAX forms them outside its kernel), then
+    the launch; no bias."""
     _check_int_weight(pw, "_quant_matmul_int_dense")
     _check_int_acts(xc, xs, pw, out_dtype, "_quant_matmul_int_dense")
-    m, K = xc.shape
-    n = w8.shape[1]
+    n = w8.shape[0]
     if not (w8.is_cuda and w8.dtype == torch.int8 and w8.is_contiguous()
-            and w8.shape[0] == pw.k_pad and n % 128 == 0):
-        raise ValueError("w8 must be contiguous int8 (k_pad, N) on the card "
+            and w8.shape[1] == pw.k_pad and n % 128 == 0):
+        raise ValueError("w8 must be contiguous int8 (N, k_pad) on the card "
                          "with N % 128 == 0")
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=xc.device)
-    _build.launch(
-        "quant_matmul_int", "qmm_int_dense", "ppppppiiiiiii",
-        xc.data_ptr(), xs.data_ptr(), w8.data_ptr(),
-        pw.scales.contiguous().data_ptr(), pw.zeros.contiguous().data_ptr(),
-        y.data_ptr(), m, K, n, pw.k_pad, pw.scales.shape[1],
-        pw.group_size or pw.tile_k, pw.bits)
-    return y
+    return _k9_launch(int_dense_operands(xc, pw), xs, w8, pw)
 
 
 def _quant_matmul_int_dense(x: torch.Tensor, pw: PackedWeight,
                             act_cfg) -> torch.Tensor:
     """The large-m integer route: activation codes, the weight unpacked once
-    (K8), then the dense s8 x s8 product with the group algebra (K9; the
-    kernel forms xsum from its own activation tiles). Bias added after, in
-    x's dtype."""
+    (K8), then the dense s8 x s8 product with the group algebra (K9; xsum,
+    sc and off2 formed here, as in JAX). Bias added after, in x's
+    dtype."""
     lead = x.shape[:-1]
     n = pw.qweight.shape[1]
     m = math.prod(lead)

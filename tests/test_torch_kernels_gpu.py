@@ -522,11 +522,12 @@ def test_engine_on_the_card_matches_plain_versions(cuda):
 # the integer-activation path: K7, K8, K9
 
 
-def _int_packed(cuda, bits, group_size, out_f, in_f, layout, seed):
+def _int_packed(cuda, bits, group_size, out_f, in_f, layout, seed,
+                tile_k=None):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     w = torch.randn(out_f, in_f, generator=gen, device=cuda) * 0.02
     pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
-                     layout=layout)
+                     layout=layout, tile_k=tile_k)
     return pw.map_tensors(
         lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
 
@@ -545,7 +546,26 @@ def test_unpack_to_int8_kernel_exact(cuda, bits, group_size, layout):
     want = qmm.unpack_to_int8_plain(pw)
     torch.cuda.synchronize()
     assert qmm._unpack_to_int8.launches == before + 1
-    assert got.shape == (pw.k_pad, 384) and torch.equal(got, want)
+    assert got.shape == (384, pw.k_pad) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits,group_size,layout,out_f,in_f,tile_k", [
+    (4, 128, "pairs", 12288, 4096, None), (4, 128, "pairs", 4096, 11008,
+                                           None),
+    (6, 128, "planar", 22016, 4096, None), (2, 64, "planar", 4096, 11008,
+                                            None),
+    (4, 64, "planar", 256, 1088, 64), (4, None, "planar", 256, 960, 320)])
+def test_unpack_to_int8_kernel_k_major_widths(cuda, bits, group_size,
+                                              layout, out_f, in_f, tile_k):
+    """K8's K-major codes (N, k_pad) equal its plain version at the 7B
+    widths (qkv, down, gate_up) and on pack tiles of 64 and 320 rows
+    (k_pad % 128 == 64)."""
+    pw = _int_packed(cuda, bits, group_size, out_f, in_f, layout, seed=bits,
+                     tile_k=tile_k)
+    got = qmm._unpack_to_int8(pw)
+    want = qmm.unpack_to_int8_plain(pw)
+    torch.cuda.synchronize()
+    assert got.shape == (out_f, pw.k_pad) and torch.equal(got, want)
 
 
 def _int_check(got, x, pw, cfg, w8=None):
@@ -605,6 +625,61 @@ def test_quant_matmul_int_dense_kernel(cuda, bits, group_size, layout, m):
     nobias = qmm._quant_matmul_int_dense(x, pw, cfg)
     _int_check(nobias, x, pw, cfg)
     assert torch.equal(got, nobias + bias)  # added after, in bf16
+
+
+def _k9_case(cuda, pw, m, abits=4):
+    """K9 alone on one x against its plain version; returns the output."""
+    cfg = QuantConfig(n_bits=abits)
+    x = torch.randn(m, pw.in_features, device=cuda).to(torch.bfloat16)
+    xc, xs = qmm.quantize_act_int(x, cfg)
+    w8 = qmm._unpack_to_int8(pw)
+    got = qmm._qmm_int_dense_cuda(xc, xs, w8, pw, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (m, pw.qweight.shape[1])
+    _int_check(got, x, pw, cfg, w8)
+    return got
+
+
+@pytest.mark.parametrize("m", [64, 128, 2100, 4096])
+@pytest.mark.parametrize("in_f,out_f", [(4096, 12288), (11008, 4096)])
+def test_int_dense_kernel_7b_widths(cuda, in_f, out_f, m):
+    """K9 at the 7B qkv and down widths (W4 g128 pairs, 4-bit codes; down
+    pads K = 11008 to 11264) at small, ragged (2100) and prefill rows."""
+    pw = _int_packed(cuda, 4, 128, out_f, in_f, "pairs", seed=m)
+    _k9_case(cuda, pw, m)
+
+
+@pytest.mark.parametrize("m", [300, 4096])
+@pytest.mark.parametrize("bits,group_size,layout,in_f,tile_k,abits", [
+    (4, None, "pairs", 4096, None, 4), (8, None, "planar", 1100, None, 4),
+    (4, 64, "planar", 4096, None, 4), (6, 128, "planar", 4096, None, 6),
+    (4, 64, "planar", 1088, 64, 4), (4, None, "planar", 960, 320, 6)])
+def test_int_dense_kernel_groups(cuda, bits, group_size, layout, in_f,
+                                 tile_k, abits, m):
+    """K9 on every kind of group: per channel (a group per pack tile of
+    512 rows; W8's dots exceed 2^22, so the kernel converts them with cvt),
+    W4 planar g64 (two closes a stage), W6 planar g128, k_pad % 128 == 64
+    (a half stage at the end, g64 on 64-row tiles) and per-channel groups
+    of 320 rows (closing inside a stage)."""
+    pw = _int_packed(cuda, bits, group_size, 1024, in_f, layout, seed=bits,
+                     tile_k=tile_k)
+    if tile_k:
+        assert pw.k_pad % 128 == 64
+    _k9_case(cuda, pw, m, abits)
+
+
+@pytest.mark.parametrize("m", [4096, 8192])
+def test_int_dense_kernel_is_bitwise_repeatable(cuda, m):
+    """Two K9 calls on the same codes give equal bits (no atomics, a fixed
+    order of every sum)."""
+    pw = _int_packed(cuda, 4, 128, 12288, 4096, "pairs", seed=1)
+    x = torch.randn(m, 4096, device=cuda).to(torch.bfloat16)
+    xc, xs = qmm.quantize_act_int(x, QuantConfig(n_bits=4))
+    w8 = qmm._unpack_to_int8(pw)
+    a = qmm._qmm_int_dense_cuda(xc, xs, w8, pw, torch.bfloat16)
+    b = qmm._qmm_int_dense_cuda(xc, xs, w8, pw, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_ineligible_int_calls_raise_on_the_card(cuda):

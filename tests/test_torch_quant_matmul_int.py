@@ -1,13 +1,17 @@
 """The port's integer-activation path (W4A4 / W6A6) against the JAX
 package's on numpy-seeded inputs, on the CPU: ``quantize_act_int`` bit for
-bit, K8's plain version exactly, K7's and K9's plain versions (through the
-public functions) against the Pallas kernels in interpret mode, the route
-each call takes, and the per-element rule the card holds K7 and K9 to.
+bit, K8's plain version exactly (its codes K-major, JAX's transposed), K9's
+operands (xsum, sc, off2) bit for bit, K7's and K9's plain versions
+(through the public functions) against the Pallas kernels in interpret
+mode, the route each call takes, the per-element rule the card holds K7 and
+K9 to, and numpy emulations of K8's and K9's index math (the kernels in
+``csrc/quant_matmul_int.cu`` run only on the card).
 
 Tolerance of the products: both sides evaluate the same algebra in f32
 (exact int dots, then f32 sums of dot * sc and xsum * off2 over the groups,
 times the per-token scale) in orders that differ only inside XLA's and
 PyTorch's dots, so rtol 1e-5 plus 1e-6 of the largest output."""
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -81,15 +85,17 @@ def test_quantize_act_int_bit_exact(abits, dtype):
     (2, "planar"), (3, "planar"), (4, "planar"), (6, "planar"),
     (8, "planar"), (2, "pairs"), (3, "pairs"), (4, "pairs")])
 def test_unpack_to_int8_exact(bits, layout):
-    """K8's plain version equals the JAX kernel for every layout and width,
-    with in_features padded up to the pack tile."""
+    """K8's plain version equals the JAX kernel's codes transposed, K-major
+    (N, k_pad), for every layout and width, with in_features padded up to
+    the pack tile."""
     gs = 128 if bits != 8 else None
     jw, tw = packed_pair(bits, gs, 256, 640, layout, seed=bits)
     want = jqm._unpack_to_int8(jw.qweight, jnp.zeros((1, 1), jnp.int32),
                                bits, jw.tile_k, layout, True)
     got = tqm._unpack_to_int8(tw)
-    assert got.dtype == torch.int8 and got.shape == (tw.k_pad, 256)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int8 and got.shape == (256, tw.k_pad)
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).T)
     assert tqm._unpack_to_int8.launches == 0  # no kernel on a CPU tensor
 
 
@@ -212,7 +218,7 @@ def _emulate_int_kernel(xc, xs, w8, pw, splits, fault=None):
     the slices added in order, times xs, rounded to bf16. ``fault`` plants a
     bug: "lost_group" skips the third group, "no_off2" leaves the offset
     term out, "xs_twice" applies the per-token scale twice."""
-    k_pad = w8.shape[0]
+    k_pad = w8.shape[1]
     xc = torch.nn.functional.pad(xc, (0, k_pad - xc.shape[1])).float()
     gs = pw.group_size or pw.tile_k
     n_tiles = k_pad // pw.tile_k
@@ -220,7 +226,7 @@ def _emulate_int_kernel(xc, xs, w8, pw, splits, fault=None):
     z = pw.zeros.float().t()
     half = 2.0 ** (pw.bits - 1)
     off2 = ((half - z).bfloat16().float() * sc).bfloat16().float()
-    total = torch.zeros(xc.shape[0], w8.shape[1])
+    total = torch.zeros(xc.shape[0], w8.shape[0])
     for s in range(splits):
         accf = torch.zeros_like(total)
         for t in range(s * n_tiles // splits, (s + 1) * n_tiles // splits):
@@ -229,7 +235,7 @@ def _emulate_int_kernel(xc, xs, w8, pw, splits, fault=None):
                     continue
                 rows = slice(g * gs, (g + 1) * gs)
                 gi = min(g, sc.shape[0] - 1)
-                dot = xc[:, rows] @ w8[rows].float()
+                dot = xc[:, rows] @ w8[:, rows].float().t()
                 term = dot * sc[gi]
                 if fault != "no_off2":
                     term = term + xc[:, rows].sum(-1, keepdim=True) * off2[gi]
@@ -247,7 +253,7 @@ def test_card_tolerance_admits_rounding_and_rejects_faults(fault):
     kernels' arithmetic (3 split-K slices, bf16 scales and zeros) and
     rejects a lost group, a missing offset term and xs applied twice, on a
     W6A6 projection with K = 1536 (12 groups)."""
-    _, tw = packed_pair(6, 128, 256, 1536, "planar", seed=9)
+    jw, tw = packed_pair(6, 128, 256, 1536, "planar", seed=9)
     tw = tw.map_tensors(lambda t: t.to(torch.bfloat16)
                         if t.is_floating_point() else t)
     x = torch.from_numpy(np.random.default_rng(10).standard_normal(
@@ -255,7 +261,474 @@ def test_card_tolerance_admits_rounding_and_rejects_faults(fault):
     xc, xs = tqm.quantize_act_int(x, TQuantConfig(n_bits=6))
     want, mag = tqm.quant_matmul_int_plain(xc, xs, tw, magnitude=True)
     w8 = tqm.unpack_to_int8_plain(tw)
+    np.testing.assert_array_equal(w8.numpy(), np.asarray(jqm._unpack_to_int8(
+        jw.qweight, jnp.zeros((1, 1), jnp.int32), 6, jw.tile_k, "planar",
+        True)).T)
     got = _emulate_int_kernel(xc, xs, w8, tw, splits=3, fault=fault)
     ok, _, worst = tolerance.bf16_close(
         got, want, tolerance.INT_MATMUL_SLACK * mag)
     assert ok == (fault is None), worst
+
+
+def _jax_dense_operands(x, jw, jcfg):
+    """What JAX's ``_quant_matmul_int_dense`` forms outside its kernel
+    (omniquant_tpu/kernels/quant_matmul.py:698-736), rebuilt with jnp: the
+    codes padded to k_pad, the per-group code sums (m, n_groups) and the
+    scale and off2 slabs, flattened from (tile, group of the tile, N) to
+    (n_groups, N)."""
+    xc, _ = jqm.quantize_act_int(x, jcfg)
+    m = xc.shape[0]
+    k_pad, n = jw.k_pad, jw.qweight.shape[1]
+    xc = jnp.pad(xc, ((0, 0), (0, k_pad - xc.shape[1])))
+    gs = jw.group_size or jw.tile_k
+    n_g = jw.tile_k // gs
+    nk = k_pad // jw.tile_k
+    scales_t = jw.scales.T.astype(jnp.float32)
+    off2_t = ((2 ** (jw.bits - 1) - jw.zeros) * jw.scales).T.astype(
+        jnp.float32)
+
+    def to_slabs(a):
+        if jw.group_size:
+            if a.shape[0] < nk * n_g:
+                a = jnp.concatenate(
+                    [a, jnp.repeat(a[-1:], nk * n_g - a.shape[0], 0)])
+            a = a.reshape(nk, n_g, n)
+        else:
+            a = jnp.broadcast_to(a[None], (nk, 1, n))
+        return a.reshape(nk * n_g, n)
+
+    xsum = jnp.sum(xc.astype(jnp.int32).reshape(m, k_pad // gs, gs), -1)
+    return xc, xsum, to_slabs(scales_t), to_slabs(off2_t)
+
+
+@pytest.mark.parametrize("layout,bits,group_size,in_f", [
+    ("pairs", 4, 128, 640), ("pairs", 4, 64, 320), ("pairs", 3, None, 700),
+    ("planar", 6, 128, 640), ("planar", 4, 64, 320), ("planar", 2, None, 700),
+    ("planar", 8, 128, 1152)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int_dense_operands_match_jax(layout, bits, group_size, in_f, dtype):
+    """The codes, xsum, sc and off2 that the port's wrapper hands K9
+    (``int_dense_operands``) equal what JAX's dense route forms with XLA,
+    bit for bit, for pairs and planar weights at g64, g128 and per channel,
+    with f32 or bf16 scales (off2 rounded at each step in bf16), K padded
+    up to the pack tile and the layout-padding groups on the last scale."""
+    jw, tw = packed_pair(bits, group_size, 256, in_f, layout,
+                         seed=bits + in_f)
+    if dtype == "bfloat16":
+        jw = dataclasses.replace(jw, scales=jw.scales.astype(jnp.bfloat16),
+                                 zeros=jw.zeros.astype(jnp.bfloat16))
+        tw = tw.map_tensors(lambda t: t.to(torch.bfloat16)
+                            if t.is_floating_point() else t)
+    assert tw.k_pad > in_f
+    x = np.random.default_rng(bits).standard_normal((37, in_f)).astype(
+        np.float32)
+    jcfg, tcfg = acts(4)
+    want = _jax_dense_operands(jnp.asarray(x), jw, jcfg)
+    xc, _ = tqm.quantize_act_int(torch.from_numpy(x), tcfg)
+    got = tqm.int_dense_operands(xc, tw)
+    assert got.xsum.dtype == torch.int32
+    assert got.sc.dtype == got.off2.dtype == torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# K8 and K9 tiles (csrc/quant_matmul_int.cu) emulated lane by lane in numpy:
+# the index math of the kernels, checked here before any launch on the card
+
+
+def _k8_emulate(pw):
+    """unpack_int8_kernel: per CTA (32 columns, one pack tile), phase 1
+    reads four consecutive words of a column and stores each slot's four
+    codes (planar: rows v*P + w..w+3; pairs: two words per 4-byte store,
+    rows j*2P + 2w..2w+7) into a (32, T + 4) byte tile; phase 2 writes 16-
+    byte chunks, 4 columns x 8 chunks per warp, to out (N, k_pad)."""
+    qw = pw.qweight.numpy().view(np.uint32)
+    N, T, bits, k_pad = qw.shape[1], pw.tile_k, pw.bits, pw.k_pad
+    half = 1 << (bits - 1)
+    pairs = pw.layout == "pairs"
+    lo_bits = {3: 2, 6: 4}.get(bits, bits)
+    P = tqm._unpack_words(pw)
+    wpt = P if pairs else T * bits // 32
+    out = np.full((N, k_pad), 99, np.int64)
+    LD = T + 4
+    for t in range(k_pad // T):
+        for c0 in range(0, N, 32):
+            sm = np.full(32 * LD, 77, np.int64)
+            for i in range(P // 4 * 32):
+                c, q = i % 32, i // 32
+                lo = [int(qw[t * wpt + 4 * q + e, c0 + c]) for e in range(4)]
+                base = c * LD
+                if pairs:
+                    fields = 5 if bits == 3 else 16 // bits
+                    for j in range(fields):
+                        codes = [((lo[e] >> (bits * j + 16 * h))
+                                  & ((1 << bits) - 1)) - half
+                                 for e in range(4) for h in range(2)]
+                        off = base + j * 2 * P + 8 * q
+                        assert off % 4 == 0
+                        sm[off:off + 8] = codes
+                else:
+                    hp = P // 2
+                    hi = [int(qw[t * wpt + P + (4 * q + e) % hp, c0 + c])
+                          if bits in (3, 6) else 0 for e in range(4)]
+                    sel = [(4 * q + e) // hp for e in range(4)]
+                    for v in range(32 // lo_bits):
+                        codes = []
+                        for e in range(4):
+                            cd = (lo[e] >> (lo_bits * v)) & ((1 << lo_bits) - 1)
+                            if bits in (3, 6):
+                                hb = bits - lo_bits
+                                cd |= ((hi[e] >> (hb * (2 * v + sel[e])))
+                                       & ((1 << hb) - 1)) << lo_bits
+                            codes.append(cd - half)
+                        off = base + v * P + 4 * q
+                        assert off % 4 == 0
+                        sm[off:off + 4] = codes
+            CH = T // 16
+            for e in range(32 // 4 * -(-CH // 8) * 32):
+                sub, b = e % 32, e // 32
+                c = (b % 8) * 4 + sub // 8
+                ch = (b // 8) * 8 + sub % 8
+                if ch >= CH:
+                    continue
+                src = c * LD + ch * 16
+                assert src % 4 == 0 and (t * T + ch * 16) % 16 == 0
+                out[c0 + c, t * T + ch * 16:t * T + ch * 16 + 16] = \
+                    sm[src:src + 16]
+    return out
+
+
+@pytest.mark.parametrize("bits,layout,group_size,in_f", [
+    (4, "pairs", 128, 640), (3, "pairs", 128, 640), (2, "pairs", None, 300),
+    (2, "planar", 64, 320), (3, "planar", 128, 640), (4, "planar", 64, 320),
+    (6, "planar", 128, 640), (8, "planar", None, 200)])
+def test_unpack_tile_emulation_writes_every_code(bits, layout, group_size,
+                                                 in_f):
+    """K8's index math writes every code of (N, k_pad) once, equal to the
+    plain version (which equals JAX's, transposed), for every layout and
+    width; the shared stores are 4-byte aligned and the global ones 16."""
+    _, tw = packed_pair(bits, group_size, 64, in_f, layout, seed=bits)
+    assert tqm._unpack_words(tw) % 4 == 0
+    got = _k8_emulate(tw)
+    np.testing.assert_array_equal(got, tqm.unpack_to_int8_plain(tw).numpy())
+
+
+K9_BK, K9_STAGES, K9_STAGE_BYTES, K9_SC = 128, 6, 33792, 512
+
+
+def _k9_scale_slots(s, k_pad, gs):
+    """{slot: group} of K stage s: the producer copies the scales of a group
+    starting at half h of the stage (row 128 s + 64 h) into slot h."""
+    return {h: (s * K9_BK + 64 * h) // gs for h in (0, 1)
+            if s * K9_BK + 64 * h < k_pad and (s * K9_BK + 64 * h) % gs == 0}
+
+
+def _k9_n_off(k_pad, gs):
+    """Ring positions of the offset term: 3 bf16 columns per group, 64 a
+    stage."""
+    return -(-3 * (k_pad // gs) // 64)
+
+
+def _k9_consumer(k_pad, gs):
+    """A consumer warpgroup's program in qmm_int_dense_kernel: the offset
+    term's stages (bf16 wgmmas into the f32 sums, each waited for, then
+    freed), then chunks of CHUNK bytes of k (128 where gs and k_pad are
+    multiples of 128, else 64), each its own wgmma commit group; at a
+    group's first chunk, read its scales from slot j of the stage into
+    registers (slot = the half of the stage where the group starts); after
+    each chunk, wait for it, free its stage if the chunk ends the stage,
+    close the group after its gs / CHUNK chunks. Ring slot and phase and
+    the chunks of a group are counters, as in the kernel."""
+    n_off = _k9_n_off(k_pad, gs)
+    ev = []
+    for p in range(n_off):
+        ev += [("wait_full", p), ("issue_offset", p), ("wait", 0),
+               ("release", p)]
+    chunk = 128 if gs % K9_BK == 0 and k_pad % K9_BK == 0 else 64
+    p, in_g, g = n_off, 0, 0
+    for c in range(k_pad // chunk):
+        k0, k1 = c * chunk, (c + 1) * chunk
+        half = (k0 % K9_BK) // 64
+        if half == 0:
+            ev.append(("wait_full", p))
+        if in_g == 0:
+            ev.append(("read_scales", g, p, half))
+        ev.append(("issue", g, p, k0, k1))
+        ev.append(("wait", 0))
+        if k1 % K9_BK == 0 or k1 == k_pad:
+            ev.append(("release", p))
+            p += 1
+        in_g += 1
+        if in_g == gs // chunk:
+            ev.append(("close", g))
+            in_g, g = 0, g + 1
+    return ev
+
+
+K9_CASES = [(4096, 128), (4096, 64), (11264, 128), (1088, 64), (1152, 64),
+            (1280, 640), (320, 64), (960, 320), (768, 192), (512, 512)]
+
+
+@pytest.mark.parametrize("k_pad,gs", K9_CASES)
+def test_k9_schedule_closes_every_group_once(k_pad, gs):
+    """A consumer issues every k32 step of [0, k_pad) once, inside one
+    stage and one group, zeroing the accumulator (scale-d 0) at a group's
+    first step only; it closes each group once, after all of its wgmmas
+    completed, with the scales it read at the group's start from the slot
+    where the producer put them; it frees each ring position once, after
+    every wgmma and scale read of it. g64, g128, per channel (groups of a pack tile, over several
+    stages), k_pad % 128 == 64 (a half stage at the end) and groups of 192
+    and 320 rows."""
+    ev = _k9_consumer(k_pad, gs)
+    n_off = _k9_n_off(k_pad, gs)
+    steps, pending, done, closed, released = [], [], [], [], []
+    scales = {}
+    for e in ev:
+        if e[0] == "read_scales":
+            _, g, p, h = e
+            assert p not in released
+            assert _k9_scale_slots(p - n_off, k_pad, gs)[h] == g
+            scales[g] = p
+        if e[0] == "issue":
+            _, g, p, k0, k1 = e
+            assert k0 // gs == (k1 - 1) // gs == g
+            assert n_off + k0 // K9_BK == n_off + (k1 - 1) // K9_BK == p
+            for k in range(k0, k1, 32):
+                steps.append((k, g, k == g * gs))
+        if e[0] in ("issue", "issue_offset"):
+            pending.append(e)
+        elif e[0] == "wait":
+            done += pending
+            pending = []
+        elif e[0] == "close":
+            g = e[1]
+            assert g not in closed and g in scales
+            assert all(d in done for d in ev if d[0] == "issue" and d[1] == g)
+            closed.append(g)
+        elif e[0] == "release":
+            p = e[1]
+            assert all(d in done for d in ev
+                       if d[0] in ("issue", "issue_offset") and d[2 if d[0]
+                                                             == "issue"
+                                                             else 1] == p)
+            assert p not in released
+            released.append(p)
+    assert [k for k, _, _ in steps] == list(range(0, k_pad, 32))
+    assert all(first == (k % gs == 0) for k, _, first in steps)
+    assert closed == list(range(k_pad // gs))
+    assert released == list(range(n_off + -(-k_pad // K9_BK)))
+    # every group's scales are copied into exactly one stage
+    owners = [g for s in range(-(-k_pad // K9_BK))
+              for g in _k9_scale_slots(s, k_pad, gs).values()]
+    assert owners == list(range(k_pad // gs))
+
+
+class _MBarrier:
+    """An mbarrier: a phase completes when its pending arrivals and its
+    transaction bytes both reach 0; try_wait.parity(p) passes once the
+    phase of parity p has completed (at first, parity 1)."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def arrive(self, n=1, tx=0):
+        self.tx += tx
+        self.pending -= n
+        self._flip()
+
+    def complete_tx(self, nbytes):
+        self.tx -= nbytes
+        self._flip()
+
+    def _flip(self):
+        assert self.pending >= 0
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def passed(self, parity):
+        return (self.phase & 1) != parity
+
+
+@pytest.mark.parametrize("k_pad,gs", K9_CASES)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k9_ring_phase_bits(k_pad, gs, seed):
+    """The ring's full/empty barriers and their phase bits under random
+    interleavings of the producer (waits empty[slot] at parity
+    (round & 1) ^ 1, arms full[slot] with its two 16 KB boxes and 512
+    bytes per group starting in a K stage), the copies landing in any order and the two consumer warpgroups (wait full[slot]
+    at parity round & 1; 128 arrivals each on empty): no deadlock, every
+    wait passes only once its position's bytes have landed, and no slot is
+    overwritten while a wgmma or a scale read still reads it."""
+    rng = np.random.default_rng(seed)
+    n_off = _k9_n_off(k_pad, gs)
+    n_pos = n_off + -(-k_pad // K9_BK)
+    full = [_MBarrier(1) for _ in range(K9_STAGES)]
+    empty = [_MBarrier(256) for _ in range(K9_STAGES)]
+    held = [None] * K9_STAGES  # the ring position whose data a slot holds
+    copies = []
+
+    def producer():
+        for p in range(n_pos):
+            slot, rnd = p % K9_STAGES, p // K9_STAGES
+            while not empty[slot].passed((rnd & 1) ^ 1):
+                yield
+            held[slot] = None  # the copies below overwrite it
+            parts = [16384, 16384] + ([K9_SC] * len(_k9_scale_slots(
+                p - n_off, k_pad, gs)) if p >= n_off else [])
+            full[slot].arrive(1, tx=sum(parts))
+            copies.extend((slot, p, b, i == len(parts) - 1)
+                          for i, b in enumerate(parts))
+            yield
+
+    def consumer():
+        inflight = []
+        for e in _k9_consumer(k_pad, gs):
+            if e[0] == "wait_full":
+                p = e[1]
+                slot = p % K9_STAGES
+                while not full[slot].passed((p // K9_STAGES) & 1):
+                    yield
+                assert held[slot] == p
+            elif e[0] == "read_scales":
+                assert held[e[2] % K9_STAGES] == e[2]
+            elif e[0] in ("issue", "issue_offset"):
+                inflight.append(e[2] if e[0] == "issue" else e[1])
+            elif e[0] == "wait":
+                for p in inflight:
+                    assert held[p % K9_STAGES] == p
+                inflight = []
+            elif e[0] == "release":
+                empty[e[1] % K9_STAGES].arrive(128)
+            yield
+
+    actors = [producer(), consumer(), consumer()]
+    live = list(range(3))
+    for _ in range(200000):
+        moves = [("actor", a) for a in live] + [("copy", i)
+                                                for i in range(len(copies))]
+        if not moves:
+            break
+        kind, i = moves[rng.integers(len(moves))]
+        if kind == "copy":
+            slot, p, nbytes, last = copies.pop(i)
+            if last:
+                held[slot] = p
+            full[slot].complete_tx(nbytes)
+        else:
+            try:
+                next(actors[i])
+            except StopIteration:
+                live.remove(i)
+    assert not live and not copies, "the ring deadlocked"
+
+
+@pytest.mark.parametrize("n_groups", [1, 32, 88])
+def test_k9_offset_operands_are_exact(n_groups):
+    """K9's offset term on the bf16 tensor cores: xo @ wo.T equals
+    xsum @ off2 exactly (in f64, where every bf16 product and their sum are
+    exact) for code sums across the int32 range K9 meets (the split's parts
+    are exact in bf16) and bf16 off2; ko is a multiple of 64."""
+    rng = np.random.default_rng(n_groups)
+    xsum = rng.integers(-2 ** 23, 2 ** 23, (37, n_groups)).astype(np.int32)
+    xsum[0, 0], xsum[1, 0] = -2 ** 23, 2 ** 23 - 1
+    off2 = torch.from_numpy(rng.standard_normal((n_groups, 256)).astype(
+        np.float32)).to(torch.bfloat16).float()
+    ops = tqm.IntDenseOperands(None, torch.from_numpy(xsum), None, off2)
+    xo, wo = tqm._k9_offset_operands(ops)
+    assert xo.dtype == wo.dtype == torch.bfloat16
+    assert xo.shape[1] == wo.shape[1] and xo.shape[1] % 64 == 0
+    assert xo.shape[1] >= 3 * n_groups
+    np.testing.assert_array_equal(
+        (xo.double() @ wo.double().t()).numpy(),
+        (torch.from_numpy(xsum).double() @ off2.double()).numpy())
+
+
+def _swizzle128(addr):
+    """The 128-byte swizzle TMA writes and wgmma reads: 16-byte chunk bits
+    [4:6] of a shared address XOR its 128-byte row bits [7:9]."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _k9_desc(addr):
+    """csrc k9_desc: a K-major, 128B-swizzled wgmma operand at a shared
+    address: start >> 4 in bits [0:14), LBO 16 B, SBO 1024 B (8 rows of
+    128 bytes) in bits [32:46), layout 1 (128B swizzle) in bits [62:64)."""
+    return (((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32)
+            | (1 << 62))
+
+
+@pytest.mark.parametrize("rows,wg_rows", [(128, 64), (128, 128)])
+def test_k9_swizzle_and_descriptors_reach_every_byte(rows, wg_rows):
+    """A stage's box (rows x 128 k-bytes: 128 int8 codes or 64 bf16 values)
+    as TMA writes it with the 128-byte swizzle at a 1024-aligned address,
+    and the bytes each wgmma reads through its descriptor (A: a
+    warpgroup's 64 rows, m64 x k32 int8 or k16 bf16, 32 bytes either way;
+    B: the CTA's 128 columns) at start + 64 * (second half of the stage)
+    + 32 * q: each (row, k) byte of the box is read once, by the step that
+    covers it, from where TMA put it."""
+    base = 5 * K9_STAGE_BYTES + 16384  # a B box of slot 5: 1024-aligned
+    assert base % 1024 == 0
+    smem = {}
+    for r in range(rows):
+        for k in range(K9_BK):
+            smem[base + _swizzle128(r * 128 + k)] = (r, k)
+    assert len(smem) == rows * K9_BK
+    seen = {}
+    for w0 in range(0, rows, wg_rows):
+        for h in (0, 64):
+            for q in range(2):
+                desc = _k9_desc(base + w0 * 128 + h + 32 * q)
+                start = (desc & 0x3FFF) << 4
+                sbo = ((desc >> 32) & 0x3FFF) << 4
+                assert desc >> 62 == 1 and sbo == 1024
+                for i in range(wg_rows):
+                    for kk in range(32):
+                        lin = start + (i // 8) * sbo + (i % 8) * 128 + kk
+                        got = smem[base + _swizzle128(lin - base)]
+                        want = (w0 + i, h + 32 * q + kk)
+                        assert got == want, (w0, h, q, i, kk, got)
+                        seen[want] = seen.get(want, 0) + 1
+    assert len(seen) == rows * K9_BK and set(seen.values()) == {1}
+
+
+def test_k9_accumulator_map_covers_the_tile_once():
+    """The m64n128 s32 accumulator (thread t of a warpgroup, register i:
+    row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) +
+    2 (t % 4) + i % 2) covers a warpgroup's 64 x 128 tile once and the two
+    consumer warpgroups the CTA's 128 x 128 tile once; the close scales it
+    by its column's scale (the thread's 16 float2 scales at columns
+    8 j + 2 (lane % 4), j = i / 4) and the epilogue by its row's xs (rows
+    r0 and r0 + 8)."""
+    cover = np.zeros((128, 128), int)
+    for cw in range(2):
+        for t in range(128):
+            warp, lane = t // 32, t % 32
+            r0 = cw * 64 + warp * 16 + lane // 4
+            for i in range(64):
+                row = cw * 64 + 16 * (t // 32) + (t % 32) // 4 + 8 * (
+                    (i // 2) % 2)
+                col = 8 * (i // 4) + 2 * (t % 4) + i % 2
+                j, h, e = i // 4, (i // 2) % 2, i % 2
+                assert row == r0 + 8 * h
+                assert col == 8 * j + 2 * (lane % 4) + e
+                cover[row, col] += 1
+    assert (cover == 1).all()
+
+
+def test_k9_grid_raster_covers_every_tile_once():
+    """The 1-D grid walks bands of 16 row tiles, rows fastest inside a
+    band (csrc k9_tile): every (row tile, column tile) once, ragged last
+    band included."""
+    for m_tiles, n_tiles in ((32, 96), (33, 32), (1, 2), (17, 172)):
+        seen = set()
+        for idx in range(m_tiles * n_tiles):
+            band_sz = 16 * n_tiles
+            first = idx // band_sz * 16
+            gm = min(m_tiles - first, 16)
+            mt = first + (idx % band_sz) % gm
+            nt = (idx % band_sz) // gm
+            assert 0 <= mt < m_tiles and 0 <= nt < n_tiles
+            seen.add((mt, nt))
+        assert len(seen) == m_tiles * n_tiles
