@@ -22,7 +22,9 @@ prints no result. Any failure raises, so the exit code is non-zero.
               qkv, o and down at the m = 128 verify and the m = 4096 and
               8192 prefills) and on planar words (W2/W3/W4 g64, W6 g128,
               W8 per-channel: the four decode products at m = 32 and 8;
-              W2 and W4 g64 also at m = 128 and 4096).
+              W2 and W4 g64 also at m = 128 and 4096). K2 runs causal at
+              (8, 32, 1024, 128), the B/D/F prefill's shape, and at
+              (2, 32, 4096, 128), the same tokens as a 4x longer prompt.
 3. serve   -- LLaMA-7B widths and depth (vocab 32000, hidden 4096, inter
               11008, 32 layers, 32/32 heads), random weights from a seeded
               torch.Generator, packed by pack_model's auto layout: W4 g128
@@ -479,12 +481,13 @@ def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
     return tot
 
 
-def check_flash(torch, device, timer, dims) -> dict:
+def _flash_row(torch, device, timer, B, Hh, S, D) -> dict:
+    """K2 at (B, Hh, S, D) causal against its plain version (per element),
+    timed beside the plain version, SDPA and the bound."""
     from omniquant_tpu_torch.kernels import tolerance
     from omniquant_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
 
-    B, S, Hh, D = dims["flash_batch"], dims["flash_len"], dims["heads"], 128
     gen = torch.Generator(device=device).manual_seed(99)
     q, k, v = (torch.randn(B, Hh, S, D, generator=gen, device=device).to(
         torch.bfloat16) for _ in range(3))
@@ -494,9 +497,11 @@ def check_flash(torch, device, timer, dims) -> dict:
     ok, err, worst = tolerance.bf16_close(
         got, want, tolerance.flash_attention_slack(q, k, v, sm_scale=scale))
     rel = rms_rel_err(got, want)
+    del got, want
     if not ok:
-        raise AssertionError(f"flash_attention: max abs err {err}, "
-                             f"{worst:.3g} x its per-element bound")
+        raise AssertionError(f"flash_attention ({B},{Hh},{S},{D}): max abs "
+                             f"err {err}, {worst:.3g} x its per-element "
+                             f"bound")
     t = timer(lambda: flash_attention(q, k, v, sm_scale=scale),
               "flash_attention")
     t_plain = timer(lambda: flash_attention_plain(q, k, v, sm_scale=scale),
@@ -508,11 +513,25 @@ def check_flash(torch, device, timer, dims) -> dict:
     b, by = bound_ms(nbytes, flops)
     log(f"  flash_attention ({B},{Hh},{S},{D}) causal: max abs err "
         f"{err:.3g} ({worst:.3g} x bound, rms rel {rel:.2g})  kernel "
-        f"{t:.4f} ms  plain {t_plain:.4f}  "
-        f"sdpa {t_lib:.4f}  bound {b:.4f} ({by})")
+        f"{t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)  plain {t_plain:.4f}  "
+        f"sdpa {t_lib:.4f} ({flops / t_lib / 1e9:.1f} TFLOP/s)  bound "
+        f"{b:.4f} ({by})")
     return dict(ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b,
                 bound_by=by, max_abs_err=err, err_over_bound=worst,
+                tflops=flops / t / 1e9, library_tflops=flops / t_lib / 1e9,
                 shape=f"q/k/v ({B}, {Hh}, {S}, {D}) bf16, causal")
+
+
+def check_flash(torch, device, timer, dims) -> dict:
+    """K2 at the serving prefill shape (flash_batch x flash_len), and under
+    "long_prompt" at a 4x longer prompt with the same tokens per batch."""
+    Hh, D = dims["heads"], 128
+    row = _flash_row(torch, device, timer, dims["flash_batch"], Hh,
+                     dims["flash_len"], D)
+    row["long_prompt"] = _flash_row(torch, device, timer,
+                                    max(1, dims["flash_batch"] // 4), Hh,
+                                    4 * dims["flash_len"], D)
+    return row
 
 
 def check_kv(torch, device, timer, dims, out: dict) -> tuple:
@@ -1567,6 +1586,8 @@ def main(argv=None) -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             tolerance=tol, shape=r["shape"],
             **({"prefill": r["prefill"]} if "prefill" in r else {}),
+            **({"long_prompt": r["long_prompt"]}
+               if "long_prompt" in r else {}),
             **({"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {})))
     out["kernels"] = entries
     out["total_s"] = time.time() - t_start

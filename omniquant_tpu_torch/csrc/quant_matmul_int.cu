@@ -41,7 +41,6 @@
 //      memory (never written to device memory). Slices write f32 partial
 //      sums that a second pass (splitk_sum.cuh) adds in a fixed order; its
 //      products are mma.sync m16n8k32.
-#include <cuda.h>  // CUtensorMap and its enums only: no driver library link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +48,7 @@
 #include <algorithm>
 
 #include "planar.cuh"
+#include "sm90.cuh"
 #include "splitk_sum.cuh"
 
 namespace {
@@ -295,141 +295,6 @@ constexpr int K9_OFF_K = 64;  // bf16 columns of the offset term a stage
 constexpr int K9_SMEM = K9_STAGES * K9_STAGE + 2 * K9_STAGES * 8 + 1024;
 static_assert(K9_STAGE % 1024 == 0, "swizzled boxes need 1024-byte bases");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-// a wait that never ends (a ring out of step) traps after 2^22 polls
-// (each try_wait suspends for up to microseconds: ~20 s on an H100), so
-// it fails the launch instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  // a phase that has completed passes without try_wait's suspend latency
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  if (done) return;
-  int polls = 0;
-  do {
-    if (++polls == (1 << 22)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arm(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        uint32_t bar, int k, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row)
-      : "memory");
-}
-
-// a K-major operand with the 128-byte swizzle: start >> 4, LBO 16 bytes
-// (unused for this layout), SBO 1024 bytes (8 rows of 128 bytes), layout 1
-__device__ __forceinline__ uint64_t k9_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// keep the compiler from moving accesses to the accumulators across the
-// asynchronous wgmma instructions
-__device__ __forceinline__ void fence_acc(int (&acc)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
-}
-__device__ __forceinline__ void fence_acc(float (&acc)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
-}
-
-#define K9_D64(c)                                                          \
-  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),  \
-      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),  \
-      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]),          \
-      c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]),          \
-      c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]), c(d[32]),          \
-      c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]),          \
-      c(d[39]), c(d[40]), c(d[41]), c(d[42]), c(d[43]), c(d[44]),          \
-      c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]), c(d[50]),          \
-      c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),          \
-      c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
-#define K9_REGS                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-#define K9_RW_INT(x) "+r"(x)
-#define K9_RW_F32(x) "+f"(x)
-
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " K9_REGS
-      ", %64, %65, p;\n}\n"
-      : K9_D64(K9_RW_INT)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " K9_REGS
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : K9_D64(K9_RW_F32)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // one chunk of CHUNK bytes of k: straight-line k32 steps from shared
 // addresses a, b; the group's first step overwrites the accumulator
 template <int CHUNK>
@@ -439,7 +304,7 @@ __device__ __forceinline__ void k9_issue(int (&acc)[64], uint32_t a,
   wgmma_fence();
 #pragma unroll
   for (int q = 0; q < CHUNK / 32; ++q)
-    wgmma_s8(acc, k9_desc(a + 32 * q), k9_desc(b + 32 * q),
+    wgmma_s8(acc, desc_k_sw128(a + 32 * q), desc_k_sw128(b + 32 * q),
              (q == 0 && first) ? 0 : 1);
   wgmma_commit();
 }
@@ -536,8 +401,8 @@ qmm_int_dense_kernel(const __grid_constant__ CUtensorMap map_x,
       wgmma_fence();
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        wgmma_bf16(accf, k9_desc(a + 32 * q), k9_desc(b + 32 * q),
-                   (p == 0 && q == 0) ? 0 : 1);
+        wgmma_bf16(accf, desc_k_sw128(a + 32 * q),
+                   desc_k_sw128(b + 32 * q), (p == 0 && q == 0) ? 0 : 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(accf);
@@ -595,33 +460,6 @@ qmm_int_dense_kernel(const __grid_constant__ CUtensorMap map_x,
                                   accf[4 * j + 2 * h + 1] * s);
     }
   }
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a (rows, cols) matrix of 1- or 2-byte elements, K-major, read as boxes of

@@ -8,8 +8,9 @@ where Sq == Skv, as every caller has it), optional ALiBi adding
 slope[h] * key_position * sm_scale, f32 softmax, output in q.dtype.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/flash_attention.cu`` (bf16, head_dim 64 or 128) or raises; on a CPU
-tensor it runs the plain version.
+``csrc/flash_attention.cu`` (bf16, head_dim 64 or 128; TMA loads need
+every tensor at a 16-byte aligned address) or raises; on a CPU tensor it
+runs the plain version.
 """
 from __future__ import annotations
 
@@ -62,6 +63,10 @@ def flash_attention(q, k, v, sm_scale: Optional[float] = None,
     if D not in (64, 128):
         raise ValueError(f"the CUDA flash kernel takes head_dim 64 or 128, not {D}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the CUDA flash kernel loads {name} by TMA, "
+                             f"which needs a 16-byte aligned address")
     slopes = None
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32)

@@ -269,22 +269,33 @@ def test_quant_matmul_planar_small_tile(cuda, bits, in_f, m):
     _planar_case(cuda, bits, None, in_f, 256, m)
 
 
-@pytest.mark.parametrize("B,H,Hkv,S,D,causal,alibi", [
-    (2, 4, 4, 256, 128, True, False),
-    (1, 8, 2, 200, 128, True, False),   # GQA, ragged
-    (1, 4, 1, 96, 64, True, True),      # MQA, ALiBi, head_dim 64
-    (2, 2, 2, 130, 128, False, False),  # not causal, ragged
-    (1, 4, 4, 1, 128, True, False),     # a single query
-])
-def test_flash_attention_kernel(cuda, B, H, Hkv, S, D, causal, alibi):
-    gen = torch.Generator(device=cuda).manual_seed(S)
-    q = torch.randn(B, H, S, D, generator=gen, device=cuda).to(torch.bfloat16)
-    k = torch.randn(B, Hkv, S, D, generator=gen, device=cuda).to(
+def _flash_inputs(cuda, B, H, Hkv, Sq, Skv, D, alibi, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, H, Sq, D, generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, Skv, D, generator=gen, device=cuda).to(
         torch.bfloat16)
-    v = torch.randn(B, Hkv, S, D, generator=gen, device=cuda).to(
+    v = torch.randn(B, Hkv, Skv, D, generator=gen, device=cuda).to(
         torch.bfloat16)
     slopes = (2.0 ** (-8.0 * torch.arange(1, H + 1, device=cuda) / H)
               if alibi else None)
+    return q, k, v, slopes
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,alibi", [
+    (2, 4, 4, 256, 256, 128, True, False),
+    (1, 8, 2, 200, 200, 128, True, False),   # GQA, ragged
+    (1, 4, 1, 96, 96, 64, True, True),       # MQA, ALiBi, head_dim 64
+    (2, 2, 2, 130, 130, 128, False, False),  # not causal, ragged
+    (1, 4, 4, 1, 1, 128, True, False),       # a single query
+    (2, 32, 32, 1024, 1024, 128, True, False),  # many full tiles, pairs
+    (1, 8, 8, 129, 129, 128, True, False),   # one past a 128 edge
+    (1, 4, 4, 255, 255, 64, True, False),    # one short of a 128 edge
+    (1, 8, 2, 300, 300, 64, True, True),     # ALiBi, GQA, odd tile count
+    (1, 4, 4, 70, 300, 128, False, False),   # q and k maps' extents apart
+])
+def test_flash_attention_kernel(cuda, B, H, Hkv, Sq, Skv, D, causal, alibi):
+    q, k, v, slopes = _flash_inputs(cuda, B, H, Hkv, Sq, Skv, D, alibi,
+                                    seed=Sq + Skv)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, alibi_slopes=slopes)
     want = flash_attention_plain(q, k, v, causal=causal, alibi_slopes=slopes)
@@ -294,6 +305,33 @@ def test_flash_attention_kernel(cuda, B, H, Hkv, S, D, causal, alibi):
         got, want, tolerance.flash_attention_slack(
             q, k, v, causal=causal, alibi_slopes=slopes))
     assert ok, (err, worst)
+
+
+def test_flash_attention_is_bitwise_repeatable(cuda):
+    """No atomics on the output and no split over keys: two calls on the
+    same inputs give the same bits."""
+    q, k, v, slopes = _flash_inputs(cuda, 2, 8, 2, 640, 640, 128, True, 5)
+    a = flash_attention(q, k, v, alibi_slopes=slopes)
+    b = flash_attention(q, k, v, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_refuses_misaligned(cuda, which):
+    """TMA needs 16-byte aligned tensors: a contiguous view one element
+    into its storage raises before any launch."""
+    q, k, v, _ = _flash_inputs(cuda, 1, 2, 2, 128, 128, 64, False, 7)
+    t = {"q": q, "k": k, "v": v}[which]
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    shifted[1:] = t.reshape(-1)
+    view = shifted[1:].view(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    args = {"q": q, "k": k, "v": v, which: view}
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(args["q"], args["k"], args["v"])
+    assert flash_attention.launches == before
 
 
 def test_kv_update_kernels_exact(cuda):

@@ -652,9 +652,10 @@ def _swizzle128(addr):
 
 
 def _k9_desc(addr):
-    """csrc k9_desc: a K-major, 128B-swizzled wgmma operand at a shared
-    address: start >> 4 in bits [0:14), LBO 16 B, SBO 1024 B (8 rows of
-    128 bytes) in bits [32:46), layout 1 (128B swizzle) in bits [62:64)."""
+    """csrc/sm90.cuh desc_k_sw128: a K-major, 128B-swizzled wgmma operand
+    at a shared address: start >> 4 in bits [0:14), LBO 16 B, SBO 1024 B
+    (8 rows of 128 bytes) in bits [32:46), layout 1 (128B swizzle) in bits
+    [62:64)."""
     return (((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32)
             | (1 << 62))
 
