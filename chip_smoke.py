@@ -287,8 +287,10 @@ def build(out: dict):
     t0 = time.time()
     logs = _build.build_all(extra_flags=("-Xptxas", "-v"))
     out["build_s"] = time.time() - t0
+    # each kernel's (mangled) name, then its registers and spills
     out["ptxas"] = {n: [ln for ln in s.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln
+                        or "Compiling entry function" in ln]
                     for n, s in logs.items()}
     log(f"build: {sorted(logs)} compiled in {out['build_s']:.1f} s")
     for n, lines in out["ptxas"].items():
@@ -810,9 +812,12 @@ def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
     the engine calls it: the activation quantizer, then K7. Held to the
     plain path on the same x (quantize_act_int, quant_matmul_int_plain) and
     timed whole; K7 alone on the same codes (kernel_ms) gives the
-    quantizer's share. The JSON entry sums the four at m = 32. Yardstick:
-    bf16 torch.matmul on the dequantized weight."""
+    quantizer's share, and K7 with its generic path forced
+    (generic_kernel_ms, held to the same plain values) what the fast path
+    saves. The JSON entry sums the four at m = 32, and under "verify" at
+    m = 128. Yardstick: bf16 torch.matmul on the dequantized weight."""
     from omniquant_tpu_torch.kernels import quant_matmul as qmm
+    from omniquant_tpu_torch.kernels import tolerance
     from omniquant_tpu_torch.quant import QuantConfig, dequantize_packed
 
     gen = torch.Generator(device=device).manual_seed(4321)
@@ -831,10 +836,18 @@ def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
             err, worst = _int_call_held(
                 torch, qmm, lbl, lambda: qmm.quant_matmul_int(x, pw, acfg),
                 want, mag, (1, 0, 0))
+
+            def generic(xc=xc, xs=xs, pw=pw):
+                return qmm._qmm_int_cuda(xc, xs, pw, torch.bfloat16,
+                                         generic=True)
+
+            g_err, _ = _int_held(torch, lbl + " generic path", generic(),
+                                 want, tolerance.INT_MATMUL_SLACK * mag)
             del want, mag
             t = timer(lambda: qmm.quant_matmul_int(x, pw, acfg), lbl)
             tk = timer(lambda: qmm._qmm_int_cuda(xc, xs, pw, torch.bfloat16),
                        lbl + " kernel")
+            tg = timer(generic, lbl + " kernel, generic path")
             tp = timer(lambda: qmm.quant_matmul_int_plain(
                 *qmm.quantize_act_int(x, acfg), pw), lbl + " plain", iters=3)
             tl = timer(lambda: torch.matmul(x, w_lib), lbl + " library")
@@ -842,23 +855,33 @@ def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
             ops = 2.0 * m * K * N
             b, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
             rows.append(dict(
-                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk, plain_ms=tp,
-                library_ms=tl, bound_ms=b, bound_by=by, max_abs_err=err,
+                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk,
+                generic_kernel_ms=tg, plain_ms=tp, library_ms=tl, bound_ms=b,
+                bound_by=by, max_abs_err=max(err, g_err),
                 err_over_bound=worst,
                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 ops_ms=ops / INT8_OPS_PER_S * 1e3))
             log(f"  quant_matmul_int {name:7s} m={m:4d} K={K:5d} N={N:5d}: "
                 f"max abs err {err:.3g} ({worst:.3g} x bound)  wrapper "
-                f"{t:.4f} ms (K7 alone {tk:.4f})  plain {tp:.4f}  bf16 "
+                f"{t:.4f} ms (K7 alone {tk:.4f}, generic path {tg:.4f})  "
+                f"plain {tp:.4f}  bf16 "
                 f"matmul {tl:.4f}  bound {b:.4f} ({by})")
         del pw, w_lib
     out["quant_matmul_int_shapes"] = rows
-    tot = _totals([r for r in rows if r["m"] == 32],
-                  ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms"))
+    keys = ("ms", "kernel_ms", "generic_kernel_ms", "plain_ms", "library_ms",
+            "bound_ms")
+    tot = _totals([r for r in rows if r["m"] == 32], keys)
+    tot["verify"] = _totals([r for r in rows if r["m"] == 128], keys)
     tot["shape"] = ("four 7B projections (qkv, o, gate_up, down), W6 planar "
                     "g128, bf16 x quantized to 6-bit codes in the wrapper, "
-                    "m=32; library: bf16 torch.matmul on the dequantized "
-                    "weight")
+                    "m=32 (verify: m=128); library: bf16 torch.matmul on the "
+                    "dequantized weight")
+    v = tot["verify"]
+    log(f"  quant_matmul_int sums: m=32 K7 alone {tot['kernel_ms']:.4f} ms "
+        f"(generic path {tot['generic_kernel_ms']:.4f}, wrapper "
+        f"{tot['ms']:.4f}), m=128 K7 alone {v['kernel_ms']:.4f} (generic "
+        f"path {v['generic_kernel_ms']:.4f}, wrapper {v['ms']:.4f}), bf16 "
+        f"matmul {tot['library_ms']:.4f} / {v['library_ms']:.4f}")
     return tot
 
 
@@ -1588,7 +1611,11 @@ def main(argv=None) -> int:
             **({"prefill": r["prefill"]} if "prefill" in r else {}),
             **({"long_prompt": r["long_prompt"]}
                if "long_prompt" in r else {}),
-            **({"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {})))
+            **({"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {}),
+            **({"kernel_ms": r["kernel_ms"]} if "kernel_ms" in r else {}),
+            **({"generic_kernel_ms": r["generic_kernel_ms"]}
+               if "generic_kernel_ms" in r else {}),
+            **({"verify": r["verify"]} if "verify" in r else {})))
     out["kernels"] = entries
     out["total_s"] = time.time() - t_start
     log(f"total {out['total_s']:.1f} s")

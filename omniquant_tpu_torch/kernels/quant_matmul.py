@@ -49,18 +49,21 @@ activation codes. ``quant_matmul_int`` routes as the JAX function does:
   bits <= 8) and m >= ``_INT_DENSE_MIN_M`` -> ``_quant_matmul_int_dense``:
   the weight unpacked once to centered int8 (K8 ``_unpack_to_int8``), then
   the dense product (K9), for either layout;
-* eligible, smaller m, planar layout -> the fused kernel (K7), which unpacks
-  each K tile in shared memory;
+* eligible, smaller m, planar layout -> the fused kernel (K7), which reads
+  each packed word once per CTA for up to 128 rows and unpacks it into
+  tensor-core registers (``int_plan`` cuts K into slices);
 * anything else -> ``fake_quant_act`` then ``quant_matmul`` (K1), on either
   layout.
 
-K7, K8 and K9 live in ``csrc/quant_matmul_int.cu`` (s8 x s8 -> s32: K7
-on ``mma.sync``, K9 on ``wgmma`` fed by TMA); their plain versions evaluate
-the same algebra in f32. K8 writes the centered codes K-major, (N, k_pad),
-as ``wgmma`` takes 8-bit operands (JAX's kernel writes them (k_pad, N)).
+K7, K8 and K9 live in ``csrc/quant_matmul_int.cu`` (int8 -> s32: K7 on
+``mma.sync`` with the raw u8 weight codes, K9 on ``wgmma`` fed by TMA);
+their plain versions evaluate the same algebra in f32. K8 writes the
+centered codes K-major, (N, k_pad), as ``wgmma`` takes 8-bit operands
+(JAX's kernel writes them (k_pad, N)).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -71,8 +74,9 @@ from ..quant.quantizer import _scale_zp, fake_quant_act
 from . import _build
 
 # groups a multiple of 64 rows for K1 on pairs words, K7 and K9: a run of
-# K1's pairs decode tile (up to 64 rows), the K steps of K7 (64 rows) and
-# the chunks of K9 (64 or 128 rows) must lie inside one group
+# K1's pairs decode tile (up to 64 rows) and the chunks of K9 (64 or 128
+# rows) must lie inside one group; K7 (k32 blocks of 32 rows) takes the
+# same groups as K9, the other half of the integer route
 _CUDA_GROUP_MULTIPLE = 64
 # K1 on planar words: a decode run (16 or 32 rows) and a prefill K step (32
 # rows) must lie inside one group
@@ -93,10 +97,19 @@ _BLOCK_N = (2048, 1024, 512, 256, 128)
 # the integer path's dense route from this many rows on (a TPU-tuned
 # threshold, kept so the port routes like the reference)
 _INT_DENSE_MIN_M = 2048
-# K7's tile: 32 rows (two m16 MMA tiles) x 64 columns; enough split-K
-# slices are launched to put about this many CTAs on each SM
-_K7_BM, _K7_BN, _K7_CTAS_PER_SM = 32, 64, 4
+# K7: 64 columns per CTA and up to 128 token rows (more rows take row
+# blocks of 128); a split-K slice spans at most _K7_SLICE_GROUPS quant
+# groups (their scales sit in shared memory); a generic-path x stage holds
+# at most _K7_X_BYTES; a block has at most _K7_SMEM bytes of shared memory
+_K7_BN, _K7_MR, _K7_SLICE_GROUPS = 64, 128, 32
+_K7_X_BYTES, _K7_SMEM = 17408, 232448
+# int_plan's model of the card (an H100 SXM): shared memory of an SM, and
+# the bytes it moves while a CTA works through one pack tile (~6 us at ~1.5
+# TB/s in chip_smoke's timing); the CTAs an SM's registers hold come from
+# the card (_k7_reg_ctas)
+_K7_SM_SMEM, _K7_TILE_BYTES = 233472, 9e6
 _SM_COUNT: dict = {}
+_K7_REG_CTAS: dict = {}
 
 
 def quant_matmul_reference(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
@@ -619,37 +632,168 @@ def _sm_count(device) -> int:
     return _SM_COUNT[idx]
 
 
-def _qmm_int_cuda(xc, xs, pw: PackedWeight, out_dtype) -> torch.Tensor:
-    """Launch K7 on codes xc (m, K); no bias. The K tiles are split over
-    enough CTAs to fill the card; with more than one slice each writes f32
-    partial sums that a second pass adds in a fixed order."""
+class K7Geometry(NamedTuple):
+    """K7's tile for m rows (this is its one copy: the launch passes it on
+    and ``csrc/quant_matmul_int.cu::k7_fits`` checks it): ``mn``
+    n8 tiles of token rows per CTA (1, 2, 4, 8 or 16) and ``row_blocks``
+    of 128 rows; the ``fast`` path (windows of 32 low-plane words of every
+    block, where a block holds a multiple of 32) or the generic one (a whole
+    pack tile a window, its k32 blocks in row order); ``kx`` k32 blocks per
+    step; the bytes of a word slot (one on the fast
+    path, two on the generic one), an x slot (two) and all the shared
+    memory the kernel asks for."""
+    mn: int
+    row_blocks: int
+    fast: bool
+    kx: int
+    word_slot: int
+    x_slot: int
+    smem: int
+
+
+def _k7_geometry(bits: int, m: int, tile_k: int, k_pad: int,
+                 group_rows: int, per: int,
+                 generic: bool = False) -> K7Geometry:
+    """K7's geometry for a slice of ``per`` pack tiles, or
+    NotImplementedError for a tile it does not take. ``group_rows`` is the
+    group size, or k_pad for per-channel scales. The fast path is taken
+    wherever the tile allows it, unless ``generic`` (which takes every tile;
+    chip_smoke.py times one path against the other)."""
+    lo = {3: 2, 6: 4}.get(bits, bits)
+    nsel = 2 if bits in (3, 6) else 1
+    P = tile_k * lo // 32
+    B = P // nsel
+    if tile_k % 32 or tile_k > 1024 or k_pad % tile_k or P % 4 or B % 4:
+        raise NotImplementedError(
+            f"quant_matmul_int: pack tile {tile_k} is not supported (a "
+            "multiple of 32 rows, whole word quads per plane, at most 1024 "
+            "rows)")
+    if group_rows != k_pad and (group_rows % 64 or tile_k % group_rows):
+        raise NotImplementedError(
+            f"quant_matmul_int: groups of {group_rows} rows (a multiple of 64 "
+            f"dividing the pack tile of {tile_k}, or per-channel)")
+    mn = next(n for n in (1, 2, 4, 8, 16) if m <= 8 * n or n == 16)
+    mr = 8 * mn
+    fast = B % 32 == 0 and not generic
+    if fast:
+        h = 1 if mn <= 4 else mn // 4
+        kx = (32 // lo) * nsel // h
+        blocks = 3 if nsel == 2 else 1  # low blocks and the high plane
+        word_slot = blocks * 32 * _K7_BN * 4
+    else:
+        kb = tile_k // 32
+        kx = next((d for d in range(kb, 0, -1)
+                   if kb % d == 0 and mr * (32 * d + 16) <= _K7_X_BYTES), 1)
+        word_slot = tile_k * bits // 32 * _K7_BN * 4
+    x_slot = mr * (32 * kx + 16)
+    ng = 1 if group_rows == k_pad else per * tile_k // group_rows
+    smem = ((1 if fast else 2) * word_slot + 2 * x_slot + 2 * kx * mr * 4
+            + ng * _K7_BN * 4)
+    if smem > _K7_SMEM:
+        raise NotImplementedError(
+            f"quant_matmul_int: a pack tile of {tile_k} rows at {bits} bits "
+            f"needs {smem} bytes of shared memory, more than a block has")
+    return K7Geometry(mn, -(-m // _K7_MR), fast, kx, word_slot, x_slot, smem)
+
+
+class IntPlan(NamedTuple):
+    """How K7 cuts K for m rows: ``splits`` slices of ``per`` pack tiles
+    (the last may be shorter) and the (splits, m, N) f32 workspace of their
+    partial sums when there is more than one slice."""
+    geometry: K7Geometry
+    splits: int
+    per: int
+    n_tiles: int
+    workspace: Optional[tuple]
+
+    def slices(self) -> list:
+        """(first tile, end tile) of each slice, as the kernel takes them."""
+        return [(s * self.per, min((s + 1) * self.per, self.n_tiles))
+                for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=1024)
+def int_plan(m: int, n: int, k_pad: int, tile_k: int, bits: int,
+             group_rows: int, sm_count: int, reg_ctas: int,
+             generic: bool = False) -> IntPlan:
+    """K7's split-K plan: the slice length ``per`` (whole pack tiles, at
+    most ``_K7_SLICE_GROUPS`` groups) that minimises the time in pack tiles
+    of a CTA: rounds of resident CTAs (ceil(CTAs / (resident per SM x
+    SMs)), resident by shared memory and by ``reg_ctas``, the CTAs an SM's
+    registers hold) times per, plus what more slices cost in the same
+    units: the workspace's f32 partials written and read again (8 m N bytes
+    a slice) and the second pass (half a tile). Fewer slices win a tie.
+    ``generic`` as in ``_k7_geometry``. Raises NotImplementedError for a
+    tile K7 does not take."""
+    n_tiles = k_pad // tile_k
+    col_blocks = (n // _K7_BN) * -(-m // _K7_MR)
+    best = None
+    for want in range(1, n_tiles + 1):
+        per = -(-n_tiles // want)
+        splits = -(-n_tiles // per)
+        if splits != want or (per > 1 and group_rows != k_pad
+                              and per * tile_k // group_rows
+                              > _K7_SLICE_GROUPS):
+            continue
+        geo = _k7_geometry(bits, m, tile_k, k_pad, group_rows, per, generic)
+        resident = max(1, min(reg_ctas, _K7_SM_SMEM // (geo.smem + 1024)))
+        cost = -(-col_blocks * splits // (resident * sm_count)) * per
+        if splits > 1:
+            cost += 0.5 + splits * 8 * m * n / _K7_TILE_BYTES
+        if best is None or cost < best[0]:
+            best = (cost, geo, splits, per)
+    _, geo, splits, per = best
+    return IntPlan(geo, splits, per, n_tiles,
+                   (splits, m, n) if splits > 1 else None)
+
+
+def _k7_reg_ctas(bits: int, mn: int, fast: bool) -> int:
+    """The CTAs of K7's (bits, mn, fast) instance an SM holds by registers
+    and threads, asked of the card once."""
+    key = (bits, mn, fast)
+    if key not in _K7_REG_CTAS:
+        n = _build.fn("quant_matmul_int", "qmm_int_planar_ctas", "iii")(
+            bits, mn, int(fast), None)
+        if n < 1:
+            raise RuntimeError(f"quant_matmul_int: occupancy query failed "
+                               f"({n})")
+        _K7_REG_CTAS[key] = n
+    return _K7_REG_CTAS[key]
+
+
+def _qmm_int_cuda(xc, xs, pw: PackedWeight, out_dtype,
+                  generic: bool = False) -> torch.Tensor:
+    """Launch K7 on codes xc (m, K); no bias. The pack tiles are split per
+    ``int_plan``; with more than one slice each writes f32 partial sums that
+    a second pass adds in slice order. Refuses, before it looks for the
+    card, what the plan does not take. ``generic`` as in
+    ``_k7_geometry``."""
     if pw.layout != "planar" or pw.bits not in (2, 3, 4, 6, 8):
         raise NotImplementedError(
             f"the fused integer kernel takes planar 2/3/4/6/8-bit weights; "
             f"got {pw.layout} at {pw.bits} bits")
-    _check_int_weight(pw, "quant_matmul_int")
-    _check_int_acts(xc, xs, pw, out_dtype, "quant_matmul_int")
-    T = pw.tile_k
-    lo_bits = {3: 2, 6: 4}.get(pw.bits, pw.bits)
-    if T % 32 or (T * lo_bits // 32) % 4 or T > 1024:
-        raise NotImplementedError(
-            f"quant_matmul_int: pack tile {T} is not supported (a multiple "
-            "of 32 rows, whole word quads per plane, at most 1024 rows)")
     m, K = xc.shape
     n = pw.qweight.shape[1]
-    n_tiles = pw.k_pad // T
-    ctas = (n // _K7_BN) * -(-m // _K7_BM)
-    splits = max(1, min(n_tiles, -(-_K7_CTAS_PER_SM * _sm_count(xc.device)
-                                    // ctas)))
+    group_rows = pw.group_size or pw.k_pad
+    geo = _k7_geometry(pw.bits, m, pw.tile_k, pw.k_pad, group_rows, 1,
+                       generic)
+    _check_int_weight(pw, "quant_matmul_int")
+    _check_int_acts(xc, xs, pw, out_dtype, "quant_matmul_int")
+    plan = int_plan(m, n, pw.k_pad, pw.tile_k, pw.bits, group_rows,
+                    _sm_count(xc.device),
+                    _k7_reg_ctas(pw.bits, geo.mn, geo.fast), generic)
+    geo = plan.geometry
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xc.device)
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=xc.device)
-            if splits > 1 else None)
+    part = (None if plan.workspace is None else
+            torch.empty(plan.workspace, dtype=torch.float32, device=xc.device))
     _build.launch(
-        "quant_matmul_int", "qmm_int_planar", "pppppppiiiiiiiii",
+        "quant_matmul_int", "qmm_int_planar", "pppppppiiiiiiiiiiiiiiii",
         xc.data_ptr(), xs.data_ptr(), pw.qweight.data_ptr(),
         pw.scales.contiguous().data_ptr(), pw.zeros.contiguous().data_ptr(),
         None if part is None else part.data_ptr(), y.data_ptr(), m, K, n,
-        pw.k_pad, pw.scales.shape[1], pw.group_size or T, T, pw.bits, splits)
+        pw.k_pad, pw.scales.shape[1], group_rows, pw.tile_k, pw.bits,
+        plan.splits, plan.per, geo.mn, int(geo.fast), geo.kx, geo.word_slot,
+        geo.x_slot, geo.smem)
     return y
 
 

@@ -55,7 +55,8 @@ def bf16_close(got: torch.Tensor, want: torch.Tensor, slack) -> tuple:
     bound, max abs error, largest error / bound)."""
     err = (got.float() - want.float()).abs()
     bound = 2 * bf16_ulp(want) + slack
-    worst = (err / bound).max().item()
+    # an exact element meets any bound, a zero one too (0 / 0 is no excess)
+    worst = torch.where(err == 0, 0.0, err / bound).max().item()
     return worst <= 1.0, err.max().item(), worst
 
 

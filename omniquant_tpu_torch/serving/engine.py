@@ -183,9 +183,14 @@ class LlamaEngine:
         """Move to the device, cast floating tensors to the engine dtype
         (PackedWeight scales, zeros and bias included, as the JAX engine
         does: a bf16 engine serves bf16-rounded scales) and fuse the packed
-        qkv and gate+up projections."""
+        qkv and gate+up projections. A layer that already holds a fused
+        projection (another engine's params, e.g. a layer-skip draft that
+        shares its target's buffers) is left as it is: ``_to_engine``
+        returns its tensors themselves when device and dtype match."""
         params = _to_engine(params, self.device, self.dtype)
         for p in params["layers"]:
+            if "qkv_fused" in p or "gate_up_fused" in p:
+                continue
             qkv = fuse_packed([p["q_proj"], p["k_proj"], p["v_proj"]])
             if qkv is not None:
                 p["qkv_fused"] = qkv

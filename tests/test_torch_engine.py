@@ -261,6 +261,28 @@ def test_capacity_guard(packed):
     assert dataclasses.is_dataclass(te.cache)
 
 
+def test_engine_from_a_prepped_tree_matches_jax_draft(packed):
+    """A one-layer engine built from a built two-layer engine's params (its
+    first layer, already fused: the port's counterpart of JAX's
+    ``layer_skip_params`` draft) builds, shares the target's buffers and
+    gives the JAX draft engine's greedy stream."""
+    from omniquant_tpu.serving.spec_decode import layer_skip_params
+
+    je, te = engines(packed, max_batch=2, max_len=64)
+    cfg1 = dict(CFG, num_hidden_layers=1)
+    jd = JEngine(layer_skip_params(je.params, 1), jllama.LlamaConfig(**cfg1),
+                 max_batch=2, max_len=64, dtype=jnp.float32)
+    draft = dict(te.params, layers=list(te.params["layers"][:1]))
+    td = TEngine(draft, tllama.LlamaConfig(**cfg1), max_batch=2, max_len=64,
+                 dtype=torch.float32, device="cpu")
+    for name in ("qkv_fused", "gate_up_fused"):
+        assert (td.params["layers"][0][name].qweight.data_ptr()
+                == te.params["layers"][0][name].qweight.data_ptr())
+    prompt = [(13 * i + 2) % 256 for i in range(9)]
+    assert td.generate(prompt, max_new_tokens=8) == jd.generate(
+        prompt, max_new_tokens=8)
+
+
 # ---------------------------------------------------------------------------
 # int8 KV cache
 

@@ -616,14 +616,16 @@ def _int_check(got, x, pw, cfg, w8=None):
     assert ok, (err, worst)
 
 
-@pytest.mark.parametrize("m", [1, 31, 33, 2047, 2048])
+@pytest.mark.parametrize("m", [1, 8, 31, 32, 33, 128, 300, 2047, 2048])
 @pytest.mark.parametrize("bits,group_size,abits", [
     (6, 128, 6), (4, 64, 4), (2, 128, 4), (3, 128, 6), (8, None, 4),
     (6, None, 6)])
 def test_quant_matmul_int_kernels(cuda, bits, group_size, abits, m):
-    """quant_matmul_int on planar weights: below 2048 rows one K7 launch,
-    from 2048 rows K8 + K9; each against its plain version (K = 1100 or
-    1152, padded up to the pack tile)."""
+    """quant_matmul_int on planar weights: below 2048 rows one K7 launch
+    (n8 tiles of 1, 2, 4, 8 and 16 token rows, row blocks past 128; W3's
+    16-word blocks on K7's generic path), from 2048 rows K8 + K9; each
+    against its plain version (K = 1100 or 1152, padded up to the pack
+    tile)."""
     in_f = 1152 if group_size else 1100  # both pad up to the pack tile
     pw = _int_packed(cuda, bits, group_size, 384, in_f, "planar",
                      seed=bits + m)
@@ -640,6 +642,65 @@ def test_quant_matmul_int_kernels(cuda, bits, group_size, abits, m):
         (0, 1, 1) if dense else (1, 0, 0))
     assert got.dtype == torch.bfloat16 and got.shape == (m, 384)
     _int_check(got, x, pw, cfg)
+
+
+@pytest.mark.parametrize("m", [1, 32, 128, 300])
+@pytest.mark.parametrize("bits,group_size,in_f,tile_k,K", [
+    (6, 128, 1024, None, 1000), (4, 64, 1024, None, 1000),
+    (4, 64, 1280, 320, 1280), (2, 64, 384, 192, 384),
+    (6, 64, 128, None, 120), (3, None, 1024, 1024, 1016),
+    (8, 64, 1024, 512, 1024), (4, 64, 2048, 1024, 2000),
+    (8, 128, 2048, 1024, 2048)])
+def test_quant_matmul_int_kernel_tiles(cuda, bits, group_size, in_f, tile_k,
+                                       K, m):
+    """K7 at K not a multiple of 16 (x_vec off, rows past K zero), on the
+    pack tiles of its generic path (low blocks of 40, 12 and 8 words), a
+    fast 3-bit tile of 1024 rows, and fast tiles whose low blocks are
+    longer than a group (W8 g64 at 512 rows, W4 g64 and W8 g128 at 1024:
+    a step's k32 blocks each in a group of its own), each against its
+    plain version."""
+    pw = _int_packed(cuda, bits, group_size, 256, in_f, "planar", seed=m,
+                     tile_k=tile_k)
+    cfg = QuantConfig(n_bits=6)
+    x = torch.randn(m, K, device=cuda).to(torch.bfloat16)
+    before = qmm.quant_matmul_int.launches
+    got = qmm.quant_matmul_int(x, pw, cfg)
+    torch.cuda.synchronize()
+    assert qmm.quant_matmul_int.launches == before + 1
+    _int_check(got, x, pw, cfg)
+
+
+@pytest.mark.parametrize("m", [1, 32, 128, 300])
+@pytest.mark.parametrize("bits,group_size,in_f,tile_k,K", [
+    (6, 128, 4096, None, 4096), (8, 64, 1024, 512, 1000),
+    (2, None, 1100, None, 1100)])
+def test_quant_matmul_int_generic_path(cuda, bits, group_size, in_f, tile_k,
+                                       K, m):
+    """K7's generic path forced on tiles the fast path takes (as
+    chip_smoke.py times it), against the plain version."""
+    pw = _int_packed(cuda, bits, group_size, 256, in_f, "planar", seed=m,
+                     tile_k=tile_k)
+    cfg = QuantConfig(n_bits=6)
+    x = torch.randn(m, K, device=cuda).to(torch.bfloat16)
+    xc, xs = qmm.quantize_act_int(x, cfg)
+    got = qmm._qmm_int_cuda(xc, xs, pw, torch.bfloat16, generic=True)
+    torch.cuda.synchronize()
+    _int_check(got, x, pw, cfg)
+
+
+@pytest.mark.parametrize("m", [8, 32, 128, 300])
+@pytest.mark.parametrize("in_f,out_f", [(11008, 4096), (4096, 12288)])
+def test_quant_matmul_int_is_bitwise_repeatable(cuda, in_f, out_f, m):
+    """K7 at the 7B down and qkv widths (W6 g128; split-K at down): two
+    calls give equal bits, and match the plain version."""
+    pw = _int_packed(cuda, 6, 128, out_f, in_f, "planar", seed=m)
+    cfg = QuantConfig(n_bits=6)
+    x = torch.randn(m, in_f, device=cuda).to(torch.bfloat16)
+    a = qmm.quant_matmul_int(x, pw, cfg)
+    b = qmm.quant_matmul_int(x, pw, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _int_check(a, x, pw, cfg)
 
 
 @pytest.mark.parametrize("m", [1, 33, 300])

@@ -4,8 +4,9 @@ bit, K8's plain version exactly (its codes K-major, JAX's transposed), K9's
 operands (xsum, sc, off2) bit for bit, K7's and K9's plain versions
 (through the public functions) against the Pallas kernels in interpret
 mode, the route each call takes, the per-element rule the card holds K7 and
-K9 to, and numpy emulations of K8's and K9's index math (the kernels in
-``csrc/quant_matmul_int.cu`` run only on the card).
+K9 to, and numpy emulations of K7's, K8's and K9's index math and of K7's
+split plan (the kernels in ``csrc/quant_matmul_int.cu`` run only on the
+card).
 
 Tolerance of the products: both sides evaluate the same algebra in f32
 (exact int dots, then f32 sums of dot * sc and xsum * off2 over the groups,
@@ -733,3 +734,575 @@ def test_k9_grid_raster_covers_every_tile_once():
             assert 0 <= mt < m_tiles and 0 <= nt < n_tiles
             seen.add((mt, nt))
         assert len(seen) == m_tiles * n_tiles
+
+
+# ---------------------------------------------------------------------------
+# K7's tile (csrc/quant_matmul_int.cu::qmm_int_planar_kernel) emulated lane
+# by lane in numpy: its plan, ring, word staging, A-register unpack, B
+# fragments, MMAs, code sums, group closes and epilogue
+
+
+def _bperm(x, y, sel):
+    """__byte_perm on uint32 arrays: byte n of the result is byte
+    (sel >> 4n) & 7 of the eight bytes of (x, y), x's first."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [
+        (y >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> (4 * n)) & 7] << (8 * n)
+    return out
+
+
+def _transpose4(w):
+    """transpose4: t[q] holds byte q of w[0..3], w[0]'s in the low byte."""
+    l01, h01 = _bperm(w[0], w[1], 0x5140), _bperm(w[0], w[1], 0x7362)
+    l23, h23 = _bperm(w[2], w[3], 0x5140), _bperm(w[2], w[3], 0x7362)
+    return [_bperm(l01, l23, 0x5410), _bperm(l01, l23, 0x7632),
+            _bperm(h01, h23, 0x5410), _bperm(h01, h23, 0x7632)]
+
+
+def _gather4(w):
+    return _bperm(_bperm(w[0], w[1], 0x0040), _bperm(w[2], w[3], 0x0040),
+                  0x5410)
+
+
+def _k7_word(r, col):
+    """k7_word: the staged word of row r, column col (chunks of 4 columns
+    swizzled by the row)."""
+    return r * 64 + (((col >> 2) ^ (2 * ((r >> 2) & 3))) << 2) + (col & 3)
+
+
+def _off2_bf16(s, z, half):
+    d = torch.tensor(half - float(z)).bfloat16().float()
+    return float((d * float(s)).bfloat16().float())
+
+
+class _K7Cta:
+    """One CTA of K7 (64 columns from bx * 64, rows from rz * 128, slice
+    ``split``), emulated lane by lane. ``run`` returns its f32 sums
+    (tokens, 64) before the token scale and records what each MMA's A
+    elements were and which (tile row, column) they met."""
+
+    def __init__(self, xc, pw, plan, bx, split, rz):
+        self.xc, self.pw, self.plan = xc.numpy(), pw, plan
+        geo = plan.geometry
+        self.geo = geo
+        bits = pw.bits
+        self.LO = {3: 2, 6: 4}.get(bits, bits)
+        self.HI = bits - self.LO
+        self.NSEL = 2 if self.HI else 1
+        self.NBLK = self.NSEL + (1 if self.HI else 0)
+        self.T, self.k_pad = pw.tile_k, pw.k_pad
+        self.P = self.T * self.LO // 32
+        self.B = self.P // self.NSEL
+        self.WPT = self.T * bits // 32
+        self.MN, self.MR = geo.mn, 8 * geo.mn
+        self.HALF = 1 << (bits - 1)
+        self.m, self.K = self.xc.shape
+        self.N = pw.qweight.shape[1]
+        self.G = pw.scales.shape[1]
+        self.gs = pw.group_size or pw.k_pad
+        self.kx = geo.kx
+        self.H = 1 if self.MN <= 4 else self.MN // 4
+        self.spw = self.H if geo.fast else (self.T // 32) // self.kx
+        self.wpt = self.B // 32 if geo.fast else 1
+        self.LDX = self.kx * 32 + 16
+        self.words = pw.qweight.numpy().view(np.uint32)
+        self.col0, self.r0 = bx * 64, rz * 128
+        n_tiles = self.k_pad // self.T
+        self.t_begin = split * plan.per
+        self.t_end = min(self.t_begin + plan.per, n_tiles)
+        self.n_win = (self.t_end - self.t_begin) * self.wpt
+        self.n_steps = self.n_win * self.spw
+        self.g0 = self.t_begin * self.T // self.gs
+        self.ng = (self.t_end * self.T - 1) // self.gs - self.g0 + 1
+        codes = unpack_codes_np(pw)  # (k_pad, N)
+        self.codes = codes
+        # the thread grid: warp, lane
+        tid = np.arange(128)
+        self.lane, self.warp = tid & 31, tid >> 5
+        self.g, self.t4 = self.lane >> 2, self.lane & 3
+        self.cw = self.warp * 16
+        self.met = np.zeros((self.k_pad, 64), np.int64)  # (row, col) met
+        self.closes = []
+
+    def load_words(self, w, slot):
+        t = self.t_begin + w // self.wpt
+        w0 = 32 * (w % self.wpt)
+        rows = self.NBLK * 32 if self.geo.fast else self.WPT
+        assert rows * 64 * 4 <= self.geo.word_slot
+        for i in range(rows * 16):
+            r, c = i >> 4, (i & 15) << 2
+            row = r
+            if self.geo.fast:
+                b = r >> 5
+                row = (b * self.B if b < self.NSEL else self.P) + w0 + (r & 31)
+            dst = _k7_word(r, c)
+            assert dst % 4 == 0  # 16-byte cp.async
+            slot[dst:dst + 4] = self.words[t * self.WPT + row,
+                                           self.col0 + c:self.col0 + c + 4]
+
+    def load_x(self, s, slot):
+        row0 = self.step_row(s)
+        stride = self.B if self.geo.fast else 32
+        for i in range(self.MR * self.kx * 2):
+            r, rem = divmod(i, self.kx * 2)
+            k = row0 + (rem >> 1) * stride + 16 * (rem & 1)
+            tok = self.r0 + r
+            d = r * self.LDX + 16 * rem
+            assert d % 16 == 0
+            v = np.zeros(16, np.int8)
+            if tok < self.m:
+                n_in = max(0, min(16, self.K - k))
+                v[:n_in] = self.xc[tok, k:k + n_in]
+            slot[d:d + 16] = v
+
+    def step_row(self, s):
+        w, sw = divmod(s, self.spw)
+        wt = w // self.wpt
+        stride = self.B if self.geo.fast else 32
+        return ((self.t_begin + wt) * self.T
+                + 32 * (w - wt * self.wpt) * self.geo.fast
+                + sw * self.kx * stride)
+
+    def xsum_pass(self, s, xsm, sums):
+        """Each (k32 block, token) adds its 32 codes into the sum of its
+        group's rank among the step's groups, (lo + kb * stride) /
+        max(group, stride) by the kernel's float estimate and its two
+        corrections, in the zeroed buffer ``sums``; records each group's
+        rank for the closes."""
+        row0 = self.step_row(s)
+        lo = row0 - row0 // self.gs * self.gs
+        stride = self.B if self.geo.fast else 32
+        rdiv = max(self.gs, stride)
+        inv = np.float32(1.0) / np.float32(rdiv)
+        groups = [(row0 + kb * stride) // self.gs for kb in range(self.kx)]
+        ranks = sorted(set(groups))
+        self.rank_of = {}
+        for i in range(self.kx * self.MR):
+            kb, r = divmod(i, self.MR)
+            v = lo + kb * stride
+            gi = int(np.float32(v) * inv)
+            gi += (gi + 1) * rdiv <= v
+            gi -= gi * rdiv > v
+            assert gi == v // rdiv
+            assert gi == ranks.index(groups[kb]) and 0 <= gi < self.kx
+            self.rank_of[groups[kb]] = gi
+            o = r * self.LDX + 32 * kb
+            sums[gi * self.MR + r] += int(xsm[o:o + 32].astype(np.int64).sum())
+
+    def lds64(self, wsm, r, col, banks=False):
+        """LDS.64 of (row r, columns col, col + 1) per lane; checks 8-byte
+        alignment and, with ``banks``, that each half-warp phase hits
+        distinct banks (the fast path's reads; the generic path's may
+        conflict)."""
+        idx = _k7_word(r, col)
+        assert (idx % 2 == 0).all()
+        for wp in range(4 if banks else 0):
+            for ph in range(2):
+                sel = (self.warp == wp) & ((self.lane >> 4) == ph)
+                words = np.unique(np.concatenate([idx[sel], idx[sel] + 1]))
+                assert len(np.unique(words % 32)) == len(words), "conflict"
+        return wsm[idx], wsm[idx + 1]
+
+    def fast_regs(self, wsm):
+        tl = {}
+        for b in range(self.NBLK):
+            for h in range(2):
+                vx, vy = [], []
+                for e in range(4):
+                    r = 32 * b + 16 * h + 4 * self.t4 + e
+                    x, y = self.lds64(wsm, r, self.cw + 2 * self.g, True)
+                    vx.append(x)
+                    vy.append(y)
+                tl[b, 0, h] = _transpose4(vx)
+                tl[b, 1, h] = _transpose4(vy)
+        return tl
+
+    def fast_a(self, tl, f):
+        p, b = divmod(f, self.NSEL)
+        LO, HI = self.LO, self.HI
+        q, sh = LO * p // 8, LO * p % 8
+        a = []
+        for r in range(4):
+            c = tl[b, r & 1, r >> 1][q]
+            if LO < 8:
+                c = (c >> sh) & (((1 << LO) - 1) * 0x01010101)
+            if HI:
+                fh = 2 * p + b
+                qh, shh = HI * fh // 8, HI * fh % 8
+                c = c | (((tl[self.NSEL, r & 1, r >> 1][qh] >> shh)
+                          & (((1 << HI) - 1) * 0x01010101)) << LO)
+            a.append(c)
+        return a
+
+    def generic_a(self, wsm, kb):
+        LO, HI, B, P = self.LO, self.HI, self.B, self.P
+        a = [None] * 4
+        for h in range(2):
+            rr = 32 * kb + 16 * h + 4 * self.t4
+            f, j4 = rr // B, rr % B
+            p, b = f // self.NSEL, f % self.NSEL
+            lx, ly, hx, hy = [], [], [], []
+            for e in range(4):
+                x, y = self.lds64(wsm, b * B + j4 + e, self.cw + 2 * self.g)
+                lx.append(x >> (LO * p))
+                ly.append(y >> (LO * p))
+                if HI:
+                    x, y = self.lds64(wsm, P + j4 + e, self.cw + 2 * self.g)
+                    hx.append(x >> (HI * (2 * p + b)))
+                    hy.append(y >> (HI * (2 * p + b)))
+            mlo = ((1 << LO) - 1) * 0x01010101
+            cx, cy = _gather4(lx) & mlo, _gather4(ly) & mlo
+            if HI:
+                mhi = ((1 << HI) - 1) * 0x01010101
+                cx = cx | ((_gather4(hx) & mhi) << LO)
+                cy = cy | ((_gather4(hy) & mhi) << LO)
+            a[2 * h], a[2 * h + 1] = cx, cy
+        return a
+
+    def mma_block(self, a, xsm, kb, row0):
+        """ldmatrix B fragments and the MMAs of k32 block kb (tile rows
+        row0 ..); checks each A element against the code of the (row,
+        column) its k meets."""
+        lm_tok = ((self.lane >> 4) << 3) + (self.lane & 7)
+        lm_off = ((self.lane >> 3) & 1) << 4
+        for wp in range(4):
+            sel = self.warp == wp
+            A = np.zeros((16, 32), np.int64)
+            for lane in range(32):
+                g, t4 = lane >> 2, lane & 3
+                for reg in range(4):
+                    v = int(a[reg][wp * 32 + lane])
+                    for e in range(4):
+                        A[g + 8 * (reg & 1), 4 * t4 + 16 * (reg >> 1) + e] = \
+                            (v >> (8 * e)) & 0xFF
+            for arow in range(16):
+                col = 2 * (arow % 8) + arow // 8 + wp * 16
+                for k in range(32):
+                    assert A[arow, k] == self.codes[row0 + k,
+                                                    self.col0 + col]
+                self.met[row0:row0 + 32, col] += 1
+            for nt in range(0, self.MN, 2):
+                addr = (nt * 8 + lm_tok[sel]) * self.LDX + 32 * kb + lm_off[sel]
+                regs = []
+                for j in range(4 if self.MN > 1 else 2):
+                    regs.append(np.array([
+                        xsm[addr[8 * j + (l >> 2)] + 4 * (l & 3):
+                            addr[8 * j + (l >> 2)] + 4 * (l & 3) + 4]
+                        for l in range(32)]))
+                for tile, (b0, b1) in enumerate(
+                        [(0, 1)] + ([(2, 3)] if self.MN > 1 else [])):
+                    Bm = np.zeros((32, 8), np.int64)
+                    for l in range(32):
+                        Bm[4 * (l & 3):4 * (l & 3) + 4, l >> 2] = regs[b0][l]
+                        Bm[16 + 4 * (l & 3):20 + 4 * (l & 3), l >> 2] = \
+                            regs[b1][l]
+                    D = A @ Bm
+                    for l in range(32):
+                        g, t4 = l >> 2, l & 3
+                        acc = self.acc[wp * 32 + l, nt + tile]
+                        acc += [D[g, 2 * t4], D[g, 2 * t4 + 1],
+                                D[g + 8, 2 * t4], D[g + 8, 2 * t4 + 1]]
+                        assert (np.abs(acc) < 2 ** 31).all()
+
+    def close(self, sums, grp, rank):
+        self.closes.append(grp)
+        assert self.rank_of[grp] == rank
+        gi = grp - self.g0
+        assert 0 <= gi < self.ng
+        for tid in range(128):
+            g, t4, cw = self.g[tid], self.t4[tid], self.cw[tid]
+            s0, o0 = self.scl[gi, cw + 2 * g]
+            s1, o1 = self.scl[gi, cw + 2 * g + 1]
+            for nt in range(self.MN):
+                xa = sums[rank * self.MR + nt * 8 + 2 * t4]
+                xb = sums[rank * self.MR + nt * 8 + 2 * t4 + 1]
+                d = self.acc[tid, nt]
+                f = self.accf[tid, nt]
+                f32 = np.float32
+                f[0] = f32(f32(d[0] - self.HALF * xa) * s0) + f32(
+                    f32(xa) * o0 + f[0])
+                f[1] = f32(f32(d[1] - self.HALF * xb) * s0) + f32(
+                    f32(xb) * o0 + f[1])
+                f[2] = f32(f32(d[2] - self.HALF * xa) * s1) + f32(
+                    f32(xa) * o1 + f[2])
+                f[3] = f32(f32(d[3] - self.HALF * xb) * s1) + f32(
+                    f32(xb) * o1 + f[3])
+                d[:] = 0
+
+    def run(self, ring_log=None):
+        pw = self.pw
+        # the staged scales: (s, off2) [group][column], padded groups on the
+        # last scale column
+        self.scl = np.zeros((self.ng, 64, 2), np.float32)
+        sc, z = pw.scales.float().numpy(), pw.zeros.float().numpy()
+        for gi in range(self.ng):
+            gg = min(self.g0 + gi, self.G - 1)
+            for c in range(64):
+                s = sc[self.col0 + c, gg]
+                self.scl[gi, c] = (s, _off2_bf16(s, z[self.col0 + c, gg],
+                                                 float(self.HALF)))
+        self.acc = np.zeros((128, self.MN, 4), np.int64)
+        self.accf = np.zeros((128, self.MN, 4), np.float32)
+        wslot = [np.zeros(self.geo.word_slot // 4, np.uint32)
+                 for _ in range(2)]
+        xslot = [np.zeros(self.geo.x_slot, np.int8) for _ in range(2)]
+        wtag, xtag = [None, None], [None, None]
+        sumbuf = [np.zeros(self.kx * self.MR, np.int64) for _ in range(2)]
+        last_reader = {}  # ("w"/"x", slot) -> last step that reads it
+        pending = []  # copies of the group in flight: (kind, slot, tag)
+
+        def issue(kind, slot, tag, s):
+            # a slot is refilled only after every step that reads it
+            key = (kind, slot)
+            assert last_reader.get(key, -1) < s, (kind, slot, tag, s)
+            pending.append((kind, slot, tag))
+            if ring_log is not None:
+                ring_log.append((s, kind, slot, tag))
+
+        fast = self.geo.fast
+        self.load_words(0, wslot[0])
+        self.load_x(0, xslot[0])
+        issue("w", 0, 0, 0)
+        issue("x", 0, 0, 0)
+        for s in range(self.n_steps):
+            w, sw = divmod(s, self.spw)
+            ws = 0 if fast else w & 1  # the fast path has one word slot
+            # wait_group 0 + barrier: every copy issued so far has landed
+            for kind, slot, tag in pending:
+                (wtag if kind == "w" else xtag)[slot] = tag
+            pending.clear()
+            new_win = s + 1 < self.n_steps and (s + 1) % self.spw == 0
+            if s + 1 < self.n_steps:
+                if new_win and not fast:
+                    w1 = (s + 1) // self.spw
+                    issue("w", w1 & 1, w1, s)
+                    self.load_words(w1, wslot[w1 & 1])
+                issue("x", (s + 1) & 1, s + 1, s)
+                self.load_x(s + 1, xslot[(s + 1) & 1])
+            assert xtag[s & 1] == s and wtag[ws] == w
+            last_reader[("x", s & 1)] = s
+            wsm = wslot[ws]
+            if fast:  # the words into registers, before the sums' barrier
+                tl = self.fast_regs(wsm)
+            else:  # read throughout the step
+                last_reader[("w", ws)] = s
+            xsm = xslot[s & 1]
+            # the sums buffer s & 1, zeroed during step s - 1 (or before
+            # the first)
+            sums = sumbuf[s & 1]
+            assert not sums.any()
+            self.xsum_pass(s, xsm, sums)
+            sumbuf[(s + 1) & 1][:] = 0
+            # barrier; then the fast path refills its word slot
+            if fast and new_win:
+                w1 = (s + 1) // self.spw
+                issue("w", 0, w1, s)
+                self.load_words(w1, wslot[0])
+                wsm = None  # the step reads no word from shared memory now
+            row = self.step_row(s)
+            grp = row // self.gs
+            g_hi, rank = (grp + 1) * self.gs, 0
+            for i in range(self.kx):
+                kb = sw * self.kx + i
+                a = (self.fast_a(tl, kb) if self.geo.fast
+                     else self.generic_a(wsm, kb))
+                self.mma_block(a, xsm, i, row)
+                nxt = row + (self.B if self.geo.fast else 32)
+                if i == self.kx - 1 or nxt >= g_hi:
+                    self.close(sums, grp, rank)
+                    rank += 1
+                    while nxt >= g_hi:
+                        grp, g_hi = grp + 1, g_hi + self.gs
+                row = nxt
+        assert not pending
+        out = np.zeros((self.MR, 64), np.float32)
+        for tid in range(128):
+            g, t4, cw = self.g[tid], self.t4[tid], self.cw[tid]
+            for nt in range(self.MN):
+                for e in range(2):
+                    out[nt * 8 + 2 * t4 + e, cw + 2 * g] = self.accf[tid, nt, e]
+                    out[nt * 8 + 2 * t4 + e, cw + 2 * g + 1] = \
+                        self.accf[tid, nt, e + 2]
+        return out
+
+
+def unpack_codes_np(pw):
+    """Every (tile row, column) code of a planar weight, (k_pad, N)."""
+    from omniquant_tpu_torch.quant.packing import unpack_codes
+    return unpack_codes(pw.qweight, pw.bits, pw.k_pad, pw.group_size,
+                        pw.tile_k, pw.layout).numpy().astype(np.int64)
+
+
+def _k7_emulate(xc, xs, pw, plan):
+    """Every CTA of K7's grid, then the slices summed in slice order
+    (splitk_sum.cuh) times xs, rounded to bf16. Checks that each CTA's MMAs
+    meet every (row, column) of its slice once."""
+    m = xc.shape[0]
+    n = pw.qweight.shape[1]
+    geo = plan.geometry
+    part = np.zeros((plan.splits, m, n), np.float32)
+    for bx in range(n // 64):
+        for split in range(plan.splits):
+            for rz in range(geo.row_blocks):
+                cta = _K7Cta(xc, pw, plan, bx, split, rz)
+                got = cta.run()
+                t0, t1 = plan.slices()[split]
+                met = cta.met[t0 * pw.tile_k:t1 * pw.tile_k]
+                assert (met == 1).all() and cta.met.sum() == met.sum()
+                rows = slice(rz * 128, min(m, rz * 128 + geo.mn * 8))
+                part[split, rows, bx * 64:(bx + 1) * 64] = \
+                    got[:rows.stop - rows.start]
+    tot = np.zeros((m, n), np.float32)
+    for s in range(plan.splits):
+        tot = tot + part[s]
+    return (torch.from_numpy(tot) * xs).bfloat16()
+
+
+K7_EMU_CASES = [
+    # bits, group, in_f, tile_k, m, x columns K, pack tiles per slice
+    # (None: int_plan's for 132 SMs), the generic path forced
+    (6, 128, 1024, None, 5, 1024, None, False),   # W6 g128: fast, a window
+    (6, 128, 1536, None, 32, 1000, 2, False),     # K % 16 != 0, two slices
+    (6, None, 1100, None, 9, 1100, 1, False),     # per-channel, padded rows
+    (6, 128, 640, None, 24, 640, 1, False),       # groups 5-7 padded
+    (4, 64, 1024, None, 40, 1024, 1, False),      # two windows, two steps
+    (2, 128, 512, None, 8, 512, None, False),     # 16 slots a word
+    (8, None, 640, None, 130, 640, None, False),  # four windows, 2 row blocks
+    (8, 64, 1024, 512, 8, 1024, None, False),     # B = 128 > g64: a group a
+    (8, 64, 1024, 512, 60, 1024, 1, False),       # k32 block, groups 2 apart
+    (4, 64, 1024, 1024, 40, 1024, None, False),   # B = 128 > g64, two steps
+    (8, 128, 1024, 1024, 3, 1024, None, False),   # B = 256 > g128
+    (3, 128, 512, None, 12, 512, None, False),    # B = 16: the generic path
+    (4, 64, 640, 320, 3, 640, 1, False),          # B = 40: generic
+    (6, 64, 128, None, 17, 120, None, False),     # B = 8: generic, tiny tile
+    (2, 64, 192, 192, 2, 192, None, False),       # B = 12: generic
+    (6, 128, 1024, None, 5, 1024, None, True),    # fast tiles, generic path
+    (8, 64, 1024, 512, 33, 1000, 1, True),
+]
+
+
+@pytest.mark.parametrize("bits,group_size,in_f,tile_k,m,K,per,generic",
+                         K7_EMU_CASES)
+def test_k7_tile_emulation_matches_plain(bits, group_size, in_f, tile_k, m,
+                                         K, per, generic):
+    """K7's tile, emulated lane by lane: the word -> A-register unpack puts
+    every code at its (column, k) once (fast and generic paths, 2/3/4/6/8
+    bits), ldmatrix gives the token -> B-fragment map, the staged-word
+    reads are 8-byte aligned and bank-conflict free, every group closes
+    with its staged scale and the code sums of its rank in the step
+    (per-channel and padded groups, and groups further apart than a step's
+    k32 blocks, included); the product with the slices summed in order is
+    held to ``quant_matmul_int_plain`` by the rule the card uses."""
+    _, tw = packed_pair(bits, group_size, 64 if m > 64 else 128, in_f,
+                        "planar", seed=bits + m, tile_k=tile_k)
+    tw = tw.map_tensors(lambda t: t.to(torch.bfloat16)
+                        if t.is_floating_point() else t)
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (m, K)).astype(np.float32)).to(torch.bfloat16)
+    xc, xs = tqm.quantize_act_int(x, TQuantConfig(n_bits=6))
+    gr = tw.group_size or tw.k_pad
+    plan = tqm.int_plan(m, tw.qweight.shape[1], tw.k_pad, tw.tile_k, bits,
+                        gr, 132, 3, generic)
+    if per is not None:
+        splits = -(-plan.n_tiles // per)
+        plan = plan._replace(
+            geometry=tqm._k7_geometry(bits, m, tw.tile_k, tw.k_pad, gr, per,
+                                      generic),
+            splits=splits, per=per,
+            workspace=(splits, m, tw.qweight.shape[1]) if splits > 1
+            else None)
+    assert tw.scales.shape[1] * (group_size or tw.k_pad) <= tw.k_pad
+    assert plan.geometry.fast == (not generic and (
+        tw.tile_k * {3: 2, 6: 4}.get(bits, bits) // 32
+        // (2 if bits in (3, 6) else 1)) % 32 == 0)
+    got = _k7_emulate(xc, xs, tw, plan)
+    want, mag = tqm.quant_matmul_int_plain(xc, xs, tw, magnitude=True)
+    ok, err, worst = tolerance.bf16_close(got, want,
+                                          tolerance.INT_MATMUL_SLACK * mag)
+    assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("n_win,spw", [(1, 1), (3, 1), (2, 4), (5, 2),
+                                       (1, 3), (4, 2)])
+def test_k7_ring_schedule(n_win, spw, fast):
+    """The ring, as a timeline of each step's phases: 0 wait_group 0 and
+    the top barrier (every copy issued so far has landed), 1 the next
+    step's x codes issued (and on the generic path the next window's words,
+    into the other of two slots), 2 the fast path's words read into
+    registers, 3 the sums' barrier, 4 the fast path's next window's words
+    issued into its one slot, 5 the MMAs (x codes; the generic path's words
+    from shared memory). Every copy lands before its first reader and
+    overwrites a slot only after the last reader of what it held."""
+    n_steps = n_win * spw
+    reads = {}   # (slot kind, slot) -> [(time, tag)]
+    writes = []  # (time, slot kind, slot, tag)
+    writes += [((-1, 9), "w", 0, 0), ((-1, 9), "x", 0, 0)]
+    for s in range(n_steps):
+        w = s // spw
+        new_win = s + 1 < n_steps and (s + 1) % spw == 0
+        if s + 1 < n_steps:
+            writes.append(((s, 1), "x", (s + 1) & 1, s + 1))
+            if new_win and not fast:
+                writes.append(((s, 1), "w", (w + 1) & 1, w + 1))
+        if fast:
+            reads.setdefault(("w", 0), []).append(((s, 2), w))
+            if new_win:
+                writes.append(((s, 4), "w", 0, w + 1))
+        else:
+            reads.setdefault(("w", w & 1), []).append(((s, 5), w))
+        reads.setdefault(("x", s & 1), []).append(((s, 5), s))
+    for key, rs in reads.items():
+        ws = sorted((t, tag) for t, kind, slot, tag in writes
+                    if (kind, slot) == key)
+        for t_read, tag in rs:
+            # the latest copy into the slot issued before the top barrier
+            # of the reading step is the one read, and it carries the tag
+            before = [(t, g) for t, g in ws if t < (t_read[0], 0)]
+            assert before and before[-1][1] == tag, (key, t_read, tag)
+            # and no later copy overwrites it before the read
+            assert not [t for t, g in ws
+                        if (t_read[0], 0) <= t < t_read], (key, t_read)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 33, 128, 300, 2047])
+@pytest.mark.parametrize("bits,group_size,K,N,tile_k", [
+    (6, 128, 4096, 12288, None), (6, 128, 11008, 4096, None),
+    (6, 128, 4096, 22016, None), (4, 64, 4096, 4096, None),
+    (8, None, 11008, 4096, None), (3, 128, 4096, 4096, None),
+    (2, 64, 192, 128, 192), (8, 64, 4096, 4096, None),
+    (4, 64, 4096, 4096, 1024), (8, 128, 4096, 4096, 1024)])
+def test_k7_plan_covers_every_tile_once(bits, group_size, K, N, tile_k, m):
+    """int_plan's slices cover every pack tile once, none empty, each within
+    the slice's group budget, and the kernel's shared memory fits a block;
+    rows past 128 take row blocks, so each word is read once per 128
+    rows."""
+    from omniquant_tpu_torch.quant.packing import pack_tile
+    T = tile_k or pack_tile(bits, group_size, K)
+    k_pad = -(-K // T) * T
+    gr = group_size or k_pad
+    plan = tqm.int_plan(m, N, k_pad, T, bits, gr, 132, 3)
+    tiles = [t for a, b in plan.slices() for t in range(a, b)]
+    assert tiles == list(range(k_pad // T))
+    assert all(b > a for a, b in plan.slices())
+    assert plan.geometry.smem <= tqm._K7_SMEM
+    assert plan.geometry.row_blocks == -(-m // 128)
+    assert plan.geometry.mn * 8 >= min(m, 128)
+    if plan.per > 1 and gr != k_pad:
+        assert plan.per * T // gr <= tqm._K7_SLICE_GROUPS
+    assert plan.workspace == ((plan.splits, m, N) if plan.splits > 1
+                              else None)
+
+
+def test_bf16_close_counts_an_exact_zero_as_within():
+    """The per-element rule: an element equal to its plain value passes
+    even where its bound is 0 (plain 0 with no magnitude: a W3 column whose
+    zero point is 2^{b-1} and whose dot is 0), and a nonzero error there
+    fails."""
+    want = torch.tensor([0.0, 1.0, 0.0])
+    slack = torch.tensor([0.0, 0.0, 0.0])
+    assert tolerance.bf16_close(want.clone(), want, slack)[0]
+    assert not tolerance.bf16_close(torch.tensor([1e-6, 1.0, 0.0]), want,
+                                    slack)[0]
