@@ -436,6 +436,26 @@ PLANAR_K1 = {(2, 64): True, (3, 64): False, (4, 64): True, (6, 128): False,
              (8, None): False}
 
 
+def _planar_decode_plan(device, pw, m) -> str:
+    """The planar decode tile's plan for pw at m rows on this card: its
+    slices, steps per slice (CTA), the CTAs an SM holds and their shared
+    memory, which must be the same in kernels/quant_matmul.py's geometry
+    and in the kernel."""
+    from omniquant_tpu_torch.kernels import quant_matmul as qmm
+
+    if not qmm._planar_decode(pw):
+        return "prefill tile (a tile too small for a decode step)"
+    geo, ctas, plan = qmm.planar_decode_launch(pw, m, device)
+    smem = qmm._planar_decode_info(pw.bits, m, pw.tile_k,
+                                   pw.group_size or pw.k_pad,
+                                   pw.scales.shape[1], False)
+    if smem != geo.smem:
+        raise AssertionError(f"planar decode smem: kernel {smem}, "
+                             f"geometry {geo.smem}")
+    return (f"{plan.splits} slices of {plan.per} steps of {geo.nsub} "
+            f"sub-steps, {ctas} CTAs/SM of {smem} B")
+
+
 def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
     """K1 on planar words (pack_model's auto layout for groups below 128
     rows and for 6 and 8 bits): the four 7B decode products at m = 32 and 8
@@ -443,7 +463,9 @@ def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
     down at the verify m = 128 and the prefill m = 4096 for W2 g64 and W4
     g64, each held per element to the plain version (two calls equal). The
     JSON entry sums the four W2 g64 decode products at m = 32 (engine H's
-    layer), and under ``prefill`` its qkv + o + down at m = 4096."""
+    layer), under ``widths`` each width's four at m = 32 and 8 (kernel,
+    library, bound), and under ``prefill`` W2 g64's qkv + o + down at m =
+    4096. The log gives each decode product's plan on this card."""
     gen = torch.Generator(device=device).manual_seed(2345)
     rows = []
     for (bits, gs), prefill in PLANAR_K1.items():
@@ -460,20 +482,27 @@ def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
                 rows.append(dict(weights=tag, shape=name, **_k1_row(
                     torch, timer, f"quant_matmul {tag} {name} m={m}", pw,
                     w_lib, x)))
+                if m <= 32:
+                    rows[-1]["plan"] = _planar_decode_plan(device, pw, m)
                 del x
             del pw, w_lib
     out["quant_matmul_planar_shapes"] = rows
+    widths = {}
     for tag in dict.fromkeys(r["weights"] for r in rows):
         for m in (32, 8):
             sel = [r for r in rows if r["weights"] == tag and r["m"] == m]
+            widths.setdefault(tag, {})[f"m={m}"] = _totals(
+                sel, ("ms", "library_ms", "bound_ms"))
             log(f"  quant_matmul {tag} four decode products m={m}: kernel "
                 f"{sum(r['ms'] for r in sel):.4f} ms, library "
                 f"{sum(r['library_ms'] for r in sel):.4f}, bound "
-                f"{sum(r['bound_ms'] for r in sel):.4f}")
+                f"{sum(r['bound_ms'] for r in sel):.4f}; plans "
+                + ", ".join(f"{r['shape']} {r['plan']}" for r in sel))
     tot = _k1_total(
         [r for r in rows if r["weights"] == "W2 g64" and r["m"] == 32], rows,
         "one decoder layer at decode, m=32, W2 g64 planar: qkv 4096x12288, "
         "o 4096x4096, gate_up 4096x22016, down 11008x4096")
+    tot["widths"] = widths
     tot["prefill"] = _k1_prefill_sum(
         [r for r in rows if r["weights"] == "W2 g64"], dims["prefill_m"])
     _log_prefill_sum("quant_matmul W2 g64", tot["prefill"])
@@ -1615,7 +1644,8 @@ def main(argv=None) -> int:
             **({"kernel_ms": r["kernel_ms"]} if "kernel_ms" in r else {}),
             **({"generic_kernel_ms": r["generic_kernel_ms"]}
                if "generic_kernel_ms" in r else {}),
-            **({"verify": r["verify"]} if "verify" in r else {})))
+            **({"verify": r["verify"]} if "verify" in r else {}),
+            **({"widths": r["widths"]} if "widths" in r else {})))
     out["kernels"] = entries
     out["total_s"] = time.time() - t_start
     log(f"total {out['total_s']:.1f} s")

@@ -69,19 +69,52 @@
 // The wrapper refuses, for both tiles, a pairs pack tile whose word count per
 // column is not a multiple of 8 (pack_tile never makes one).
 //
-// Planar decode tile (m <= 32), the same design on planar words. A step is
-// WS = 16*KB consecutive low-plane words w0.. of a pack tile (KB = 2 at 4
-// and 8 bits, else 1) for 128 columns; for 3-bit and 6-bit codes it also
-// takes the WS low words P/2 further on and the WS high-plane words both
-// blocks share, so each high word is read once too. Slot p of a block is a
-// run of WS consecutive rows (p*P + block start + w0 ...), aligned to WS <=
-// 32, so inside one quant group of a multiple of 32 rows; consecutive runs
-// of one group are closed together, with one scale per column. An A
-// fragment register's k-pair is slot p of words 2*t4 and 2*t4 + 1 (+8) of
-// the run. Steps are up to ~59 KB at m = 32 (3-bit: 48 words and 512 x
-// columns a step, so one CTA per SM). The tile takes a tile whose low block
-// (P, or P/2 with two planes) is a multiple of WS words; smaller tiles (in_features below 256 rows at 2 and 6 bits, 512 at 3,
-// 128 at 4, 64 at 8) run on the prefill tile at every m.
+// Planar decode tile (m <= 32): the same algebra on planar words, with the
+// split set by the card rather than by the quant group. On the card it was
+// bound by its instructions and their latency (a clock trace found its
+// cp.async waits near zero, a burst of first loads, then the K loop), not by
+// the bytes of the words.
+//   * A step is WS = 16*KB consecutive low-plane words w0.. of a pack tile
+//     for 128 columns (KB = 2 where a low block holds a multiple of 32
+//     words at 2, 4 and 8 bits); for 3-bit and 6-bit codes also the WS low
+//     words P/2 further on and the WS high-plane words both blocks share,
+//     so each word is read from device memory once. Slot p of a block is a
+//     run of WS rows (p*P + block start + w0 ...), aligned to WS <= 32, so
+//     inside one quant group of a multiple of 32 rows.
+//   * The ring (2 stages, cp.async) holds a step's words and a sub-step's x
+//     columns: where a step's x would take more than 16 KB (8 KB with a
+//     high plane) its runs go in two sub-steps of half the slots each, so
+//     that every width puts two or more CTAs on an SM (94 KB at 3 bits and
+//     m = 32: two; 73-77 KB at 2, 4 and 6 bits: three). x chunks are
+//     XOR-swizzled by row, not padded.
+//   * Half h of the slots takes half h of each word pair: a thread reads
+//     its words from shared memory at each half and byte-permutes them
+//     (prmt) so that a register holds rows k and k + 1 of one bit slot in
+//     its two lanes; the registers then shift in place, one slot a run, so
+//     the slot loop need not be unrolled (unrolled code was slower) and few
+//     registers hold words (166-168 at m = 32, no spills).
+//   * Consecutive runs of one group sum together and close once, with one
+//     scale per column: acc += s*pt + off*xs, off = -z*s, two FMAs per sum
+//     (at W2 g64 a close every 4 k16 blocks). xsum comes from the ones-row
+//     MMA as in the pairs tile.
+//   * A pack tile's (scale, zero) pairs for the 128 columns ride in the ring
+//     with the tile's first step, by 4-byte cp.async into one of two slots
+//     of bf16 planes (each column's groups are contiguous in (N, G); a
+//     column whose first group sits at an odd element starts one element
+//     early), so no step waits on its own round trip, and a slice may be
+//     any number of steps, whatever the group size.
+//   * Split-K by the card (kernels/quant_matmul.py::planar_decode_plan):
+//     slices of whole steps, as many as give the least time on the busiest
+//     SM for the CTAs an SM holds (asked of the card). Each slice writes
+//     f32 partial sums to the workspace, fences and takes a ticket of its
+//     column block; the last to finish adds the slices in slice order from
+//     0 (two calls give the same bits), writes y and resets the ticket. No
+//     second launch; the partials are read back while they are still in
+//     L2.
+// The tile takes a tile whose low block (P, or P/2 with two planes) is a
+// multiple of 16 words (32 at 4 and 8 bits); smaller tiles (in_features
+// below 256 rows at 2, 4 and 6 bits, 512 at 3, 128 at 8) run on the
+// prefill tile at every m.
 //
 // Prefill tile (m > 32): ~2*m*K*N operations on the bf16 tensor cores bound
 // it (qkv at m = 4096: 0.42 ms at the H100's dense bf16 peak). The words are
@@ -273,15 +306,6 @@ __device__ __forceinline__ void close_run(float (&acc)[2][MN][4],
         acc[mc][nt][2 * h + 1] += pt[mc][nt][2 * h + 1] * s + xs[nt][1] * off;
       }
     }
-}
-
-template <int MN>
-__device__ __forceinline__ void zero_run(float (&pt)[2][MN][4],
-                                         float (&xs)[MN][4]) {
-#pragma unroll
-  for (int nt = 0; nt < MN; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) pt[0][nt][e] = pt[1][nt][e] = xs[nt][e] = 0.f;
 }
 
 // The warp's 32 columns (from col) of the decode tile's sums: bf16 into y,
@@ -529,22 +553,68 @@ constexpr int DEC_LDW_PL = DEC_BN + 4;  // words per staged row: the fragment
                                         // reads of rows 2*t4 (+1) hit 32
                                         // distinct banks
 
-// A step's geometry for one planar width: NSEL low blocks of WS words (two
-// for 3/6-bit: words w0.. and P/2 + w0..) plus, for two planes, the WS
-// high-plane words they share; RUNS runs of WS rows (slot p of block b).
-template <int BITS>
+// A step's geometry for one planar width, KB k16 blocks a run and MN n8
+// tiles of x rows: WS = 16*KB consecutive words of each of the NSEL low
+// blocks (two for 3/6-bit: words b*B + w0 .. of the P low words, B =
+// P/NSEL) and, for 3/6-bit, the WS high-plane words P + w0 .. both blocks
+// share. Slot p of block b is a run of WS rows (tile rows p*P + b*B +
+// w0 ..); the step's runs, in the order u = p*NSEL + b, go in NSUB
+// sub-steps of RUNS runs, whose x columns are staged per sub-step while the
+// words stay for the whole step. Two sub-steps (half the slots each) where
+// a step's x columns take more than 16 KB, or 8 KB with a high plane (its
+// block makes the step's words half as large again); else one. (Chosen on
+// the card: at m = 8, two sub-steps were faster for 3-bit codes and slower
+// for 6-bit ones.)
+template <int BITS, int KB, int MN>
 struct PlanarStep {
   static constexpr int NSEL = Planar<BITS>::HI ? 2 : 1;
-  static constexpr int KB = (BITS == 4 || BITS == 8) ? 2 : 1;
   static constexpr int WS = 16 * KB;
   static constexpr int NBLK = NSEL + (Planar<BITS>::HI ? 1 : 0);
-  static constexpr int RUNS = Planar<BITS>::V * NSEL;
-  static constexpr int LDX = RUNS * WS + 8;  // bf16 per staged x row
-  static constexpr int WORDS_BYTES = NBLK * WS * DEC_LDW_PL * 4;
-  __host__ __device__ static constexpr int stage_bytes(int mr) {
-    return WORDS_BYTES + mr * LDX * 2;
-  }
+  static constexpr int X_BYTES = 8 * MN * Planar<BITS>::V * NSEL * WS * 2;
+  static constexpr int NSUB =
+      X_BYTES > 16384 || (NSEL == 2 && X_BYTES >= 8192) ? 2 : 1;
+  static constexpr int RUNS = Planar<BITS>::V * NSEL / NSUB;
+  static constexpr int LDX = RUNS * WS;  // bf16 per staged x row
+  static constexpr int STEP_WORDS = NBLK * WS * DEC_LDW_PL;
 };
+
+// The k16 blocks of a planar decode run: 2 where a low block holds a
+// multiple of 32 words at 2, 4 and 8 bits, else 1 (the tile takes a block
+// of a multiple of 32 words at 4 and 8 bits, 16 at 2, 3 and 6).
+__host__ __device__ inline int pl_dec_kb(int bits, int T) {
+  const int lo = bits == 3 ? 2 : (bits == 6 ? 4 : bits);
+  const int B = T * lo / 32 / (bits == 3 || bits == 6 ? 2 : 1);
+  return bits != 3 && bits != 6 && B % 32 == 0 ? 2 : 1;
+}
+
+// The planar decode tile's shared memory: two stages of a step's words and
+// two of a sub-step's x columns (x), then two slots of a pack tile's scales
+// and zeros (sz), each a bf16 plane of ngp per column (the tile's groups
+// from the column's first one, one element earlier where that one sits at
+// an odd element, in whole words).
+struct PlDecSmem {
+  int x, sz, ngp, bytes;
+};
+
+template <int BITS, int KB, int MN>
+__host__ __device__ inline PlDecSmem pl_dec_smem(int T, int gs_rows, int G) {
+  using S = PlanarStep<BITS, KB, MN>;
+  const int spans = T % gs_rows ? (T - 1) / gs_rows + 2 : T / gs_rows;
+  const int ngt = spans < G ? spans : G;  // groups a tile's columns touch
+  PlDecSmem L;
+  L.ngp = (ngt + 2) & ~1;
+  L.x = 2 * S::STEP_WORDS * 4;
+  L.sz = L.x + 2 * 8 * MN * S::LDX * 2;
+  L.bytes = L.sz + 2 * 2 * DEC_BN * L.ngp * 2;
+  return L;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
 
 // A k-pair of planar codes (row k's in the low 16 bits) as a bf16x2
 // fragment register, exact.
@@ -561,85 +631,173 @@ __device__ __forceinline__ uint32_t planar_bf16x2(uint32_t c) {
   }
 }
 
-// Slot p of a k-pair as a bf16x2 fragment register, exact. lo[0] holds the
-// low 16-bit halves of the pair's two low-plane words side by side (row k
-// in the low lane, row k + 1 in the high lane), lo[1] their high halves;
-// hi likewise for their high-plane words, whose slot is 2p + sel.
-template <int BITS>
-__device__ __forceinline__ uint32_t planar_pair(const uint32_t (&lo)[2],
-                                                const uint32_t (&hi)[2],
-                                                int p, int sel) {
-  using PL = Planar<BITS>;
-  constexpr int HS = PL::V / 2;  // low-plane slots per 16-bit half
-  constexpr uint32_t MLO = ((1u << PL::LO) - 1u) * 0x00010001u;
-  uint32_t c =
-      (p < HS ? lo[0] >> (PL::LO * p) : lo[1] >> (PL::LO * (p - HS))) & MLO;
-  if constexpr (PL::HI > 0) {
-    constexpr int HF = 16 / PL::HI;  // high-plane slots per 16-bit half
-    constexpr uint32_t MHI = ((1u << PL::HI) - 1u) * 0x00010001u;
-    const int f = 2 * p + sel;
-    c |= ((f < HF ? hi[0] >> (PL::HI * f) : hi[1] >> (PL::HI * (f - HF))) &
-          MHI)
-         << PL::LO;
-  }
-  return planar_bf16x2<BITS>(c);
+// Half hh of the k-pairs of a staged block's A registers: register e of
+// column tile mc and k16 block kb holds column g + 8*(e & 1) (+ mc*16) of
+// block words 16kb + 2*t4 + 8*(e >> 1) and the next, their low (hh = 0)
+// or high (hh = 1) 16-bit halves side by side.
+template <int KB>
+__device__ __forceinline__ void planar_words(uint32_t (&d)[KB][2][4],
+                                             const uint32_t* wsm, int hh) {
+  const uint32_t sel = hh ? 0x7632u : 0x5410u;
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb)
+#pragma unroll
+    for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t* q = wsm + (16 * kb + 8 * (e >> 1)) * DEC_LDW_PL +
+                            mc * 16 + 8 * (e & 1);
+        d[kb][mc][e] = __byte_perm(q[0], q[DEC_LDW_PL], sel);
+      }
 }
 
-template <int BITS, int MN>
+// Close a group's runs into the f32 sums: acc += s*pt + off*xs, off =
+// -z*s, in f32. ss and zs point at the group's (scale, zero) of the
+// thread's first column (g) in the staged planes, whose columns lie ngp
+// apart (zo = ngp); gl is the group's element.
+template <int MN>
+__device__ __forceinline__ void close_planar(float (&acc)[2][MN][4],
+                                             const float (&pt)[2][MN][4],
+                                             const float (&xs)[MN][4],
+                                             const uint16_t* ss,
+                                             const uint16_t* zs, int zo,
+                                             int gl) {
+#pragma unroll
+  for (int mc = 0; mc < 2; ++mc)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = (mc * 16 + 8 * h) * zo + gl;
+      const float s = __uint_as_float((uint32_t)ss[i] << 16);
+      const float off = -__uint_as_float((uint32_t)zs[i] << 16) * s;
+#pragma unroll
+      for (int nt = 0; nt < MN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& a = acc[mc][nt][2 * h + e];
+          a = fmaf(pt[mc][nt][2 * h + e], s, a);
+          a = fmaf(xs[nt][e], off, a);
+        }
+    }
+}
+
+template <int MN>
+__device__ __forceinline__ void zero_sums(float (&pt)[2][MN][4],
+                                          float (&xs)[MN][4]) {
+#pragma unroll
+  for (int nt = 0; nt < MN; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pt[0][nt][e] = pt[1][nt][e] = xs[nt][e] = 0.f;
+}
+
+// mma_16816 into d, or mma_16816_first where the sum starts
+__device__ __forceinline__ void mma_16816_or_first(float (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1,
+                                                   bool first) {
+  if (first)
+    mma_16816_first(d, a, b0, b1);
+  else
+    mma_16816(d, a, b0, b1);
+}
+
+// The K walk is n_steps steps (spt per pack tile) of NSUB sub-steps each;
+// the grid is (N / 128 column blocks, splits), and slice s takes steps
+// [s*per, min((s+1)*per, n_steps)).
+template <int BITS, int MN, int KB>
 __global__ void __launch_bounds__(DEC_THREADS)
 qmm_planar_decode_kernel(const __nv_bfloat16* __restrict__ x,
                          const int32_t* __restrict__ qw,
                          const __nv_bfloat16* __restrict__ scales,
                          const __nv_bfloat16* __restrict__ zeros,
-                         float* __restrict__ part,
+                         float* __restrict__ part, int* __restrict__ tickets,
                          __nv_bfloat16* __restrict__ y, int m, int K, int N,
-                         int G, int gs_rows, int T, int n_tiles, int per,
+                         int G, int gs_rows, int T, int n_steps, int per,
                          int x_vec) {
-  using S = PlanarStep<BITS>;
-  constexpr int WS = S::WS, KB = S::KB, NSEL = S::NSEL, MR = 8 * MN;
-  constexpr int LDX = S::LDX, STAGE = S::stage_bytes(MR);
+  using S = PlanarStep<BITS, KB, MN>;
+  using PL = Planar<BITS>;
+  constexpr int WS = S::WS, NSEL = S::NSEL, NSUB = S::NSUB, RUNS = S::RUNS;
+  constexpr int MR = 8 * MN, LDX = S::LDX, SW = S::STEP_WORDS;
+  constexpr int HS = PL::V / 2;  // low-plane slots per 16-bit half
+  constexpr uint32_t MLO = ((1u << PL::LO) - 1u) * 0x00010001u;
+  constexpr uint32_t MHI = ((1u << PL::HI) - 1u) * 0x00010001u;
   extern __shared__ __align__(16) unsigned char smem[];
+  const PlDecSmem L = pl_dec_smem<BITS, KB, MN>(T, gs_rows, G);
   const int P = T * Planar<BITS>::LO / 32;  // low-plane words per tile
   const int B = P / NSEL;                   // low words per block
   const int WPT = T * BITS / 32;            // words per tile and column
-  const int steps_per_tile = B / WS;
-  // (scale, zero) bf16 pairs of the slice's groups, [group][column]
-  uint32_t* sz = reinterpret_cast<uint32_t*>(smem + DEC_STAGES * STAGE);
+  const int spt = B / WS;                   // steps per tile
+  uint32_t* w_ring = reinterpret_cast<uint32_t*>(smem);
+  __nv_bfloat16* x_ring = reinterpret_cast<__nv_bfloat16*>(smem + L.x);
+  uint16_t* sz_ring = reinterpret_cast<uint16_t*>(smem + L.sz);
+  const int sz_slot = 2 * DEC_BN * L.ngp;  // bf16 of a (scales, zeros) slot
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int col0 = blockIdx.x * DEC_BN, cw = warp * 32;
-  const int t_begin = blockIdx.y * per;
-  const int t_end = min(t_begin + per, n_tiles);
-  const int n_steps = (t_end - t_begin) * steps_per_tile;
-  const int g0 = t_begin * T / gs_rows;
-  const int ng = (t_end * T - 1) / gs_rows - g0 + 1;
+  const int s0 = blockIdx.y * per, s1 = min(s0 + per, n_steps);
+  const int n_sub = (s1 - s0) * NSUB;
+  const int t_first = s0 / spt;
 
-  auto load_step = [&](int step) {
-    const int tt = step / steps_per_tile;
-    const int t = t_begin + tt, w0 = (step - tt * steps_per_tile) * WS;
-    unsigned char* base = smem + (step % DEC_STAGES) * STAGE;
-    uint32_t* wsm = reinterpret_cast<uint32_t*>(base);
-    __nv_bfloat16* xsm = reinterpret_cast<__nv_bfloat16*>(base + S::WORDS_BYTES);
-    // block b < NSEL: low words b*B + w0 ..; block NSEL: high words P + w0 ..
-    const int32_t* src = qw + (size_t)t * WPT * N + col0;
-    for (int i = tid; i < S::NBLK * WS * (DEC_BN / 4); i += DEC_THREADS) {
-      const int r = i / (DEC_BN / 4), c4 = (i % (DEC_BN / 4)) * 4;
-      const int b = r / WS;
-      const int row = (b < NSEL ? b * B : P) + w0 + (r - b * WS);
-      cp_async16(wsm + r * DEC_LDW_PL + c4, src + (size_t)row * N + c4, 16);
+  // the groups of pack tile t: [gt0, gt0 + nv), the layout padding past G
+  // reusing group G - 1
+  auto tile_groups = [&](int t, int& gt0, int& nv) {
+    gt0 = t * T / gs_rows;
+    nv = min(((t + 1) * T - 1) / gs_rows, G - 1) - gt0 + 1;
+  };
+
+  // Sub-step j into the ring: with a step's first sub-step, the step's
+  // words (block b < NSEL: low words b*B + w0 ..; block NSEL: high words
+  // P + w0 ..) into the stage of the step and, at a tile's first step or
+  // the slice's, the tile's scales and zeros into the slot of the tile;
+  // then the x columns of the sub-step's runs into the stage j & 1.
+  auto load_sub = [&](int j) {
+    const int step = s0 + j / NSUB, h = j % NSUB;
+    const int t = step / spt, w0 = (step - t * spt) * WS;
+    if (h == 0) {
+      const int32_t* src = qw + (size_t)t * WPT * N + col0;
+      uint32_t* wsm = w_ring + ((step - s0) & 1) * SW;
+      for (int i = tid; i < S::NBLK * WS * (DEC_BN / 4); i += DEC_THREADS) {
+        const int r = i / (DEC_BN / 4), c4 = (i % (DEC_BN / 4)) * 4;
+        const int b = r / WS;
+        const int row = (b < NSEL ? b * B : P) + w0 + (r - b * WS);
+        cp_async16(wsm + r * DEC_LDW_PL + c4, src + (size_t)row * N + c4, 16);
+      }
+      if (step == s0 || w0 == 0) {
+        // the words holding elements [e0, e0 + nv) of each column's plane
+        // (at most nw0 words: one more where e0 is odd), column by column
+        // across the threads so that a warp's copies share sectors
+        int gt0, nv;
+        tile_groups(t, gt0, nv);
+        uint16_t* ss = sz_ring + ((t - t_first) & 1) * sz_slot;
+        const int nw0 = (nv + 2) >> 1;
+        const long long n_el = (long long)N * G;
+        for (int i = tid; i < DEC_BN * nw0; i += DEC_THREADS) {
+          const int c = i / nw0, w = i - c * nw0;
+          const long long e0 = (long long)(col0 + c) * G + gt0;
+          const long long e = (e0 & ~1LL) + 2 * w;
+          if (e < e0 + nv) {
+            const int bytes = e + 1 < n_el ? 4 : 2;
+            cp_async4(ss + c * L.ngp + 2 * w, scales + e, bytes);
+            cp_async4(ss + (DEC_BN + c) * L.ngp + 2 * w, zeros + e, bytes);
+          }
+        }
+      }
     }
-    // x columns of each run (slot p of block b: tile rows p*P + b*B + w0 ..),
-    // zero at rows >= m and columns >= K (the packed rows past in_features
-    // carry code 0 but enter xsum)
+    // x columns of run q (step run u = h*RUNS + q: slot u / NSEL of block
+    // u % NSEL, tile rows p*P + b*B + w0 ..) at row columns q*WS ..., each
+    // 16-byte chunk at its chunk index XOR (row & 7), so that ldmatrix's
+    // eight rows hit distinct banks; zero at rows >= m and columns >= K
+    // (the packed rows past in_features carry code 0 but enter xsum)
+    __nv_bfloat16* xsm = x_ring + (j & 1) * MR * LDX;
     const int kt = t * T + w0;
     constexpr int PER_RUN = MR * (WS / 8);
-    for (int i = tid; i < S::RUNS * PER_RUN; i += DEC_THREADS) {
-      const int run = i / PER_RUN, rem = i - run * PER_RUN;
+    for (int i = tid; i < RUNS * PER_RUN; i += DEC_THREADS) {
+      const int q = i / PER_RUN, rem = i - q * PER_RUN;
       const int r = rem / (WS / 8), c8 = (rem % (WS / 8)) * 8;
-      const int p = run / NSEL, b = run - p * NSEL;
-      const int gc = kt + p * P + b * B + c8;
-      __nv_bfloat16* dst = xsm + r * LDX + run * WS + c8;
+      const int u = h * RUNS + q;
+      const int gc = kt + (u / NSEL) * P + (u % NSEL) * B + c8;
+      __nv_bfloat16* dst =
+          xsm + r * LDX + ((((q * WS + c8) >> 3) ^ (r & 7)) << 3);
       if (x_vec) {
         const bool in = r < m && gc < K;
         cp_async16(dst, in ? x + (size_t)r * K + gc : x, in ? 16 : 0);
@@ -652,12 +810,8 @@ qmm_planar_decode_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
-#pragma unroll
-  for (int s = 0; s < DEC_STAGES - 1; ++s) {
-    if (s < n_steps) load_step(s);
-    cp_async_commit();
-  }
-  stage_scales(sz, scales, zeros, col0, G, g0, ng, tid);
+  load_sub(0);
+  cp_async_commit();
 
   float acc[2][MN][4];
 #pragma unroll
@@ -668,135 +822,217 @@ qmm_planar_decode_kernel(const __nv_bfloat16* __restrict__ x,
       for (int e = 0; e < 4; ++e) acc[mc][nt][e] = 0.f;
   const uint32_t ones[4] = {0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
                             0x3f803f80u};  // bf16 1.0 pairs
+  // ldmatrix rows: lane L addresses row L % 8 of tile L / 8, tiles ordered
+  // (n8 tile, k half): (nt, 0), (nt, 1), (nt + 1, 0), (nt + 1, 1)
   const int lm_row = ((lane >> 4) * 8 + (lane & 7)), lm_half = (lane >> 3) & 1;
 
-  int t = t_begin, w0 = 0;
-  for (int step = 0; step < n_steps; ++step) {
-    cp_async_wait<DEC_STAGES - 2>();
-    __syncthreads();  // step's stage landed; step - 1's stage is free
-    if (step + DEC_STAGES - 1 < n_steps) load_step(step + DEC_STAGES - 1);
-    cp_async_commit();
-
-    const unsigned char* base = smem + (step % DEC_STAGES) * STAGE;
-    const uint32_t* wsm = reinterpret_cast<const uint32_t*>(base);
-    const __nv_bfloat16* xsm =
-        reinterpret_cast<const __nv_bfloat16*>(base + S::WORDS_BYTES);
-    // the k-pairs of A register e (column g + 8*(e & 1), block words
-    // 16kb + 2*t4 + 8*(e >> 1) and the next), low and high halves
-    // permuted side by side: lw for the low blocks, hw for the high block
-    uint32_t lw[NSEL][KB][2][4][2], hw[KB][2][4][2];
-#pragma unroll
-    for (int b = 0; b < S::NBLK; ++b)
-#pragma unroll
-      for (int kb = 0; kb < KB; ++kb)
-#pragma unroll
-        for (int mc = 0; mc < 2; ++mc)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const uint32_t* q =
-                wsm + (b * WS + 16 * kb + 2 * t4 + 8 * (e >> 1)) * DEC_LDW_PL +
-                cw + mc * 16 + g + 8 * (e & 1);
-            const uint32_t wa = q[0], wb = q[DEC_LDW_PL];
-            uint32_t(&d)[2] = b < NSEL ? lw[b < NSEL ? b : 0][kb][mc][e]
-                                       : hw[kb][mc][e];
-            d[0] = __byte_perm(wa, wb, 0x5410);
-            d[1] = __byte_perm(wa, wb, 0x7632);
-          }
-    // runs go in slot order; consecutive runs of one group (slots 2q and
-    // 2q + 1 of a 512-row tile at g64 and 2 bits, every run of a step with
-    // per-channel scales) sum into pt and xs, and the group closes once,
-    // where the next run starts another group
+  for (int step = s0; step < s1; ++step) {
+    const int t = step / spt, w0 = (step - t * spt) * WS;
+    int gt0, nv;
+    tile_groups(t, gt0, nv);
+    // the staged planes of the thread's first column, cw + g; its columns
+    // (col0 + cw + mc*16 + g + 8h: g's parity) start one element late
+    // where (col0 + c)*G + gt0 is odd
+    const uint16_t* ss = sz_ring + ((t - t_first) & 1) * sz_slot +
+                         (cw + g) * L.ngp + (((g & G) ^ gt0) & 1);
+    // runs go in the order u; consecutive runs of one group (slots 2q and
+    // 2q + 1 at g64 and 2 bits, every run of a step with per-channel
+    // scales) sum into pt and xs, and the group closes once, where the next
+    // run starts another. The group's first k16 block starts the sums with
+    // one low block; with two they are zeroed (faster on the card there)
     const int krow = t * T + w0;
+    int gi = krow / gs_rows, g_hi = (gi + 1) * gs_rows;
     float pt[2][MN][4], xs[MN][4];
-    zero_run<MN>(pt, xs);
-    // the group of the runs summing in pt and xs, and its rows [g_lo, g_hi)
-    int gi = krow / gs_rows;
-    int g_lo = gi * gs_rows, g_hi = g_lo + gs_rows;
+    if constexpr (NSEL == 2) zero_sums<MN>(pt, xs);
+    bool fresh = true;
 #pragma unroll
-    for (int run = 0; run < S::RUNS; ++run) {
-      const int p = run / NSEL, b = run % NSEL;
+    for (int h = 0; h < NSUB; ++h) {
+      const int j = (step - s0) * NSUB + h;
+      cp_async_wait<0>();
+      __syncthreads();  // sub-step j's stage landed; j - 1's is free
+      if (j + 1 < n_sub) load_sub(j + 1);
+      cp_async_commit();
+      // the thread's words of the step: rows 2*t4 (+1) .. of each block,
+      // columns cw + g ..
+      const uint32_t* wsm =
+          w_ring + ((step - s0) & 1) * SW + 2 * t4 * DEC_LDW_PL + cw + g;
+      const __nv_bfloat16* xsm = x_ring + (j & 1) * MR * LDX;
+      // half hh of the step's runs (slots [hh*HS, (hh+1)*HS) of every
+      // block) takes half hh of each word pair: the low plane's slot p sits
+      // at bit LO*(p - hh*HS) of each lane, the high plane's field 2p + b
+      // at HI*(2p + b - hh*HF); both registers shift in place as the runs
+      // go, so the loop over slots need not be unrolled (it is where a half
+      // has at most 4 slots)
 #pragma unroll
-      for (int kb = 0; kb < KB; ++kb) {
-        uint32_t bf[MN][2];
+      for (int hh = NSUB == 2 ? h : 0; hh < (NSUB == 2 ? h + 1 : 2); ++hh) {
+        uint32_t cl[NSEL][KB][2][4], ch[KB][2][4];
 #pragma unroll
-        for (int nt = 0; nt < MN; nt += 2) {
-          uint32_t r[4];
-          ldmatrix_x<MN == 1>(r, xsm + (nt * 8 + lm_row) * LDX + run * WS +
-                                     16 * kb + 8 * lm_half);
-          bf[nt][0] = r[0];
-          bf[nt][1] = r[1];
-          if (MN > 1) {
-            bf[nt + 1][0] = r[2];
-            bf[nt + 1][1] = r[3];
+        for (int b = 0; b < NSEL; ++b)
+          planar_words<KB>(cl[b], wsm + b * WS * DEC_LDW_PL, hh);
+        if constexpr (NSEL == 2)
+          planar_words<KB>(ch, wsm + 2 * WS * DEC_LDW_PL, hh);
+        // slot p: its NSEL runs, then the low plane's next slot into place
+        auto slot = [&](int p) {
+#pragma unroll
+          for (int b = 0; b < NSEL; ++b) {
+            const int u = p * NSEL + b, q = u - h * RUNS;
+#pragma unroll
+            for (int kb = 0; kb < KB; ++kb) {
+              const bool first = NSEL == 1 && fresh && kb == 0;
+              uint32_t bf[MN][2];
+#pragma unroll
+              for (int nt = 0; nt < MN; nt += 2) {
+                uint32_t r[4];
+                ldmatrix_x<MN == 1>(
+                    r, xsm + (nt * 8 + lm_row) * LDX +
+                           ((q * (WS / 8) + 2 * kb + lm_half) ^ (lane & 7)) *
+                               8);
+                bf[nt][0] = r[0];
+                bf[nt][1] = r[1];
+                if (MN > 1) {
+                  bf[nt + 1][0] = r[2];
+                  bf[nt + 1][1] = r[3];
+                }
+              }
+#pragma unroll
+              for (int nt = 0; nt < MN; ++nt)
+                mma_16816_or_first(xs[nt], ones, bf[nt][0], bf[nt][1], first);
+#pragma unroll
+              for (int mc = 0; mc < 2; ++mc) {
+                uint32_t a[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  uint32_t c = cl[b][kb][mc][e] & MLO;
+                  if constexpr (PL::HI > 0) {
+                    c |= (ch[kb][mc][e] & MHI) << PL::LO;
+                    ch[kb][mc][e] >>= PL::HI;
+                  }
+                  a[e] = planar_bf16x2<BITS>(c);
+                }
+#pragma unroll
+                for (int nt = 0; nt < MN; ++nt)
+                  mma_16816_or_first(pt[mc][nt], a, bf[nt][0], bf[nt][1],
+                                     first);
+              }
+            }
+            fresh = false;
+            const int next =
+                krow + ((u + 1) / NSEL) * P + ((u + 1) % NSEL) * B;
+            if (u + 1 == NSEL * PL::V || next >= g_hi) {
+              close_planar<MN>(acc, pt, xs, ss, ss + DEC_BN * L.ngp, L.ngp,
+                               min(gi - gt0, nv - 1));
+              if constexpr (NSEL == 2) zero_sums<MN>(pt, xs);
+              fresh = true;
+              while (next >= g_hi) {  // the next run's group: rows rise
+                ++gi;
+                g_hi += gs_rows;
+              }
+            }
           }
-        }
 #pragma unroll
-        for (int nt = 0; nt < MN; ++nt)
-          mma_16816(xs[nt], ones, bf[nt][0], bf[nt][1]);
+          for (int b = 0; b < NSEL; ++b)
 #pragma unroll
-        for (int mc = 0; mc < 2; ++mc) {
-          uint32_t a[4];
+            for (int kb = 0; kb < KB; ++kb)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            a[e] = planar_pair<BITS>(lw[b][kb][mc][e], hw[kb][mc][e], p, b);
+              for (int mc = 0; mc < 2; ++mc)
 #pragma unroll
-          for (int nt = 0; nt < MN; ++nt)
-            mma_16816(pt[mc][nt], a, bf[nt][0], bf[nt][1]);
-        }
-      }
-      const int next = krow + ((run + 1) / NSEL) * P + ((run + 1) % NSEL) * B;
-      if (run + 1 == S::RUNS || next < g_lo || next >= g_hi) {
-        // the group ends here: close it, open the next run's
-        close_run<MN>(acc, pt, xs, sz + (gi - g0) * DEC_BN, cw, g);
-        zero_run<MN>(pt, xs);
-        if (run + 1 < S::RUNS) {
-          gi = next / gs_rows;
-          g_lo = gi * gs_rows;
-          g_hi = g_lo + gs_rows;
+                for (int e = 0; e < 4; ++e) cl[b][kb][mc][e] >>= PL::LO;
+        };
+        if constexpr (HS <= 4) {
+#pragma unroll
+          for (int p = hh * HS; p < (hh + 1) * HS; ++p) slot(p);
+        } else {
+#pragma unroll 1
+          for (int p = hh * HS; p < (hh + 1) * HS; ++p) slot(p);
         }
       }
-    }
-    w0 += WS;
-    if (w0 == B) {
-      w0 = 0;
-      ++t;
     }
   }
+
   store_out<MN>(acc, part, y, m, N, col0 + cw, g, t4);
+  if (gridDim.y == 1) return;
+  // With split-K, store_out wrote this slice's f32 partial sums; then the
+  // column block's ticket. The slice that takes the last one adds every
+  // slice's sums in slice order from 0 (as splitk_sum does: two calls give
+  // the same bits) while they are still in L2, writes y and resets the
+  // ticket for the next launch.
+  __threadfence();
+  __syncthreads();
+  int* ticket = reinterpret_cast<int*>(smem);  // the ring is not read again
+  if (tid == 0) *ticket = atomicAdd(tickets + blockIdx.x, 1);
+  __syncthreads();
+  const int splits = gridDim.y;
+  if (*ticket != splits - 1) return;
+  __threadfence();
+  if (tid == 0) tickets[blockIdx.x] = 0;
+  constexpr int CH = MR * (DEC_BN / 4) / DEC_THREADS;  // float4 per thread
+  float4 sum[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) sum[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int k = 0; k < splits; ++k)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int i = c * DEC_THREADS + tid, r = i / (DEC_BN / 4);
+      if (r < m) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+            part + ((size_t)k * m + r) * N + col0 + (i % (DEC_BN / 4)) * 4));
+        sum[c].x += v.x;
+        sum[c].y += v.y;
+        sum[c].z += v.z;
+        sum[c].w += v.w;
+      }
+    }
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int i = c * DEC_THREADS + tid, r = i / (DEC_BN / 4);
+    if (r < m) {
+      __nv_bfloat162 v[2] = {__floats2bfloat162_rn(sum[c].x, sum[c].y),
+                             __floats2bfloat162_rn(sum[c].z, sum[c].w)};
+      *reinterpret_cast<uint2*>(y + (size_t)r * N + col0 +
+                                (i % (DEC_BN / 4)) * 4) =
+          *reinterpret_cast<uint2*>(v);
+    }
+  }
 }
 
-template <int BITS, int MN>
+// Let the decode instance take smem bytes of dynamic shared memory: the
+// attribute only grows, for the launch and the occupancy query alike.
+template <int BITS, int MN, int KB>
+cudaError_t pl_dec_allow(int smem) {
+  static int allowed = 0;
+  if (smem <= allowed) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      qmm_planar_decode_kernel<BITS, MN, KB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(qmm_planar_decode_kernel<BITS, MN, KB>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) allowed = smem;
+  return err;
+}
+
+template <int BITS, int MN, int KB>
 int launch_planar_decode(const void* x, const void* qw, const void* scales,
-                         const void* zeros, void* part, void* y, int m, int K,
-                         int N, int k_pad, int G, int gs_rows, int T,
-                         int x_vec, int splits, int per, cudaStream_t st) {
-  // the largest scale block a slice of per tiles can span
-  const int ng = T % gs_rows ? (per * T - 1) / gs_rows + 2 : per * T / gs_rows;
-  const int smem = DEC_STAGES * PlanarStep<BITS>::stage_bytes(8 * MN) +
-                   ng * DEC_BN * 4;
-  static int smem_set = 0;
-  if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qmm_planar_decode_kernel<BITS, MN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(qmm_planar_decode_kernel<BITS, MN>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
+                         const void* zeros, void* part, void* tickets, void* y,
+                         int m, int K, int N, int k_pad, int G, int gs_rows,
+                         int T, int x_vec, int splits, int per,
+                         cudaStream_t st) {
+  using S = PlanarStep<BITS, KB, MN>;
+  const int smem = pl_dec_smem<BITS, KB, MN>(T, gs_rows, G).bytes;
+  const cudaError_t err = pl_dec_allow<BITS, MN, KB>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_steps =
+      k_pad / T * (T * Planar<BITS>::LO / 32 / S::NSEL / S::WS);
   dim3 grid(N / DEC_BN, splits);
-  qmm_planar_decode_kernel<BITS, MN><<<grid, DEC_THREADS, smem, st>>>(
+  qmm_planar_decode_kernel<BITS, MN, KB><<<grid, DEC_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(qw),
       static_cast<const __nv_bfloat16*>(scales),
       static_cast<const __nv_bfloat16*>(zeros), static_cast<float*>(part),
-      static_cast<__nv_bfloat16*>(y), m, K, N, G, gs_rows, T, k_pad / T, per,
-      x_vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return splitk_sum(static_cast<const float*>(part), nullptr,
-                    static_cast<__nv_bfloat16*>(y), m, N, splits, st);
+      static_cast<int*>(tickets), static_cast<__nv_bfloat16*>(y), m, K, N, G,
+      gs_rows, T, n_steps, per, x_vec);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1253,28 +1489,87 @@ int launch_prefill(const void* x, const void* qw, const void* scales,
   return (int)cudaErrorInvalidValue;
 }
 
-// The decode tile at m <= 32 where the tile's low blocks hold whole steps,
-// else the prefill tile (one slice).
+// The decode tile at m <= 32 where the tile's low blocks hold whole steps
+// (a multiple of 32 words at 4 and 8 bits, 16 at 2, 3 and 6), split into
+// ``splits`` slices of ``per`` steps; else the prefill tile (one slice).
+template <int BITS>
+bool planar_decodes(int m, int T) {
+  const int B = T * Planar<BITS>::LO / 32 / (Planar<BITS>::HI ? 2 : 1);
+  return m <= 32 && B % (BITS == 4 || BITS == 8 ? 32 : 16) == 0;
+}
+
 template <int BITS>
 int planar_entry(const void* x, const void* qw, const void* scales,
-                 const void* zeros, void* part, void* y, int m, int K, int N,
-                 int k_pad, int G, int gs_rows, int T, int x_vec, int splits,
-                 int per, cudaStream_t st) {
-  using S = PlanarStep<BITS>;
-  const int P = T * Planar<BITS>::LO / 32;
-  if (m <= 32 && (P / S::NSEL) % S::WS == 0) {
-#define PL_CASE(MN)                                                          \
-  return launch_planar_decode<BITS, MN>(x, qw, scales, zeros, part, y, m, K, \
-                                        N, k_pad, G, gs_rows, T, x_vec,      \
-                                        splits, per, st)
-    if (m <= 8) PL_CASE(1);
-    if (m <= 16) PL_CASE(2);
-    PL_CASE(4);
+                 const void* zeros, void* part, void* tickets, void* y, int m,
+                 int K, int N, int k_pad, int G, int gs_rows, int T,
+                 int x_vec, int splits, int per, cudaStream_t st) {
+  if (planar_decodes<BITS>(m, T)) {
+    const int kb = pl_dec_kb(BITS, T);
+    const int n_steps = k_pad / T *
+                        (T * Planar<BITS>::LO / 32 /
+                         (Planar<BITS>::HI ? 2 : 1) / (16 * kb));
+    // scales and zeros are staged by 4-byte copies
+    if (splits < 1 || per < 1 || (splits - 1) * per >= n_steps ||
+        splits * per < n_steps ||
+        (splits > 1 && (part == nullptr || tickets == nullptr)) ||
+        (reinterpret_cast<uintptr_t>(scales) |
+         reinterpret_cast<uintptr_t>(zeros)) % 4)
+      return (int)cudaErrorInvalidValue;
+    const int mn = m <= 8 ? 1 : (m <= 16 ? 2 : 4);
+#define PL_CASE(MN, KB)                                                      \
+  if (mn == MN && kb == KB)                                                 \
+    return launch_planar_decode<BITS, MN, KB>(x, qw, scales, zeros, part,   \
+                                              tickets, y, m, K, N, k_pad,   \
+                                              G, gs_rows, T, x_vec, splits, \
+                                              per, st);
+    if constexpr (BITS != 3 && BITS != 6) {
+      PL_CASE(1, 2)
+      PL_CASE(2, 2)
+      PL_CASE(4, 2)
+    }
+    if constexpr (BITS == 2 || BITS == 3 || BITS == 6) {
+      PL_CASE(1, 1)
+      PL_CASE(2, 1)
+      PL_CASE(4, 1)
+    }
 #undef PL_CASE
+    return (int)cudaErrorInvalidValue;
   }
   if (splits != 1) return (int)cudaErrorInvalidValue;
   return launch_prefill<BITS>(x, qw, scales, zeros, y, m, K, N, k_pad, G,
                               gs_rows, T, BITS, x_vec, st);
+}
+
+// The planar decode tile's shared memory for (m, T, gs_rows, G) and, with
+// ctas, how many of its CTAs an SM holds (cudaOccupancy...); negative: a
+// CUDA error.
+template <int BITS>
+int planar_decode_info(int m, int T, int gs_rows, int G, bool ctas) {
+  if (!planar_decodes<BITS>(m, T)) return -(int)cudaErrorInvalidValue;
+  const int kb = pl_dec_kb(BITS, T), mn = m <= 8 ? 1 : (m <= 16 ? 2 : 4);
+#define PL_INFO(MN, KB)                                                     \
+  if (mn == MN && kb == KB) {                                              \
+    const int smem = pl_dec_smem<BITS, KB, MN>(T, gs_rows, G).bytes;   \
+    if (!ctas) return smem;                                                \
+    cudaError_t err = pl_dec_allow<BITS, MN, KB>(smem);                    \
+    int n = 0;                                                             \
+    if (err == cudaSuccess)                                                \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                 \
+          &n, qmm_planar_decode_kernel<BITS, MN, KB>, DEC_THREADS, smem);  \
+    return err == cudaSuccess ? n : -(int)err;                             \
+  }
+  if constexpr (BITS != 3 && BITS != 6) {
+    PL_INFO(1, 2)
+    PL_INFO(2, 2)
+    PL_INFO(4, 2)
+  }
+  if constexpr (BITS == 2 || BITS == 3 || BITS == 6) {
+    PL_INFO(1, 1)
+    PL_INFO(2, 1)
+    PL_INFO(4, 1)
+  }
+#undef PL_INFO
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1328,24 +1623,26 @@ extern "C" int qmm_pairs_bf16(const void* x, const void* qw,
 // Planar layout, bits 2/3/4/6/8: groups a multiple of 32 rows (a decode run
 // of up to 32 rows lies inside one group), a pack tile of a multiple of 32
 // rows whose low plane holds a multiple of 8 words per column (pack_tile
-// makes only such tiles).
+// makes only such tiles). For the decode tile ``per`` counts steps of the
+// K walk (planar_decode_plan), scales and zeros must be 4-byte aligned and,
+// with splits > 1, tickets is a zeroed int32 counter per column block,
+// which the kernel leaves zeroed.
 extern "C" int qmm_planar_bf16(const void* x, const void* qw,
                                const void* scales, const void* zeros,
-                               void* part, void* y, int m, int K, int N,
-                               int k_pad, int G, int gs_rows, int tile_k,
-                               int bits, int x_vec, int splits, int per,
-                               void* stream) {
+                               void* part, void* tickets, void* y, int m,
+                               int K, int N, int k_pad, int G, int gs_rows,
+                               int tile_k, int bits, int x_vec, int splits,
+                               int per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int lo = bits == 3 ? 2 : (bits == 6 ? 4 : bits);
   if (N % DEC_BN || tile_k % 32 || k_pad % tile_k || (tile_k * lo / 32) % 8 ||
-      (gs_rows < k_pad && gs_rows % 32) || splits < 1 || per < 1 ||
-      (splits - 1) * per >= k_pad / tile_k || splits * per < k_pad / tile_k ||
-      (splits > 1 && part == nullptr))
+      (gs_rows < k_pad && gs_rows % 32))
     return (int)cudaErrorInvalidValue;
 #define PL_BITS_CASE(B)                                                      \
   case B:                                                                    \
-    return planar_entry<B>(x, qw, scales, zeros, part, y, m, K, N, k_pad, G, \
-                           gs_rows, tile_k, x_vec, splits, per, st);
+    return planar_entry<B>(x, qw, scales, zeros, part, tickets, y, m, K, N,  \
+                           k_pad, G, gs_rows, tile_k, x_vec, splits, per,    \
+                           st);
   switch (bits) {
     PL_BITS_CASE(2)
     PL_BITS_CASE(3)
@@ -1355,4 +1652,18 @@ extern "C" int qmm_planar_bf16(const void* x, const void* qw,
   }
 #undef PL_BITS_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// planar_decode_info for the entry's widths: shared memory (ctas == 0) or
+// CTAs per SM (ctas != 0) of the decode tile at m rows.
+extern "C" int qmm_planar_decode_info(int bits, int m, int tile_k,
+                                      int gs_rows, int G, int ctas, void*) {
+  switch (bits) {
+    case 2: return planar_decode_info<2>(m, tile_k, gs_rows, G, ctas != 0);
+    case 3: return planar_decode_info<3>(m, tile_k, gs_rows, G, ctas != 0);
+    case 4: return planar_decode_info<4>(m, tile_k, gs_rows, G, ctas != 0);
+    case 6: return planar_decode_info<6>(m, tile_k, gs_rows, G, ctas != 0);
+    case 8: return planar_decode_info<8>(m, tile_k, gs_rows, G, ctas != 0);
+  }
+  return -(int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
-// The split-K second pass shared by K1's decode tile (quant_matmul.cu) and
-// K7 (quant_matmul_int.cu): the slices' f32 partial sums in a (splits, m, N)
-// workspace, added in slice order (so two calls give the same bits), times
-// the row scale xs[row] where xs is given, rounded to bf16 once.
+// The split-K second pass shared by K1's pairs decode tile (quant_matmul.cu)
+// and K7 (quant_matmul_int.cu): the slices' f32 partial sums in a (splits,
+// m, N) workspace, added in slice order (so two calls give the same bits),
+// times the row scale xs[row] where xs is given, rounded to bf16 once.
 #pragma once
 
 #include <cuda_bf16.h>

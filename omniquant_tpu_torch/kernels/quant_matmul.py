@@ -13,22 +13,29 @@ the same host routing:
   multiple of 32 rows, per-channel scales in both; bf16 activations, scales
   and zeros), on a CPU tensor its plain version ``quant_matmul_reference``.
 
-The kernel has two tiles. At m <= 32 (decode) it is bound by the bytes of
-the packed words: the decode tile reads each word once through a 2-stage
-cp.async ring and splits K on pack-tile boundaries (``decode_plan``: about
-three CTAs of 128 columns on each SM); the slices' f32 partial sums go to a
-(splits, m, N) workspace allocated here and are added in slice order
-(``csrc/splitk_sum.cuh``, shared with K7), so two calls give bitwise equal
-results. At m > 32 the 128 x 128 prefill tile runs unsplit, bound by the
-tensor cores: it keeps a pack tile's words in shared memory and walks the
-tile field by field (``prefill_plan``). Pairs tiles must hold a multiple of
-8 words per column; a planar tile must hold a multiple of 8 low-plane words
-per column (``pack_tile`` makes only such tiles), and one whose low blocks
-are too small for a decode step (``_planar_decode``: in_features below 256
-rows at 2 and 6 bits, 512 at 3, 128 at 4, 64 at 8) runs on the prefill
-tile at every m. Each launch counts in ``quant_matmul.launches``; pairs
-ones at m > 32 also in ``launches_prefill``, planar ones in
-``launches_planar_decode`` (m <= 32) or ``launches_planar_prefill``.
+The kernel has two tiles. At m <= 32 (decode) the bytes of the packed
+words set the bound: the decode tile reads each word once through a 2-stage
+cp.async ring and splits K across CTAs (on the card both decode tiles are
+bound by their instructions, well above that bound). On pairs words the split is on
+pack-tile boundaries (``decode_plan``: about three CTAs of 128 columns on
+each SM), and the slices' f32 partial sums, in a (splits, m, N) workspace
+allocated here, are added in slice order by a second pass
+(``csrc/splitk_sum.cuh``, shared with K7). On planar words the split is in
+steps of the K walk, set by the card (``planar_decode_plan``: the CTAs an SM
+holds, asked of the card), and the slice of each column block that finishes
+last adds the slices in slice order inside the kernel, counting on a
+per-device ticket buffer that the kernel leaves zeroed. Either way two calls
+give bitwise equal results. At m > 32 the 128 x 128 prefill tile runs
+unsplit, bound by the tensor cores: it keeps a pack tile's words in shared
+memory and walks the tile field by field (``prefill_plan``). Pairs tiles
+must hold a multiple of 8 words per column; a planar tile must hold a
+multiple of 8 low-plane words per column (``pack_tile`` makes only such
+tiles), and one whose low blocks are too small for a decode step
+(``_planar_decode``: in_features below 256 rows at 2, 4 and 6 bits, 512 at
+3, 128 at 8) runs on the prefill tile at every m. Each launch counts in
+``quant_matmul.launches``; pairs ones at m > 32 also in
+``launches_prefill``, planar ones in ``launches_planar_decode`` (m <= 32)
+or ``launches_planar_prefill``.
 
 Geometry comes from the tensor shapes (qweight's column count is N), as in
 the JAX package. x's last dim is the logical in_features; rows past it up to
@@ -81,11 +88,19 @@ _CUDA_GROUP_MULTIPLE = 64
 # K1 on planar words: a decode run (16 or 32 rows) and a prefill K step (32
 # rows) must lie inside one group
 _K1_PLANAR_GROUP_MULTIPLE = 32
-# K1's decode tile: 128 columns per CTA, split-K to about this many CTAs on
-# each SM, and at most this many quant groups per slice (their scales and
-# zeros sit in shared memory beside a 2-stage ring of ~34 KB stages, and
-# three such CTAs fit on an SM)
+# K1's decode tile: 128 columns per CTA. On pairs words split-K to about
+# this many CTAs on each SM, and at most this many quant groups per slice
+# (their scales and zeros sit in shared memory beside a 2-stage ring of ~34
+# KB stages, and three such CTAs fit on an SM). On planar words a pack
+# tile's scales ride in the ring, so the slice length is free, and
+# planar_decode_plan's model of the card (fit to the card's times of each
+# split count at the 7B shapes, every width, m = 32 and 8) charges each CTA
+# this many steps besides its slice's (its first load, its ticket) and a
+# round of CTAs on an SM at least the time of this many CTAs, at m <= 8 and
+# at m > 8 (fewer do not hide the latency of the loads and the MMAs; at m <=
+# 8 a CTA has less to do between loads)
 _K1_BN, _K1_CTAS_PER_SM, _K1_SLICE_GROUPS = 128, 3, 8
+_K1_PL_CTA_STEPS, _K1_PL_MIN_LOAD = 0.5, (3, 2)
 # K1's prefill tile (m > 32): at most this many word rows per pack tile and
 # column (two tiles' words sit in shared memory beside the x ring) and quant
 # groups per pack tile (their scales, zeros and xsum sit there too); its
@@ -110,6 +125,8 @@ _K7_X_BYTES, _K7_SMEM = 17408, 232448
 _K7_SM_SMEM, _K7_TILE_BYTES = 233472, 9e6
 _SM_COUNT: dict = {}
 _K7_REG_CTAS: dict = {}
+_K1_PL_CTAS: dict = {}
+_K1_TICKETS: dict = {}
 
 
 def quant_matmul_reference(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
@@ -142,13 +159,12 @@ class DecodePlan(NamedTuple):
 
 def decode_plan(m: int, n: int, k_pad: int, tile_k: int,
                 group_rows: int, sm_count: int) -> DecodePlan:
-    """The split-K plan of K1 for m rows: enough slices to put about
-    ``_K1_CTAS_PER_SM`` CTAs of 128 columns on each SM, on pack-tile
-    boundaries, with at most ``_K1_SLICE_GROUPS`` quant groups per slice, or
-    one pack tile where a tile holds more (planar g32: 16 groups of a
-    512-row tile); the slice's scales sit in shared memory. Either layout:
-    ``group_rows`` is the group size, or k_pad for per-channel scales. One
-    slice for the prefill tile (m > 32)."""
+    """The split-K plan of K1's pairs decode tile for m rows: enough slices
+    to put about ``_K1_CTAS_PER_SM`` CTAs of 128 columns on each SM, on
+    pack-tile boundaries, with at most ``_K1_SLICE_GROUPS`` quant groups
+    per slice, or one pack tile where a tile holds more; the slice's scales
+    sit in shared memory. ``group_rows`` is the group size, or k_pad for
+    per-channel scales. One slice for the prefill tile (m > 32)."""
     n_tiles = k_pad // tile_k
     if m > 32:
         return DecodePlan(1, n_tiles, n_tiles, None)
@@ -248,6 +264,154 @@ def _planar_decode(pw: PackedWeight) -> bool:
     return (P // nsel) % ws == 0
 
 
+class PlanarDecodeGeometry(NamedTuple):
+    """K1's planar decode tile for a weight and m rows, as
+    ``csrc/quant_matmul.cu`` lays it out (``PlanarStep``, ``pl_dec_kb``,
+    ``pl_dec_smem``; ``chip_smoke.py`` and the card tests hold the shared
+    memory of the two equal). A
+    step is ``ws`` = 16 ``kb`` consecutive words of each of ``nsel`` low
+    blocks (and of the high plane at 3 and 6 bits), ``spt`` steps per pack
+    tile; slot p of a block is a run of ``ws`` rows, and a step's runs, in
+    the order u = p * nsel + b, go in ``nsub`` sub-steps of ``runs`` runs
+    (two, of half the slots each, where a step's x columns take more than
+    16 KB, or 8 KB with a high plane).
+    Shared memory: two stages of a step's words (``words_bytes`` each) and
+    of a sub-step's x columns (``x_bytes``), two slots of a pack tile's
+    (scale, zero) bf16 planes (``sz_bytes``, ``ngp`` elements per column
+    and plane), ``smem`` in all."""
+    kb: int
+    ws: int
+    nsel: int
+    nsub: int
+    runs: int
+    spt: int
+    words_bytes: int
+    x_bytes: int
+    ngp: int
+    sz_bytes: int
+    smem: int
+
+
+def planar_decode_geometry(bits: int, m: int, tile_k: int, group_rows: int,
+                           n_groups: int) -> PlanarDecodeGeometry:
+    """The decode tile's geometry (see ``PlanarDecodeGeometry``) for a
+    planar weight it takes (``_planar_decode``); ``group_rows`` is the
+    group size, or k_pad for per-channel scales, ``n_groups`` the scales'
+    column count."""
+    P, ws_min, nsel = _planar_geometry(bits, tile_k)
+    B = P // nsel
+    if B % ws_min:
+        raise NotImplementedError(
+            f"a {tile_k}-row pack tile at {bits} bits runs the prefill tile")
+    kb = 2 if nsel == 1 and B % 32 == 0 else 1
+    ws = 16 * kb
+    v = 32 // {3: 2, 6: 4}.get(bits, bits)  # slots per low word
+    mr = 8 * next(n for n in (1, 2, 4) if m <= 8 * n)
+    x_step = mr * v * nsel * ws * 2  # a step's x columns, bytes
+    nsub = 2 if x_step > 16384 or (nsel == 2 and x_step >= 8192) else 1
+    runs = v * nsel // nsub
+    spans = (-(-tile_k // group_rows) + 1 if tile_k % group_rows
+             else tile_k // group_rows)
+    ngp = (min(spans, n_groups) + 2) & ~1
+    words_bytes = (nsel + (nsel == 2)) * ws * (_K1_BN + 4) * 4
+    x_bytes = mr * runs * ws * 2
+    sz_bytes = 2 * _K1_BN * ngp * 2
+    return PlanarDecodeGeometry(
+        kb, ws, nsel, nsub, runs, B // ws, words_bytes, x_bytes, ngp,
+        sz_bytes, 2 * (words_bytes + x_bytes + sz_bytes))
+
+
+class PlanarDecodePlan(NamedTuple):
+    """How K1's planar decode tile cuts the K walk of ``n_steps`` steps:
+    ``splits`` slices of ``per`` steps (the last may be shorter), and the
+    (splits, m, N) f32 workspace of their partial sums when there is more
+    than one slice."""
+    splits: int
+    per: int
+    n_steps: int
+    workspace: Optional[tuple]
+
+    def slices(self) -> list:
+        """(first step, end step) of each slice, as the kernel takes them."""
+        return [(s * self.per, min((s + 1) * self.per, self.n_steps))
+                for s in range(self.splits)]
+
+
+def planar_decode_plan(m: int, n: int, n_steps: int, sm_count: int,
+                       ctas_per_sm: int) -> PlanarDecodePlan:
+    """The split-K plan of the planar decode tile for m rows, N = n and a K
+    walk of ``n_steps`` steps: the slice count that gives the least time on
+    the busiest SM. That SM takes c = ceil(CTAs / ``sm_count``) CTAs (of 128
+    columns) in rounds of at most ``ctas_per_sm``; a round costs the steps
+    of a slice plus ``_K1_PL_CTA_STEPS``, times the CTAs it runs, but at
+    least ``_K1_PL_MIN_LOAD`` of them (its first entry at m <= 8, its
+    second above). Fewer slices win a tie."""
+    col_blocks = n // _K1_BN
+    min_load = _K1_PL_MIN_LOAD[0 if m <= 8 else 1]
+    best = (math.inf, 1, n_steps)
+    for want in range(1, n_steps + 1):
+        per = -(-n_steps // want)
+        splits = -(-n_steps // per)
+        if splits != want:
+            continue
+        c = -(-col_blocks * splits // sm_count)
+        cost = (-(-c // ctas_per_sm) * max(min(c, ctas_per_sm), min_load)
+                * (per + _K1_PL_CTA_STEPS))
+        if cost < best[0]:
+            best = (cost, splits, per)
+    _, splits, per = best
+    return PlanarDecodePlan(splits, per, n_steps,
+                            (splits, m, n) if splits > 1 else None)
+
+
+def _planar_decode_info(bits: int, m: int, tile_k: int, group_rows: int,
+                        n_groups: int, ctas: bool) -> int:
+    """The planar decode tile's shared memory, or (``ctas``) the CTAs of it
+    an SM holds, from ``csrc/quant_matmul.cu`` (the card's occupancy)."""
+    n = _build.fn("quant_matmul", "qmm_planar_decode_info", "iiiiii")(
+        bits, m, tile_k, group_rows, n_groups, int(ctas), None)
+    if n < 1:
+        raise RuntimeError(f"quant_matmul: planar decode query failed ({n})")
+    return n
+
+
+def _planar_ctas(device, bits: int, m: int, tile_k: int, group_rows: int,
+                 n_groups: int) -> int:
+    """``_planar_decode_info``'s CTAs per SM, asked of the card once per
+    instance and shared-memory size."""
+    mn = next(n for n in (1, 2, 4) if m <= 8 * n)
+    key = (device.index or 0, bits, mn, tile_k, group_rows, n_groups)
+    if key not in _K1_PL_CTAS:
+        _K1_PL_CTAS[key] = _planar_decode_info(bits, 8 * mn, tile_k,
+                                               group_rows, n_groups, True)
+    return _K1_PL_CTAS[key]
+
+
+def planar_decode_launch(pw: PackedWeight, m: int, device) -> tuple:
+    """What the planar decode tile runs for pw at m rows on ``device``'s
+    card: (geometry, CTAs an SM holds, plan)."""
+    group_rows, G = pw.group_size or pw.k_pad, pw.scales.shape[1]
+    geo = planar_decode_geometry(pw.bits, m, pw.tile_k, group_rows, G)
+    ctas = _planar_ctas(device, pw.bits, m, pw.tile_k, group_rows, G)
+    return geo, ctas, planar_decode_plan(
+        m, pw.qweight.shape[1], pw.k_pad // pw.tile_k * geo.spt,
+        _sm_count(device), ctas)
+
+
+def _planar_tickets(device, n_blocks: int) -> torch.Tensor:
+    """The planar decode tile's int32 ticket per column block on
+    ``device``: zeroed once and grown with N; every launch leaves them
+    zeroed (the last slice of a column block resets its ticket), so no call
+    launches a memset. Launches on one stream at a time share them."""
+    key = device.index or 0
+    t = _K1_TICKETS.get(key)
+    if t is None or t.numel() < n_blocks:
+        t = torch.zeros(max(n_blocks, 2 * (0 if t is None else t.numel())),
+                        dtype=torch.int32, device=device)
+        _K1_TICKETS[key] = t
+    return t
+
+
 def _check_k1_weight(pw: PackedWeight) -> None:
     """What K1 takes, per layout; raises on anything else, before it looks
     at the card."""
@@ -288,9 +452,10 @@ def _check_k1_weight(pw: PackedWeight) -> None:
 
 def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     """Launch the CUDA kernel on x2 (m, K) bf16; no bias. At m <= 32 the
-    decode tile splits K per ``decode_plan`` and adds the slices' f32
-    partial sums in slice order; the prefill tile runs unsplit and takes
-    what ``prefill_plan`` takes."""
+    decode tile splits K per ``decode_plan`` (pairs) or
+    ``planar_decode_plan`` (planar) and adds the slices' f32 partial sums in
+    slice order; the prefill tile runs unsplit and takes what
+    ``prefill_plan`` takes."""
     if x2.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA quant_matmul takes bf16 x, not {x2.dtype}")
     _check_k1_weight(pw)
@@ -311,8 +476,15 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     G = pw.scales.shape[1]
     if K > k_pad or pw.scales.shape[0] != N or pw.zeros.shape != pw.scales.shape:
         raise ValueError("x, qweight and scales disagree on the geometry")
-    scales, zeros = pw.scales.contiguous(), pw.zeros.contiguous()
-    if decode:
+    # the planar decode tile stages scales and zeros by 4-byte copies
+    scales, zeros = (t.contiguous() if t.data_ptr() % 4 == 0 else t.clone()
+                     for t in (pw.scales, pw.zeros))
+    tickets = None
+    if decode and planar:
+        plan = planar_decode_launch(pw, m, x2.device)[2]
+        if plan.splits > 1:
+            tickets = _planar_tickets(x2.device, N // _K1_BN)
+    elif decode:
         plan = decode_plan(m, N, k_pad, pw.tile_k, group_rows,
                            _sm_count(x2.device))
     else:  # the prefill tile, unsplit
@@ -321,13 +493,14 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     part = (None if plan.workspace is None else
             torch.empty(plan.workspace, dtype=torch.float32, device=x2.device))
     x_vec = int(K % 8 == 0 and x2.data_ptr() % 16 == 0)
+    ptrs = [x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+            zeros.data_ptr(), None if part is None else part.data_ptr()]
+    if planar:
+        ptrs.append(None if tickets is None else tickets.data_ptr())
     _build.launch(
         "quant_matmul", "qmm_planar_bf16" if planar else "qmm_pairs_bf16",
-        "ppppppiiiiiiiiiii",
-        x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-        zeros.data_ptr(), None if part is None else part.data_ptr(),
-        y.data_ptr(), m, K, N, k_pad, G, group_rows, pw.tile_k, pw.bits,
-        x_vec, plan.splits, plan.per)
+        "p" * (len(ptrs) + 1) + "iiiiiiiiiii", *ptrs, y.data_ptr(), m, K, N,
+        k_pad, G, group_rows, pw.tile_k, pw.bits, x_vec, plan.splits, plan.per)
     quant_matmul.launches += 1
     if planar and m <= 32:
         quant_matmul.launches_planar_decode += 1

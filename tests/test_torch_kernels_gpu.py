@@ -248,14 +248,74 @@ def test_quant_matmul_planar_kernel(cuda, bits, group_size, m):
     (2, 32), (2, 64), (3, 64), (4, 32), (6, 128), (8, None), (3, None)])
 def test_quant_matmul_planar_kernel_split_k(cuda, bits, group_size, m):
     """K = 11008 (k_pad 11264, 22 tiles of 512 rows) across several split-K
-    slices at m <= 32; at g32 a tile holds 16 groups, more than
-    _K1_SLICE_GROUPS, and the slice's scale block still fits."""
+    slices at m <= 32, summed inside the kernel by the last slice of each
+    column block; at g32 a tile holds 16 groups, whose scales ride in the
+    ring with the tile's first step."""
     pw = _planar(cuda, bits, group_size, 1024, 11008, seed=1)
     if m <= 32:
-        plan = qmm.decode_plan(m, 1024, pw.k_pad, pw.tile_k,
-                               group_size or pw.k_pad, qmm._sm_count(cuda))
-        assert plan.splits > 1
+        assert _planar_plan(cuda, pw, m).splits > 1
     _planar_case(cuda, bits, group_size, 11008, 1024, m)
+
+
+def _planar_plan(cuda, pw, m):
+    """The planar decode tile's plan for pw at m rows on this card."""
+    return qmm.planar_decode_launch(pw, m, cuda)[2]
+
+
+@pytest.mark.parametrize("K", [4096, 11008, 2688])
+@pytest.mark.parametrize("m", [1, 8, 17, 32])
+@pytest.mark.parametrize("group_size", [32, 64, 128, None])
+@pytest.mark.parametrize("bits", [2, 3, 4, 6, 8])
+def test_quant_matmul_planar_decode_tile(cuda, bits, group_size, m, K):
+    """The planar decode tile against its plain version at every width and
+    group, m up to 32, K = 4096 and 11008 (the 7B widths) and 2688 (not a
+    multiple of the 512-row tile: k_pad 3072, x zero past K, the groups
+    past K reuse the last); one launch, counted, and two calls give the
+    same bits."""
+    _planar_case(cuda, bits, group_size, K, 512, m)
+
+
+def test_quant_matmul_planar_decode_leaves_no_stale_ticket(cuda):
+    """The last slice of each column block resets its ticket: a call of
+    another shape and split count between two calls of one shape leaves
+    the second equal to the first and to the plain version."""
+    big = _planar(cuda, 2, 64, 4096, 11008, seed=3)
+    small = _planar(cuda, 3, 64, 12288, 4096, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xb = torch.randn(32, 11008, generator=gen, device=cuda).to(torch.bfloat16)
+    xs = torch.randn(8, 4096, generator=gen, device=cuda).to(torch.bfloat16)
+    assert _planar_plan(cuda, big, 32).splits != _planar_plan(
+        cuda, small, 8).splits
+    first = quant_matmul(xb, big)
+    between = quant_matmul(xs, small)
+    again = quant_matmul(xb, big)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for got, x, pw in ((first, xb, big), (between, xs, small)):
+        ok, err, worst = tolerance.bf16_close(
+            got, quant_matmul_reference(x, pw), tolerance.QUANT_MATMUL_SLACK)
+        assert ok, (err, worst)
+    assert int(qmm._K1_TICKETS[cuda.index or 0].abs().sum()) == 0
+
+
+def test_quant_matmul_planar_decode_one_slice(cuda):
+    """A K walk of one step (W2 at K = 512: one 512-row tile) runs as one
+    slice, which writes y itself, no workspace and no ticket."""
+    pw = _planar(cuda, 2, 64, 4096, 512, seed=6)
+    assert _planar_plan(cuda, pw, 32).splits == 1
+    _planar_case(cuda, 2, 64, 512, 4096, 32)
+
+
+def test_quant_matmul_planar_decode_geometry_matches_the_kernel(cuda):
+    """The shared memory planar_decode_geometry counts is what the kernel
+    asks for, at every width, group and m class."""
+    for bits in (2, 3, 4, 6, 8):
+        for gs, G in ((32, 128), (64, 64), (128, 32), (4096, 1)):
+            for m in (1, 16, 32):
+                geo = qmm.planar_decode_geometry(bits, m, 512, gs, G)
+                assert qmm._planar_decode_info(bits, m, 512, gs, G,
+                                               False) == geo.smem
+                assert qmm._planar_ctas(cuda, bits, m, 512, gs, G) >= 2
 
 
 @pytest.mark.parametrize("m", [1, 32, 33, 300])

@@ -5,6 +5,7 @@ Tolerance: rtol 1e-4 plus an absolute 1e-5 of the output's largest
 magnitude. The two sum in different orders, and the JAX pairs path folds
 the zero point into a rank-1 term whose f32 cancellation leaves an error
 proportional to the output scale rather than to each element."""
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -199,22 +200,88 @@ def test_cuda_wrapper_refuses_a_tile_of_other_than_8_word_multiples():
 @pytest.mark.parametrize("m", [8, 32])
 @pytest.mark.parametrize("shape", sorted(SEVEN_B))
 def test_decode_plan_planar_groups(shape, m, group_rows):
-    """The plan for planar weights (512-row tiles at every width): g32 and
-    g64 groups, and per-channel scales (one group over k_pad). A slice holds
-    at most _K1_SLICE_GROUPS groups, or one tile where a tile holds more
-    (g32: 16), so its scale block fits in shared memory (at most 16 groups
-    x 128 columns x 4 bytes = 8 KB)."""
+    """The planar decode tile's plan (W2, 512-row tiles) for g32 and g64
+    groups and per-channel scales (one group over k_pad): its slices are
+    whole steps of the K walk, cover every step exactly once and in order,
+    and the slice count, set by the card (the CTAs an SM holds) and not by
+    the group size, is the one of least modelled time on the busiest SM;
+    the workspace is the (splits, m, N) f32 block the kernel writes."""
     K, N = SEVEN_B[shape]
     k_pad = -(-K // 512) * 512
-    plan = tqm.decode_plan(m, N, k_pad, 512, min(group_rows, k_pad), 132)
-    slices = plan.slices()
-    assert [t for lo, hi in slices for t in range(lo, hi)] == list(
-        range(plan.n_tiles))
-    groups = [-(-(hi - lo) * 512 // min(group_rows, k_pad)) for lo, hi in slices]
-    assert max(groups) <= max(tqm._K1_SLICE_GROUPS, 512 // group_rows)
-    assert max(groups) * 128 * 4 <= 8 * 1024
-    assert plan.workspace == ((plan.splits, m, N) if plan.splits > 1
-                              else None)
+    G = -(-K // min(group_rows, K))
+    geo = tqm.planar_decode_geometry(2, m, 512, min(group_rows, k_pad), G)
+    n_steps = k_pad // 512 * geo.spt
+    plans = {}
+    for ctas in (2, 3, 4):
+        plan = tqm.planar_decode_plan(m, N, n_steps, 132, ctas)
+        slices = plan.slices()
+        assert [s for lo, hi in slices for s in range(lo, hi)] == list(
+            range(n_steps))
+        assert all(hi > lo for lo, hi in slices)
+        assert (plan.splits - 1) * plan.per < n_steps <= plan.splits * plan.per
+        assert plan.workspace == ((plan.splits, m, N) if plan.splits > 1
+                                  else None)
+
+        def cost(splits, per):
+            c = -(-(N // 128) * splits // 132)
+            return (-(-c // ctas) * max(min(c, ctas),
+                                        tqm._K1_PL_MIN_LOAD[m > 8])
+                    * (per + tqm._K1_PL_CTA_STEPS))
+        every = {-(-n_steps // (-(-n_steps // s))): -(-n_steps // s)
+                 for s in range(1, n_steps + 1)}
+        assert cost(plan.splits, plan.per) == min(
+            cost(sp, per) for sp, per in every.items())
+        plans[ctas] = plan
+    # the group size does not enter the plan
+    other = tqm.planar_decode_geometry(2, m, 512, k_pad, 1)
+    assert other.spt == geo.spt
+    assert tqm.planar_decode_plan(m, N, n_steps, 132, 3) == plans[3]
+
+
+# split counts an H100 (NVIDIA H100 80GB HBM3) ran fastest, by 3 % or more
+# over the next, for 7B products (W2/W3/W4 g64, W6 g128, W8 per-channel at
+# m = 32 and 8, each timed at every split count), where the plan's model
+# reaches them: (m, N, steps of the K walk, CTAs an SM held) -> splits
+CARD_SPLITS = {(8, 4096, 8, 3): 8, (8, 4096, 8, 4): 8, (8, 4096, 16, 3): 8,
+               (8, 4096, 22, 3): 11, (8, 4096, 22, 4): 11,
+               (8, 4096, 44, 3): 11, (8, 4096, 44, 4): 11,
+               (8, 12288, 8, 3): 4, (8, 12288, 16, 3): 4,
+               (8, 12288, 32, 5): 4, (8, 22016, 8, 3): 2,
+               (32, 4096, 8, 2): 8, (32, 4096, 8, 3): 8,
+               (32, 4096, 16, 3): 8, (32, 4096, 22, 2): 8,
+               (32, 4096, 32, 3): 8, (32, 12288, 8, 3): 4,
+               (32, 12288, 16, 3): 4, (32, 12288, 32, 3): 4,
+               (32, 22016, 8, 2): 3, (32, 22016, 8, 3): 2,
+               (32, 22016, 16, 3): 2}
+
+
+@pytest.mark.parametrize("key", sorted(CARD_SPLITS))
+def test_planar_decode_plan_takes_the_cards_splits(key):
+    """The plan's model gives the split count the card ran fastest for the
+    7B shapes where the model reaches it."""
+    m, n, n_steps, ctas = key
+    plan = tqm.planar_decode_plan(m, n, n_steps, 132, ctas)
+    assert plan.splits == CARD_SPLITS[key]
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+@pytest.mark.parametrize("bits,group_size", [
+    (2, 64), (3, 64), (4, 64), (6, 128), (8, None), (2, 32), (3, None)])
+def test_planar_decode_geometry_fits_two_ctas(bits, group_size, m):
+    """At the 7B tiles (512 rows) every width puts two or more CTAs of the
+    decode tile on an SM by shared memory (228 KB an SM, 1 KB reserved per
+    CTA), three at 2, 4, 6 and 8 bits and m = 32; a sub-step stages at most
+    16 KB of x, and the steps of a tile cover its low plane."""
+    K = 4096
+    G = K // group_size if group_size else 1
+    geo = tqm.planar_decode_geometry(bits, m, 512, group_size or K, G)
+    fits = 233472 // (geo.smem + 1024)
+    assert fits >= 2 and geo.smem <= tqm._K1_PF_SMEM
+    if m == 32 and bits != 3 and group_size != 32:
+        assert fits >= 3
+    assert geo.x_bytes <= 16384
+    assert geo.spt * geo.ws * geo.nsel == 512 * {3: 2, 6: 4}.get(
+        bits, bits) // 32
 
 
 def _bf16_packed(bits, group_size, in_f, layout, tile_k=None, out_f=128):
@@ -504,3 +571,260 @@ def test_prefill_plan_refuses_what_the_tile_does_not_take():
         tqm._qmm_cuda(torch.zeros(64, 4096, dtype=torch.bfloat16), pw)
     with pytest.raises(ValueError, match="CUDA tensor"):  # decode tile
         tqm._qmm_cuda(torch.zeros(8, 4096, dtype=torch.bfloat16), pw)
+
+
+def _planar_fragments(ws, hh, r0, col_ids):
+    """The decode tile's word pairs as registers (``planar_words``): for
+    block rows r0 and r0 + 1 (rows 16kb + 2*t4 + 8*(e >> 1)), half hh of
+    each word side by side."""
+    return _byte_perm(ws[r0][col_ids], ws[r0 + 1][col_ids],
+                      0x7632 if hh else 0x5410)
+
+
+def _ldmatrix_b(xsm, q, kb, ws_, mn):
+    """B fragments of one k16 block of run q from the swizzled x stage:
+    lane L of the ldmatrix addresses row nt*8 + (L >> 4)*8 + (L & 7) at
+    chunk (q*ws/8 + 2kb + ((L >> 3) & 1)) XOR (L & 7); lane L receives
+    elements 2*(L & 3), +1 of matrix i's row L >> 2. Returns the (8*mn, 16)
+    x block the MMA's B operand holds: B[k][n] at [n][k]."""
+    xb = np.zeros((8 * mn, 16), dtype=xsm.dtype)
+    lanes = np.arange(32)
+    for nt in range(0, mn, 2):
+        rows = nt * 8 + (lanes >> 4) * 8 + (lanes & 7)
+        chunks = ((q * (ws_ // 8) + 2 * kb + ((lanes >> 3) & 1))
+                  ^ (lanes & 7))
+        for i in range(4 if mn > 1 else 2):
+            src = 8 * i + (lanes >> 2)  # the lane whose address gives the row
+            vals = np.stack([xsm[rows[src], chunks[src] * 8 + 2 * (lanes & 3)
+                                 + d] for d in range(2)], 1)
+            g, t4 = lanes >> 2, lanes & 3
+            tile = nt + (i >> 1)  # (nt, 0), (nt, 1), (nt + 1, 0), (nt + 1, 1)
+            kh = 8 * (i & 1)
+            xb[tile * 8 + g, kh + 2 * t4] = vals[:, 0]
+            xb[tile * 8 + g, kh + 2 * t4 + 1] = vals[:, 1]
+    return xb
+
+
+def _emulate_planar_decode(pw, x, sm_count, ctas, order_seed):
+    """K1's planar decode tile in numpy, CTA by CTA: the ring's loads
+    (a step's words, a sub-step's x columns swizzled by row, a pack tile's
+    (scale, zero) planes copied in 4-byte words from the element before an
+    odd first one), each load issued before the sub-step ahead of it is
+    computed, as on the card; per half of a step the word pairs permuted
+    into registers that shift in place one slot a run; the A fragments'
+    codes, the B fragments by ldmatrix; the group closes with the staged
+    pairs; then each column block's slices finish in a random order, take
+    tickets, and the last adds every slice's sums in slice order. Returns y
+    (m, N) in f64, how often each code was fed, and the closes as
+    (column block, slice, first row, end row, group)."""
+    bits, T, k_pad = pw.bits, pw.tile_k, pw.k_pad
+    N, G = pw.qweight.shape[1], pw.scales.shape[1]
+    gs = pw.group_size or k_pad
+    m, K = x.shape
+    geo = tqm.planar_decode_geometry(bits, m, T, gs, G)
+    P, _, nsel = tqm._planar_geometry(bits, T)
+    B, WS, KB, NSUB, RUNS = P // nsel, geo.ws, geo.kb, geo.nsub, geo.runs
+    lo_b = {3: 2, 6: 4}.get(bits, bits)
+    hi_b, V = bits - lo_b, 32 // lo_b
+    HS, WPT, spt = V // 2, T * bits // 32, geo.spt
+    n_steps = k_pad // T * spt
+    plan = tqm.planar_decode_plan(m, N, n_steps, sm_count, ctas)
+    mn = next(n for n in (1, 2, 4) if m <= 8 * n)
+    MR = 8 * mn
+    words = pw.qweight.numpy().astype(np.int64) & 0xFFFFFFFF
+    s_el = (pw.scales.view(torch.int16).numpy().astype(np.int64)
+            & 0xFFFF).reshape(-1)
+    z_el = (pw.zeros.view(torch.int16).numpy().astype(np.int64)
+            & 0xFFFF).reshape(-1)
+    bf = lambda v: (v.astype(np.uint32) << 16).view(np.float32).astype(
+        np.float64)
+    xpad = np.zeros((MR, k_pad))
+    xpad[:m, :K] = x
+    want_codes = unpack_codes(pw.qweight, bits, k_pad, pw.group_size, T,
+                              "planar").numpy()
+    fed = np.zeros((k_pad, N), dtype=np.int64)
+    y = np.zeros((MR, N))
+    closes = []
+    rng = np.random.default_rng(order_seed)
+    # the A-fragment lanes: column g + 8*(e & 1) + 16*mc + 32*w
+    w_, g_ = np.arange(4)[:, None], np.arange(8)[None, :]
+    lane_cols = {(mc, e1): (32 * w_ + 16 * mc + g_ + 8 * e1).reshape(-1)
+                 for mc in range(2) for e1 in range(2)}
+    mlo, mhi = (1 << lo_b) - 1, (1 << hi_b) - 1
+    for cb in range(N // 128):
+        col0 = 128 * cb
+        partial = []
+        for s, (s0, s1) in enumerate(plan.slices()):
+            n_sub, t_first = (s1 - s0) * NSUB, s0 // spt
+            wst, xst, szs, szt = [None] * 2, [None] * 2, [None] * 2, [None] * 2
+
+            def load_sub(j):
+                step, h = s0 + j // NSUB, j % NSUB
+                t, w0 = step // spt, (step % spt) * WS
+                if h == 0:
+                    rows = [b * B + w0 + r for b in range(nsel)
+                            for r in range(WS)]
+                    rows += [P + w0 + r for r in range(WS)] if nsel == 2 else []
+                    wst[(step - s0) & 1] = words[t * WPT + np.array(rows),
+                                                 col0:col0 + 128]
+                    if step == s0 or w0 == 0:
+                        gt0 = t * T // gs
+                        nv = min(((t + 1) * T - 1) // gs, G - 1) - gt0 + 1
+                        slot = np.full((2, 128, geo.ngp), -1, dtype=np.int64)
+                        nw0 = (nv + 2) >> 1
+                        for i in range(128 * nw0):
+                            c, w = divmod(i, nw0)
+                            e0 = (col0 + c) * G + gt0
+                            e = (e0 & ~1) + 2 * w
+                            if e < e0 + nv:
+                                for d in range(2):
+                                    ok = e + d < N * G
+                                    slot[0, c, 2 * w + d] = s_el[e + d] if ok else 0
+                                    slot[1, c, 2 * w + d] = z_el[e + d] if ok else 0
+                        szs[(t - t_first) & 1] = slot
+                        szt[(t - t_first) & 1] = t
+                xsm = np.zeros((MR, RUNS * WS))
+                for q in range(RUNS):
+                    u = h * RUNS + q
+                    gc = t * T + w0 + (u // nsel) * P + (u % nsel) * B
+                    for c8 in range(0, WS, 8):
+                        for r in range(MR):
+                            ch = ((q * WS + c8) >> 3) ^ (r & 7)
+                            xsm[r, ch * 8:ch * 8 + 8] = xpad[r, gc + c8:gc + c8 + 8]
+                xst[j & 1] = xsm
+
+            load_sub(0)
+            acc = np.zeros((128, MR))
+            for step in range(s0, s1):
+                t, w0 = step // spt, (step % spt) * WS
+                gt0 = t * T // gs
+                nv = min(((t + 1) * T - 1) // gs, G - 1) - gt0 + 1
+                assert szt[(t - t_first) & 1] == t  # its own tile's pairs
+                slot = szs[(t - t_first) & 1]
+                krow = t * T + w0
+                gi, g_hi = krow // gs, (krow // gs + 1) * gs
+                pt, xs = np.zeros((128, MR)), np.zeros(MR)
+                open_rows = []
+                for h in range(NSUB):
+                    j = (step - s0) * NSUB + h
+                    if j + 1 < n_sub:
+                        load_sub(j + 1)  # issued before this sub-step's MMAs
+                    ws_all, xsm = wst[(step - s0) & 1], xst[j & 1]
+                    for hh in ([h] if NSUB == 2 else [0, 1]):
+                        # registers per (block, kb, mc, e, t4): 32 lanes' words
+                        cl = {(b, kb, mc, e, t4): _planar_fragments(
+                            ws_all[b * WS:], hh, 16 * kb + 2 * t4 + 8 * (e >> 1),
+                            lane_cols[(mc, e & 1)])
+                            for b in range(nsel) for kb in range(KB)
+                            for mc in range(2) for e in range(4) for t4 in range(4)}
+                        chh = {(kb, mc, e, t4): _planar_fragments(
+                            ws_all[2 * WS:], hh, 16 * kb + 2 * t4 + 8 * (e >> 1),
+                            lane_cols[(mc, e & 1)])
+                            for kb in range(KB) for mc in range(2)
+                            for e in range(4) for t4 in range(4)} if nsel == 2 else {}
+                        for p in range(hh * HS, (hh + 1) * HS):
+                            for b in range(nsel):
+                                u = p * nsel + b
+                                q = u - h * RUNS
+                                rrow = krow + p * P + b * B  # the run's first row
+                                for kb in range(KB):
+                                    a = np.zeros((128, 16), dtype=np.int64)
+                                    for (bb, k2, mc, e, t4), reg in cl.items():
+                                        if bb != b or k2 != kb:
+                                            continue
+                                        c = reg & (mlo * 0x00010001)
+                                        if nsel == 2:
+                                            hreg = chh[(kb, mc, e, t4)]
+                                            c = c | ((hreg & (mhi * 0x00010001)) << lo_b)
+                                            chh[(kb, mc, e, t4)] = hreg >> hi_b
+                                        k = 2 * t4 + 8 * (e >> 1)
+                                        cols = lane_cols[(mc, e & 1)]
+                                        a[cols, k], a[cols, k + 1] = c & 0xFFFF, c >> 16
+                                    rows = rrow + 16 * kb + np.arange(16)
+                                    assert np.array_equal(
+                                        a.T, want_codes[rows, col0:col0 + 128])
+                                    fed[rows, col0:col0 + 128] += 1
+                                    xb = _ldmatrix_b(xsm, q, kb, WS, mn)
+                                    assert np.array_equal(xb, xpad[:, rows])
+                                    pt += a.astype(np.float64) @ xb.T
+                                    xs += xb.sum(1)
+                                    open_rows.append(rows[0])
+                                nxt = krow + ((u + 1) // nsel) * P + ((u + 1) % nsel) * B
+                                if u + 1 == nsel * V or nxt >= g_hi:
+                                    # every run in the sums lies in group gi
+                                    assert {r // gs for r in open_rows} == {gi}
+                                    gl = min(gi - gt0, nv - 1)
+                                    cols = np.arange(128)
+                                    sh = ((col0 + cols) * G + gt0) & 1
+                                    sv = bf(slot[0, cols, sh + gl])
+                                    zv = bf(slot[1, cols, sh + gl])
+                                    want_g = np.minimum(gi, G - 1)
+                                    assert np.array_equal(sv, bf(s_el[(col0 + cols) * G + want_g]))
+                                    assert np.array_equal(zv, bf(z_el[(col0 + cols) * G + want_g]))
+                                    acc += pt * sv[:, None] + xs[None, :] * (-zv * sv)[:, None]
+                                    closes.append((cb, s, min(open_rows),
+                                                   max(open_rows) + 16, gi))
+                                    pt, xs, open_rows = np.zeros((128, MR)), np.zeros(MR), []
+                                    while nxt >= g_hi:
+                                        gi, g_hi = gi + 1, g_hi + gs
+                            for key in cl:
+                                cl[key] = cl[key] >> lo_b
+            partial.append(acc.T)
+        # tickets: the slices finish in any order; the last adds in order
+        ticket, done = 0, None
+        for s in rng.permutation(plan.splits):
+            mine, ticket = ticket, ticket + 1
+            if mine == plan.splits - 1:
+                total = np.zeros((MR, 128))
+                for k in range(plan.splits):
+                    total = total + partial[k]
+                y[:, col0:col0 + 128], done, ticket = total, s, 0
+        assert done is not None and ticket == 0
+    return y[:m], fed, closes, plan
+
+
+PLANAR_DECODE_CASES = [(b, g) for b in (2, 3, 4, 6, 8)
+                       for g in (32, 64, 128, None)]
+
+
+@pytest.mark.parametrize("sm_count,ctas", [(132, 3), (1, 1)])
+@pytest.mark.parametrize("m", [1, 17, 32])
+@pytest.mark.parametrize("bits,group_size", PLANAR_DECODE_CASES)
+def test_planar_decode_tile_emulation(bits, group_size, m, sm_count, ctas):
+    """K1's planar decode tile (m <= 32) emulated lane by lane
+    (``_emulate_planar_decode``) on a weight of in_features 640 (k_pad
+    1024: x is zero past 640, the groups past it reuse the last group's
+    scales): every code reaches its A fragment exactly once, every x
+    element its B fragment, every group closes once with its own (scale,
+    zero) pair, and the slices' sums, added by whichever slice takes the
+    last ticket, give what the plain version and the JAX kernel give. At
+    132 SMs of three CTAs the plan takes every step as a slice of its own,
+    at one SM of one CTA a single slice."""
+    w = torch.from_numpy(np.random.default_rng(bits * 31 + m).standard_normal(
+        (256, 640)).astype(np.float32))
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout="planar")
+    pw = pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    assert tqm._planar_decode(pw)
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (m, 640)).astype(np.float32)).to(torch.bfloat16).float()
+    got, fed, closes, plan = _emulate_planar_decode(pw, x.numpy(), sm_count,
+                                                     ctas, order_seed=m)
+    assert np.array_equal(fed, np.ones_like(fed))
+    assert plan.splits == (1 if sm_count == 1 else plan.n_steps)
+    gs = group_size or pw.k_pad
+    for cb, s, lo, hi, gi in closes:
+        assert lo // gs == gi and (hi - 1) // gs == gi
+    want = tqm.quant_matmul_reference(x, pw.map_tensors(
+        lambda t: t.float() if t.is_floating_point() else t)).numpy()
+    assert_close(got, want)
+    if m == 17 and ctas == 3:  # the JAX kernel, same bf16 scales
+        jw = j_pack_weight(jnp.asarray(w.numpy()), JQuantConfig(
+            n_bits=bits, group_size=group_size), layout="planar")
+        jw = dataclasses.replace(
+            jw, scales=jnp.asarray(pw.scales.float().numpy()),
+            zeros=jnp.asarray(pw.zeros.float().numpy()))
+        jy = np.asarray(jqm.quant_matmul(jnp.asarray(x.numpy()), jw,
+                                         interpret=True))
+        assert_close(got, jy)
