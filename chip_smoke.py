@@ -682,10 +682,14 @@ def check_kv(torch, device, timer, dims, out: dict) -> tuple:
 def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
     """K6 at the int8 serving shapes: batch 32 with windows 256 and 512 of
     a 512 cache, batch 8 with a 2048 window, lengths straddling 1024 and a
-    ring of 8 at ring_n 0 and 7. The JSON entry is engine C's decode shape
-    (batch 32, window 256). The bound counts the positions this run's
-    lengths make live; the yardstick is scaled_dot_product_attention over
-    the window already dequantized to bf16 (it reads twice the bytes)."""
+    ring of 8 at ring_n 0 and 7. Each case logs its plan (window splits,
+    the CTAs an SM holds, shared memory a CTA), must add exactly one launch
+    a call and give the same bits in two calls. The JSON entry is engine
+    C's decode shape (batch 32, window 256), with every case under
+    ``cases``. The bound counts the positions this run's lengths make live;
+    the yardstick is scaled_dot_product_attention over the window already
+    dequantized to bf16 (it reads twice the bytes)."""
+    from omniquant_tpu_torch.kernels import decode_attention as k6
     from omniquant_tpu_torch.kernels import tolerance
     from omniquant_tpu_torch.kernels.decode_attention import (
         decode_attention_int8, decode_attention_int8_plain)
@@ -727,14 +731,31 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
         rk = ring if ring_n >= 0 else None
         args = (q, *kv, lens, kv_len, ss)
         kw = dict(ring_kv=rk, ring_n=ring_n)
+        before = decode_attention_int8.launches
         got = decode_attention_int8(*args, **kw)
+        again = decode_attention_int8(*args, **kw)
         want = decode_attention_int8_plain(*args, **kw)
         torch.cuda.synchronize()
+        if decode_attention_int8.launches != before + 2:
+            raise AssertionError(f"decode_attention_int8 {label}: "
+                                 f"{decode_attention_int8.launches - before}"
+                                 " launches in two calls")
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_attention_int8 {label}: two calls "
+                                 "gave different bits")
         ok, err, worst = tolerance.bf16_close(
             got, want, tolerance.DECODE_ATTENTION_SLACK)
         if not (ok and torch.isfinite(got.float()).all()):
             raise AssertionError(f"decode_attention_int8 {label}: max abs "
                                  f"err {err}, {worst:.3g} x its bound")
+        plan = k6.decode_attention_launch(device, kv_len, B, Hh, 1, D,
+                                          R if rk is not None else 0)
+        ctas = k6._decode_ctas(device, D, 1)
+        smem = k6._decode_info(D, 1, False)
+        plan_s = (f"{plan.win_splits} window splits of {plan.per}"
+                  f"{' + the ring' if plan.ring else ''}, {ctas} CTAs/SM of "
+                  f"{smem} B")
+        log(f"  decode_attention_int8 {label} plan: {plan_s}")
         t = timer(lambda: decode_attention_int8(*args, **kw),
                   "decode_attention_int8 " + label)
         tp = timer(lambda: decode_attention_int8_plain(*args, **kw),
@@ -762,7 +783,8 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
         b, by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
         rows.append(dict(case=label, ms=t, plain_ms=tp, library_ms=t_lib,
                          bound_ms=b, bound_by=by, max_abs_err=err,
-                         err_over_bound=worst, live_positions=live))
+                         err_over_bound=worst, live_positions=live,
+                         plan=plan_s))
         log(f"  decode_attention_int8 {label} ({B},{Hh},·,{D}): max abs err "
             f"{err:.3g} ({worst:.3g} x bound)  kernel {t:.4f} ms  plain "
             f"{tp:.4f}  sdpa-bf16 {t_lib:.4f} (reads 2x the bytes)  bound "
@@ -774,6 +796,7 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
                      "128) + f32 scales, window 256, random lengths with 0 "
                      "and 255; library: SDPA over the bf16-dequantized "
                      "window, 2x the bytes")
+    head["cases"] = rows
     return head
 
 
@@ -1645,7 +1668,8 @@ def main(argv=None) -> int:
             **({"generic_kernel_ms": r["generic_kernel_ms"]}
                if "generic_kernel_ms" in r else {}),
             **({"verify": r["verify"]} if "verify" in r else {}),
-            **({"widths": r["widths"]} if "widths" in r else {})))
+            **({"widths": r["widths"]} if "widths" in r else {}),
+            **({"cases": r["cases"]} if "cases" in r else {})))
     out["kernels"] = entries
     out["total_s"] = time.time() - t_start
     log(f"total {out['total_s']:.1f} s")

@@ -11,43 +11,121 @@
 //
 // What bounds it on an H100: bytes. Each position read costs 2 * hd code
 // bytes and 8 scale bytes for ~4 * hd operations per query head, far below
-// the card's ~295 operations per byte; at the serving shapes (batch 32, 32
-// heads, hd 128, window 256) the codes and scales are ~70 MB at most, 0.021
-// ms at 3.35 TB/s, and the kernel reads only the live part of each window.
+// the card's ~295 operations per byte. At engine D's shape (batch 8, 32 kv
+// heads, hd 128, a 2048 window, lengths around 1024) the live codes and
+// scales are ~77 MB, 0.021 ms at 3.35 TB/s; at engine C's (batch 32, window
+// 256) ~35 MB. Reaching that rate takes ~20 KB or more of loads in flight
+// on every SM at all times, and work for every SM however unequal the
+// slots' lengths are.
 //
-// Design (first version, simple): one CTA of 128 threads per (kv head,
-// slot). It loops over the live positions in chunks of 128: the chunk's K
-// and V codes are loaded as 16-byte vectors into shared memory (rows padded
-// to 144 bytes so the row-per-thread reads are free of bank conflicts),
-// each thread computes the f32 scores of one position for the n_rep query
-// heads, the block reduces the chunk's max and sum, and each thread then
-// accumulates one output dimension over the chunk with p * vs kept in f32.
-// It stops at lengths[b] instead of reading the whole bucket; the ring is a
-// last chunk read from the ring buffers. Decode has one query per head, so
-// tensor cores buy nothing. Not yet done: splitting a long window across
-// CTAs (flash-decoding) and overlapping the next chunk's loads with this
-// chunk's arithmetic (cp.async).
+// Design (flash-decoding):
+//   * A CTA of 128 threads takes one (window split, kv head, slot): a span
+//     of `per` positions (a multiple of the chunk, from
+//     kernels/decode_attention.py::decode_attention_plan, which never reads
+//     lengths) for all n_rep query heads of the kv head. The ring is a
+//     split of its own, the grid's last. A CTA whose split starts past the
+//     slot's live positions (read from lengths[b] on the device) leaves at
+//     once, so the grid is sized for the window and costs only the live
+//     part.
+//   * The split's K and V code rows and their scales go through a ring of
+//     two chunks in shared memory by cp.async (16 bytes a code piece, 4 a
+//     scale); the next chunk is issued before this one is computed, and
+//     six CTAs share an SM at hd 128 and one query head (the plan asks the
+//     card how many), so every SM keeps loads in flight. A chunk is 64 rows
+//     at hd 128 (128 at hd 64): 8 KB of K and 8 KB of V codes.
+//   * No block-wide reduction per chunk: warp w owns a quarter of each
+//     chunk's rows, and keeps its own online softmax (m, l) and output sums.
+//     Scores: two lanes a row at hd 128 (one at hd 64), each 64 code bytes
+//     from K rows padded to hd + 16 bytes (free of bank conflicts), against
+//     q in f32 in shared memory. P.V: each lane takes 4 output dimensions
+//     of a V row (one 32-bit read a row; two rows a step at hd 64) and
+//     walks the warp's rows, p * vs taken from the row's lane by a shuffle.
+//     The codes become floats by a byte permute into the mantissa of 2^23
+//     and one subtraction (exact), not by the slower int-to-float
+//     conversion. The four warps' (m, l, sums) are combined once a split.
+//   * Merge inside the launch, in a fixed order: with more than one live
+//     split, each writes its f32 partial (m, l, acc) per query head to a
+//     workspace, fences and takes its (slot, kv head)'s ticket; the one
+//     that takes the last ticket (the count of live splits comes from
+//     lengths[b] and the ring on the device) resets it to 0 and merges the
+//     partials in split order, window splits first, then the ring. Two
+//     calls give the same bits; no float atomics, no memset. A slot with
+//     one live split writes its output directly; an idle one (no live
+//     position, no ring) gets 0 from its first split.
+//   * p * vs stays in f32, as the plain version's dequantized f32 values.
+//
+// What is left (NVIDIA H100 80GB HBM3): a variant that loads every chunk
+// but computes nothing runs about as fast as the kernel, and one that does
+// neither still takes a quarter of its time (CTA starts, partials, merges),
+// so the kernel runs at the rate of its own loads. Under chip_smoke.py's
+// timer those loads share the memory with the write-back of the zeroed L2
+// flush buffer. Not done: loads by TMA bulk copies onto an mbarrier (fewer
+// copy instructions, no padding), scores and P.V on the tensor cores (at
+// one query a head they buy little), q in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int T = 128;        // positions per chunk = threads per CTA
-constexpr int NWARPS = T / 32;
-constexpr int MAX_REP = 8;    // query heads per kv head
+constexpr int THREADS = 128;
+constexpr int NWARPS = THREADS / 32;
+constexpr int STAGES = 2;  // chunks in the ring (3 or 4: fewer CTAs, slower)
+constexpr int MAX_REP = 8;  // query heads per kv head
 constexpr float NEG = -1e30f;
 
-template <int HD>
-struct Smem {
-  int8_t k[T][HD + 16];
-  int8_t v[T][HD + 16];
-  float ks[T];
-  float vs[T];
-  float q[MAX_REP][HD];
-  float pv[MAX_REP][T];  // p * vs of the chunk
-  float red[MAX_REP][NWARPS];
+// The geometry for head dim HD (64 or 128) and up to REP query heads.
+template <int HD, int REP>
+struct Geo {
+  static constexpr int TPR = HD / 64;         // lanes a K row (scores)
+  static constexpr int CH = THREADS / TPR;    // rows a chunk: 64 or 128
+  static constexpr int RPW = CH / NWARPS;     // rows a warp owns per chunk
+  static constexpr int KRS = HD + 16;         // K row stride in bytes
+  static constexpr int LPR = HD / 4;          // lanes a V row (P.V)
+  static constexpr int RPI = 32 / LPR;        // V rows a warp step
+  static constexpr int QS = HD + 8;           // q row stride in floats
+  static constexpr int QHALF = HD / TPR + 4;  // q offset of a lane's half
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = CH * KRS;
+  static constexpr int KS_OFF = V_OFF + CH * HD;
+  static constexpr int VS_OFF = KS_OFF + CH * 4;
+  static constexpr int STAGE = VS_OFF + CH * 4;  // bytes of one chunk
+  static constexpr int Q_OFF = STAGES * STAGE;
+  static constexpr int FLAG_OFF = Q_OFF + REP * QS * 4;
+  static constexpr int SMEM = FLAG_OFF + 16;
+  // the four warps' (m, l, sums), over the ring once the split is done
+  static constexpr int RED_BYTES = NWARPS * REP * (HD + 2) * 4;
+  static_assert(RED_BYTES <= Q_OFF, "the warps' sums must fit the ring");
+  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
 };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Code e (0..3) of the word u = w ^ 0x80808080 (the codes biased to
+// unsigned) as a float: the byte in the mantissa of 2^23, less 2^23 + 128.
+__device__ __forceinline__ float code_f(uint32_t u, int e) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | e)) -
+         8388736.f;
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -56,121 +134,16 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// The sum over the warp's rows of a value every lane of a row holds alike.
+template <int TPR>
+__device__ __forceinline__ float rows_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = 16; o >= TPR; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-// Attend rows [0, n) of one chunk (n >= 1): codes (n, HD) int8 and scales
-// (n,) f32 at the given addresses. Every thread keeps the running (m, l)
-// of each query head; thread d < HD keeps output dimension d in acc.
-template <int HD>
-__device__ void attend_chunk(Smem<HD>& sm, const int8_t* kc, const float* ks,
-                             const int8_t* vc, const float* vs, int n,
-                             int n_rep, float score_scale,
-                             float (&m_run)[MAX_REP], float (&l_run)[MAX_REP],
-                             float (&acc)[MAX_REP]) {
-  constexpr int VPR = HD / 16;  // 16-byte vectors per row
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();  // the previous chunk's readers are done
-  for (int i = tid; i < T * VPR; i += T) {
-    const int r = i / VPR, c = (i % VPR) * 16;
-    uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-    if (r < n) {
-      kk = *reinterpret_cast<const uint4*>(kc + (size_t)r * HD + c);
-      vv = *reinterpret_cast<const uint4*>(vc + (size_t)r * HD + c);
-    }
-    *reinterpret_cast<uint4*>(&sm.k[r][c]) = kk;
-    *reinterpret_cast<uint4*>(&sm.v[r][c]) = vv;
-  }
-  if (tid < n) {
-    sm.ks[tid] = ks[tid];
-    sm.vs[tid] = vs[tid];
-  }
-  __syncthreads();
-
-  // scores of position tid
-  float s[MAX_REP];
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) s[r] = 0.f;
-  if (tid < n) {
-#pragma unroll 4
-    for (int c = 0; c < HD; c += 16) {
-      const uint4 w = *reinterpret_cast<const uint4*>(&sm.k[tid][c]);
-      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float kv =
-            (float)((int32_t)(words[e >> 2] << (24 - 8 * (e & 3))) >> 24);
-#pragma unroll
-        for (int r = 0; r < MAX_REP; ++r)
-          if (r < n_rep) s[r] = fmaf(sm.q[r][c + e], kv, s[r]);
-      }
-    }
-    const float f = sm.ks[tid] * score_scale;
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) s[r] *= f;
-  } else {
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) s[r] = NEG;
-  }
-
-  float m_new[MAX_REP];
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= n_rep) break;
-    const float mx = warp_max(s[r]);
-    if (lane == 0) sm.red[r][warp] = mx;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= n_rep) break;
-    float mx = sm.red[r][0];
-#pragma unroll
-    for (int w = 1; w < NWARPS; ++w) mx = fmaxf(mx, sm.red[r][w]);
-    m_new[r] = fmaxf(m_run[r], mx);
-  }
-  float psum[MAX_REP];
-  const float vsc = tid < n ? sm.vs[tid] : 0.f;
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= n_rep) break;
-    const float p = tid < n ? __expf(s[r] - m_new[r]) : 0.f;
-    sm.pv[r][tid] = p * vsc;
-    psum[r] = warp_sum(p);
-  }
-  __syncthreads();  // every thread has read the chunk max
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= n_rep) break;
-    if (lane == 0) sm.red[r][warp] = psum[r];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= n_rep) break;
-    float l = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) l += sm.red[r][w];
-    const float alpha = __expf(m_run[r] - m_new[r]);
-    l_run[r] = l_run[r] * alpha + l;
-    acc[r] *= alpha;
-    m_run[r] = m_new[r];
-  }
-  if (tid < HD) {
-    for (int j = 0; j < n; ++j) {
-      const float vj = (float)sm.v[j][tid];
-#pragma unroll
-      for (int r = 0; r < MAX_REP; ++r)
-        if (r < n_rep) acc[r] = fmaf(sm.pv[r][j], vj, acc[r]);
-    }
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(T)
+template <int HD, int REP>
+__global__ void __launch_bounds__(THREADS)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const int8_t* __restrict__ kc, const float* __restrict__ ks,
                    const int8_t* __restrict__ vc, const float* __restrict__ vs,
@@ -179,60 +152,270 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const float* __restrict__ rks,
                    const int8_t* __restrict__ rvc,
                    const float* __restrict__ rvs, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ tickets,
                    int n_kv, int n_rep, int max_len, int kv_len, int R,
-                   int ring_n, float score_scale) {
-  __shared__ __align__(16) Smem<HD> sm;
-  const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const size_t head0 = (size_t)b * n_kv * n_rep + (size_t)hk * n_rep;
-  for (int i = tid; i < n_rep * HD; i += T)
-    sm.q[i / HD][i % HD] = __bfloat162float(q[head0 * HD + i]);
+                   int ring_n, int per, int n_win, float score_scale) {
+  using G = Geo<HD, REP>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = b * n_kv + hk;
+  const int n_splits = gridDim.x;
 
-  float m_run[MAX_REP], l_run[MAX_REP], acc[MAX_REP];
+  // live positions of the window and of the ring, and this split's rows
+  const int live = max(0, min(lengths[b] + 1, kv_len));
+  const int ring_live = ring_n >= 0 ? min(ring_n + 1, R) : 0;
+  const int live_win = (live + per - 1) / per;
+  const int n_live = live_win + (ring_live > 0);
+  const bool is_ring = s == n_win;
+  const int n_rows = is_ring ? ring_live : min(per, live - s * per);
+  const size_t head0 = (size_t)bh * n_rep;  // first query head
+  if (n_rows <= 0) {
+    if (s == 0 && n_live == 0)  // an idle slot with no ring: 0
+      for (int i = tid; i < n_rep * HD; i += THREADS)
+        out[head0 * HD + i] = __float2bfloat16(0.f);
+    return;
+  }
+  const size_t row0 = is_ring ? (size_t)bh * R
+                              : (size_t)bh * max_len + (size_t)s * per;
+  const int8_t* kp = (is_ring ? rkc : kc) + row0 * HD;
+  const int8_t* vp = (is_ring ? rvc : vc) + row0 * HD;
+  const float* ksp = (is_ring ? rks : ks) + row0;
+  const float* vsp = (is_ring ? rvs : vs) + row0;
+  const int n_ch = (n_rows + G::CH - 1) / G::CH;
+
+  auto issue = [&](int c) {
+    uint8_t* st = smem + (c % STAGES) * G::STAGE;
+    const int r0 = c * G::CH, n = min(G::CH, n_rows - r0);
+    constexpr int VPR = HD / 16;  // 16-byte pieces a row
+    for (int i = tid; i < n * VPR; i += THREADS) {
+      const int r = i / VPR, c16 = (i % VPR) * 16;
+      const size_t src = (size_t)(r0 + r) * HD + c16;
+      cp_async16(st + G::K_OFF + r * G::KRS + c16, kp + src);
+      cp_async16(st + G::V_OFF + r * HD + c16, vp + src);
+    }
+    for (int i = tid; i < n; i += THREADS) {
+      cp_async4(st + G::KS_OFF + 4 * i, ksp + r0 + i);
+      cp_async4(st + G::VS_OFF + 4 * i, vsp + r0 + i);
+    }
+  };
+
 #pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < n_ch) issue(c);
+    cp_async_commit();
+  }
+  // q in f32; a lane's half of the row sits 4 floats past the other's, so
+  // the two lanes of a K row read different banks
+  float* sq = reinterpret_cast<float*>(smem + G::Q_OFF);
+  for (int i = tid; i < REP * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    sq[r * G::QS + (d / (HD / G::TPR)) * G::QHALF + d % (HD / G::TPR)] =
+        r < n_rep ? __bfloat162float(q[head0 * HD + i]) : 0.f;
+  }
+
+  float m_run[REP], l_run[REP], acc[REP][4];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
     m_run[r] = NEG;
     l_run[r] = 0.f;
-    acc[r] = 0.f;
-  }
-  // positions 0..lengths[b] of the window [0, kv_len)
-  const int live = max(0, min(lengths[b] + 1, kv_len));
-  const size_t base = ((size_t)b * n_kv + hk) * max_len;
-  for (int c0 = 0; c0 < live; c0 += T)
-    attend_chunk<HD>(sm, kc + (base + c0) * HD, ks + base + c0,
-                     vc + (base + c0) * HD, vs + base + c0, min(T, live - c0),
-                     n_rep, score_scale, m_run, l_run, acc);
-  if (ring_n >= 0) {
-    const int staged = min(ring_n + 1, R);
-    const size_t rb = ((size_t)b * n_kv + hk) * R;
-    for (int c0 = 0; c0 < staged; c0 += T)
-      attend_chunk<HD>(sm, rkc + (rb + c0) * HD, rks + rb + c0,
-                       rvc + (rb + c0) * HD, rvs + rb + c0,
-                       min(T, staged - c0), n_rep, score_scale, m_run, l_run,
-                       acc);
-  }
-  if (tid < HD) {
 #pragma unroll
-    for (int r = 0; r < MAX_REP; ++r)
-      if (r < n_rep)
-        out[(head0 + r) * HD + tid] =
-            __float2bfloat16(acc[r] / fmaxf(l_run[r], 1e-30f));
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+  }
+  const int my_row = warp * G::RPW + lane / G::TPR;  // scores: row, half
+  const int side = lane % G::TPR;
+
+  for (int c = 0; c < n_ch; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c landed; every warp is done with chunk c - 1
+    if (c + STAGES - 1 < n_ch) issue(c + STAGES - 1);
+    cp_async_commit();
+    const uint8_t* st = smem + (c % STAGES) * G::STAGE;
+    const int n = min(G::CH, n_rows - c * G::CH);
+    const bool valid = my_row < n;
+
+    // scores of my_row, this lane's half of the dimensions
+    float sc[REP];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) sc[r] = 0.f;
+    const uint8_t* krow = st + G::K_OFF + my_row * G::KRS + side * (HD / G::TPR);
+    const float* qh = sq + side * G::QHALF;
+#pragma unroll
+    for (int c16 = 0; c16 < HD / G::TPR; c16 += 16) {
+      const uint4 w = *reinterpret_cast<const uint4*>(krow + c16);
+      const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                                 w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+#pragma unroll
+      for (int wi = 0; wi < 4; ++wi) {
+        float f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] = code_f(words[wi], e);
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+          const float4 qq =
+              *reinterpret_cast<const float4*>(qh + r * G::QS + c16 + 4 * wi);
+          sc[r] = fmaf(qq.x, f[0], sc[r]);
+          sc[r] = fmaf(qq.y, f[1], sc[r]);
+          sc[r] = fmaf(qq.z, f[2], sc[r]);
+          sc[r] = fmaf(qq.w, f[3], sc[r]);
+        }
+      }
+    }
+    const float* sks = reinterpret_cast<const float*>(st + G::KS_OFF);
+    const float* svs = reinterpret_cast<const float*>(st + G::VS_OFF);
+    const float fk = valid ? sks[my_row] * score_scale : 0.f;
+    const float vsc = valid ? svs[my_row] : 0.f;
+    float pv[REP];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      if (G::TPR == 2) sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], 1);
+      sc[r] = valid ? sc[r] * fk : NEG;
+      const float m_new = fmaxf(m_run[r], warp_max(sc[r]));
+      const float p = valid ? __expf(sc[r] - m_new) : 0.f;
+      const float alpha = __expf(m_run[r] - m_new);
+      l_run[r] = l_run[r] * alpha + rows_sum<G::TPR>(p);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] *= alpha;
+      m_run[r] = m_new;
+      pv[r] = p * vsc;
+    }
+
+    // P.V over the warp's rows: lane takes dimensions 4 * (lane % LPR)..+3
+    const uint8_t* vrow0 = st + G::V_OFF + (warp * G::RPW) * HD +
+                           4 * (lane % G::LPR);
+#pragma unroll 4
+    for (int jj = 0; jj < G::RPW; jj += G::RPI) {
+      const int j = jj + lane / G::LPR;  // the warp's row
+      const uint32_t u =
+          *reinterpret_cast<const uint32_t*>(vrow0 + j * HD) ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = code_f(u, e);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, pv[r], j * G::TPR);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(pj, f[e], acc[r][e]);
+      }
+    }
+  }
+
+  // combine the four warps' (m, l, sums) into the split's
+  __syncthreads();  // every warp is done with the ring
+  float* wacc = reinterpret_cast<float*>(smem);          // [warp][REP][HD]
+  float* wml = wacc + NWARPS * REP * HD;                 // [warp][REP][2]
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    if (G::RPI == 2) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], 16);
+    }
+    if (lane < G::LPR)
+      *reinterpret_cast<float4*>(wacc + (warp * REP + r) * HD + 4 * lane) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    if (lane == 0) {
+      wml[(warp * REP + r) * 2] = m_run[r];
+      wml[(warp * REP + r) * 2 + 1] = l_run[r];
+    }
+  }
+  __syncthreads();
+  const size_t n_acc = (size_t)gridDim.z * n_kv * n_splits * n_rep * HD;
+  for (int i = tid; i < n_rep * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    float M = NEG;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, wml[(w * REP + r) * 2]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float a = __expf(wml[(w * REP + r) * 2] - M);
+      L = fmaf(wml[(w * REP + r) * 2 + 1], a, L);
+      A = fmaf(wacc[(w * REP + r) * HD + d], a, A);
+    }
+    if (n_live == 1) {
+      out[head0 * HD + i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    } else {
+      const size_t part = ((size_t)bh * n_splits + s) * n_rep + r;
+      ws[part * HD + d] = A;
+      if (d == 0) {
+        ws[n_acc + 2 * part] = M;
+        ws[n_acc + 2 * part + 1] = L;
+      }
+    }
+  }
+  if (n_live == 1) return;
+
+  // the last live split to take the ticket merges them all, in split order
+  __threadfence();
+  __syncthreads();
+  int* flag = reinterpret_cast<int*>(smem + G::FLAG_OFF);
+  if (tid == 0) *flag = atomicAdd(tickets + bh, 1);
+  __syncthreads();
+  if (*flag != n_live - 1) return;
+  __threadfence();
+  if (tid == 0) tickets[bh] = 0;
+  for (int i = tid; i < n_rep * HD; i += THREADS) {
+    const int r = i / HD, d = i % HD;
+    float M = NEG;
+    for (int k = 0; k < n_live; ++k) {
+      const int sk = k < live_win ? k : n_win;  // the ring is merged last
+      const size_t part = ((size_t)bh * n_splits + sk) * n_rep + r;
+      M = fmaxf(M, __ldcg(ws + n_acc + 2 * part));
+    }
+    float L = 0.f, A = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < n_live; ++k) {
+      const int sk = k < live_win ? k : n_win;
+      const size_t part = ((size_t)bh * n_splits + sk) * n_rep + r;
+      const float a = __expf(__ldcg(ws + n_acc + 2 * part) - M);
+      L = fmaf(__ldcg(ws + n_acc + 2 * part + 1), a, L);
+      A = fmaf(__ldcg(ws + part * HD + d), a, A);
+    }
+    out[head0 * HD + i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
   }
 }
 
-template <int HD>
-void launch(const void* q, const void* kc, const void* ks, const void* vc,
-            const void* vs, const void* lengths, const void* rkc,
-            const void* rks, const void* rvc, const void* rvs, void* out,
-            int B, int n_kv, int n_rep, int max_len, int kv_len, int R,
-            int ring_n, float score_scale, cudaStream_t st) {
-  decode_attn_kernel<HD><<<dim3(n_kv, B), T, 0, st>>>(
+// Let the instance take its dynamic shared memory (above 48 KB only after
+// this attribute); then its shared memory or the CTAs of it an SM holds.
+template <int HD, int REP>
+int info(bool ctas) {
+  constexpr int smem = Geo<HD, REP>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_attn_kernel<HD, REP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  if (!ctas) return smem;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_attn_kernel<HD, REP>, THREADS, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <int HD, int REP>
+int launch(const void* q, const void* kc, const void* ks, const void* vc,
+           const void* vs, const void* lengths, const void* rkc,
+           const void* rks, const void* rvc, const void* rvs, void* out,
+           void* ws, void* tickets, int B, int n_kv, int n_rep, int max_len,
+           int kv_len, int R, int ring_n, int per, int n_win,
+           float score_scale, cudaStream_t st) {
+  static const int ok = info<HD, REP>(false);
+  if (ok < 0) return -ok;
+  const dim3 grid(n_win + (ring_n >= 0 ? 1 : 0), n_kv, B);
+  decode_attn_kernel<HD, REP><<<grid, THREADS, Geo<HD, REP>::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kc),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
       static_cast<const float*>(vs), static_cast<const int32_t*>(lengths),
       static_cast<const int8_t*>(rkc), static_cast<const float*>(rks),
       static_cast<const int8_t*>(rvc), static_cast<const float*>(rvs),
-      static_cast<__nv_bfloat16*>(out), n_kv, n_rep, max_len, kv_len, R,
-      ring_n, score_scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
+      static_cast<int*>(tickets), n_kv, n_rep, max_len, kv_len, R, ring_n,
+      per, n_win, score_scale);
+  return (int)cudaGetLastError();
+}
+
+int rep_class(int n_rep) {
+  return n_rep <= 1 ? 1 : n_rep <= 2 ? 2 : n_rep <= 4 ? 4 : 8;
 }
 
 }  // namespace
@@ -241,21 +424,54 @@ void launch(const void* q, const void* kc, const void* ks, const void* vc,
 // scales (B, n_kv, max_len) f32; lengths (B,) int32; ring codes (B, n_kv,
 // R, hd) int8 and scales (B, n_kv, R) f32, read only when ring_n >= 0; out
 // (B, n_kv * n_rep, hd) bf16. All contiguous; hd is 64 or 128, n_rep <= 8.
+// The window splits into n_win spans of `per` positions (a multiple of the
+// chunk: 64 rows at hd 128, 128 at hd 64), and the ring is one more. With
+// more than one split, ws holds (B, n_kv, splits, n_rep, hd) f32 sums and
+// then (B, n_kv, splits, n_rep, 2) f32 (m, l), and tickets is a zeroed
+// int32 per (slot, kv head), left zeroed.
 extern "C" int decode_attention_int8(
     const void* q, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* lengths, const void* rkc, const void* rks,
-    const void* rvc, const void* rvs, void* out, int B, int n_kv, int n_rep,
-    int hd, int max_len, int kv_len, int R, int ring_n, float score_scale,
-    void* stream) {
-  if (n_rep < 1 || n_rep > MAX_REP) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    launch<128>(q, kc, ks, vc, vs, lengths, rkc, rks, rvc, rvs, out, B, n_kv,
-                n_rep, max_len, kv_len, R, ring_n, score_scale, st);
-  else if (hd == 64)
-    launch<64>(q, kc, ks, vc, vs, lengths, rkc, rks, rvc, rvs, out, B, n_kv,
-               n_rep, max_len, kv_len, R, ring_n, score_scale, st);
-  else
+    const void* rvc, const void* rvs, void* out, void* ws, void* tickets,
+    int B, int n_kv, int n_rep, int hd, int max_len, int kv_len, int R,
+    int ring_n, int per, int n_win, float score_scale, void* stream) {
+  if (n_rep < 1 || n_rep > MAX_REP || (hd != 64 && hd != 128) ||
+      n_win < 1 || per < 1 || per % (THREADS * 64 / hd) ||
+      (n_win + (ring_n >= 0) > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K6_LAUNCH(HD, REP)                                                 \
+  launch<HD, REP>(q, kc, ks, vc, vs, lengths, rkc, rks, rvc, rvs, out, ws,  \
+                  tickets, B, n_kv, n_rep, max_len, kv_len, R, ring_n, per, \
+                  n_win, score_scale, st)
+  switch (hd * 16 + rep_class(n_rep)) {
+    case 128 * 16 + 1: return K6_LAUNCH(128, 1);
+    case 128 * 16 + 2: return K6_LAUNCH(128, 2);
+    case 128 * 16 + 4: return K6_LAUNCH(128, 4);
+    case 128 * 16 + 8: return K6_LAUNCH(128, 8);
+    case 64 * 16 + 1: return K6_LAUNCH(64, 1);
+    case 64 * 16 + 2: return K6_LAUNCH(64, 2);
+    case 64 * 16 + 4: return K6_LAUNCH(64, 4);
+    case 64 * 16 + 8: return K6_LAUNCH(64, 8);
+  }
+#undef K6_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The kernel for head dim hd and n_rep query heads a kv head: its shared
+// memory (ctas == 0) or the CTAs of it an SM holds (ctas != 0), or minus a
+// CUDA error.
+extern "C" int decode_attention_info(int hd, int n_rep, int ctas, void*) {
+  if (n_rep < 1 || n_rep > MAX_REP) return -(int)cudaErrorInvalidValue;
+  switch (hd * 16 + rep_class(n_rep)) {
+    case 128 * 16 + 1: return info<128, 1>(ctas != 0);
+    case 128 * 16 + 2: return info<128, 2>(ctas != 0);
+    case 128 * 16 + 4: return info<128, 4>(ctas != 0);
+    case 128 * 16 + 8: return info<128, 8>(ctas != 0);
+    case 64 * 16 + 1: return info<64, 1>(ctas != 0);
+    case 64 * 16 + 2: return info<64, 2>(ctas != 0);
+    case 64 * 16 + 4: return info<64, 4>(ctas != 0);
+    case 64 * 16 + 8: return info<64, 8>(ctas != 0);
+  }
+  return -(int)cudaErrorInvalidValue;
 }

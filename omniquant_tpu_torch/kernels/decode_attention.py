@@ -12,18 +12,77 @@ scores at -1e30.
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/decode_attention.cu`` (bf16 q and output, head_dim 64 or 128, at
 most 8 query heads per kv head) or raises; the kernel reads only the live
-part of each slot's window and never dequantizes the cache. On a CPU tensor
-it runs the plain version, which dequantizes in f32 and attends densely.
+part of each slot's window and never dequantizes the cache. It splits the
+window into spans per ``decode_attention_plan`` (one CTA a span, kv head
+and slot; the ring a split of its own) and merges the spans' partial
+softmax sums in the same launch, in split order. On a CPU tensor it runs
+the plain version, which dequantizes in f32 and attends densely.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
+from .quant_matmul import _device_buffer, _sm_count
 
 _NEG = -1e30
+_THREADS = 128  # threads of a CTA of csrc/decode_attention.cu
+_K6_CTAS: dict = {}       # (device, hd, rep class) -> CTAs an SM holds
+_K6_WORKSPACE: dict = {}  # device -> f32 partials, grown
+_K6_TICKETS: dict = {}    # device -> int32 tickets, zeroed once, grown
+
+
+class DecodeAttnPlan(NamedTuple):
+    """How K6 cuts a window of ``kv_len`` positions: ``win_splits`` spans
+    of ``per`` positions (the last may be shorter), a multiple of the
+    kernel's ``chunk`` of rows, one CTA each per (kv head, slot); the ring,
+    when there is one, is one more split, merged last."""
+    chunk: int
+    per: int
+    win_splits: int
+    ring: bool
+
+    @property
+    def splits(self) -> int:
+        return self.win_splits + int(self.ring)
+
+    def spans(self, kv_len: int) -> list:
+        """(first position, end position) of each window split."""
+        return [(s * self.per, min((s + 1) * self.per, kv_len))
+                for s in range(self.win_splits)]
+
+
+def decode_chunk(hd: int) -> int:
+    """Rows of one ring stage of the kernel: 64 at hd 128, 128 at hd 64
+    (two lanes score a K row at hd 128, one at hd 64)."""
+    return _THREADS * 64 // hd
+
+
+def decode_attention_plan(kv_len: int, B: int, n_kv: int, R: int, hd: int,
+                          sm_count: int, ctas_per_sm: int) -> DecodeAttnPlan:
+    """K6's split of a ``kv_len`` window for B slots of n_kv kv heads and a
+    ring of R rows (0: none) on a card of ``sm_count`` SMs that hold
+    ``ctas_per_sm`` CTAs each. A pure function of the shapes: it never
+    reads ``lengths`` (splits past a slot's live positions leave at once
+    on the device), so planning needs no host synchronisation.
+
+    Spans are a power of two times the chunk. It takes the longest span
+    (the fewest splits: each costs a partial and its share of the merge)
+    whose CTAs, were every window full, still give each of the card's CTA
+    slots (SMs x CTAs an SM holds) one. Fit to the card's times of every
+    span at chip_smoke.py's five cases (NVIDIA H100 80GB HBM3): one split
+    at batch 32 with windows 256 and 512, four at batch 8 with 2048."""
+    chunk = decode_chunk(hd)
+    kv_len = max(kv_len, 1)
+    per = chunk
+    while per < kv_len:
+        per *= 2
+    while (per > chunk
+           and B * n_kv * -(-kv_len // per) < sm_count * ctas_per_sm):
+        per //= 2
+    return DecodeAttnPlan(chunk, per, -(-kv_len // per), R > 0)
 
 
 def decode_attention_int8_plain(q, k_codes, k_scale, v_codes, v_scale,
@@ -88,9 +147,8 @@ def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
                          f"{hd} and {n_rep}")
     bufs = [k_codes, k_scale, v_codes, v_scale]
     shapes = [(B, n_kv, max_len, hd), (B, n_kv, max_len)] * 2
-    R = 0
+    R = ring_kv[0].shape[2] if ring_n >= 0 else 0
     if ring_n >= 0:
-        R = ring_kv[0].shape[2]
         bufs += list(ring_kv)
         shapes += [(B, n_kv, R, hd), (B, n_kv, R)] * 2
     for t, shape, want in zip(bufs, shapes, (torch.int8, torch.float32) * 4):
@@ -101,19 +159,60 @@ def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
                              "contiguous f32 CUDA tensors")
         if want == torch.int8 and t.data_ptr() % 16:
             raise ValueError("code buffers must be 16-byte aligned")
+    plan = decode_attention_launch(q.device, kv_len, B, n_kv, n_rep, hd, R)
     q = q.contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     ring_ptrs = ([t.data_ptr() for t in ring_kv] if ring_n >= 0
                  else [None] * 4)
+    # with more than one split the partials go to the device's workspace
+    # and the merge takes the (slot, kv head)'s ticket, which the merging
+    # CTA leaves zeroed: no call launches a memset
+    ws = tickets = None
+    if plan.win_splits + (ring_n >= 0) > 1:
+        ws = _device_buffer(
+            _K6_WORKSPACE, q.device,
+            B * n_kv * (plan.win_splits + 1) * n_rep * (hd + 2),
+            torch.float32).data_ptr()
+        tickets = _device_buffer(_K6_TICKETS, q.device, B * n_kv).data_ptr()
     out = torch.empty_like(q)
     _build.launch("decode_attention", "decode_attention_int8",
-                  "pppppppppppiiiiiiiif",
+                  "p" * 13 + "iiiiiiiiii" + "f",
                   q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
                   v_codes.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
-                  *ring_ptrs, out.data_ptr(), B, n_kv, n_rep, hd, max_len,
-                  kv_len, R, ring_n, float(score_scale))
+                  *ring_ptrs, out.data_ptr(), ws, tickets, B, n_kv, n_rep,
+                  hd, max_len, kv_len, R, ring_n, plan.per, plan.win_splits,
+                  float(score_scale))
     decode_attention_int8.launches += 1
     return out
+
+
+def _decode_info(hd: int, n_rep: int, ctas: bool) -> int:
+    """The kernel's shared memory for hd and n_rep, or (``ctas``) the CTAs
+    of it an SM holds, from ``csrc/decode_attention.cu`` (the card's
+    occupancy)."""
+    n = _build.fn("decode_attention", "decode_attention_info", "iii")(
+        hd, n_rep, int(ctas), None)
+    if n < 1:
+        raise RuntimeError(f"decode_attention: info query failed ({n})")
+    return n
+
+
+def _decode_ctas(device, hd: int, n_rep: int) -> int:
+    """``_decode_info``'s CTAs per SM, asked of the card once per instance
+    (query heads round up to 1, 2, 4 or 8)."""
+    rep = next(r for r in (1, 2, 4, 8) if n_rep <= r)
+    key = (device.index or 0, hd, rep)
+    if key not in _K6_CTAS:
+        _K6_CTAS[key] = _decode_info(hd, rep, True)
+    return _K6_CTAS[key]
+
+
+def decode_attention_launch(device, kv_len: int, B: int, n_kv: int,
+                            n_rep: int, hd: int, R: int) -> DecodeAttnPlan:
+    """The plan K6 runs on ``device``'s card for these shapes (R ring rows,
+    0 for none)."""
+    return decode_attention_plan(kv_len, B, n_kv, R, hd, _sm_count(device),
+                                 _decode_ctas(device, hd, n_rep))
 
 
 decode_attention_int8.launches = 0

@@ -398,18 +398,26 @@ def planar_decode_launch(pw: PackedWeight, m: int, device) -> tuple:
         _sm_count(device), ctas)
 
 
+def _device_buffer(store: dict, device, numel: int,
+                   dtype=torch.int32) -> torch.Tensor:
+    """``store``'s buffer on ``device``, of at least ``numel`` elements:
+    zeroed when made, grown by doubling. Launches on one stream at a time
+    share it."""
+    key = device.index or 0
+    t = store.get(key)
+    if t is None or t.numel() < numel:
+        t = torch.zeros(max(numel, 2 * (0 if t is None else t.numel())),
+                        dtype=dtype, device=device)
+        store[key] = t
+    return t
+
+
 def _planar_tickets(device, n_blocks: int) -> torch.Tensor:
     """The planar decode tile's int32 ticket per column block on
     ``device``: zeroed once and grown with N; every launch leaves them
     zeroed (the last slice of a column block resets its ticket), so no call
-    launches a memset. Launches on one stream at a time share them."""
-    key = device.index or 0
-    t = _K1_TICKETS.get(key)
-    if t is None or t.numel() < n_blocks:
-        t = torch.zeros(max(n_blocks, 2 * (0 if t is None else t.numel())),
-                        dtype=torch.int32, device=device)
-        _K1_TICKETS[key] = t
-    return t
+    launches a memset."""
+    return _device_buffer(_K1_TICKETS, device, n_blocks)
 
 
 def _check_k1_weight(pw: PackedWeight) -> None:

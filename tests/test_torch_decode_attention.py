@@ -1,6 +1,10 @@
 """The port's int8-KV decode attention (plain version on the CPU) against
-the JAX package's Pallas kernel in interpret mode, and the per-element rule
-the card holds the CUDA kernel to."""
+the JAX package's Pallas kernel in interpret mode, the CUDA kernel's split
+plan, an emulation of its arithmetic (splits, per-warp online softmax, the
+merge in split order) against the JAX kernel, and the per-element rule the
+card holds the CUDA kernel to."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +14,8 @@ from omniquant_tpu.kernels.decode_attention import (
     decode_attention_int8 as j_decode)
 from omniquant_tpu_torch.kernels import tolerance
 from omniquant_tpu_torch.kernels.decode_attention import (
-    decode_attention_int8 as t_decode)
+    DecodeAttnPlan, decode_attention_int8 as t_decode, decode_attention_plan,
+    decode_chunk)
 
 
 def _inputs(B, n_kv, n_rep, max_len, hd, seed, R=0):
@@ -74,56 +79,106 @@ def test_ring_matches_jax_kernel(ring_n):
     assert np.abs(got - want).max() < 1e-3 * np.abs(want).max()
 
 
+def _plan(kv_len, B, n_kv, R, hd):
+    """The plan the kernel would run on an H100 (132 SMs) holding 6 CTAs
+    an SM (the card's answer at hd 128, one query head a kv head)."""
+    return decode_attention_plan(kv_len, B, n_kv, R, hd, 132, 6)
+
+
 def _emulate_cuda_kernel(q, kc, ks, vc, vs, lengths, kv_len, score_scale,
-                         ring, ring_n, fault=None, chunk=128):
-    """The CUDA kernel's arithmetic in PyTorch: per (slot, kv head), chunks
-    of 128 live positions, f32 scores (q . code) * (ks * score_scale), an
-    f32 online softmax, p * vs in f32 against the v codes, the output
-    rounded to bf16. ``fault`` plants a bug: "lost_chunk" skips positions
-    512..639, "no_ring" ignores the ring, "no_ks" leaves the key scales out
-    of the scores."""
+                         ring, ring_n, fault=None, plan=None,
+                         out_dtype=torch.bfloat16):
+    """The CUDA kernel's arithmetic in PyTorch. Per (slot, kv head), the
+    window splits into spans of ``plan.per`` positions (one CTA each) and
+    the ring is one split more; a split past the live positions does
+    nothing. A split walks its rows in chunks of ``plan.chunk``; warp w of
+    4 owns rows [w, w + 1) * chunk / 4 of each chunk and keeps its own f32
+    online softmax: scores (q . code) * (ks * score_scale), p * vs in f32
+    against the v codes. The warps' (m, l, sums) combine into the split's
+    partial; with one live split it is the output, with more the partials
+    merge in split order (the ring last) with exp(m_i - m) rescaling; an
+    idle slot with no ring gives 0. The output is rounded to ``out_dtype``
+    (bf16, as the kernel's).
+    ``fault`` plants a bug: "lost_chunk" skips positions 512..639,
+    "no_ring" ignores the ring, "no_ks" leaves the key scales out of the
+    scores, "lost_split" leaves the second live split out of the merge,
+    "no_rescale" merges without the exp(m_i - m) factors, "ring_twice"
+    merges the ring's partial twice."""
     B, n_heads, hd = q.shape
     n_kv = kc.shape[1]
     n_rep = n_heads // n_kv
+    R = ring[0].shape[2] if ring_n >= 0 else 0
+    if plan is None:
+        plan = _plan(kv_len, B, n_kv, R, hd)
+    rpw = plan.chunk // 4
     out = torch.zeros(B, n_heads, hd)
-    for b in range(B):
-        live = max(0, min(int(lengths[b]) + 1, kv_len))
-        parts = [(kc[b], ks[b], vc[b], vs[b], c0, min(chunk, live - c0))
-                 for c0 in range(0, live, chunk)
-                 if not (fault == "lost_chunk" and c0 == 512)]
-        if ring_n >= 0 and fault != "no_ring":
-            parts.append((ring[0][b], ring[1][b], ring[2][b], ring[3][b], 0,
-                          ring_n + 1))
-        for hk in range(n_kv):
-            qh = q[b, hk * n_rep:(hk + 1) * n_rep].float()  # (n_rep, hd)
+
+    def split_partial(qh, kcs, kss, vcs, vss, pos):
+        """(m, l, acc) of one split over its rows ``pos`` (n_rep, ...)."""
+        parts = []
+        for w in range(4):
             m = torch.full((n_rep, 1), -1e30)
             l = torch.zeros(n_rep, 1)
             acc = torch.zeros(n_rep, hd)
-            for kcs, kss, vcs, vss, c0, n in parts:
-                k = kcs[hk, c0:c0 + n].float()
-                s = qh @ k.T
-                if fault != "no_ks":
-                    s = s * (kss[hk, c0:c0 + n] * score_scale)
-                else:
-                    s = s * score_scale
+            for c0 in range(0, len(pos), plan.chunk):
+                rows = pos[c0 + w * rpw:c0 + (w + 1) * rpw]
+                if fault == "lost_chunk":
+                    rows = [r for r in rows if not 512 <= r < 640]
+                if not rows:
+                    continue
+                s = qh @ kcs[rows].float().T
+                s = s * (score_scale if fault == "no_ks"
+                         else kss[rows] * score_scale)
                 m_new = torch.maximum(m, s.amax(-1, keepdim=True))
                 alpha = torch.exp(m - m_new)
                 p = torch.exp(s - m_new)
                 l = l * alpha + p.sum(-1, keepdim=True)
-                acc = acc * alpha + (p * vss[hk, c0:c0 + n]) @ vcs[
-                    hk, c0:c0 + n].float()
+                acc = acc * alpha + (p * vss[rows]) @ vcs[rows].float()
                 m = m_new
+            parts.append((m, l, acc))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        a = [torch.exp(m - M) for m, _, _ in parts]
+        return (M, sum(l * f for (_, l, _), f in zip(parts, a)),
+                sum(acc * f for (_, _, acc), f in zip(parts, a)))
+
+    for b in range(B):
+        live = max(0, min(int(lengths[b]) + 1, kv_len))
+        for hk in range(n_kv):
+            qh = q[b, hk * n_rep:(hk + 1) * n_rep].float()
+            parts = [split_partial(qh, kc[b, hk], ks[b, hk], vc[b, hk],
+                                   vs[b, hk], list(range(lo, min(hi, live))))
+                     for lo, hi in plan.spans(kv_len) if lo < live]
+            if ring_n >= 0 and fault != "no_ring":
+                rp = split_partial(qh, ring[0][b, hk], ring[1][b, hk],
+                                   ring[2][b, hk], ring[3][b, hk],
+                                   list(range(min(ring_n + 1, R))))
+                parts += [rp, rp] if fault == "ring_twice" else [rp]
+            if fault == "lost_split" and len(parts) > 2:
+                del parts[1]
+            if not parts:
+                continue
+            if len(parts) == 1:
+                _, l, acc = parts[0]
+            else:
+                M = torch.stack([m for m, _, _ in parts]).amax(0)
+                a = [torch.ones_like(M) if fault == "no_rescale"
+                     else torch.exp(m - M) for m, _, _ in parts]
+                l = sum(pl * f for (_, pl, _), f in zip(parts, a))
+                acc = sum(pa * f for (_, _, pa), f in zip(parts, a))
             out[b, hk * n_rep:(hk + 1) * n_rep] = acc / l.clamp_min(1e-30)
-    return out.bfloat16()
+    return out.to(out_dtype)
 
 
-@pytest.mark.parametrize("fault", [None, "lost_chunk", "no_ring", "no_ks"])
+@pytest.mark.parametrize("fault", [None, "lost_chunk", "no_ring", "no_ks",
+                                   "lost_split", "no_rescale",
+                                   "ring_twice"])
 def test_card_tolerance_admits_rounding_and_rejects_faults(fault):
     """The per-element rule the card holds the CUDA kernel to (2 bf16 ulps
     of each element plus 2^-10) admits the kernel's arithmetic and rejects
-    a kernel that loses a chunk past position 512, ignores the ring, or
-    leaves the key scales out, at a 2048-token window with lengths
-    straddling 1024 and a full ring of 8."""
+    a kernel that loses a chunk past position 512, ignores the ring, leaves
+    the key scales out, drops a split past the first from the merge, merges
+    without rescaling, or merges the ring twice, at a 2048-token window
+    with lengths straddling 1024 and a full ring of 8."""
     q, cache, ring = _inputs(4, 4, 1, 2048, 128, seed=5, R=8)
     tq = torch.from_numpy(q).to(torch.bfloat16)
     tcache = [torch.from_numpy(a) for a in cache]
@@ -136,3 +191,65 @@ def test_card_tolerance_admits_rounding_and_rejects_faults(fault):
     ok, _, worst = tolerance.bf16_close(got, want,
                                         tolerance.DECODE_ATTENTION_SLACK)
     assert ok == (fault is None), worst
+
+
+# (B, n_kv, n_rep, hd, kv_len, R): chip_smoke.py's five cases (engine C's
+# batch 32 at windows 256 and 512, engine D's batch 8 at 2048, with and
+# without its ring of 8), GQA, hd 64, and windows that are not a multiple
+# of a split
+_PLAN_SHAPES = [(32, 32, 1, 128, 256, 0), (32, 32, 1, 128, 512, 0),
+                (8, 32, 1, 128, 2048, 0), (8, 32, 1, 128, 2048, 8),
+                (2, 8, 4, 128, 2048, 8), (4, 2, 8, 128, 1536, 0),
+                (4, 4, 2, 64, 512, 4), (3, 8, 1, 64, 2048, 0),
+                (4, 32, 1, 128, 200, 0), (8, 32, 1, 128, 1536, 0),
+                (1, 1, 1, 128, 1536, 8), (64, 32, 1, 64, 200, 0)]
+
+
+@pytest.mark.parametrize("ctas", [1, 4, 6, 16])
+@pytest.mark.parametrize("B,n_kv,n_rep,hd,kv_len,R", _PLAN_SHAPES)
+def test_plan_covers_the_window_once(B, n_kv, n_rep, hd, kv_len, R, ctas):
+    """The splits tile [0, kv_len) with no gap and no overlap (only the
+    last may be shorter), each a multiple of the kernel's chunk of rows;
+    the ring is a split of its own exactly when there is one; more CTAs an
+    SM never give longer spans. The plan is a function of the shapes and
+    the card: it takes no lengths."""
+    plan = decode_attention_plan(kv_len, B, n_kv, R, hd, 132, ctas)
+    spans = plan.spans(kv_len)
+    assert plan.chunk == decode_chunk(hd) and plan.per % plan.chunk == 0
+    assert len(spans) == plan.win_splits >= 1
+    assert spans[0][0] == 0 and spans[-1][1] == kv_len
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(hi - lo == plan.per for lo, hi in spans[:-1])
+    assert 0 < spans[-1][1] - spans[-1][0] <= plan.per
+    assert plan.ring == (R > 0) and plan.splits == len(spans) + (R > 0)
+    assert plan.per <= decode_attention_plan(kv_len, B, n_kv, R, hd, 132,
+                                             1).per
+    assert "lengths" not in inspect.signature(decode_attention_plan).parameters
+
+
+@pytest.mark.parametrize("hd,n_rep,ring_n", [(128, 1, -1), (128, 2, 3),
+                                             (64, 4, -1), (64, 1, 0)])
+def test_emulation_matches_jax_kernel_on_split_boundaries(hd, n_rep, ring_n):
+    """The kernel's arithmetic (the emulation, at a plan of two-chunk
+    spans) against the JAX kernel in interpret mode, with lengths one
+    short of a split, on it, one short of the second, and an idle slot:
+    rtol 1e-3 of the largest output, as test_matches_jax_kernel."""
+    chunk = decode_chunk(hd)
+    per = 2 * chunk
+    kv_len = 3 * per
+    lengths = [per - 2, per - 1, 2 * per - 1, -1]
+    q, cache, ring = _inputs(4, 2, n_rep, kv_len, hd, seed=hd + ring_n,
+                             R=4 if ring_n >= 0 else 0)
+    ring = ring if ring_n >= 0 else None
+    got_ref, want = _run_both(q, cache, lengths, kv_len, ring, ring_n)
+    plan = DecodeAttnPlan(chunk, per, 3, ring_n >= 0)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    got = _emulate_cuda_kernel(
+        tq, *(torch.from_numpy(a) for a in cache),
+        torch.tensor(lengths, dtype=torch.int32), kv_len, hd ** -0.5,
+        None if ring is None else tuple(torch.from_numpy(a) for a in ring),
+        ring_n, plan=plan, out_dtype=torch.float32).numpy()
+    assert np.isfinite(got).all()
+    if ring_n < 0:
+        assert (got[3] == 0).all()  # the idle slot
+    assert np.abs(got - want).max() < 1e-3 * np.abs(want).max()

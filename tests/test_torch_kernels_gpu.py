@@ -18,10 +18,11 @@ import dataclasses
 import pytest
 import torch
 
-from omniquant_tpu_torch.kernels import kv_update, tolerance
+from omniquant_tpu_torch.kernels import decode_attention, kv_update, tolerance
 from omniquant_tpu_torch.kernels import quant_matmul as qmm
 from omniquant_tpu_torch.kernels.decode_attention import (
-    decode_attention_int8, decode_attention_int8_plain)
+    decode_attention_int8, decode_attention_int8_plain,
+    decode_attention_launch)
 from omniquant_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain)
 from omniquant_tpu_torch.kernels.quant_matmul import (
@@ -437,34 +438,142 @@ def _int8_cache(cuda, B, n_kv, S, hd, gen):
     return codes[0], scales[0], codes[1], scales[1]
 
 
-@pytest.mark.parametrize("B,n_kv,n_rep,kv_len,max_len,lengths,R,ring_n", [
-    (4, 4, 1, 64, 64, [0, 63, 17, 40], 0, -1),
-    (3, 2, 4, 200, 256, [199, 0, 130], 0, -1),     # GQA, ragged window
-    (4, 4, 1, 2048, 2048, [1023, 1024, 2000, 37], 0, -1),
-    (4, 2, 2, 2048, 2048, [-1, 1024, 2046, 500], 8, 0),   # ring, idle slot
-    (4, 2, 2, 2048, 2048, [-1, 1023, 2040, 129], 8, 7),
-])
-def test_decode_attention_int8_kernel(cuda, B, n_kv, n_rep, kv_len, max_len,
-                                      lengths, R, ring_n):
-    gen = torch.Generator(device=cuda).manual_seed(kv_len + R + ring_n)
-    q = torch.randn(B, n_kv * n_rep, 128, generator=gen, device=cuda).to(
+def _decode_inputs(cuda, B, n_kv, n_rep, hd, kv_len, max_len, lengths, R,
+                   ring_n, seed):
+    """q, cache, lengths and ring for a K6 case; lengths "bounds" puts the
+    slots one short of the card's first split, on it, one short of the
+    second, and idle (-1)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, n_kv * n_rep, hd, generator=gen, device=cuda).to(
         torch.bfloat16)
-    cache = _int8_cache(cuda, B, n_kv, max_len, 128, gen)
-    ring = _int8_cache(cuda, B, n_kv, R, 128, gen) if R else None
-    if ring is not None:
-        ring = (ring[0], ring[1], ring[2], ring[3])
+    cache = _int8_cache(cuda, B, n_kv, max_len, hd, gen)
+    ring = _int8_cache(cuda, B, n_kv, R, hd, gen) if R else None
+    if lengths == "bounds":
+        per = decode_attention_launch(cuda, kv_len, B, n_kv, n_rep, hd,
+                                      R if ring_n >= 0 else 0).per
+        lengths = [per - 2, per - 1, 2 * per - 1, -1][:B]
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, cache, lens, ring
+
+
+def _decode_want(q, cache, lens, kv_len, ring, ring_n):
+    """The plain version; an idle slot (lengths -1) with no ring attends
+    nothing and gets 0, as in the Pallas kernel (the plain version's dense
+    softmax over an all-masked row would average the window)."""
+    want = decode_attention_int8_plain(q, *cache, lens, kv_len,
+                                       q.shape[-1] ** -0.5, ring_kv=ring,
+                                       ring_n=ring_n)
+    if ring_n < 0:
+        want[lens < 0] = 0
+    return want
+
+
+@pytest.mark.parametrize(
+    "B,n_kv,n_rep,hd,kv_len,max_len,lengths,R,ring_n", [
+        (4, 4, 1, 128, 64, 64, [0, 63, 17, 40], 0, -1),
+        (3, 2, 4, 128, 200, 256, [199, 0, 130], 0, -1),  # GQA, ragged window
+        (4, 4, 1, 128, 2048, 2048, [1023, 1024, 2000, 37], 0, -1),
+        (4, 2, 2, 128, 2048, 2048, [-1, 1024, 2046, 500], 8, 0),  # ring, idle
+        (4, 2, 2, 128, 2048, 2048, [-1, 1023, 2040, 129], 8, 7),
+        # lengths on the split boundaries, the last slot idle
+        (4, 32, 1, 128, 2048, 2048, "bounds", 0, -1),
+        (4, 32, 1, 128, 2048, 2048, "bounds", 8, 3),
+        (4, 2, 8, 128, 1536, 1536, "bounds", 0, -1),   # n_rep 8
+        (4, 2, 8, 128, 1536, 1536, "bounds", 8, 7),
+        (4, 4, 1, 64, 1536, 1600, "bounds", 0, -1),    # hd 64
+        (4, 2, 3, 64, 1536, 1600, "bounds", 4, 2),
+        (4, 2, 1, 64, 512, 512, [-1, 0, 511, 300], 0, -1),
+        (2, 4, 5, 64, 300, 300, [-1, 299], 4, 3),
+        (32, 32, 1, 128, 256, 512, [-1] + list(range(8, 256, 8)), 0, -1),
+    ])
+def test_decode_attention_int8_kernel(cuda, B, n_kv, n_rep, hd, kv_len,
+                                      max_len, lengths, R, ring_n):
+    """K6 against its plain version (an idle slot without a ring against 0)
+    at hd 128 and 64, 1 to 8 query heads a kv head, windows cut into the
+    card's splits with lengths on their boundaries, and the ring; one
+    launch, counted."""
+    q, cache, lens, ring = _decode_inputs(cuda, B, n_kv, n_rep, hd, kv_len,
+                                          max_len, lengths, R, ring_n,
+                                          kv_len + R + ring_n + hd + n_rep)
     before = decode_attention_int8.launches
-    got = decode_attention_int8(q, *cache, lens, kv_len, 128 ** -0.5,
+    got = decode_attention_int8(q, *cache, lens, kv_len, hd ** -0.5,
                                 ring_kv=ring, ring_n=ring_n)
-    want = decode_attention_int8_plain(q, *cache, lens, kv_len, 128 ** -0.5,
-                                       ring_kv=ring, ring_n=ring_n)
+    want = _decode_want(q, cache, lens, kv_len, ring, ring_n)
     torch.cuda.synchronize()
     assert decode_attention_int8.launches == before + 1
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
     ok, err, worst = tolerance.bf16_close(got, want,
                                           tolerance.DECODE_ATTENTION_SLACK)
     assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("kv_len,R,ring_n", [(2048, 0, -1), (2048, 8, 7),
+                                             (256, 0, -1)])
+def test_decode_attention_int8_is_bitwise_repeatable(cuda, kv_len, R,
+                                                     ring_n):
+    """The partials merge in split order, not in the order the splits
+    finish: two calls on the same inputs give the same bits."""
+    q, cache, lens, ring = _decode_inputs(
+        cuda, 8, 32, 1, 128, kv_len, kv_len,
+        [1023, 1024, 2047, 0, 1500, 512, 1022, -1] if kv_len == 2048
+        else [0, 255, 100, 17, 200, 64, 63, -1], R, ring_n, 21)
+    args = (q, *cache, lens, kv_len, 128 ** -0.5)
+    first = decode_attention_int8(*args, ring_kv=ring, ring_n=ring_n)
+    for _ in range(3):
+        assert torch.equal(decode_attention_int8(*args, ring_kv=ring,
+                                                 ring_n=ring_n), first)
+
+
+def test_decode_attention_int8_leaves_no_stale_ticket(cuda):
+    """The merging split of each (slot, kv head) resets its ticket: a call
+    with idle slots and dead splits, then one of another shape and split
+    count, then the first again, leave the first two calls' outputs equal,
+    every output within its bound and every ticket 0."""
+    big = _decode_inputs(cuda, 8, 32, 1, 128, 2048, 2048,
+                         [-1, 1024, 2047, 0, -1, 512, 63, 1025], 8, 7, 31)
+    small = _decode_inputs(cuda, 4, 8, 4, 128, 1536, 1536, "bounds", 0, -1,
+                           32)
+    plans = [decode_attention_launch(cuda, kv_len, B, n_kv, n_rep, 128, R)
+             for kv_len, B, n_kv, n_rep, R in ((2048, 8, 32, 1, 8),
+                                               (1536, 4, 8, 4, 0))]
+    assert plans[0].splits != plans[1].splits and plans[0].splits > 1
+    ss = 128 ** -0.5
+    first = decode_attention_int8(big[0], *big[1], big[2], 2048, ss,
+                                  ring_kv=big[3], ring_n=7)
+    between = decode_attention_int8(small[0], *small[1], small[2], 1536, ss)
+    again = decode_attention_int8(big[0], *big[1], big[2], 2048, ss,
+                                  ring_kv=big[3], ring_n=7)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for got, (q, cache, lens, ring), kv_len, ring_n in (
+            (first, big, 2048, 7), (between, small, 1536, -1)):
+        ok, err, worst = tolerance.bf16_close(
+            got, _decode_want(q, cache, lens, kv_len, ring, ring_n),
+            tolerance.DECODE_ATTENTION_SLACK)
+        assert ok, (err, worst)
+    assert int(decode_attention._K6_TICKETS[cuda.index or 0].abs().sum()) == 0
+
+
+def test_decode_attention_int8_is_one_launch(cuda):
+    """One call of a split window with a ring runs one kernel on the card:
+    no memset of the tickets, no second pass to merge the splits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, cache, lens, ring = _decode_inputs(
+        cuda, 8, 32, 1, 128, 2048, 2048,
+        [1023, 1024, 2047, 0, 1500, 512, 1022, -1], 8, 7, 41)
+    args = (q, *cache, lens, 2048, 128 ** -0.5)
+    assert decode_attention_launch(cuda, 2048, 8, 32, 1, 128, 8).splits > 1
+    decode_attention_int8(*args, ring_kv=ring, ring_n=7)  # workspace made
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_attention_int8(*args, ring_kv=ring, ring_n=7)
+        torch.cuda.synchronize()
+    on_card = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    assert len(on_card) == 1 and on_card[0][1] == 1, on_card
+    assert "decode_attn_kernel" in on_card[0][0], on_card
 
 
 @pytest.mark.parametrize("span", [1, 3, 8])
