@@ -25,6 +25,10 @@ prints no result. Any failure raises, so the exit code is non-zero.
               W2 and W4 g64 also at m = 128 and 4096). K2 runs causal at
               (8, 32, 1024, 128), the B/D/F prefill's shape, and at
               (2, 32, 4096, 128), the same tokens as a 4x longer prompt.
+              K4 runs on bf16 k+v rows (A) and int8 codes + planes (C),
+              K5 on an 8-row flush at C's and D's batch and window, each
+              beside its empty launch with the same grid (the floor) and
+              its wrapper's host microseconds per call.
 3. serve   -- LLaMA-7B widths and depth (vocab 32000, hidden 4096, inter
               11008, 32 layers, 32/32 heads), random weights from a seeded
               torch.Generator, packed by pack_model's auto layout: W4 g128
@@ -164,6 +168,11 @@ SERVE_PATHS = {
     "H": ("quant_matmul_planar_decode", "quant_matmul_planar_prefill",
           "kv_cache_prefill_write", "kv_cache_write"),
 }
+
+# measurements a kernel's JSON entry carries beside the contract's keys
+EXTRAS = ("prefill", "long_prompt", "int_mm_ms", "kernel_ms",
+          "generic_kernel_ms", "verify", "widths", "floor_ms", "host_us",
+          "cases")
 
 # e2e tolerance on logits, relative to the reference's rms / max magnitude:
 # the engine rounds activations to bf16 at every op (2^-9 relative each)
@@ -565,25 +574,111 @@ def check_flash(torch, device, timer, dims) -> dict:
     return row
 
 
-def check_kv(torch, device, timer, dims, out: dict) -> tuple:
-    """K3 on a 32 x 128 prefill, K4 on the bf16 k+v rows of a decode step
-    and on the int8 codes and scale planes of one (one launch each), K5 on
-    an 8-row ring flush of codes and planes (one launch): all exact."""
-    from omniquant_tpu_torch.kernels.kv_update import (
-        kv_cache_prefill_write, kv_cache_prefill_write_plain, kv_cache_write,
-        kv_cache_write_plain, kv_cache_write_span, kv_cache_write_span_plain)
+def host_us(torch, fn, calls=300, repeats=5) -> float:
+    """Host microseconds per call of ``fn``: the median of ``repeats`` runs
+    of ``calls`` calls queued behind a device sleep (so no call waits on the
+    device), timed with time.perf_counter."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda._sleep(Timer.SLEEP_CYCLES * 8)  # ~80 ms
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(runs)[len(runs) // 2]
 
+
+def kv_row_cases(torch, device, dims) -> dict:
+    """The K4/K5 calls of the serving path at 7B widths, made from a fixed
+    seed: label -> (span or None for K4, caches, new rows, lengths). K4 on
+    engine A's bf16 k+v rows and on engine C's int8 codes and scale planes;
+    K5 on the 8-row ring flush of C (batch 32 into a 512 cache) and of D
+    (batch 8 into a 2048 cache)."""
     B, Hh, S, D = dims["batch"], dims["heads"], dims["max_len"], 128
-    Sp, span = dims["prompt_len"], dims["ring"]
-    gen = torch.Generator(device=device).manual_seed(7)
+    span = dims["ring"]
+    Bd, Sd = dims["flash_batch"], 2 * dims["flash_len"]
+    gen = torch.Generator(device=device).manual_seed(8)
 
-    def rnd(*shape):
+    def bf16(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(
             torch.bfloat16)
 
     def codes(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=device,
                              dtype=torch.int8)
+
+    def int8(*lead, S_=None):
+        """codes and planes: caches (lead, S_, D) if S_ else new rows."""
+        if S_ is not None:
+            lead = lead + (S_,)
+        p = [torch.rand(*lead, generator=gen, device=device)
+             for _ in range(2)]
+        return [codes(*lead, D), codes(*lead, D)] + p
+
+    def starts(B_, S_, n):
+        return torch.randint(0, S_ - n + 1, (B_,), generator=gen,
+                             device=device, dtype=torch.int32)
+
+    lengths = starts(B, S, 1)
+    c_caches = int8(B, Hh, S_=S)
+    return {
+        f"bf16 k+v rows {(B, Hh, D)}": (
+            None, [bf16(B, Hh, S, D), bf16(B, Hh, S, D)],
+            [bf16(B, Hh, D), bf16(B, Hh, D)], lengths),
+        f"int8 k+v codes {(B, Hh, D)} + k+v scales {(B, Hh)}": (
+            None, c_caches, int8(B, Hh), lengths),
+        f"int8 k+v codes {(B, Hh, span, D)} + k+v scales {(B, Hh, span)}": (
+            span, c_caches, int8(B, Hh, span), starts(B, S, span)),
+        f"int8 k+v codes {(Bd, Hh, span, D)} + k+v scales "
+        f"{(Bd, Hh, span)}": (
+            span, int8(Bd, Hh, S_=Sd), int8(Bd, Hh, span),
+            starts(Bd, Sd, span)),
+    }
+
+
+def kv_times(torch, device, dims, timer) -> dict:
+    """Device ms (``timer``) and host microseconds per call (``host_us``) of
+    ``kv_cache_write`` and ``kv_cache_write_span`` on each of
+    ``kv_row_cases``. It calls only those public entry points, so it times
+    whichever tree's package is first on sys.path (a parent checkout's,
+    beside this script's)."""
+    from omniquant_tpu_torch.kernels.kv_update import (kv_cache_write,
+                                                       kv_cache_write_span)
+
+    res = {}
+    for label, (span, caches, news, lengths) in kv_row_cases(
+            torch, device, dims).items():
+        writer = kv_cache_write if span is None else kv_cache_write_span
+
+        def call():
+            writer(caches, news, lengths)
+
+        res[label] = dict(ms=timer(call, f"{writer.__name__} {label}"),
+                          host_us=host_us(torch, call))
+    return res
+
+
+def check_kv(torch, device, timer, dims, out: dict) -> tuple:
+    """K3 on a 32 x 128 prefill; K4 and K5 on ``kv_row_cases``: one launch
+    each, all exact. Kernel and host times per call are ``kv_times``';
+    each case also times the empty launch with the kernel's grid
+    (``kv_write_rows_empty``: the floor no launch of that size beats)."""
+    from omniquant_tpu_torch.kernels import _build
+    from omniquant_tpu_torch.kernels.kv_update import (
+        _row_args, kv_cache_prefill_write, kv_cache_prefill_write_plain,
+        kv_cache_write, kv_cache_write_plain, kv_cache_write_span,
+        kv_cache_write_span_plain)
+
+    B, Hh, S, D = dims["batch"], dims["heads"], dims["max_len"], 128
+    Sp = dims["prompt_len"]
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(
+            torch.bfloat16)
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -616,66 +711,55 @@ def check_kv(torch, device, timer, dims, out: dict) -> tuple:
         f"{tuple(cache.shape)}: exact  kernel {t3:.4f} ms  plain "
         f"{t3p:.4f}  slice-assign {t3l:.4f}  bound {b3:.4f}")
     del a, b_, cache, new
+    k3 = dict(ms=t3, plain_ms=t3p, library_ms=t3l, bound_ms=b3,
+              bound_by=by3, max_abs_err=err3,
+              shape=f"new {(B, Hh, Sp, D)} -> cache {(B, Hh, S, D)}")
 
-    ar = torch.arange(B, device=device)
-
-    def write_case(name, bufs, news, lengths, writer, plain, label):
-        """Kernel vs plain (exact), then device times of the kernel, the
-        plain version and one indexed assignment per buffer."""
+    times = kv_times(torch, device, dims, timer)
+    rows = {}
+    for label, (span, bufs, news, lengths) in kv_row_cases(
+            torch, device, dims).items():
+        # kernel vs plain (exact), then device times of the empty launch,
+        # the plain version and one indexed assignment per buffer
+        name, writer, plain = (
+            ("kv_cache_write", kv_cache_write, kv_cache_write_plain)
+            if span is None else ("kv_cache_write_span", kv_cache_write_span,
+                                  kv_cache_write_span_plain))
         mine = [t.clone() for t in bufs]
         ref = [t.clone() for t in bufs]
         writer(mine, news, lengths)
         for r, n in zip(ref, news):
             plain(r, n, lengths)
         err = exact(name, mine, ref)
-        span_ = news[0].shape[2] if name == "kv_cache_write_span" else 1
-        pos = lengths.long()[:, None] + torch.arange(span_, device=device)
+        ar = torch.arange(lengths.shape[0], device=device)
+        pos = lengths.long()[:, None] + torch.arange(span or 1, device=device)
 
         def lib():
             for c, n in zip(mine, news):
-                n = n if span_ > 1 else n.unsqueeze(2)
+                n = n if span else n.unsqueeze(2)
                 c[ar[:, None], :, pos] = n.transpose(1, 2)
 
-        t = timer(lambda: writer(mine, news, lengths), name + " " + label)
+        args, held = _row_args(mine, news, lengths, span)
+        t, hu = times[label]["ms"], times[label]["host_us"]
+        tf = timer(lambda: _build.launch("kv_update", "kv_write_rows_empty",
+                                         "b", args),
+                   f"{name} {label} empty launch")
         tp = timer(lambda: [plain(r, n, lengths) for r, n in zip(ref, news)],
-                   name + " " + label + " plain")
-        tl = timer(lib, name + " " + label + " library")
+                   f"{name} {label} plain")
+        tl = timer(lib, f"{name} {label} library")
         b, by = bound_ms(2 * nbytes(news), 0)
-        log(f"  {name} {label}: exact  kernel {t:.4f} ms  plain {tp:.4f}  "
-            f"index-assign {tl:.4f}  bound {b:.6f}")
-        return dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
-                    bound_by=by, max_abs_err=err,
-                    shape=f"{label} -> caches of {tuple(bufs[0].shape)}")
-
-    lengths = torch.randint(0, S, (B,), generator=gen, device=device,
-                            dtype=torch.int32)
-    k4_bf16 = write_case(
-        "kv_cache_write", [rnd(B, Hh, S, D), rnd(B, Hh, S, D)],
-        [rnd(B, Hh, D), rnd(B, Hh, D)], lengths, kv_cache_write,
-        kv_cache_write_plain, f"bf16 k+v rows {(B, Hh, D)}")
+        log(f"  {name} {label}: exact  kernel {t:.4f} ms  empty launch "
+            f"{tf:.4f}  plain {tp:.4f}  index-assign {tl:.4f}  bound "
+            f"{b:.6f}  host {hu:.2f} us/call")
+        rows[label] = dict(
+            ms=t, floor_ms=tf, plain_ms=tp, library_ms=tl, bound_ms=b,
+            bound_by=by, max_abs_err=err, host_us=hu,
+            shape=f"{label} -> caches of {tuple(bufs[0].shape)}")
+        del mine, ref, args, held
+    k4_bf16, k4, k5, k5_d = rows.values()
     out["kv_cache_write_bf16"] = k4_bf16
-    int8_bufs = [codes(B, Hh, S, D), codes(B, Hh, S, D),
-                 torch.rand(B, Hh, S, generator=gen, device=device),
-                 torch.rand(B, Hh, S, generator=gen, device=device)]
-    k4 = write_case(
-        "kv_cache_write", int8_bufs,
-        [codes(B, Hh, D), codes(B, Hh, D),
-         torch.rand(B, Hh, generator=gen, device=device),
-         torch.rand(B, Hh, generator=gen, device=device)],
-        lengths, kv_cache_write, kv_cache_write_plain,
-        f"int8 k+v codes {(B, Hh, D)} + k+v scales {(B, Hh)}")
-    base = torch.randint(0, S - span + 1, (B,), generator=gen, device=device,
-                         dtype=torch.int32)
-    k5 = write_case(
-        "kv_cache_write_span", int8_bufs,
-        [codes(B, Hh, span, D), codes(B, Hh, span, D),
-         torch.rand(B, Hh, span, generator=gen, device=device),
-         torch.rand(B, Hh, span, generator=gen, device=device)],
-        base, kv_cache_write_span, kv_cache_write_span_plain,
-        f"int8 k+v codes {(B, Hh, span, D)} + k+v scales {(B, Hh, span)}")
-    k3 = dict(ms=t3, plain_ms=t3p, library_ms=t3l, bound_ms=b3,
-              bound_by=by3, max_abs_err=err3,
-              shape=f"new {(B, Hh, Sp, D)} -> cache {(B, Hh, S, D)}")
+    k4["cases"] = {"bf16": k4_bf16}
+    k5["cases"] = {f"b{dims['flash_batch']}_s{2 * dims['flash_len']}": k5_d}
     return k3, k4, k5
 
 
@@ -1660,16 +1744,7 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             tolerance=tol, shape=r["shape"],
-            **({"prefill": r["prefill"]} if "prefill" in r else {}),
-            **({"long_prompt": r["long_prompt"]}
-               if "long_prompt" in r else {}),
-            **({"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {}),
-            **({"kernel_ms": r["kernel_ms"]} if "kernel_ms" in r else {}),
-            **({"generic_kernel_ms": r["generic_kernel_ms"]}
-               if "generic_kernel_ms" in r else {}),
-            **({"verify": r["verify"]} if "verify" in r else {}),
-            **({"widths": r["widths"]} if "widths" in r else {}),
-            **({"cases": r["cases"]} if "cases" in r else {})))
+            **{k: r[k] for k in EXTRAS if k in r}))
     out["kernels"] = entries
     out["total_s"] = time.time() - t_start
     log(f"total {out['total_s']:.1f} s")

@@ -99,12 +99,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "b": ctypes.c_char_p}
 
 
 def fn(name: str, symbol: str, signature: str):
     """ctypes function csrc/<name>.cu::<symbol>. ``signature`` spells its
-    arguments before the trailing stream: 'p' pointer, 'i' int, 'f' float.
+    arguments before the trailing stream: 'p' pointer, 'i' int, 'f' float,
+    'b' a bytes object (passed by the address of its contents).
     Pointers and the stream must be passed as Python ints; a pointer left to
     ctypes' default conversion would be cut to 32 bits."""
     f = getattr(load(name), symbol)
@@ -119,7 +121,9 @@ def launch(name: str, symbol: str, signature: str, *args) -> None:
     launch was refused."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current stream's handle without building a torch.cuda.Stream
+    # (which costs microseconds of host time a launch)
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
     err = fn(name, symbol, signature)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}.{symbol}: CUDA error {err} at launch")

@@ -20,8 +20,8 @@ codes and both planes.
 """
 from __future__ import annotations
 
-import ctypes
 import math
+import struct
 from typing import Sequence
 
 import torch
@@ -117,46 +117,98 @@ def kv_cache_write_span_plain(cache: torch.Tensor, new: torch.Tensor,
 scale_plane_write_span = kv_cache_write_span_plain
 
 
-def _check_buffers(caches, news, span: int) -> None:
+def _lead(bhs: tuple, span) -> tuple:
+    """The leading dims of a K4 (``span`` None) or K5 call's new rows."""
+    return bhs[:2] if span is None else bhs[:2] + (span,)
+
+
+def _check_buffers(caches, news, span) -> None:
     """Shapes of a K4/K5 call: 1..4 caches sharing (B, H, S), each a value
-    cache (B, H, S, D) with news (B, H, span, D) or a plane (B, H, S) with
-    news (B, H, span)."""
+    cache (B, H, S, D) whose news are lead + (D,) or a plane (B, H, S) whose
+    news are lead; lead is (B, H) for K4 (``span`` None) and (B, H, span)
+    for K5."""
     if not 1 <= len(caches) == len(news) <= MAX_BUFFERS:
         raise ValueError(f"takes 1 to {MAX_BUFFERS} caches and as many "
                          "new-row tensors")
-    B, H, S = caches[0].shape[:3]
+    bhs = tuple(caches[0].shape)[:3]
     for cache, new in zip(caches, news):
-        want = (B, H, span) + tuple(cache.shape[3:])
-        if tuple(cache.shape[:3]) != (B, H, S) or tuple(new.shape) != want:
-            raise ValueError(f"new rows {tuple(new.shape)} do not fit cache "
-                             f"{tuple(cache.shape)} (span {span})")
+        _check_shape(tuple(cache.shape), new, bhs, _lead(bhs, span))
 
 
-def _launch_rows(caches, news, lengths, span: int) -> None:
-    """One launch of csrc/kv_update.cu's row writer over every buffer."""
-    B, H, S = caches[0].shape[:3]
-    news = [new.contiguous() for new in news]
-    for cache, new in zip(caches, news):
-        if not (cache.is_cuda and new.is_cuda):
-            raise ValueError("caches and new rows must all lie on the card")
-        if cache.dtype != new.dtype:
-            raise ValueError(f"dtype mismatch: cache {cache.dtype}, new "
+def _check_shape(shape: tuple, new, bhs: tuple, lead: tuple) -> None:
+    if shape[:3] != bhs or new.shape != lead + shape[3:]:
+        raise ValueError(f"new rows {tuple(new.shape)} do not fit cache "
+                         f"{shape} (want {lead + shape[3:]})")
+
+
+# csrc/kv_update.cu::RowArgs, kv_write_rows' one argument: 4 sources, 4
+# caches, 4 row sizes in bytes (0: no buffer), lengths, B, H, S, span, as
+# int64 (one bytes object costs the host less to pass than 17 scalars)
+_ROW_ARGS = struct.Struct("17q")
+
+
+def _row_args(caches, news, lengths, span) -> tuple:
+    """Check a K4 (``span`` None) or K5 call on the card; return
+    kv_write_rows' packed arguments and the tensors they point to that the
+    caller must hold until the launch is queued.
+
+    Every check that guards a wrong write: the shapes (as
+    ``_check_buffers``, in the same single pass over the buffers that
+    gathers the pointers: the host's time per call is most of a row
+    write's cost), each cache contiguous, each new-rows tensor of its
+    cache's dtype, all of them and ``lengths`` (B,) on one card, and each
+    source below 2^31 elements (the kernel's source index is 32-bit). A
+    new-rows tensor that is not contiguous is copied, and ``lengths`` made
+    int32 where it is not."""
+    n = len(caches)
+    if not 1 <= n == len(news) <= MAX_BUFFERS:
+        raise ValueError(f"takes 1 to {MAX_BUFFERS} caches and as many "
+                         "new-row tensors")
+    B, H, S = bhs = tuple(caches[0].shape)[:3]
+    lead = _lead(bhs, span)
+    span = 1 if span is None else span
+    dev = caches[0].get_device()
+    if dev < 0:
+        raise ValueError("caches and new rows must all lie on one card")
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the grid's 65535 slots")
+    args = [0] * (3 * MAX_BUFFERS)  # sources, caches, row bytes
+    held = []
+    for k in range(n):
+        cache, new = caches[k], news[k]
+        shape = tuple(cache.shape)
+        _check_shape(shape, new, bhs, lead)
+        if cache.get_device() != dev or new.get_device() != dev:
+            raise ValueError("caches and new rows must all lie on one card")
+        dtype = cache.dtype
+        if new.dtype != dtype:
+            raise ValueError(f"dtype mismatch: cache {dtype}, new "
                              f"{new.dtype}")
         if not cache.is_contiguous():
             raise ValueError("a cache must be contiguous (written in place)")
-    n = len(caches)
-    pad = [0] * (MAX_BUFFERS - n)
-    srcs = (ctypes.c_void_p * MAX_BUFFERS)(
-        *[t.data_ptr() for t in news], *pad)
-    dsts = (ctypes.c_void_p * MAX_BUFFERS)(
-        *[t.data_ptr() for t in caches], *pad)
-    row_bytes = (ctypes.c_int * MAX_BUFFERS)(
-        *[math.prod(c.shape[3:]) * c.element_size() for c in caches], *pad)
-    lens = lengths.to(device=caches[0].device, dtype=torch.int32).contiguous()
-    _build.launch("kv_update", "kv_write_rows", "pppipiiii",
-                  ctypes.addressof(srcs), ctypes.addressof(dsts),
-                  ctypes.addressof(row_bytes), n, lens.data_ptr(), B, H, S,
-                  span)
+        if not new.is_contiguous():
+            new = new.contiguous()
+            held.append(new)
+        row = math.prod(shape[3:])
+        if B * H * span * row >= 1 << 31:
+            raise ValueError("new rows of 2^31 elements or more")
+        args[k] = new.data_ptr()
+        args[MAX_BUFFERS + k] = cache.data_ptr()
+        args[2 * MAX_BUFFERS + k] = row * dtype.itemsize
+    if (lengths.dtype != torch.int32 or lengths.get_device() != dev
+            or not lengths.is_contiguous()):
+        lengths = lengths.to(device=caches[0].device,
+                             dtype=torch.int32).contiguous()
+        held.append(lengths)
+    if lengths.dim() != 1 or len(lengths) != B:
+        raise ValueError(f"lengths {tuple(lengths.shape)} for {B} slots")
+    return _ROW_ARGS.pack(*args, lengths.data_ptr(), B, H, S, span), held
+
+
+def _launch_rows(caches, news, lengths, span) -> None:
+    """One launch of csrc/kv_update.cu's row writer over every buffer."""
+    args, _held = _row_args(caches, news, lengths, span)
+    _build.launch("kv_update", "kv_write_rows", "b", args)
 
 
 def kv_cache_write(caches: Sequence[torch.Tensor],
@@ -168,14 +220,14 @@ def kv_cache_write(caches: Sequence[torch.Tensor],
     whose news are (B, H, D) (the "rows" kind), and scale planes (B, H, S),
     whose news are (B, H) (the "flat" kind); lengths: (B,) int32, the
     position written for each slot. On the card one launch writes every
-    cache. Returns the caches."""
-    spans = [new.unsqueeze(2) for new in news]
-    _check_buffers(caches, spans, 1)
-    if not caches[0].is_cuda:
+    cache (a (B, H, D) row is a span of one row in memory). Returns the
+    caches."""
+    if caches and not caches[0].is_cuda:
+        _check_buffers(caches, news, None)
         for cache, new in zip(caches, news):
             kv_cache_write_plain(cache, new, lengths)
         return tuple(caches)
-    _launch_rows(caches, spans, lengths, 1)
+    _launch_rows(caches, news, lengths, None)
     kv_cache_write.launches += 1
     return tuple(caches)
 
@@ -193,8 +245,8 @@ def kv_cache_write_span(caches: Sequence[torch.Tensor],
     lengths[b] + j, or is dropped where that lies outside [0, S). On the
     card one launch writes every cache. Returns the caches."""
     span = news[0].shape[2]
-    _check_buffers(caches, news, span)
-    if not caches[0].is_cuda:
+    if caches and not caches[0].is_cuda:
+        _check_buffers(caches, news, span)
         for cache, new in zip(caches, news):
             kv_cache_write_span_plain(cache, new, lengths)
         return tuple(caches)

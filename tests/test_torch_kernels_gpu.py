@@ -576,25 +576,20 @@ def test_decode_attention_int8_is_one_launch(cuda):
     assert "decode_attn_kernel" in on_card[0][0], on_card
 
 
-@pytest.mark.parametrize("span", [1, 3, 8])
-def test_kv_write_mixed_kinds_and_span_exact(cuda, span):
-    """K4 (span 1) and K5 write int8 codes, bf16 rows and f32 scale planes
-    of mixed row sizes in one launch each, exactly as their plain
-    versions; rows past the cache or before it are dropped."""
-    B, H, S, D = 4, 3, 40, 128
-    gen = torch.Generator(device=cuda).manual_seed(span)
-    kc, ks, vc, vs = _int8_cache(cuda, B, H, S, D, gen)
-    vb = torch.randn(B, H, S, D, generator=gen, device=cuda).to(
-        torch.bfloat16)
-    bufs = (kc, vb, ks, vs)
-    news = (torch.randint(-127, 128, (B, H, span, D), generator=gen,
-                          device=cuda, dtype=torch.int8),
-            torch.randn(B, H, span, D, generator=gen, device=cuda).to(
-                torch.bfloat16),
-            torch.rand(B, H, span, generator=gen, device=cuda),
-            torch.rand(B, H, span, generator=gen, device=cuda))
-    lengths = torch.tensor([0, S - 2, -1, 17], dtype=torch.int32,
-                           device=cuda)
+def _offset_view(t, offset_bytes):
+    """A contiguous copy of ``t`` whose address is ``offset_bytes`` past a
+    16-byte boundary."""
+    n = offset_bytes // t.element_size()
+    flat = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    view = flat[n:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset_bytes
+    return view
+
+
+def _kv_write_exact(bufs, news, lengths, span):
+    """K4 (span 1) or K5 on ``bufs`` against the plain span write: exact,
+    one launch."""
     plain = [b.clone() for b in bufs]
     for p, n in zip(plain, news):
         kv_update.kv_cache_write_span_plain(p, n, lengths)
@@ -610,6 +605,68 @@ def test_kv_write_mixed_kinds_and_span_exact(cuda, span):
     assert count == 1
     for got, want in zip(bufs, plain):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("span", [1, 3, 8])
+def test_kv_write_mixed_kinds_and_span_exact(cuda, span):
+    """K4 (span 1) and K5 write int8 codes, bf16 rows and f32 scale planes
+    of mixed row sizes in one launch each, exactly as their plain
+    versions; rows past the cache or before it are dropped, and a span
+    that crosses the cache's end is cut there. Then hd 64 rows (int8 and
+    bf16) and a plane from sources whose addresses force units of 1, 2 and
+    8 bytes."""
+    B, H, S, D = 6, 3, 40, 128
+    gen = torch.Generator(device=cuda).manual_seed(span)
+    kc, ks, vc, vs = _int8_cache(cuda, B, H, S, D, gen)
+    vb = torch.randn(B, H, S, D, generator=gen, device=cuda).to(
+        torch.bfloat16)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                             dtype=torch.int8)
+
+    def bf16(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    news = (codes(B, H, span, D), bf16(B, H, span, D),
+            torch.rand(B, H, span, generator=gen, device=cuda),
+            torch.rand(B, H, span, generator=gen, device=cuda))
+    lengths = torch.tensor([0, S - 2, -1, 17, S, S - 1], dtype=torch.int32,
+                           device=cuda)
+    _kv_write_exact((kc, vb, ks, vs), news, lengths, span)
+    # hd 64 caches; sources 1, 2 and 8 bytes past a 16-byte boundary
+    c64, b64 = codes(B, H, S, 64), bf16(B, H, S, 64)
+    plane = torch.rand(B, H, S, generator=gen, device=cuda)
+    news = (_offset_view(codes(B, H, span, 64), 1),
+            _offset_view(bf16(B, H, span, 64), 2),
+            _offset_view(codes(B, H, span, 64), 8),
+            torch.rand(B, H, span, generator=gen, device=cuda))
+    _kv_write_exact((c64, b64, codes(B, H, S, 64), plane), news, lengths,
+                    span)
+
+
+def test_kv_writes_do_not_synchronize(cuda):
+    """K4 and K5 calls with int32 lengths on the card queue their launch
+    without a host synchronisation."""
+    B, H, S, D = 4, 2, 32, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    bufs = _int8_cache(cuda, B, H, S, D, gen)
+    bufs = (bufs[0], bufs[2], bufs[1], bufs[3])
+    rows = (torch.zeros(B, H, D, dtype=torch.int8, device=cuda),
+            torch.zeros(B, H, D, dtype=torch.int8, device=cuda),
+            torch.ones(B, H, device=cuda), torch.ones(B, H, device=cuda))
+    spans = tuple(torch.stack([r] * 4, dim=2) for r in rows)
+    lengths = torch.tensor([0, 5, S - 2, S], dtype=torch.int32, device=cuda)
+    kv_update.kv_cache_write(bufs, rows, lengths)  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kv_update.kv_cache_write(bufs, rows, lengths)
+        kv_update.kv_cache_write_span(bufs, spans, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_int8_engine_on_the_card_matches_plain_versions(cuda):
