@@ -69,7 +69,20 @@ prints no result. Any failure raises, so the exit code is non-zero.
               (rms and largest error, cosine, norm ratio), and at 4 x 512
               the same engines on the CPU (every plain version) showing the
               same error.
-5. profile -- last, so that no timed run follows a profiler session: A and
+5. calibrate -- block-wise LWC/LET calibration (calib/engine.py, plain
+              PyTorch with autograd, f32, TF32 off) of LLaMA-7B widths at
+              2 layers on 16 synthetic 2048-token windows, 2 epochs: (a)
+              W4A16 g128 with LWC, (b) W4A4 per-channel with LWC + LET after
+              collect_act_stats, each freed before the next. Seconds a train
+              step, fp and propagation passes per layer, the phase's seconds
+              and peak memory; then five checks: finite, falling losses;
+              nearer the fp model than round-to-nearest on 4 held-out
+              windows; the folded blocks equal the trained weights' forward;
+              pack_model's words dequantize to the folded weights bit for
+              bit; LlamaEngine on the packed model (16 x 128 prompts,
+              step_n(., 8): K1, K3, K4, and K8 + K9 for W4A4) against a
+              plain f32 forward at the e2e tolerances.
+6. profile -- last, so that no timed run follows a profiler session: A and
               E rebuilt on a fresh W4 model, prefilled as in serve, two
               step_n(., 8) on the host clock, then one under torch.profiler:
               the device's busy share of a decode step, the kernel launches
@@ -1616,6 +1629,303 @@ def e2e_int(torch, device, cfg, seed, abits, held):
 
 
 # ---------------------------------------------------------------------------
+# calibrate phase: name -> CalibConfig keywords. (a) the headline W4A16 g128
+# with LWC; (b) W4A4 per-channel with LWC + LET, its act stats first. The
+# paper's recipe is 128 windows x 20 epochs; here 16 x 2.
+CALIB_RUNS = {
+    "a_w4a16g128_lwc": dict(wbits=4, abits=16, group_size=128, lwc=True,
+                            epochs=2, batch_size=1, lwc_lr=1e-2),
+    "b_w4a4_lwc_let": dict(wbits=4, abits=4, lwc=True, let=True, epochs=2),
+}
+CALIB_NSAMPLES, CALIB_SEQLEN, CALIB_HELD_OUT = 16, 2048, 4
+# kernels the calibrated model's engine must launch (16 x 128 prompts: the
+# prefill is m = 2048, the integer dense route for W4A4)
+CALIB_PATHS = {
+    "a_w4a16g128_lwc": ("quant_matmul", "quant_matmul_prefill",
+                        "kv_cache_prefill_write", "kv_cache_write"),
+    "b_w4a4_lwc_let": ("_unpack_to_int8", "_quant_matmul_int_dense",
+                       "quant_matmul", "kv_cache_prefill_write",
+                       "kv_cache_write"),
+}
+
+
+def calibrate_phase(torch, device, cfg, seed, out: dict) -> None:
+    """Block-wise calibration of a full-width LLaMA (random weights from a
+    seeded generator, cfg's depth) on synthetic 2048-token windows, once
+    per CALIB_RUNS entry, each freed before the next (calibrate_run)."""
+    from omniquant_tpu_torch.calib import get_synthetic, sample_windows
+    from omniquant_tpu_torch.models import llama
+
+    gen = torch.Generator(device=device).manual_seed(seed + 15)
+    dense = llama.init_params(gen, cfg, dtype=torch.float32, device=device)
+    train, test = get_synthetic(CALIB_NSAMPLES, seed, CALIB_SEQLEN,
+                                vocab_size=cfg.vocab_size)
+    held = sample_windows(test, CALIB_HELD_OUT, seed + 1, CALIB_SEQLEN)
+    res = out["calibrate"] = {}
+    for name, kw in CALIB_RUNS.items():
+        res[name] = calibrate_run(torch, device, cfg, dense, train, held,
+                                  name, kw, seed)
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
+
+
+def _chain(torch, cfg, layers, x, spec):
+    """x through ``layers`` (one window), the blocks' activation
+    quantizers at ``spec``."""
+    from omniquant_tpu_torch.models import llama
+    from omniquant_tpu_torch.models.common import causal_mask
+
+    s = x.shape[1]
+    mask = causal_mask(s, s, device=x.device)
+    pos = torch.arange(s, device=x.device)
+    for layer in layers:
+        x, _ = llama.block_forward(layer, x, cfg, mask, pos, spec)
+    return x
+
+
+def _without_biases(tree):
+    """``tree`` with every "bias" entry None."""
+    if isinstance(tree, dict):
+        return {k: None if k == "bias" else _without_biases(v)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_without_biases(v) for v in tree]
+    return tree
+
+
+def _held_with_biases(torch, cfg, name, ref_params, full, served, length,
+                      gaps) -> list:
+    """A pack with LET biases served with 16-bit activations (``served``:
+    prefill and first decode logits) against the plain f32 forward at
+    E2E_TOL; the same forward without the biases must fall outside that
+    bound, so a dropped bias would fail. Returns the failed checks."""
+    from omniquant_tpu_torch.models import llama
+
+    with torch.no_grad():
+        ref = llama.forward(ref_params, full, cfg)
+        bare = llama.forward(_without_biases(ref_params), full, cfg)
+    failed = []
+    for what, got, i in (("prefill", served[0], length - 1),
+                         ("decode", served[1], length)):
+        gap = gaps[f"a16_{what}"] = logit_gap(got, ref[:, i])
+        gap["without_biases"] = logit_gap(bare[:, i], ref[:, i])
+        log(f"  calibrate {name} served with 16-bit activations, {what} "
+            f"logits: rms rel err {gap['rms_rel']:.3g}, max rel err "
+            f"{gap['max_rel']:.3g} (tol {E2E_TOL['rms']}, "
+            f"{E2E_TOL['max']}); the forward without the LET biases: rms "
+            f"rel {gap['without_biases']['rms_rel']:.3g}, max rel "
+            f"{gap['without_biases']['max_rel']:.3g}")
+        if not gap_within(gap, E2E_TOL):
+            failed.append(f"a16 {what}")
+        if gap_within(gap["without_biases"], E2E_TOL):
+            failed.append(f"a16 {what}: the bound admits dropped biases")
+    return failed
+
+
+def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
+                  seed) -> dict:
+    """calibrate on a copy of ``dense``'s blocks, then five checks, any
+    failure raising: (1) every loss finite, each layer's last epoch below
+    its first; (2) on the held-out windows the last block's output is
+    nearer the fp model's (MSE) than round-to-nearest's; (3) each folded
+    block gives, on one window, the output of effective_block_weights with
+    the final trainables; (4) pack_model's words dequantize to the folded
+    weights bit for bit; (5) LlamaEngine on the packed model, 16 x 128
+    prompts and step_n(., 8): prefill and first decode logits against a
+    plain f32 forward of the packed model (E2E_TOL; W4A4 as e2e_int) and
+    every kernel of CALIB_PATHS launched; a W4A4 pack is also served with
+    16-bit activations and held at E2E_TOL (_held_with_biases)."""
+    import dataclasses
+    import statistics
+
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.calib import (
+        CalibConfig, calibrate, collect_act_stats)
+    from omniquant_tpu_torch.models import LLAMA, llama
+    from omniquant_tpu_torch.models.common import NO_ACT_QUANT
+    from omniquant_tpu_torch.quant import dequantize_packed
+    from omniquant_tpu_torch.serving import LlamaEngine, pack_model
+    from omniquant_tpu_torch.serving.engine import _to_engine
+
+    cc = CalibConfig(nsamples=CALIB_NSAMPLES, **kw)
+    wcfg, spec = cc.weight_quant_config, cc.act_quant_spec
+    params = dict(dense, layers=[
+        {k: {n: (None if t is None else t.clone()) for n, t in v.items()}
+         for k, v in b.items()} for b in dense["layers"]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    stats = (collect_act_stats(LLAMA, params, cfg, train, device=device)
+             if cc.let else (None, None))
+    torch.cuda.synchronize()
+    stats_s = time.time() - t0
+    losses, timings = [], {}
+    params, omni = calibrate(
+        LLAMA, params, cfg, train, cc, *stats,
+        progress_cb=lambda i, e, l: losses.append((i, e, l)), device=device,
+        timings=timings)
+    torch.cuda.synchronize()
+    res = dict(
+        config=kw, nsamples=CALIB_NSAMPLES, seqlen=CALIB_SEQLEN,
+        layers=cfg.num_hidden_layers, phase_s=time.time() - t0,
+        act_stats_s=stats_s,
+        step_s=statistics.median(timings["step_s"][1:]),
+        first_step_s=timings["step_s"][0], steps=len(timings["step_s"]),
+        fp_pass_s=timings["fp_pass_s"], propagate_s=timings["propagate_s"],
+        layer_s=timings["layer_s"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        losses=losses)
+    del stats
+    log(f"  calibrate {name}: {res['steps']} steps, {res['step_s']:.4f} s a "
+        f"step (median after the first; first {res['first_step_s']:.3f} s); "
+        f"fp pass " + ", ".join(f"{t:.3f}" for t in res["fp_pass_s"])
+        + " s, propagation " + ", ".join(f"{t:.3f}" for t in
+                                         res["propagate_s"])
+        + f" s a layer; act stats {stats_s:.2f} s; phase "
+        f"{res['phase_s']:.1f} s; peak {res['peak_gib']:.2f} GiB")
+    log(f"  calibrate {name} losses (layer, epoch, mean): " + ", ".join(
+        f"({i}, {e}, {l:.6e})" for i, e, l in losses))
+
+    # (1) finite and falling
+    for i in range(cfg.num_hidden_layers):
+        ls = [l for li, _, l in losses if li == i]
+        if len(ls) != cc.epochs or not all(map(math.isfinite, ls)):
+            raise AssertionError(f"{name}: layer {i} losses {ls}")
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"{name}: layer {i} loss did not fall: {ls}")
+
+    with torch.no_grad():
+        # (2) beats round-to-nearest on held-out windows
+        rtn_cfg = dataclasses.replace(wcfg, lwc=False)
+        rtn = [llama.effective_block_weights(b, rtn_cfg, None, None, cfg)
+               for b in dense["layers"]]
+        err = {"calibrated": 0.0, "rtn": 0.0}
+        for w in held:
+            x = llama.embed(dense, torch.as_tensor(w, device=device)[None])
+            fp = _chain(torch, cfg, dense["layers"], x, NO_ACT_QUANT)
+            for key, layers in (("calibrated", params["layers"]),
+                                ("rtn", rtn)):
+                err[key] += (_chain(torch, cfg, layers, x, spec)
+                             - fp).pow(2).mean().item() / len(held)
+        del rtn, fp
+        res["held_out_mse"] = err
+        log(f"  calibrate {name}: held-out last-block MSE against fp "
+            f"{err['calibrated']:.6e}, round-to-nearest {err['rtn']:.6e}")
+        if not err["calibrated"] < err["rtn"]:
+            raise AssertionError(f"{name}: calibrated model does not beat "
+                                 f"round-to-nearest on held-out windows")
+
+        # (3) the fold is the trained function
+        x = llama.embed(dense, torch.as_tensor(held[0], device=device)[None])
+        fold_gap = 0.0
+        for i, b in enumerate(dense["layers"]):
+            t = omni[i]
+            eff = llama.effective_block_weights(
+                b, wcfg, t.get("lwc"), t.get("let"), cfg)
+            want = _chain(torch, cfg, [eff], x, spec)
+            got = _chain(torch, cfg, [params["layers"][i]], x, spec)
+            fold_gap = max(fold_gap, rms_rel_err(got, want))
+            del eff
+        res["fold_rms_rel"] = fold_gap
+        log(f"  calibrate {name}: folded blocks against the trained "
+            f"weights, largest rms rel err {fold_gap:.3g} (tol 1e-6)")
+        if not fold_gap <= 1e-6:
+            raise AssertionError(f"{name}: fold differs from the trained "
+                                 f"weights ({fold_gap})")
+
+        # (4) the pack is exact
+        packed = pack_model(LLAMA, params, wcfg, omni, device=device)
+        inexact = [
+            (i, n) for i, b in enumerate(packed["layers"])
+            for n in llama.LINEAR_NAMES
+            if not torch.equal(dequantize_packed(b[n]).t(),
+                               params["layers"][i][n]["weight"])]
+        if inexact:
+            raise AssertionError(f"{name}: packed words do not dequantize to "
+                                 f"the folded weights: {inexact}")
+        layout = packed["layers"][0]["q_proj"].layout
+        log(f"  calibrate {name}: pack exact ({layout} words, 14 linears)")
+    del params, omni
+    torch.cuda.empty_cache()
+
+    # (5) serve the calibrated model
+    n, length = 16, 128
+    reqs = prompts(torch, n, length, cfg.vocab_size, seed + 15)
+    eng = LlamaEngine(packed, cfg, max_batch=n, max_len=2 * length,
+                      dtype=torch.bfloat16, spec=spec, seed=seed,
+                      device=device)
+    kernels.reset_launch_counts()
+    slots, prefill = eng.add_requests(reqs, return_logits=True)
+    first = [eng._pending_next[s] for s in slots]
+    toks, lens = eng._device_tokens(dict(zip(slots, first)))
+    dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+    streams = eng.step_n(dict(zip(slots, first)), 8)
+    counts = kernels.launch_counts()
+    del eng
+    if any(len(v) != 8 or not all(0 <= t < cfg.vocab_size for t in v)
+           for v in streams.values()):
+        raise AssertionError(f"{name}: malformed token streams")
+    res["launches"] = counts
+    missing = [k for k in CALIB_PATHS[name] if counts[k] <= 0]
+    log(f"  calibrate {name}: engine launches {counts}")
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched: {missing}")
+    served_a16 = None
+    if spec.act is not None:
+        # the same pack with 16-bit activations, held at E2E_TOL: the LET
+        # biases (the norms', and the linears' added after K1) at a bound
+        # that the 4-bit activations' band is too wide to give
+        eng = LlamaEngine(packed, cfg, max_batch=n, max_len=2 * length,
+                          dtype=torch.bfloat16, spec=NO_ACT_QUANT, seed=seed,
+                          device=device)
+        slots, prefill_a16 = eng.add_requests(reqs, return_logits=True)
+        toks, lens = eng._device_tokens(dict(zip(slots, first)))
+        served_a16 = (prefill_a16, eng._decode_impl(toks, lens,
+                                                    eng._kv_len(1)))
+        del eng
+    ref_params = plain_reference_params(torch, packed)
+    del packed
+    full = torch.cat([torch.tensor(reqs, device=device),
+                      torch.tensor(first, device=device)[:, None]], dim=1)
+    with torch.no_grad():
+        ref = llama.forward(ref_params, full, cfg, spec=spec)
+        ref16 = (llama.forward(_to_engine(ref_params, device, torch.bfloat16),
+                               full, cfg, spec=spec)
+                 if spec.act is not None else None)
+    failed = []
+    gaps = res["logits"] = {}
+    if served_a16 is not None:
+        failed += _held_with_biases(torch, cfg, name, ref_params, full,
+                                    served_a16, length, gaps)
+    for what, got, i in (("prefill", prefill, length - 1),
+                         ("decode", dec, length)):
+        gap = gaps[what] = logit_gap(got, ref[:, i])
+        tol = E2E_TOL
+        if ref16 is not None:
+            tol = E2E_INT_TOL[4]
+            gap["bf16_forward"] = logit_gap(ref16[:, i], ref[:, i])
+            if not gap["rms_rel"] <= (E2E_INT_VS_PLAIN
+                                      * gap["bf16_forward"]["rms_rel"]):
+                failed.append(f"{what} vs the bf16 forward")
+        log(f"  calibrate {name} {what} logits: rms rel err "
+            f"{gap['rms_rel']:.3g} (tol {tol['rms']}), max rel err "
+            f"{gap['max_rel']:.3g} (tol {tol['max']}), cosine "
+            f"{gap['cos']:.3g}, norm ratio {gap['norm_ratio']:.3g}"
+            + (f"; bf16 plain forward rms rel err "
+               f"{gap['bf16_forward']['rms_rel']:.3g} (kernels at most "
+               f"{E2E_INT_VS_PLAIN} x that)" if ref16 is not None else ""))
+        if not gap_within(gap, tol):
+            failed.append(what)
+    del ref, ref16, ref_params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{name}: served logits outside tolerance: "
+                             f"{failed}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 def profile_decode(torch, device, cfg, dims, seed, out: dict) -> None:
     """Engines A and E of serve_plans, rebuilt on a fresh W4 model and
     prefilled as serve prefills them: after one step_n to warm up, two
@@ -1727,6 +2037,16 @@ def main(argv=None) -> int:
         num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=32),
         args.seed, out)
 
+    log("calibrate: LLaMA-7B widths at 2 layers, 16 x 2048 windows, W4A16 "
+        "g128 LWC then W4A4 LWC + LET; calibrate -> pack -> serve")
+    t_cal = time.time()
+    calibrate_phase(torch, device, llama.LlamaConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+        num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=32),
+        args.seed, out)
+    out["calibrate_phase_s"] = time.time() - t_cal
+    log(f"  calibrate phase {out['calibrate_phase_s']:.1f} s")
+
     log("profile: one decode step of engines A and E under torch.profiler")
     profile_decode(torch, device, cfg, dims, args.seed, out)
 
@@ -1752,6 +2072,10 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
+    log("calibration (s a step, peak GiB): " + "; ".join(
+        f"{k} {v['step_s']:.4f}, {v['peak_gib']:.2f}"
+        for k, v in out["calibrate"].items()) + "; on:")
+    log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(
         f"{n} {out['serve_' + n]['prefill_tok_s']:.1f} / "
         f"{out['serve_' + n]['decode_tok_s']:.1f}, "

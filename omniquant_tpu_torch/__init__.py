@@ -1,11 +1,13 @@
 """omniquant_tpu_torch: the PyTorch/CUDA port of ``omniquant_tpu``.
 
-Serves packed W4A16 LLaMA models on an NVIDIA Hopper GPU through
-hand-written CUDA kernels (``csrc/``). The JAX package stays the reference
-this one is held against; nothing here imports it or JAX.
+Calibrates LLaMA models block by block with LWC and LET (``calib/``, plain
+PyTorch with autograd) and serves the packed weights on an NVIDIA Hopper
+GPU through hand-written CUDA kernels (``csrc/``). The JAX package stays
+the reference this one is held against; nothing here imports it or JAX.
 
-Entry points (``LlamaEngine``, ``pack_model``, ``utils.convert``) default to
-``device="cuda"`` and run on the CPU only when asked to.
+Entry points (``calibrate``, ``collect_act_stats``, ``LlamaEngine``,
+``pack_model``, ``utils.convert``) default to ``device="cuda"`` and run on
+the CPU only when asked to.
 """
 
 __version__ = "0.1.0"

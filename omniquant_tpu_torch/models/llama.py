@@ -1,10 +1,13 @@
-"""LLaMA / Llama-2 inference forward.
+"""LLaMA / Llama-2: the forward and the calibration transforms.
 
-Counterpart of ``omniquant_tpu/models/llama.py`` without the calibration
-half (the LET/LWC transforms and their initialisers). Parameters are plain
+Counterpart of ``omniquant_tpu/models/llama.py``. Parameters are plain
 dicts of tensors in the JAX package's layout: per block
-``input_layernorm`` / ``post_attention_layernorm`` {'weight'} and
-``q_proj`` ... ``down_proj`` {'weight' (out, in), 'bias'} or PackedWeight.
+``input_layernorm`` / ``post_attention_layernorm`` {'weight', optional
+'bias'} and ``q_proj`` ... ``down_proj`` {'weight' (out, in), 'bias'} or
+PackedWeight. ``effective_block_weights`` applies LET then LWC to a block as
+a differentiable function of the trainables. LET sites: input_layernorm ->
+{q, k, v}, post_attention_layernorm -> {up, gate}, v -> o, q <-> k;
+down_proj is not transformed.
 """
 from __future__ import annotations
 
@@ -14,6 +17,9 @@ from typing import Optional
 import torch
 
 from ..quant.packing import PackedWeight
+from ..quant.quantizer import QuantConfig, fake_quant_weight, init_lwc_params
+from ..quant.transform import (
+    smooth_fc_fc_gqa, smooth_ln_fcs, smooth_q_k, truncate_number)
 from .common import (
     NO_ACT_QUANT, ActQuantSpec, attention_core, causal_mask, linear,
     repeat_kv, rms_norm)
@@ -21,6 +27,9 @@ from .common import (
 LINEAR_NAMES = (
     "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"
 )
+# the linears whose input activation scales seed LET's qkv, fc1 and out
+# (v -> o) smoothing scales, in that order
+LET_SCALE_KEYS = ("q_proj", "up_proj", "o_proj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,13 +84,18 @@ def block_forward(p: dict, x: torch.Tensor, cfg: LlamaConfig,
                   mask: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None,
                   spec: ActQuantSpec = NO_ACT_QUANT,
-                  kv_cache: Optional[tuple] = None):
+                  kv_cache: Optional[tuple] = None,
+                  tap: Optional[dict] = None):
     """One decoder block: pre-norm attention with RoPE and GQA, pre-norm
-    SwiGLU MLP. Returns (y, (k, v)) with k/v including ``kv_cache``."""
+    SwiGLU MLP. Returns (y, (k, v)) with k/v including ``kv_cache``.
+    ``tap``, when a dict, receives each linear's input activation under the
+    linear's name (the activation statistics read them)."""
     b, s, _ = x.shape
     hd, n_heads, n_kv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     residual = x
     hidden = rms_norm(x, p["input_layernorm"], cfg.rms_norm_eps)
+    if tap is not None:
+        tap["q_proj"] = tap["k_proj"] = tap["v_proj"] = hidden
 
     def heads(y, n):
         return y.reshape(b, s, n, hd).transpose(1, 2)
@@ -103,15 +117,103 @@ def block_forward(p: dict, x: torch.Tensor, cfg: LlamaConfig,
         mask = causal_mask(s, k_r.shape[2], dtype=x.dtype, device=x.device)
     attn = attention_core(q, k_r, v_r, mask, 1.0 / (hd ** 0.5), spec)
     attn = attn.transpose(1, 2).reshape(b, s, n_heads * hd)
+    if tap is not None:
+        tap["o_proj"] = attn
     x = residual + linear(attn, p["o_proj"], spec.act)
 
     residual = x
     hidden = rms_norm(x, p["post_attention_layernorm"], cfg.rms_norm_eps)
+    if tap is not None:
+        tap["gate_proj"] = tap["up_proj"] = hidden
     gate = linear(hidden, p["gate_proj"], spec.act)
     up = linear(hidden, p["up_proj"], spec.act)
-    mlp_out = linear(torch.nn.functional.silu(gate) * up, p["down_proj"],
-                     spec.act)
-    return residual + mlp_out, new_cache
+    mlp_in = torch.nn.functional.silu(gate) * up
+    if tap is not None:
+        tap["down_proj"] = mlp_in
+    return residual + linear(mlp_in, p["down_proj"], spec.act), new_cache
+
+
+def init_let_params(p: dict, cfg: LlamaConfig, act_scales: Optional[dict],
+                    alpha: float = 0.5, dtype=torch.float32) -> dict:
+    """LET scales and shifts of one block, on the block's device.
+
+    A smoothing scale is act_scale^alpha / colmax(W)^(1 - alpha), at least
+    1e-5, where colmax is the PLAIN per-column max of the weight clamped at
+    1e-5 (not the absolute max); ``act_scales`` is read at LET_SCALE_KEYS,
+    and without it the activation side is ones. Shifts start at zero, the q/k scale at ones, and under GQA the
+    v -> o scale at ones too."""
+    def scale_for(name, fallback_dim):
+        w = p[name]["weight"]
+        wmax = w.amax(dim=0).clamp(min=1e-5)
+        if act_scales is not None and name in act_scales:
+            a = torch.as_tensor(act_scales[name], dtype=dtype,
+                                device=w.device).clamp(min=1e-5)
+        else:
+            a = torch.ones(fallback_dim, dtype=dtype, device=w.device)
+        return (a ** alpha / wmax ** (1 - alpha)).clamp(min=1e-5).to(dtype)
+
+    qkv, fc1, out = LET_SCALE_KEYS
+    dev = p[qkv]["weight"].device
+    h = cfg.hidden_size
+    kv_dim = cfg.num_key_value_heads * cfg.head_dim
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=dev)
+
+    return {
+        "qkv_smooth_scale": scale_for(qkv, h),
+        "qkv_smooth_shift": zeros(h),
+        "fc1_smooth_scale": scale_for(fc1, h),
+        "fc1_smooth_shift": zeros(h),
+        "out_smooth_scale": (
+            scale_for(out, kv_dim)[:kv_dim] if cfg.n_rep == 1
+            else torch.ones(kv_dim, dtype=dtype, device=dev)),
+        "out_smooth_shift": zeros(kv_dim),
+        "qkt_smooth_scale": torch.ones(kv_dim, dtype=dtype, device=dev),
+    }
+
+
+def init_lwc_params_block(p: dict, wcfg: QuantConfig,
+                          dtype=torch.float32) -> dict:
+    """LWC factors (init 4.0) for each linear of a block, on its device."""
+    return {name: init_lwc_params(wcfg, p[name]["weight"].shape, dtype,
+                                  p[name]["weight"].device)
+            for name in LINEAR_NAMES}
+
+
+def effective_block_weights(p: dict, wcfg: Optional[QuantConfig],
+                            lwc_params: Optional[dict] = None,
+                            let_params: Optional[dict] = None,
+                            cfg: Optional[LlamaConfig] = None,
+                            quantize: bool = True) -> dict:
+    """The block's weights after LET smoothing, then LWC fake quantization;
+    differentiable w.r.t. ``let_params`` and ``lwc_params``. With
+    ``quantize=False`` only the smoothing is applied (the fold)."""
+    p = {k: (dict(v) if isinstance(v, dict) else v) for k, v in p.items()}
+    if let_params is not None:
+        t = {k: (truncate_number(v) if "smooth_scale" in k else v)
+             for k, v in let_params.items()}
+        ln, fcs = smooth_ln_fcs(
+            p["input_layernorm"], [p["q_proj"], p["k_proj"], p["v_proj"]],
+            t["qkv_smooth_scale"], t["qkv_smooth_shift"])
+        p["input_layernorm"], (p["q_proj"], p["k_proj"], p["v_proj"]) = ln, fcs
+        ln, fcs = smooth_ln_fcs(
+            p["post_attention_layernorm"], [p["up_proj"], p["gate_proj"]],
+            t["fc1_smooth_scale"], t["fc1_smooth_shift"])
+        p["post_attention_layernorm"], (p["up_proj"], p["gate_proj"]) = (
+            ln, fcs)
+        p["v_proj"], p["o_proj"] = smooth_fc_fc_gqa(
+            p["v_proj"], p["o_proj"], t["out_smooth_scale"],
+            t["out_smooth_shift"], head_dim=cfg.head_dim, n_rep=cfg.n_rep)
+        p["q_proj"], p["k_proj"] = smooth_q_k(
+            p["q_proj"], p["k_proj"], t["qkt_smooth_scale"],
+            head_dim=cfg.head_dim, n_rep=cfg.n_rep)
+    if quantize and wcfg is not None and wcfg.enabled:
+        for name in LINEAR_NAMES:
+            lwc = lwc_params.get(name) if lwc_params else None
+            p[name] = dict(p[name])
+            p[name]["weight"] = fake_quant_weight(p[name]["weight"], wcfg, lwc)
+    return p
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -175,4 +277,38 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
         "layers": layers,
         "norm": {"weight": ones(h)},
         "lm_head": None if cfg.tie_word_embeddings else normal(cfg.vocab_size, h),
+    }
+
+
+def from_hf_state_dict(sd: dict, cfg: LlamaConfig, dtype=torch.float32,
+                       device="cuda") -> dict:
+    """An HF LlamaForCausalLM state dict (tensors or numpy arrays) in this
+    package's layout, on ``device``."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
+
+    def arr(name):
+        return torch.as_tensor(sd[name]).detach().to(device=device,
+                                                     dtype=dtype)
+
+    def lin(prefix):
+        bias = prefix + ".bias"
+        return {"weight": arr(prefix + ".weight"),
+                "bias": arr(bias) if bias in sd else None}
+
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        layers.append({
+            "input_layernorm": {"weight": arr(pre + "input_layernorm.weight")},
+            "post_attention_layernorm": {
+                "weight": arr(pre + "post_attention_layernorm.weight")},
+            **{n: lin(pre + "self_attn." + n) for n in LINEAR_NAMES[:4]},
+            **{n: lin(pre + "mlp." + n) for n in LINEAR_NAMES[4:]}})
+    return {
+        "embed_tokens": arr("model.embed_tokens.weight"),
+        "layers": layers,
+        "norm": {"weight": arr("model.norm.weight")},
+        "lm_head": arr("lm_head.weight") if "lm_head.weight" in sd else None,
     }

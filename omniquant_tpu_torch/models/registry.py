@@ -1,7 +1,7 @@
 """Model-family registry (the LLaMA family only in this port so far).
 
-Counterpart of ``omniquant_tpu/models/registry.py``, restricted to the
-inference entries the serving path uses."""
+Counterpart of ``omniquant_tpu/models/registry.py``: the uniform interface
+the calibration engine and the serving engine use."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,10 +16,16 @@ class ModelFamily:
     config_cls: type
     linear_names: tuple
     block_forward: Callable
+    effective_block_weights: Callable
+    init_let_params: Callable
+    init_lwc_params_block: Callable
     init_params: Callable
+    from_hf_state_dict: Callable
     embed: Callable
     head: Callable
     forward: Callable
+    let_scale_keys: tuple  # linears whose input act scales seed LET init
+    supports_let: bool = True
 
 
 LLAMA = ModelFamily(
@@ -27,10 +33,15 @@ LLAMA = ModelFamily(
     config_cls=llama.LlamaConfig,
     linear_names=llama.LINEAR_NAMES,
     block_forward=llama.block_forward,
+    effective_block_weights=llama.effective_block_weights,
+    init_let_params=llama.init_let_params,
+    init_lwc_params_block=llama.init_lwc_params_block,
     init_params=llama.init_params,
+    from_hf_state_dict=llama.from_hf_state_dict,
     embed=lambda params, tokens, cfg: llama.embed(params, tokens),
     head=llama.head,
     forward=llama.forward,
+    let_scale_keys=llama.LET_SCALE_KEYS,
 )
 
 FAMILIES = {"llama": LLAMA}

@@ -2,8 +2,12 @@ from .quantizer import (
     CLIPMIN,
     QuantConfig,
     dequantize_weight_int,
+    clamp_ste,
     fake_quant_act,
+    fake_quant_weight,
+    init_lwc_params,
     quantize_weight_int,
+    round_ste,
     weight_scale_zp,
 )
 from .packing import (

@@ -7,31 +7,23 @@ has ``qweight``, ``scales``, ``zeros``, ``bias``, ``bits``, ``group_size``,
 ``in_features``, ``out_features``, ``tile_k`` and ``layout``), so nothing
 of the JAX package is imported.
 
+It also carries a calibration's ``omni_parameters`` tree ({layer index:
+{'let': ..., 'lwc': ..., 'qparams': ...}} with numpy leaves), so both
+packages can be handed the same trainables.
+
 ``load_packed_npz`` reads the JAX package's npz checkpoints (packed format
-v2, written by its ``utils/checkpoint.py::save_pytree``), so one exported
-artifact feeds both packages. The format's constants are copied here.
+v2, written by its ``utils/checkpoint.py::save_pytree``; the port's copy of
+the format is ``utils/checkpoint.py``), so one exported artifact feeds both
+packages.
 """
 from __future__ import annotations
-
-import types
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..quant.packing import PackedWeight
-
-# wire-format constants of the JAX package's packed npz checkpoints
-_SEP = "||"
-_NONE = "__none__"
-_PACKED_FORMAT_VERSION = 2
-_LAYOUTS = ("planar", "pairs")  # index order is part of the wire format
-_PACKED_FIELDS = ("qweight", "scales", "zeros", "bias", "bits", "group_size",
-                  "in_features", "out_features", "tile_k", "layout")
-
-
-def _is_packed(x) -> bool:
-    return all(hasattr(x, f) for f in _PACKED_FIELDS)
+from .checkpoint import _is_packed, load_pytree
 
 
 def from_jax_params(tree, device="cuda", dtype=torch.float32):
@@ -69,53 +61,7 @@ def from_jax_params(tree, device="cuda", dtype=torch.float32):
     return conv(tree)
 
 
-def _unflatten(flat: dict):
-    """The JAX package's flattened-npz layout back into a tree with numpy
-    leaves; packed linears become namespaces with the PackedWeight fields."""
-    if _NONE in flat:
-        return None
-    if "__leaf__" in flat:
-        return flat["__leaf__"]
-    if "__empty_dict__" in flat:
-        return {}
-    if "__packed__" in flat:
-        body = _unflatten({k: v for k, v in flat.items() if k != "__packed__"})
-        meta = [int(x) for x in body["meta"]]
-        if len(meta) < 7:
-            raise ValueError(
-                "packed checkpoint predates the versioned meta format "
-                "(missing layout field); re-export it")
-        if meta[5] != _PACKED_FORMAT_VERSION:
-            raise ValueError(
-                f"packed checkpoint format v{meta[5]} != supported "
-                f"v{_PACKED_FORMAT_VERSION}; re-export it")
-        bits, gs, in_f, out_f, tile = meta[:5]
-        return types.SimpleNamespace(
-            qweight=body["qweight"], scales=body["scales"],
-            zeros=body["zeros"], bias=body["bias"], bits=bits,
-            group_size=gs or None, in_features=in_f, out_features=out_f,
-            tile_k=tile, layout=_LAYOUTS[meta[6]])
-    if "__list__" in flat or "__tuple__" in flat:
-        is_list = "__list__" in flat
-        n = int(flat["__list__" if is_list else "__tuple__"])
-        children = {}
-        for k, v in flat.items():
-            if k in ("__list__", "__tuple__"):
-                continue
-            head, rest = k.split(_SEP, 1)
-            children.setdefault(head, {})[rest] = v
-        items = [_unflatten(children[str(i)]) for i in range(n)]
-        return items if is_list else tuple(items)
-    children = {}
-    for k, v in flat.items():
-        head, rest = k.split(_SEP, 1)
-        children.setdefault(head, {})[rest] = v
-    return {k: _unflatten(v) for k, v in children.items()}
-
-
 def load_packed_npz(path: str, device="cuda", dtype=torch.float32):
     """Read a JAX-package npz checkpoint (packed format v2 included) into
     the port's parameter tree on ``device``."""
-    with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
-    return from_jax_params(_unflatten(flat), device=device, dtype=dtype)
+    return from_jax_params(load_pytree(path), device=device, dtype=dtype)

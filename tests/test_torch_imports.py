@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,7 +38,8 @@ def test_no_jax_or_jax_package_loaded():
     for sub in ("quant.packing", "kernels.quant_matmul", "kernels._build",
                 "kernels.tolerance", "kernels.decode_attention",
                 "serving.engine", "utils.convert", "models.llama",
-                "models.common"):
+                "models.common", "calib", "calib.engine", "calib.act_stats",
+                "calib.data", "quant.transform", "utils.checkpoint"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 
@@ -61,6 +63,8 @@ def test_default_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from omniquant_tpu_torch import resolve_device
+    from omniquant_tpu_torch.calib import (
+        CalibConfig, calibrate, collect_act_stats)
     from omniquant_tpu_torch.models import LLAMA, llama
     from omniquant_tpu_torch.quant import QuantConfig
     from omniquant_tpu_torch.serving import LlamaEngine, pack_model
@@ -79,4 +83,11 @@ def test_default_device_raises_without_a_card():
         from_jax_params({"w": params["embed_tokens"].numpy()})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.init_params(gen, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.from_hf_state_dict({}, cfg)
+    tokens = np.zeros((1, 8), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calibrate(LLAMA, params, cfg, tokens, CalibConfig(nsamples=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collect_act_stats(LLAMA, params, cfg, tokens)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -14,6 +14,7 @@ ulps of its own size plus the kernel's slack (``kernels/tolerance.py``); the
 cache writes and _unpack_to_int8 are copies and must be exact.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -1094,3 +1095,68 @@ def test_int_engine_on_the_card_matches_plain_versions(cuda, monkeypatch,
             assert qmm._quant_matmul_int_dense.launches > before
     d = logits[1] - logits[0]
     assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 5e-2
+
+
+def _calib_one_step(dev, let, abits, group_size, epochs=1):
+    """calib/engine.py::calibrate of a small GQA LLaMA block on ``dev``,
+    one window of 128 tokens (one step an epoch; epochs=0: the start).
+    Returns (its loss, the trainables), on the CPU."""
+    from omniquant_tpu_torch.calib import (
+        CalibConfig, calibrate, collect_act_stats)
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=1,
+                            num_attention_heads=4, num_key_value_heads=2)
+    params = llama.init_params(torch.Generator().manual_seed(5), cfg,
+                               device="cpu")
+    tokens = (torch.arange(128) * 7 % 256)[None]
+    stats = (collect_act_stats(LLAMA, params, cfg, tokens, device=dev)
+             if let else (None, None))
+    losses = []
+    _, omni = calibrate(
+        LLAMA, params, cfg, tokens,
+        CalibConfig(wbits=4, abits=abits, group_size=group_size, lwc=True,
+                    let=let, nsamples=1, epochs=epochs),
+        *stats, progress_cb=lambda i, e, l: losses.append(l), device=dev)
+    groups = {g: [t.cpu() for t in (
+        [x for v in omni[0][g].values() for x in v.values()] if g == "lwc"
+        else omni[0][g].values())] for g in ("let", "lwc") if g in omni[0]}
+    return losses, groups
+
+
+@pytest.mark.parametrize("let,abits,group_size,tol", [
+    (False, 16, 128, dict(loss=1e-5, step=1e-4)),
+    (True, 16, 128, dict(loss=1e-5, step=1e-4)),
+    (True, 4, None, dict(loss=1e-3, step=5e-2)),
+])
+def test_calibration_step_on_the_card_matches_cpu(cuda, monkeypatch, let,
+                                                  abits, group_size, tol):
+    """One step of calibrate, LWC (W4A16 g128) or LET + LWC (W4A16 g128,
+    W4A4 per-channel), on the card against the same on the CPU, in f32
+    with TF32 off: the loss, relative (``tol['loss']``), and each group's
+    displacement from its start (every trainable of the group in one
+    vector), the norm of the difference over the CPU's norm
+    (``tol['step']``): the card sums in another order, and at 4-bit
+    activations a code may flip on that.
+    The step's Adam update, lr * g / (|g| + eps), moves no more than the
+    gradient does, relatively. Each group moves at least a quarter of its
+    learning rate somewhere, so a step that changed nothing fails."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    moved = {}
+    for dev in (torch.device("cpu"), cuda):
+        _, start = _calib_one_step(dev, let, abits, group_size, epochs=0)
+        (loss,), end = _calib_one_step(dev, let, abits, group_size)
+        assert math.isfinite(loss)
+        moved[dev.type] = loss, {
+            g: torch.cat([(b - a).reshape(-1) for a, b in zip(start[g], v)])
+            for g, v in end.items()}
+    (l_cpu, d_cpu), (l_gpu, d_gpu) = moved["cpu"], moved["cuda"]
+    assert abs(l_gpu - l_cpu) <= tol["loss"] * abs(l_cpu)
+    assert sorted(d_gpu) == sorted(d_cpu) == (["let", "lwc"] if let
+                                              else ["lwc"])
+    for g, lr in (("let", 5e-3), ("lwc", 1e-2)):
+        if g in d_cpu:
+            assert d_cpu[g].abs().max() >= lr / 4, g
+            assert ((d_gpu[g] - d_cpu[g]).norm()
+                    <= tol["step"] * d_cpu[g].norm()), g
