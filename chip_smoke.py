@@ -82,7 +82,29 @@ prints no result. Any failure raises, so the exit code is non-zero.
               bit; LlamaEngine on the packed model (16 x 128 prompts,
               step_n(., 8): K1, K3, K4, and K8 + K9 for W4A4) against a
               plain f32 forward at the e2e tolerances.
-6. profile -- last, so that no timed run follows a profiler session: A and
+6. opt     -- OPT-6.7B widths (facebook/opt-6.7b: vocab 50272, hidden
+              4096, ffn 16384, 32 heads of 128, pre-LN), depth cut to 2
+              layers, random weights from a seeded generator with random
+              biases and 6 outlier LayerNorm channels: a W4 g128 (pairs)
+              pack served by a bf16-KV and an int8-KV OPTEngine (8 x 512
+              prompts: K1's prefill tile at m = 4096, K2, K3; the first
+              decode and step_n(., 8): K1's decode tile, K4, and for int8
+              K5 and K6), prefill and first decode logits against a plain
+              f32 opt.forward at the e2e tolerance; then W6A6 LWC + LET
+              (shifts from collect_act_stats) calibrated as in calibrate
+              (its five checks; served 16 x 128 through K8 + K9, decoded
+              through K7). Every calibration (LLaMA's too) ends with the
+              perplexity at 2048 tokens of the synthetic test split, of the
+              f32 fake-quant model and of its pack in bf16 (K1, or K8 + K9
+              for quantized activations), seconds a window, held to the
+              bound of ppl_check.
+7. cli     -- ``python -m omniquant_tpu_torch`` as a subprocess on the card
+              (its default platform), tiny-opt and tiny-llama: W4A16 g64
+              LWC, 2 epochs of 8 x 256, --eval_ppl, --real_quant,
+              --save_dir and a 16-token --serve_prompt of the packed model;
+              exit 0, a results JSON last, and K1, K3 and K4 launched (the
+              CLI logs its launch counts).
+8. profile -- last, so that no timed run follows a profiler session: A and
               E rebuilt on a fresh W4 model, prefilled as in serve, two
               step_n(., 8) on the host clock, then one under torch.profiler:
               the device's busy share of a decode step, the kernel launches
@@ -1646,6 +1668,9 @@ CALIB_PATHS = {
     "b_w4a4_lwc_let": ("_unpack_to_int8", "_quant_matmul_int_dense",
                        "quant_matmul", "kv_cache_prefill_write",
                        "kv_cache_write"),
+    "c_opt_w6a6_lwc_let": ("_unpack_to_int8", "_quant_matmul_int_dense",
+                           "quant_matmul_int", "kv_cache_prefill_write",
+                           "kv_cache_write"),
 }
 
 
@@ -1653,34 +1678,40 @@ def calibrate_phase(torch, device, cfg, seed, out: dict) -> None:
     """Block-wise calibration of a full-width LLaMA (random weights from a
     seeded generator, cfg's depth) on synthetic 2048-token windows, once
     per CALIB_RUNS entry, each freed before the next (calibrate_run)."""
-    from omniquant_tpu_torch.calib import get_synthetic, sample_windows
-    from omniquant_tpu_torch.models import llama
+    from omniquant_tpu_torch.models import LLAMA, llama
 
     gen = torch.Generator(device=device).manual_seed(seed + 15)
     dense = llama.init_params(gen, cfg, dtype=torch.float32, device=device)
-    train, test = get_synthetic(CALIB_NSAMPLES, seed, CALIB_SEQLEN,
-                                vocab_size=cfg.vocab_size)
-    held = sample_windows(test, CALIB_HELD_OUT, seed + 1, CALIB_SEQLEN)
     res = out["calibrate"] = {}
     for name, kw in CALIB_RUNS.items():
-        res[name] = calibrate_run(torch, device, cfg, dense, train, held,
-                                  name, kw, seed)
+        res[name] = calibrate_run(torch, device, LLAMA, cfg, dense,
+                                  *calib_windows(cfg, seed), name, kw, seed)
         torch.cuda.empty_cache()
     del dense
     torch.cuda.empty_cache()
 
 
-def _chain(torch, cfg, layers, x, spec):
+def calib_windows(cfg, seed) -> tuple:
+    """(CALIB_NSAMPLES training windows, CALIB_HELD_OUT held-out windows) of
+    the synthetic corpus at CALIB_SEQLEN tokens."""
+    from omniquant_tpu_torch.calib import get_synthetic, sample_windows
+
+    train, test = get_synthetic(CALIB_NSAMPLES, seed, CALIB_SEQLEN,
+                                vocab_size=cfg.vocab_size)
+    return train, sample_windows(test, CALIB_HELD_OUT, seed + 1,
+                                 CALIB_SEQLEN)
+
+
+def _chain(torch, family, cfg, layers, x, spec):
     """x through ``layers`` (one window), the blocks' activation
     quantizers at ``spec``."""
-    from omniquant_tpu_torch.models import llama
     from omniquant_tpu_torch.models.common import causal_mask
 
     s = x.shape[1]
     mask = causal_mask(s, s, device=x.device)
     pos = torch.arange(s, device=x.device)
     for layer in layers:
-        x, _ = llama.block_forward(layer, x, cfg, mask, pos, spec)
+        x, _ = family.block_forward(layer, x, cfg, mask, pos, spec)
     return x
 
 
@@ -1694,17 +1725,15 @@ def _without_biases(tree):
     return tree
 
 
-def _held_with_biases(torch, cfg, name, ref_params, full, served, length,
-                      gaps) -> list:
+def _held_with_biases(torch, family, cfg, name, ref_params, full, served,
+                      length, gaps) -> list:
     """A pack with LET biases served with 16-bit activations (``served``:
     prefill and first decode logits) against the plain f32 forward at
     E2E_TOL; the same forward without the biases must fall outside that
     bound, so a dropped bias would fail. Returns the failed checks."""
-    from omniquant_tpu_torch.models import llama
-
     with torch.no_grad():
-        ref = llama.forward(ref_params, full, cfg)
-        bare = llama.forward(_without_biases(ref_params), full, cfg)
+        ref = family.forward(ref_params, full, cfg)
+        bare = family.forward(_without_biases(ref_params), full, cfg)
     failed = []
     for what, got, i in (("prefill", served[0], length - 1),
                          ("decode", served[1], length)):
@@ -1723,7 +1752,7 @@ def _held_with_biases(torch, cfg, name, ref_params, full, served, length,
     return failed
 
 
-def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
+def calibrate_run(torch, device, family, cfg, dense, train, held, name, kw,
                   seed) -> dict:
     """calibrate on a copy of ``dense``'s blocks, then five checks, any
     failure raising: (1) every loss finite, each layer's last epoch below
@@ -1731,21 +1760,22 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
     nearer the fp model's (MSE) than round-to-nearest's; (3) each folded
     block gives, on one window, the output of effective_block_weights with
     the final trainables; (4) pack_model's words dequantize to the folded
-    weights bit for bit; (5) LlamaEngine on the packed model, 16 x 128
-    prompts and step_n(., 8): prefill and first decode logits against a
-    plain f32 forward of the packed model (E2E_TOL; W4A4 as e2e_int) and
-    every kernel of CALIB_PATHS launched; a W4A4 pack is also served with
-    16-bit activations and held at E2E_TOL (_held_with_biases)."""
+    weights bit for bit; (5) the family's engine on the packed model, 16 x
+    128 prompts and step_n(., 8): prefill and first decode logits against a
+    plain f32 forward of the packed model (E2E_TOL; W4A4 / W6A6 as
+    e2e_int) and every kernel of CALIB_PATHS launched; a pack with
+    quantized activations is also served with 16-bit activations and held
+    at E2E_TOL (_held_with_biases). Then the perplexity of the calibrated
+    fake-quant model and of its pack (ppl_check)."""
     import dataclasses
     import statistics
 
     from omniquant_tpu_torch import kernels
     from omniquant_tpu_torch.calib import (
         CalibConfig, calibrate, collect_act_stats)
-    from omniquant_tpu_torch.models import LLAMA, llama
     from omniquant_tpu_torch.models.common import NO_ACT_QUANT
     from omniquant_tpu_torch.quant import dequantize_packed
-    from omniquant_tpu_torch.serving import LlamaEngine, pack_model
+    from omniquant_tpu_torch.serving import pack_model
     from omniquant_tpu_torch.serving.engine import _to_engine
 
     cc = CalibConfig(nsamples=CALIB_NSAMPLES, **kw)
@@ -1756,13 +1786,13 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    stats = (collect_act_stats(LLAMA, params, cfg, train, device=device)
+    stats = (collect_act_stats(family, params, cfg, train, device=device)
              if cc.let else (None, None))
     torch.cuda.synchronize()
     stats_s = time.time() - t0
     losses, timings = [], {}
     params, omni = calibrate(
-        LLAMA, params, cfg, train, cc, *stats,
+        family, params, cfg, train, cc, *stats,
         progress_cb=lambda i, e, l: losses.append((i, e, l)), device=device,
         timings=timings)
     torch.cuda.synchronize()
@@ -1798,15 +1828,16 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
     with torch.no_grad():
         # (2) beats round-to-nearest on held-out windows
         rtn_cfg = dataclasses.replace(wcfg, lwc=False)
-        rtn = [llama.effective_block_weights(b, rtn_cfg, None, None, cfg)
+        rtn = [family.effective_block_weights(b, rtn_cfg, None, None, cfg)
                for b in dense["layers"]]
         err = {"calibrated": 0.0, "rtn": 0.0}
         for w in held:
-            x = llama.embed(dense, torch.as_tensor(w, device=device)[None])
-            fp = _chain(torch, cfg, dense["layers"], x, NO_ACT_QUANT)
+            x = family.embed(dense, torch.as_tensor(w, device=device)[None],
+                             cfg)
+            fp = _chain(torch, family, cfg, dense["layers"], x, NO_ACT_QUANT)
             for key, layers in (("calibrated", params["layers"]),
                                 ("rtn", rtn)):
-                err[key] += (_chain(torch, cfg, layers, x, spec)
+                err[key] += (_chain(torch, family, cfg, layers, x, spec)
                              - fp).pow(2).mean().item() / len(held)
         del rtn, fp
         res["held_out_mse"] = err
@@ -1817,14 +1848,15 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
                                  f"round-to-nearest on held-out windows")
 
         # (3) the fold is the trained function
-        x = llama.embed(dense, torch.as_tensor(held[0], device=device)[None])
+        x = family.embed(dense, torch.as_tensor(held[0], device=device)[None],
+                         cfg)
         fold_gap = 0.0
         for i, b in enumerate(dense["layers"]):
             t = omni[i]
-            eff = llama.effective_block_weights(
+            eff = family.effective_block_weights(
                 b, wcfg, t.get("lwc"), t.get("let"), cfg)
-            want = _chain(torch, cfg, [eff], x, spec)
-            got = _chain(torch, cfg, [params["layers"][i]], x, spec)
+            want = _chain(torch, family, cfg, [eff], x, spec)
+            got = _chain(torch, family, cfg, [params["layers"][i]], x, spec)
             fold_gap = max(fold_gap, rms_rel_err(got, want))
             del eff
         res["fold_rms_rel"] = fold_gap
@@ -1835,26 +1867,30 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
                                  f"weights ({fold_gap})")
 
         # (4) the pack is exact
-        packed = pack_model(LLAMA, params, wcfg, omni, device=device)
+        packed = pack_model(family, params, wcfg, omni, device=device)
         inexact = [
             (i, n) for i, b in enumerate(packed["layers"])
-            for n in llama.LINEAR_NAMES
+            for n in family.linear_names
             if not torch.equal(dequantize_packed(b[n]).t(),
                                params["layers"][i][n]["weight"])]
         if inexact:
             raise AssertionError(f"{name}: packed words do not dequantize to "
                                  f"the folded weights: {inexact}")
         layout = packed["layers"][0]["q_proj"].layout
-        log(f"  calibrate {name}: pack exact ({layout} words, 14 linears)")
-    del params, omni
+        log(f"  calibrate {name}: pack exact ({layout} words, "
+            f"{len(family.linear_names) * cfg.num_hidden_layers} linears)")
+    del omni
+    res["ppl"] = ppl_check(torch, device, family, cfg, params, packed, spec,
+                           name, seed)
+    del params
     torch.cuda.empty_cache()
 
     # (5) serve the calibrated model
     n, length = 16, 128
     reqs = prompts(torch, n, length, cfg.vocab_size, seed + 15)
-    eng = LlamaEngine(packed, cfg, max_batch=n, max_len=2 * length,
-                      dtype=torch.bfloat16, spec=spec, seed=seed,
-                      device=device)
+    engine = engine_for(family)
+    eng = engine(packed, cfg, max_batch=n, max_len=2 * length,
+                 dtype=torch.bfloat16, spec=spec, seed=seed, device=device)
     kernels.reset_launch_counts()
     slots, prefill = eng.add_requests(reqs, return_logits=True)
     first = [eng._pending_next[s] for s in slots]
@@ -1876,9 +1912,9 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
         # the same pack with 16-bit activations, held at E2E_TOL: the LET
         # biases (the norms', and the linears' added after K1) at a bound
         # that the 4-bit activations' band is too wide to give
-        eng = LlamaEngine(packed, cfg, max_batch=n, max_len=2 * length,
-                          dtype=torch.bfloat16, spec=NO_ACT_QUANT, seed=seed,
-                          device=device)
+        eng = engine(packed, cfg, max_batch=n, max_len=2 * length,
+                     dtype=torch.bfloat16, spec=NO_ACT_QUANT, seed=seed,
+                     device=device)
         slots, prefill_a16 = eng.add_requests(reqs, return_logits=True)
         toks, lens = eng._device_tokens(dict(zip(slots, first)))
         served_a16 = (prefill_a16, eng._decode_impl(toks, lens,
@@ -1889,21 +1925,22 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
     full = torch.cat([torch.tensor(reqs, device=device),
                       torch.tensor(first, device=device)[:, None]], dim=1)
     with torch.no_grad():
-        ref = llama.forward(ref_params, full, cfg, spec=spec)
-        ref16 = (llama.forward(_to_engine(ref_params, device, torch.bfloat16),
-                               full, cfg, spec=spec)
+        ref = family.forward(ref_params, full, cfg, spec=spec)
+        ref16 = (family.forward(_to_engine(ref_params, device,
+                                           torch.bfloat16), full, cfg,
+                                spec=spec)
                  if spec.act is not None else None)
     failed = []
     gaps = res["logits"] = {}
     if served_a16 is not None:
-        failed += _held_with_biases(torch, cfg, name, ref_params, full,
-                                    served_a16, length, gaps)
+        failed += _held_with_biases(torch, family, cfg, name, ref_params,
+                                    full, served_a16, length, gaps)
     for what, got, i in (("prefill", prefill, length - 1),
                          ("decode", dec, length)):
         gap = gaps[what] = logit_gap(got, ref[:, i])
         tol = E2E_TOL
         if ref16 is not None:
-            tol = E2E_INT_TOL[4]
+            tol = E2E_INT_TOL[cc.abits]
             gap["bf16_forward"] = logit_gap(ref16[:, i], ref[:, i])
             if not gap["rms_rel"] <= (E2E_INT_VS_PLAIN
                                       * gap["bf16_forward"]["rms_rel"]):
@@ -1923,6 +1960,319 @@ def calibrate_run(torch, device, cfg, dense, train, held, name, kw,
         raise AssertionError(f"{name}: served logits outside tolerance: "
                              f"{failed}")
     return res
+
+
+def engine_for(family):
+    """The serving engine class of a model family."""
+    from omniquant_tpu_torch import serving
+
+    return {"llama": serving.LlamaEngine,
+            "opt": serving.OPTEngine}[family.name]
+
+
+# the perplexity check (ppl_check): the packed model, served in bf16
+# through K1 or the integer route, against the calibrated fake-quant model
+# in f32, on every PPL_SEQLEN window of the synthetic test split. Per token,
+# the packed model's NLL may stray from the f32 one's by at most
+# PPL_VS_PLAIN times what a plain bf16 forward of the same pack (plain
+# PyTorch ops, no kernel) strays, rms over the tokens: the kernels may add
+# no more than that forward's own bf16 rounding (the e2e rule, E2E_INT_VS_
+# PLAIN). And since |ln ppl_packed - ln ppl_fake_quant| is the mean of those
+# per-token gaps, at most their rms, the two perplexities are held to
+# ln-distance PPL_VS_PLAIN times the bf16 forward's rms gap as well.
+PPL_SEQLEN = 2048
+PPL_VS_PLAIN = E2E_INT_VS_PLAIN
+
+
+def _token_nll(torch, family, params, cfg, window, spec):
+    """The shifted cross-entropy of each token of one window, f32."""
+    logits = family.forward(params, window[None], cfg, spec)
+    logp = torch.log_softmax(logits[0, :-1].float(), dim=-1)
+    return -logp.gather(-1, window[1:, None])[:, 0]
+
+
+def ppl_check(torch, device, family, cfg, params, packed, spec, name,
+              seed) -> dict:
+    """evaluate_ppl of the calibrated fake-quant model (``params``, f32) and
+    of its pack (in bf16, as an engine holds it), with seconds a window and
+    the pack's kernel launches; then the per-token gaps against a plain
+    bf16 forward of the pack (the rule above). Raises outside it."""
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.calib import get_synthetic
+    from omniquant_tpu_torch.eval import evaluate_ppl
+    from omniquant_tpu_torch.serving.engine import _to_engine
+
+    _, test = get_synthetic(0, seed, PPL_SEQLEN, vocab_size=cfg.vocab_size)
+    n_win = test.shape[1] // PPL_SEQLEN
+    served = _to_engine(packed, device, torch.bfloat16)
+    res = dict(seqlen=PPL_SEQLEN, windows=n_win)
+    for key, p in (("fake_quant", params), ("packed", served)):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        res[key] = evaluate_ppl(family, p, cfg, test, seqlen=PPL_SEQLEN,
+                                spec=spec)
+        torch.cuda.synchronize()
+        res[f"{key}_s_per_window"] = (time.time() - t) / n_win
+    res["launches"] = kernels.launch_counts()
+    route = (("_unpack_to_int8", "_quant_matmul_int_dense")
+             if spec.act is not None else ("quant_matmul",))
+    plain16 = _to_engine(plain_reference_params(torch, packed), device,
+                         torch.bfloat16)
+    sq = {"packed": 0.0, "bf16_forward": 0.0}
+    with torch.inference_mode():
+        for i in range(n_win):
+            w = torch.as_tensor(test[0, i * PPL_SEQLEN: (i + 1) * PPL_SEQLEN],
+                                device=device).long()
+            ref = _token_nll(torch, family, params, cfg, w, spec)
+            for key, p in (("packed", served), ("bf16_forward", plain16)):
+                sq[key] += (_token_nll(torch, family, p, cfg, w, spec)
+                            - ref).pow(2).sum().item()
+    n_tok = n_win * (PPL_SEQLEN - 1)
+    res.update({f"nll_rms_gap_{k}": math.sqrt(v / n_tok)
+                for k, v in sq.items()})
+    res["ln_ppl_gap"] = abs(math.log(res["packed"] / res["fake_quant"]))
+    bound = PPL_VS_PLAIN * res["nll_rms_gap_bf16_forward"]
+    log(f"  calibrate {name} perplexity at {PPL_SEQLEN} tokens over {n_win} "
+        f"windows: fake-quant (f32) {res['fake_quant']:.4f} "
+        f"({res['fake_quant_s_per_window']:.4f} s a window), packed (bf16) "
+        f"{res['packed']:.4f} ({res['packed_s_per_window']:.4f} s a "
+        f"window); |ln ratio| {res['ln_ppl_gap']:.3g}, per-token NLL rms gap "
+        f"{res['nll_rms_gap_packed']:.3g}, bf16 plain forward's "
+        f"{res['nll_rms_gap_bf16_forward']:.3g} (both at most "
+        f"{PPL_VS_PLAIN} x that: {bound:.3g}); packed launches "
+        f"{res['launches']}")
+    missing = [k for k in route if res["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: perplexity of the pack never "
+                             f"launched {missing}")
+    if not (math.isfinite(res["packed"]) and math.isfinite(res["fake_quant"])
+            and res["nll_rms_gap_packed"] <= bound
+            and res["ln_ppl_gap"] <= bound):
+        raise AssertionError(f"{name}: perplexities outside the bound: {res}")
+    del served, plain16
+    return res
+
+
+# ---------------------------------------------------------------------------
+# opt phase: OPT-6.7B widths (facebook/opt-6.7b's config.json: vocab 50272,
+# hidden 4096, ffn 16384, 32 heads of 128, 2048 positions, pre-LN), depth
+# cut to 2 layers; random weights from a seeded generator.
+OPT_67B = dict(vocab_size=50272, hidden_size=4096, ffn_dim=16384,
+               num_hidden_layers=2, num_attention_heads=32,
+               max_position_embeddings=2048)
+OPT_SERVE_BATCH, OPT_SERVE_LEN = 8, 512
+# kernels each OPT engine must launch: a W4 g128 (pairs) model, 8 x 512
+# prompts (K1's prefill tile at m = 4096, K2, K3), the first decode and
+# step_n(., 8) (K1's decode tile, K4; int8: K4 on codes and planes, K6 with
+# the ring, K5's flush)
+OPT_SERVE_PATHS = {
+    "native": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+               "kv_cache_prefill_write", "kv_cache_write"),
+    "int8": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+             "kv_cache_prefill_write", "kv_cache_write",
+             "kv_cache_write_span", "decode_attention_int8"),
+}
+# the OPT calibration: W6A6 per-channel, LWC + LET with the shifts of
+# collect_act_stats, on calibrate_phase's windows; its pack (planar W6) is
+# served 16 x 128 (m = 2048: K8 + K9) and decoded by K7 (CALIB_PATHS)
+OPT_CALIB_RUNS = {
+    "c_opt_w6a6_lwc_let": dict(wbits=6, abits=6, lwc=True, let=True,
+                               epochs=2),
+}
+
+
+# outlier channels: trained OPT models from 6.7B on carry a few hidden
+# dims whose activations are tens of times the rest (Dettmers et al.,
+# LLM.int8(), 2022), which is what LET's smoothing is for; random weights
+# have none. (count, factor on those LayerNorm weights) plants them. Without
+# them W6A6 LWC + LET loses to round-to-nearest on held-out windows (CPU
+# rehearsals at hidden 512 and 1024: LET's SmoothQuant start hurts weights
+# without outliers, and 2 epochs do not recover).
+OPT_OUTLIERS = (6, 20.0)
+
+
+def opt_dense(torch, device, cfg, seed):
+    """A random OPT (opt.init_params) whose biases and LayerNorms are moved
+    off their init (N(0, 0.02) biases, LayerNorm weights 1 + N(0, 0.1)), so
+    the served bias adds are held too, with OPT_OUTLIERS in every block's
+    two LayerNorms."""
+    from omniquant_tpu_torch.models import opt
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = opt.init_params(gen, cfg, dtype=torch.float32, device=device)
+    outliers = torch.randperm(cfg.hidden_size, generator=gen,
+                              device=device)[:OPT_OUTLIERS[0]]
+    for sub in [dense["final_layer_norm"]] + [
+            v for b in dense["layers"] for v in b.values()]:
+        sub["bias"].normal_(0.0, 0.02, generator=gen)
+        if sub["weight"].dim() == 1:
+            sub["weight"].normal_(1.0, 0.1, generator=gen)
+    for b in dense["layers"]:
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            b[ln]["weight"][outliers] *= OPT_OUTLIERS[1]
+    return dense
+
+
+def opt_phase(torch, device, seed, out: dict) -> None:
+    """The OPT family at OPT-6.7B widths, 2 layers: a W4 g128 pack served
+    by a bf16-KV and an int8-KV OPTEngine (opt_serve), then the W6A6 LWC +
+    LET calibration with calibrate_run's five checks and ppl_check."""
+    from omniquant_tpu_torch.models import OPT, opt
+
+    cfg = opt.OPTConfig(**OPT_67B)
+    res = out["opt"] = {}
+    dense = opt_dense(torch, device, cfg, seed + 16)
+    opt_serve(torch, device, cfg, dense, seed, res)
+    torch.cuda.empty_cache()
+    for name, kw in OPT_CALIB_RUNS.items():
+        res[name] = calibrate_run(torch, device, OPT, cfg, dense,
+                                  *calib_windows(cfg, seed), name, kw, seed)
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
+
+
+def opt_serve(torch, device, cfg, dense, seed, res: dict) -> None:
+    """``dense`` packed W4 g128 (pairs), served by a bf16-KV and an int8-KV
+    OPTEngine: OPT_SERVE_BATCH x OPT_SERVE_LEN prompts, the first decode
+    and step_n(., 8), timed on the host clock behind a synchronisation;
+    prefill and first decode logits against a plain f32 opt.forward of the
+    dequantized pack at E2E_TOL; every kernel of OPT_SERVE_PATHS
+    launched."""
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.models import OPT, opt
+    from omniquant_tpu_torch.quant import QuantConfig
+    from omniquant_tpu_torch.serving import OPTEngine, pack_model
+
+    packed = pack_model(OPT, dense, QuantConfig(n_bits=4, group_size=128),
+                        device=device)
+    n, length = OPT_SERVE_BATCH, OPT_SERVE_LEN
+    reqs = prompts(torch, n, length, cfg.vocab_size, seed + 16)
+    failed, logits = [], {}
+    for kv, path in OPT_SERVE_PATHS.items():
+        eng = OPTEngine(packed, cfg, max_batch=n, max_len=2 * length,
+                        dtype=torch.bfloat16, kv_dtype=kv, seed=seed,
+                        device=device)
+        warm = eng.add_requests(prompts(torch, 2, 16, cfg.vocab_size, seed))
+        eng.step_n({x: eng._pending_next[x] for x in warm}, 2)
+        for x in warm:
+            eng.release(x)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.time()
+        slots, prefill = eng.add_requests(reqs, return_logits=True)
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t
+        first = [eng._pending_next[x] for x in slots]
+        toks, lens = eng._device_tokens(dict(zip(slots, first)))
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+        torch.cuda.synchronize()
+        t = time.time()
+        streams = eng.step_n(dict(zip(slots, first)), 8)
+        torch.cuda.synchronize()
+        decode_s = time.time() - t
+        counts = kernels.launch_counts()
+        del eng
+        torch.cuda.empty_cache()
+        if any(len(v) != 8 or not all(0 <= x < cfg.vocab_size for x in v)
+               for v in streams.values()):
+            raise AssertionError(f"OPT {kv}: malformed token streams")
+        r = res[f"serve_{kv}"] = dict(
+            prefill_s=prefill_s, prefill_tok_s=n * length / prefill_s,
+            decode_s=decode_s, decode_tok_s=n * 8 / decode_s,
+            launches=counts)
+        log(f"  OPT engine, {kv} KV, {n}x{length}: prefill "
+            f"{r['prefill_tok_s']:.1f} tok/s ({prefill_s:.3f} s), step_n(., "
+            f"8) {r['decode_tok_s']:.1f} tok/s ({decode_s:.3f} s); launches "
+            f"{counts}")
+        missing = [k for k in path if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"OPT {kv} engine: kernels never launched "
+                                 f"on its path: {missing}")
+        logits[kv] = (prefill, dec, first)
+    ref_params = plain_reference_params(torch, packed)
+    del packed
+    torch.cuda.empty_cache()
+    for kv, (prefill, dec, first) in logits.items():
+        full = torch.cat([torch.tensor(reqs, device=device),
+                          torch.tensor(first, device=device)[:, None]], dim=1)
+        with torch.no_grad():
+            ref = opt.forward(ref_params, full, cfg)
+        for what, got, i in (("prefill", prefill, length - 1),
+                             ("decode", dec, length)):
+            gap = res[f"serve_{kv}"][f"{what}_logits"] = logit_gap(
+                got, ref[:, i])
+            log(f"  OPT engine, {kv} KV, {what} logits: rms rel err "
+                f"{gap['rms_rel']:.3g}, max rel err {gap['max_rel']:.3g} "
+                f"(tol {E2E_TOL['rms']}, {E2E_TOL['max']}), argmax "
+                f"agreement {gap['argmax_agree']:.3f}")
+            if not gap_within(gap, E2E_TOL):
+                failed.append(f"{kv} {what}")
+        del ref
+    del ref_params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"OPT engines outside E2E_TOL: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# cli phase: ``python -m omniquant_tpu_torch`` (the CLI's default platform,
+# the card) as a user runs it, once per synthetic net. At these widths the
+# projections with N % 128 != 0 take the dense reference instead of K1, as
+# the JAX package routes them: CLI_DENSE names them.
+CLI_NETS = ("tiny-opt", "tiny-llama")
+CLI_ARGS = ("--synthetic", "--wbits", "4", "--abits", "16", "--group_size",
+            "64", "--lwc", "--epochs", "2", "--nsamples", "8", "--seqlen",
+            "256", "--eval_ppl", "--real_quant", "--max_new_tokens", "16")
+CLI_PROMPT = "The quick brown fox jumps over the lazy dog"
+CLI_PATHS = ("quant_matmul", "kv_cache_prefill_write", "kv_cache_write")
+CLI_DENSE = {"tiny-opt": "qkv (N 192), out_proj and fc2 (N 64)",
+             "tiny-llama": "o_proj and down_proj (N 64)"}
+
+
+def cli_phase(out: dict) -> None:
+    """Each CLI_NETS run as a subprocess, in a fresh directory under the
+    git-ignored build/: it must exit 0, end with a results JSON holding a
+    finite synthetic perplexity and a generation, and log the launch of
+    every kernel of CLI_PATHS."""
+    import re
+    import shutil
+
+    res = out["cli"] = {}
+    for net in CLI_NETS:
+        d = os.path.join(HERE, "build", "cli_smoke", net)
+        shutil.rmtree(d, ignore_errors=True)
+        cmd = [sys.executable, "-m", "omniquant_tpu_torch", "--net", net,
+               *CLI_ARGS, "--serve_prompt", CLI_PROMPT,
+               "--save_dir", os.path.join(d, "save"),
+               "--output_dir", os.path.join(d, "out"),
+               "--cache_dir", os.path.join(d, "cache")]
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t = time.time()
+        p = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.time() - t
+        if p.returncode != 0:
+            log(p.stdout[-4000:])
+            log(p.stderr[-4000:])
+            raise AssertionError(f"cli {net}: exit code {p.returncode}")
+        last = json.loads(p.stdout.strip().splitlines()[-1])
+        counts = json.loads(re.search(r"kernel launches: (\{.*\})",
+                                      p.stdout).group(1))
+        res[net] = dict(results=last, launches=counts, wall_s=wall)
+        log(f"  cli {net}: exit 0 in {wall:.1f} s; synthetic ppl "
+            f"{last.get('synthetic')}, generation "
+            f"{last.get('generation')!r}; launches {counts}; at these widths "
+            f"{CLI_DENSE[net]} take the dense reference, as in the JAX "
+            "package (N % 128 != 0)")
+        if not (math.isfinite(last.get("synthetic", math.nan))
+                and len(last.get("generation", "")) == 16):
+            raise AssertionError(f"cli {net}: results {last}")
+        missing = [k for k in CLI_PATHS if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"cli {net}: kernels never launched: "
+                                 f"{missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -2038,7 +2388,8 @@ def main(argv=None) -> int:
         args.seed, out)
 
     log("calibrate: LLaMA-7B widths at 2 layers, 16 x 2048 windows, W4A16 "
-        "g128 LWC then W4A4 LWC + LET; calibrate -> pack -> serve")
+        "g128 LWC then W4A4 LWC + LET; calibrate -> pack -> serve -> "
+        "perplexity")
     t_cal = time.time()
     calibrate_phase(torch, device, llama.LlamaConfig(
         vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -2046,6 +2397,20 @@ def main(argv=None) -> int:
         args.seed, out)
     out["calibrate_phase_s"] = time.time() - t_cal
     log(f"  calibrate phase {out['calibrate_phase_s']:.1f} s")
+
+    log("opt: OPT-6.7B widths at 2 layers: W4 g128 bf16- and int8-KV "
+        "OPTEngines, then W6A6 LWC + LET calibration -> pack -> serve -> "
+        "perplexity")
+    t_opt = time.time()
+    opt_phase(torch, device, args.seed, out)
+    out["opt_phase_s"] = time.time() - t_opt
+    log(f"  opt phase {out['opt_phase_s']:.1f} s")
+
+    log("cli: python -m omniquant_tpu_torch on tiny-opt and tiny-llama")
+    t_cli = time.time()
+    cli_phase(out)
+    out["cli_phase_s"] = time.time() - t_cli
+    log(f"  cli phase {out['cli_phase_s']:.1f} s")
 
     log("profile: one decode step of engines A and E under torch.profiler")
     profile_decode(torch, device, cfg, dims, args.seed, out)
@@ -2075,6 +2440,21 @@ def main(argv=None) -> int:
     log("calibration (s a step, peak GiB): " + "; ".join(
         f"{k} {v['step_s']:.4f}, {v['peak_gib']:.2f}"
         for k, v in out["calibrate"].items()) + "; on:")
+    log(smi)
+    opt_res = out["opt"]
+    log("opt (prefill / step_n tok/s, native and int8 KV; W6A6 calibration "
+        "s a step, peak GiB; perplexity fake-quant / packed, s a window): "
+        + "; ".join(f"{kv} {opt_res['serve_' + kv]['prefill_tok_s']:.1f} / "
+                    f"{opt_res['serve_' + kv]['decode_tok_s']:.1f}"
+                    for kv in OPT_SERVE_PATHS)
+        + "; " + "; ".join(
+            f"{k} {v['step_s']:.4f}, {v['peak_gib']:.2f}; "
+            f"{v['ppl']['fake_quant']:.2f} "
+            f"({v['ppl']['fake_quant_s_per_window']:.4f}) / "
+            f"{v['ppl']['packed']:.2f} "
+            f"({v['ppl']['packed_s_per_window']:.4f})"
+            for k, v in opt_res.items() if k in OPT_CALIB_RUNS)
+        + "; on:")
     log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(
         f"{n} {out['serve_' + n]['prefill_tok_s']:.1f} / "

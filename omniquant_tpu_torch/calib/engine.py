@@ -160,14 +160,14 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
     Returns (params, omni_parameters): the folded params, and {layer index:
     {'let': ..., 'lwc': ..., 'qparams': {linear: {'scale', 'zero'}}}}, the
     trainables and grid ``pack_model`` takes. ``progress_cb(layer, epoch,
-    mean loss)`` is called after every epoch; ``act_shifts`` is accepted for
-    the families whose LET starts from shifts (LLaMA's start at zero).
+    mean loss)`` is called after every epoch. LET starts from ``act_scales``
+    and, for every family but LLaMA (whose shifts start at zero), from
+    ``act_shifts``.
 
     ``timings``, when a dict, receives host-clock seconds around work that
     ends in a device synchronisation (which it adds: one per train step):
     lists ``step_s`` (every train step), ``fp_pass_s``, ``propagate_s``
     and ``layer_s`` (one per layer)."""
-    del act_shifts  # LLaMA's LET shifts start at zero
     log = logger.info if logger else (lambda *a: None)
     device = resolve_device(device)
 
@@ -242,8 +242,13 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
         trainable = {}
         if cc.let and family.supports_let:
             scales_i = act_scales[i] if act_scales is not None else None
-            trainable["let"] = family.init_let_params(
-                layer, model_cfg, scales_i, alpha=cc.alpha)
+            shifts_i = act_shifts[i] if act_shifts is not None else None
+            if family.name == "llama":
+                trainable["let"] = family.init_let_params(
+                    layer, model_cfg, scales_i, alpha=cc.alpha)
+            else:
+                trainable["let"] = family.init_let_params(
+                    layer, model_cfg, scales_i, shifts_i, alpha=cc.alpha)
         if cc.lwc and wcfg is not None:
             trainable["lwc"] = family.init_lwc_params_block(layer, wcfg)
         for group, saved in omni_parameters.get(i, {}).items():

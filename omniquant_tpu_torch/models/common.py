@@ -2,8 +2,9 @@
 
 Counterpart of ``omniquant_tpu/models/common.py``. Linear weights use the
 (out_features, in_features) layout, y = x @ W.T + b; a PackedWeight runs the
-packed matmul instead. RMSNorm takes its variance in f32, casts back, then
-multiplies by the weight in the working dtype; attention softmax is f32.
+packed matmul instead. RMSNorm and LayerNorm take their statistics in f32,
+cast back, then apply the weight in the working dtype; attention softmax is
+f32.
 """
 from __future__ import annotations
 
@@ -66,6 +67,17 @@ def rms_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["weight"]
+    b = p.get("bias")
+    return y if b is None else y + b
+
+
+def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 mean and variance, cast back to x's dtype, then
+    the weight and an optional bias in that dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * p["weight"]
     b = p.get("bias")
     return y if b is None else y + b
 

@@ -1,13 +1,13 @@
-"""Model-family registry (the LLaMA family only in this port so far).
+"""Model-family registry (LLaMA and OPT in this port so far).
 
 Counterpart of ``omniquant_tpu/models/registry.py``: the uniform interface
-the calibration engine and the serving engine use."""
+the calibration engine, the evaluator and the serving engine use."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from . import llama
+from . import llama, opt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +44,36 @@ LLAMA = ModelFamily(
     let_scale_keys=llama.LET_SCALE_KEYS,
 )
 
-FAMILIES = {"llama": LLAMA}
+OPT = ModelFamily(
+    name="opt",
+    config_cls=opt.OPTConfig,
+    linear_names=opt.LINEAR_NAMES,
+    block_forward=opt.block_forward,
+    effective_block_weights=opt.effective_block_weights,
+    init_let_params=opt.init_let_params,
+    init_lwc_params_block=opt.init_lwc_params_block,
+    init_params=opt.init_params,
+    from_hf_state_dict=opt.from_hf_state_dict,
+    embed=opt.embed,
+    head=opt.head,
+    forward=opt.forward,
+    let_scale_keys=opt.LET_SCALE_KEYS,
+)
+
+FAMILIES = {"llama": LLAMA, "opt": OPT}
 
 
 def get_family(net_or_model_name: str) -> ModelFamily:
     """Family dispatch by substring of the model name."""
-    if "llama" in net_or_model_name.lower():
+    low = net_or_model_name.lower()
+    if "llama" in low:
         return LLAMA
+    if "opt" in low:
+        return OPT
+    if "falcon" in low:
+        raise ValueError(
+            f"'{net_or_model_name}': the falcon family is not ported yet "
+            "(ROADMAP Queue 1 item 5; it needs Queue 2 A8 on the card)")
     raise ValueError(
         f"unsupported model family for '{net_or_model_name}' "
-        "(ported so far: llama)")
+        "(ported so far: llama, opt)")

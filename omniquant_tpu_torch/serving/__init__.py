@@ -1,3 +1,3 @@
-from .engine import KVCache, LlamaEngine, fuse_packed
+from .engine import KVCache, LlamaEngine, OPTEngine, fuse_packed
 from .export import pack_model
 from .sampling import sample_tokens

@@ -1,7 +1,8 @@
 """Single-device serving engine with slot-based continuous batching and a
 native-dtype or int8 KV cache.
 
-Counterpart of ``omniquant_tpu/serving/engine.py::LlamaEngine``. PyTorch
+Counterpart of ``omniquant_tpu/serving/engine.py::LlamaEngine`` and its
+``OPTEngine`` (a subclass that overrides the family hooks). PyTorch
 runs eagerly, so the jitted step programs become plain methods; the
 bucketing of prompt lengths and attention windows is kept so the port
 computes on the same shapes as the reference. Weights may be dense or
@@ -30,6 +31,7 @@ XLA compiles and have no counterpart.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -42,8 +44,10 @@ from ..kernels.kv_update import (
     kv_cache_prefill_write, kv_cache_write, kv_cache_write_span,
     scale_plane_init)
 from ..models import llama as tllama
+from ..models import opt as topt
 from ..models.common import (
-    NO_ACT_QUANT, ActQuantSpec, linear, maybe_quant, repeat_kv, rms_norm)
+    NO_ACT_QUANT, ActQuantSpec, layer_norm, linear, maybe_quant, repeat_kv,
+    rms_norm)
 from ..quant.packing import PackedWeight
 from .sampling import sample_tokens
 
@@ -195,7 +199,8 @@ class LlamaEngine:
             if qkv is not None:
                 p["qkv_fused"] = qkv
                 del p["q_proj"], p["k_proj"], p["v_proj"]
-            gu = fuse_packed([p["gate_proj"], p["up_proj"]])
+            gu = (fuse_packed([p["gate_proj"], p["up_proj"]])
+                  if "gate_proj" in p else None)
             if gu is not None:
                 p["gate_up_fused"] = gu
                 del p["gate_proj"], p["up_proj"]
@@ -715,3 +720,73 @@ class LlamaEngine:
             out.append(next_tok)
         self.release(slot)
         return out
+
+
+class OPTEngine(LlamaEngine):
+    """Continuous-batching decoder for the OPT family (pre-LN models; the
+    post-LN variant, OPT-350m, is served by the eval path only).
+
+    Counterpart of ``omniquant_tpu/serving/engine.py::OPTEngine``: the
+    family hooks add the learned positions (offset by 2, indexed on the
+    device) at embed time, use LayerNorm with bias, no RoPE, a ReLU
+    fc1/fc2 MLP and the final LayerNorm in the head; q is scaled by
+    head_dim**-0.5 and then quantized, and q/k/v are quantized per token
+    over the full hidden dim before the head reshape, so the shared
+    attention paths apply scale 1.0 and no further quantizer."""
+
+    def __init__(self, params: dict, cfg: topt.OPTConfig, **kw):
+        if not cfg.do_layer_norm_before:
+            raise ValueError("OPTEngine serves pre-LN OPT models "
+                             "(do_layer_norm_before=True)")
+        self._ocfg = cfg
+        # the llama-named attributes the base engine reads
+        view = SimpleNamespace(
+            **dataclasses.asdict(cfg),
+            num_key_value_heads=cfg.num_attention_heads,
+            head_dim=cfg.head_dim, n_rep=1, intermediate_size=cfg.ffn_dim,
+            rms_norm_eps=cfg.layer_norm_eps, rope_theta=0.0)
+        super().__init__(params, view, **kw)
+
+    def _embed(self, params, tokens, positions):
+        return topt.embed(params, tokens, self._ocfg, positions)
+
+    def _head(self, params, x):
+        return topt.head(params, x, self._ocfg)
+
+    def _attn_norm(self, p, x):
+        return layer_norm(x, p["self_attn_layer_norm"],
+                          self._ocfg.layer_norm_eps)
+
+    def _attn_qkv(self, p, hidden, positions):
+        b, s, h = hidden.shape
+        if "qkv_fused" in p:
+            qkv = linear(hidden, p["qkv_fused"], self.spec.act)
+            q, k, v = qkv[..., :h], qkv[..., h: 2 * h], qkv[..., 2 * h:]
+        else:
+            q = linear(hidden, p["q_proj"], self.spec.act)
+            k = linear(hidden, p["k_proj"], self.spec.act)
+            v = linear(hidden, p["v_proj"], self.spec.act)
+        hd = self.cfg.head_dim
+        q = maybe_quant(q * (hd ** -0.5), self.spec.q)
+        k = maybe_quant(k, self.spec.k)
+        v = maybe_quant(v, self.spec.v)
+
+        def heads(y):
+            return y.reshape(b, s, self.cfg.num_attention_heads,
+                             hd).transpose(1, 2)
+
+        return heads(q), heads(k), heads(v)
+
+    def _quant_qkv(self, q, k, v):
+        return q, k, v  # quantized before the head reshape in _attn_qkv
+
+    def _sm_scale(self) -> float:
+        return 1.0  # q is scaled in _attn_qkv
+
+    def _attn_out(self, p, attn):
+        return linear(attn, p["out_proj"], self.spec.act)
+
+    def _mlp(self, p, x):
+        h = layer_norm(x, p["final_layer_norm"], self._ocfg.layer_norm_eps)
+        h = torch.relu(linear(h, p["fc1"], self.spec.act))
+        return x + linear(h, p["fc2"], self.spec.act)

@@ -67,3 +67,32 @@ def test_bf16_leaves_carry_across():
     assert got["n"] is None and got["i"].dtype == torch.int32
     np.testing.assert_array_equal(got["w"].float().numpy(),
                                   np.asarray(a.astype(jnp.float32)))
+
+
+def test_opt_tree_carries_across():
+    """An OPT tree (learned positions, LayerNorm biases, tied lm_head and
+    project_in/project_out set to None) keeps its structure and values."""
+    from omniquant_tpu.models import opt as jopt
+    from omniquant_tpu_torch.models import opt as topt
+
+    cfg = dict(vocab_size=64, hidden_size=32, ffn_dim=64,
+               num_hidden_layers=2, num_attention_heads=2,
+               max_position_embeddings=16)
+    jp = jopt.init_params(jax.random.PRNGKey(3), jopt.OPTConfig(**cfg))
+    assert jp["project_in"] is None and jp["lm_head"] is None
+    tree = jax.tree.map(lambda a: None if a is None else np.asarray(a), jp,
+                        is_leaf=lambda a: a is None)
+    got = from_jax_params(tree, device="cpu")
+    assert got["project_in"] is None and got["project_out"] is None
+    assert got["lm_head"] is None
+    assert sorted(got["layers"][1]) == sorted(jp["layers"][1])
+    for a, b in zip(_leaves(jp), _leaves(got)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    tokens = np.arange(9, dtype=np.int32)[None]
+    np.testing.assert_allclose(
+        topt.forward(got, torch.from_numpy(tokens).long(),
+                     topt.OPTConfig(**cfg)).numpy(),
+        np.asarray(jopt.forward(jp, jax.numpy.asarray(tokens),
+                                jopt.OPTConfig(**cfg))), rtol=1e-4, atol=1e-6)

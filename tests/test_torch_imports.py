@@ -39,7 +39,9 @@ def test_no_jax_or_jax_package_loaded():
                 "kernels.tolerance", "kernels.decode_attention",
                 "serving.engine", "utils.convert", "models.llama",
                 "models.common", "calib", "calib.engine", "calib.act_stats",
-                "calib.data", "quant.transform", "utils.checkpoint"):
+                "calib.data", "quant.transform", "utils.checkpoint",
+                "models.opt", "eval", "eval.ppl", "utils.logging", "cli",
+                "__main__"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 
@@ -65,9 +67,9 @@ def test_default_device_raises_without_a_card():
     from omniquant_tpu_torch import resolve_device
     from omniquant_tpu_torch.calib import (
         CalibConfig, calibrate, collect_act_stats)
-    from omniquant_tpu_torch.models import LLAMA, llama
+    from omniquant_tpu_torch.models import LLAMA, llama, opt
     from omniquant_tpu_torch.quant import QuantConfig
-    from omniquant_tpu_torch.serving import LlamaEngine, pack_model
+    from omniquant_tpu_torch.serving import LlamaEngine, OPTEngine, pack_model
     from omniquant_tpu_torch.utils import from_jax_params
 
     cfg = llama.LlamaConfig(vocab_size=32, hidden_size=128,
@@ -85,6 +87,12 @@ def test_default_device_raises_without_a_card():
         llama.init_params(gen, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.from_hf_state_dict({}, cfg)
+    ocfg = opt.OPTConfig(vocab_size=32, hidden_size=128, ffn_dim=256,
+                         num_hidden_layers=1, num_attention_heads=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt.init_params(gen, ocfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OPTEngine(opt.init_params(gen, ocfg, device="cpu"), ocfg)
     tokens = np.zeros((1, 8), np.int32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calibrate(LLAMA, params, cfg, tokens, CalibConfig(nsamples=1))

@@ -1160,3 +1160,104 @@ def test_calibration_step_on_the_card_matches_cpu(cuda, monkeypatch, let,
             assert d_cpu[g].abs().max() >= lr / 4, g
             assert ((d_gpu[g] - d_cpu[g]).norm()
                     <= tol["step"] * d_cpu[g].norm()), g
+
+
+def _tiny_opt(dev, kv_dtype, **kw):
+    """A 2-layer OPT (hidden 256, 2 heads of 128) with random biases,
+    packed W4 g128 (pairs) on the CPU, as a bf16 OPTEngine on ``dev``."""
+    from omniquant_tpu_torch.models import OPT, opt
+    from omniquant_tpu_torch.serving import OPTEngine
+
+    cfg = opt.OPTConfig(vocab_size=256, hidden_size=256, ffn_dim=512,
+                        num_hidden_layers=2, num_attention_heads=2,
+                        max_position_embeddings=512)
+    gen = torch.Generator().manual_seed(7)
+    dense = opt.init_params(gen, cfg, device="cpu")
+    for b in dense["layers"]:
+        for sub in b.values():
+            sub["bias"].normal_(0.0, 0.02, generator=gen)
+    packed = pack_model(OPT, dense, QuantConfig(n_bits=4, group_size=128),
+                        device="cpu")
+    return OPTEngine(packed, cfg, dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                     device=dev, **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_opt_engine_on_the_card_matches_cpu(cuda, kv_dtype):
+    """The OPT engine on the card (K1 at prefill and decode, K2 on the
+    40-token prompt's 64-row bucket, K3, K4; int8: K6 too) against the
+    same engine on the CPU (every plain version): prefill and first decode
+    logits. Both round bf16 activations, in other orders, so the bound is
+    on the rms error (2e-2 of the logits' rms)."""
+    from omniquant_tpu_torch import kernels
+
+    reqs = [[(7 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12))]
+    logits = []
+    for dev in ("cpu", "cuda"):
+        eng = _tiny_opt(dev, kv_dtype, max_batch=4, max_len=128,
+                        flash_min_len=32)
+        kernels.reset_launch_counts()
+        slots, lg = eng.add_requests(reqs, return_logits=True)
+        toks, lens = eng._device_tokens({s: 1 for s in slots})
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))[:len(slots)]
+        logits.append(torch.cat([lg.float().cpu(), dec.float().cpu()]))
+        counts = kernels.launch_counts()
+    path = ["quant_matmul", "quant_matmul_prefill", "flash_attention",
+            "kv_cache_prefill_write", "kv_cache_write"]
+    if kv_dtype == "int8":
+        path.append("decode_attention_int8")
+    assert all(counts[k] > 0 for k in path), counts
+    d = logits[1] - logits[0]
+    assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 2e-2
+
+
+def test_opt_decode_does_not_synchronize(cuda):
+    """The int8 OPT engine's decode step, step_n (ring) and verify pass:
+    the learned positions are indexed on the device, so no host
+    synchronisation inside the layer loop."""
+    eng = _tiny_opt(cuda, "int8", max_batch=4, max_len=128)
+    slots = eng.add_requests([[1, 2, 3, 4, 5], [6, 7, 8]])
+    toks, lens = eng._device_tokens({s: 9 for s in slots})
+    verify = torch.full((4, 3), 5, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_impl(toks, lens, 64)
+        eng._decode_multi_impl(toks, lens + 1, 64, 4, False)
+        eng._verify_impl(verify, lens + 5, 64, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("net", ["tiny-opt", "tiny-llama"])
+def test_cli_on_the_card(cuda, tmp_path, net):
+    """``python -m omniquant_tpu_torch`` on its default platform, the card:
+    calibrate, perplexity, pack and serve; the results JSON last, and K1,
+    K3 and K4 launched by the packed model's engine."""
+    import json
+    import os
+    import re
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = subprocess.run(
+        [sys.executable, "-m", "omniquant_tpu_torch", "--synthetic", "--net",
+         net, "--wbits", "4", "--abits", "16", "--group_size", "64", "--lwc",
+         "--epochs", "1", "--nsamples", "4", "--seqlen", "128", "--eval_ppl",
+         "--real_quant", "--serve_prompt", "hello there",
+         "--max_new_tokens", "8", "--save_dir", str(tmp_path / "save"),
+         "--output_dir", str(tmp_path / "out"), "--cache_dir",
+         str(tmp_path / "cache")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    assert math.isfinite(last["synthetic"]) and len(last["generation"]) == 8
+    counts = json.loads(re.search(r"kernel launches: (\{.*\})",
+                                  out.stdout).group(1))
+    for k in ("quant_matmul", "kv_cache_prefill_write", "kv_cache_write"):
+        assert counts[k] > 0, counts
+    assert (tmp_path / "save" / "model_packed.npz").exists()
