@@ -23,8 +23,13 @@ prints no result. Any failure raises, so the exit code is non-zero.
               8192 prefills) and on planar words (W2/W3/W4 g64, W6 g128,
               W8 per-channel: the four decode products at m = 32 and 8;
               W2 and W4 g64 also at m = 128 and 4096). K2 runs causal at
-              (8, 32, 1024, 128), the B/D/F prefill's shape, and at
-              (2, 32, 4096, 128), the same tokens as a 4x longer prompt.
+              (8, 32, 1024, 128), the B/D/F prefill's shape, at
+              (2, 32, 4096, 128), the same tokens as a 4x longer prompt,
+              and at Falcon's prefill heads (8 x 512, head_dim 64: 71
+              query heads on 1 kv head, 128 on 8, 32 with ALiBi). K6 runs
+              at LLaMA-7B's decode shapes and at 16, 29 and 71 query heads
+              per kv head (head groups; hd 64: window 256 at batch 32,
+              window 2048 at batch 8 with and without the ring).
               K4 runs on bf16 k+v rows (A) and int8 codes + planes (C),
               K5 on an 8-row flush at C's and D's batch and window, each
               beside its empty launch with the same grid (the floor) and
@@ -98,13 +103,33 @@ prints no result. Any failure raises, so the exit code is non-zero.
               f32 fake-quant model and of its pack in bf16 (K1, or K8 + K9
               for quantized activations), seconds a window, held to the
               bound of ppl_check.
-7. cli     -- ``python -m omniquant_tpu_torch`` as a subprocess on the card
-              (its default platform), tiny-opt and tiny-llama: W4A16 g64
+7. falcon  -- the published widths of Falcon-7B (hidden 4544, 71 query
+              heads on 1 kv head, parallel attention, rotary, ffn 18176,
+              vocab 65024; 2 layers, W4A16 g64 planar), Falcon-40B (hidden
+              8192, 128 heads on 8 kv heads, the new decoder architecture,
+              ffn 32768; 1 layer, W4A16 g128) and Falcon-RW-1B (hidden
+              2048, 32 heads, ALiBi, post-attention LayerNorm, biases,
+              vocab 50304; 2 layers, W4A16 g128), random weights from a
+              seeded generator: each served by a bf16-KV and an int8-KV
+              FalconEngine (8 x 512 prompts, the first decode and
+              step_n(., 8)): K2 at 71 on 1 and 128 on 8 heads and on its
+              ALiBi path, K3, K4; 7B's int8 decode through K6 at 71 query
+              heads a kv head with the ring and K5, 40B's at 16; K1 on
+              every linear of 40B and RW-1B, on 7B's dense_h_to_4h only
+              (its other three have N % 128 != 0 and take the dense
+              reference, as in the JAX package), counted per linear; the
+              ALiBi int8 engine without K6. Prefill and first decode
+              logits against the plain f32 forward at E2E_TOL. Then LWC
+              calibration (W4A16 g64) at Falcon-7B widths with calibrate's
+              five checks and the perplexity check.
+8. cli     -- ``python -m omniquant_tpu_torch`` as a subprocess on the card
+              (its default platform), tiny-opt, tiny-llama and
+              tiny-falcon: W4A16 g64
               LWC, 2 epochs of 8 x 256, --eval_ppl, --real_quant,
               --save_dir and a 16-token --serve_prompt of the packed model;
               exit 0, a results JSON last, and K1, K3 and K4 launched (the
               CLI logs its launch counts).
-8. profile -- last, so that no timed run follows a profiler session: A and
+9. profile -- last, so that no timed run follows a profiler session: A and
               E rebuilt on a fresh W4 model, prefilled as in serve, two
               step_n(., 8) on the host clock, then one under torch.profiler:
               the device's busy share of a decode step, the kernel launches
@@ -129,7 +154,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
-F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor cores
 
 # kernel -> (replaced TPU kernel, source, tolerance rule)
@@ -205,7 +229,7 @@ SERVE_PATHS = {
 }
 
 # measurements a kernel's JSON entry carries beside the contract's keys
-EXTRAS = ("prefill", "long_prompt", "int_mm_ms", "kernel_ms",
+EXTRAS = ("prefill", "long_prompt", "falcon", "int_mm_ms", "kernel_ms",
           "generic_kernel_ms", "verify", "widths", "floor_ms", "host_us",
           "cases")
 
@@ -556,56 +580,92 @@ def check_quant_matmul_planar(torch, device, timer, dims, out: dict) -> dict:
     return tot
 
 
-def _flash_row(torch, device, timer, B, Hh, S, D) -> dict:
-    """K2 at (B, Hh, S, D) causal against its plain version (per element),
-    timed beside the plain version, SDPA and the bound."""
+def _flash_row(torch, device, timer, B, Hh, S, D, Hkv=None,
+               alibi=False) -> dict:
+    """K2 at (B, Hh, S, D) causal, on Hkv kv heads (default Hh) and with
+    ALiBi slopes if asked, against its plain version (per element), timed
+    beside the plain version, SDPA (kv heads repeated; ALiBi as an additive
+    mask) and the bound."""
     from omniquant_tpu_torch.kernels import tolerance
     from omniquant_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
+    from omniquant_tpu_torch.models.falcon import alibi_slopes
 
+    Hkv = Hkv or Hh
     gen = torch.Generator(device=device).manual_seed(99)
-    q, k, v = (torch.randn(B, Hh, S, D, generator=gen, device=device).to(
-        torch.bfloat16) for _ in range(3))
+    q = torch.randn(B, Hh, S, D, generator=gen, device=device).to(
+        torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, S, D, generator=gen, device=device).to(
+        torch.bfloat16) for _ in range(2))
+    slopes = alibi_slopes(Hh, device) if alibi else None
     scale = D ** -0.5
-    got = flash_attention(q, k, v, sm_scale=scale)
-    want = flash_attention_plain(q, k, v, sm_scale=scale)
+    kw = dict(sm_scale=scale, alibi_slopes=slopes)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
     ok, err, worst = tolerance.bf16_close(
-        got, want, tolerance.flash_attention_slack(q, k, v, sm_scale=scale))
+        got, want, tolerance.flash_attention_slack(q, k, v, **kw))
     rel = rms_rel_err(got, want)
     del got, want
+    shape = (f"({B},{Hh},{S},{D})" + (f" on {Hkv} kv heads" if Hkv != Hh
+                                      else "") + (" ALiBi" if alibi else ""))
     if not ok:
-        raise AssertionError(f"flash_attention ({B},{Hh},{S},{D}): max abs "
-                             f"err {err}, {worst:.3g} x its per-element "
-                             f"bound")
-    t = timer(lambda: flash_attention(q, k, v, sm_scale=scale),
-              "flash_attention")
-    t_plain = timer(lambda: flash_attention_plain(q, k, v, sm_scale=scale),
+        raise AssertionError(f"flash_attention {shape}: max abs err {err}, "
+                             f"{worst:.3g} x its per-element bound")
+    t = timer(lambda: flash_attention(q, k, v, **kw), "flash_attention")
+    t_plain = timer(lambda: flash_attention_plain(q, k, v, **kw),
                     "flash_attention plain", iters=3)
-    t_lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale), "flash_attention library")
-    nbytes = 4 * q.numel() * 2
+    kr = k.repeat_interleave(Hh // Hkv, dim=1)
+    vr = v.repeat_interleave(Hh // Hkv, dim=1)
+    if alibi:
+        pos = torch.arange(S, device=device)
+        bias = (slopes * scale)[:, None, None] * pos.float()
+        bias = torch.where(pos[None, :] <= pos[:, None], bias,
+                           torch.tensor(float("-inf"), device=device))
+        bias = bias[None].to(torch.bfloat16)
+        t_lib = timer(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=bias, scale=scale),
+            "flash_attention library")
+    else:
+        t_lib = timer(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True, scale=scale),
+            "flash_attention library")
+    del kr, vr
+    nbytes = 2 * (q.numel() + k.numel()) * 2
     flops = 4.0 * B * Hh * S * S * D / 2  # causal: half the score matrix
     b, by = bound_ms(nbytes, flops)
-    log(f"  flash_attention ({B},{Hh},{S},{D}) causal: max abs err "
-        f"{err:.3g} ({worst:.3g} x bound, rms rel {rel:.2g})  kernel "
-        f"{t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s)  plain {t_plain:.4f}  "
-        f"sdpa {t_lib:.4f} ({flops / t_lib / 1e9:.1f} TFLOP/s)  bound "
-        f"{b:.4f} ({by})")
+    log(f"  flash_attention {shape} causal: max abs err {err:.3g} "
+        f"({worst:.3g} x bound, rms rel {rel:.2g})  kernel {t:.4f} ms "
+        f"({flops / t / 1e9:.1f} TFLOP/s)  plain {t_plain:.4f}  sdpa "
+        f"{t_lib:.4f} ({flops / t_lib / 1e9:.1f} TFLOP/s)  bound {b:.4f} "
+        f"({by})")
     return dict(ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b,
                 bound_by=by, max_abs_err=err, err_over_bound=worst,
                 tflops=flops / t / 1e9, library_tflops=flops / t_lib / 1e9,
-                shape=f"q/k/v ({B}, {Hh}, {S}, {D}) bf16, causal")
+                shape=f"q {shape} bf16, causal")
+
+
+# K2 at Falcon's prefill heads (head_dim 64, 8 x 512 tokens): 7B's 71 query
+# heads on one kv head, 40B's 128 on 8, RW-1B's 32 with ALiBi
+FLASH_FALCON = (("falcon-7b", 71, 1, False), ("falcon-40b", 128, 8, False),
+                ("falcon-rw-1b", 32, 32, True))
 
 
 def check_flash(torch, device, timer, dims) -> dict:
-    """K2 at the serving prefill shape (flash_batch x flash_len), and under
-    "long_prompt" at a 4x longer prompt with the same tokens per batch."""
+    """K2 at the serving prefill shape (flash_batch x flash_len), under
+    "long_prompt" at a 4x longer prompt with the same tokens per batch, and
+    under "falcon" at FLASH_FALCON's shapes."""
     Hh, D = dims["heads"], 128
     row = _flash_row(torch, device, timer, dims["flash_batch"], Hh,
                      dims["flash_len"], D)
     row["long_prompt"] = _flash_row(torch, device, timer,
                                     max(1, dims["flash_batch"] // 4), Hh,
                                     4 * dims["flash_len"], D)
+    row["falcon"] = {name: _flash_row(torch, device, timer,
+                                      dims["flash_batch"], h, 512, 64, hkv,
+                                      alibi)
+                     for name, h, hkv, alibi in FLASH_FALCON}
     return row
 
 
@@ -798,56 +858,50 @@ def check_kv(torch, device, timer, dims, out: dict) -> tuple:
     return k3, k4, k5
 
 
-def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
-    """K6 at the int8 serving shapes: batch 32 with windows 256 and 512 of
-    a 512 cache, batch 8 with a 2048 window, lengths straddling 1024 and a
-    ring of 8 at ring_n 0 and 7. Each case logs its plan (window splits,
-    the CTAs an SM holds, shared memory a CTA), must add exactly one launch
-    a call and give the same bits in two calls. The JSON entry is engine
-    C's decode shape (batch 32, window 256), with every case under
-    ``cases``. The bound counts the positions this run's lengths make live;
-    the yardstick is scaled_dot_product_attention over the window already
-    dequantized to bf16 (it reads twice the bytes)."""
+def _int8_kv(torch, device, gen, B, n_kv, S, D):
+    """Random int8 k and v codes (B, n_kv, S, D) and f32 scales (B, n_kv,
+    S) from ``gen``: (k codes, k scales, v codes, v scales)."""
+    c = [torch.randint(-127, 128, (B, n_kv, S, D), generator=gen,
+                       device=device, dtype=torch.int8) for _ in range(2)]
+    sc = [0.001 + 0.019 * torch.rand(B, n_kv, S, generator=gen,
+                                     device=device) for _ in range(2)]
+    return c[0], sc[0], c[1], sc[1]
+
+
+def _decode_rows(torch, device, timer, n_kv, n_rep, D, cases, ring_rows,
+                 gen, caches) -> list:
+    """K6 on each of ``cases`` ((label, B, S, lengths, kv_len, ring_n): a
+    cache of B slots, n_kv kv heads of n_rep query heads each, S positions
+    of head_dim D; ring_n >= 0 adds a ring of ``ring_rows``) against its
+    plain version, with its plan logged; each call must add exactly one
+    launch and give the same bits twice. ``caches`` holds the caches
+    already made, under (B, S) and (B, "ring"); the others and every query
+    are drawn from ``gen`` as the cases need them. Times of the kernel,
+    the plain version and scaled_dot_product_attention over the window
+    already dequantized to bf16 (it reads twice the bytes), and the bound
+    for the positions this run's lengths make live: their bytes, or their
+    products at the bf16 tensor cores' peak (int8 codes are exact in bf16
+    and the scales factor out of each row, so that is the rate the card
+    offers for this work)."""
     from omniquant_tpu_torch.kernels import decode_attention as k6
     from omniquant_tpu_torch.kernels import tolerance
     from omniquant_tpu_torch.kernels.decode_attention import (
         decode_attention_int8, decode_attention_int8_plain)
 
-    Hh, D, R = dims["heads"], 128, dims["ring"]
-    gen = torch.Generator(device=device).manual_seed(11)
     ss = D ** -0.5
-
-    def int8_kv(B, S):
-        c = [torch.randint(-127, 128, (B, Hh, S, D), generator=gen,
-                           device=device, dtype=torch.int8)
-             for _ in range(2)]
-        sc = [0.001 + 0.019 * torch.rand(B, Hh, S, generator=gen,
-                                         device=device) for _ in range(2)]
-        return c[0], sc[0], c[1], sc[1]
-
-    def edge_lengths(B, kv_len):
-        lens = torch.randint(0, kv_len, (B,), generator=gen, device=device,
-                             dtype=torch.int32)
-        lens[0], lens[1] = 0, kv_len - 1
-        return lens
-
-    b32 = int8_kv(dims["batch"], dims["max_len"])
-    b8 = int8_kv(dims["flash_batch"], 2 * dims["flash_len"])
-    ring = int8_kv(dims["flash_batch"], R)
-    straddle = torch.tensor([1023, 1024, 2047, 0, 1500, 512, 1022, 1025],
-                            dtype=torch.int32, device=device)
-    cases = [("b32 kv256", b32, edge_lengths(dims["batch"], 256), 256, -1),
-             ("b32 kv512", b32, edge_lengths(dims["batch"], 512), 512, -1),
-             ("b8 kv2048", b8, straddle, 2048, -1),
-             # a staged step_n passes lengths base - 1: slot 3 is idle
-             ("b8 kv2048 ring 0", b8, straddle - 1, 2048, 0),
-             ("b8 kv2048 ring 7", b8, straddle - 1, 2048, R - 1)]
+    H = n_kv * n_rep
     rows = []
-    for label, kv, lens, kv_len, ring_n in cases:
-        B = kv[0].shape[0]
-        q = torch.randn(B, Hh, D, generator=gen, device=device).to(
+    for label, B, S, lens, kv_len, ring_n in cases:
+        if (B, S) not in caches:
+            caches[(B, S)] = _int8_kv(torch, device, gen, B, n_kv, S, D)
+        kv = caches[(B, S)]
+        if ring_n >= 0 and (B, "ring") not in caches:
+            caches[(B, "ring")] = _int8_kv(torch, device, gen, B, n_kv,
+                                           ring_rows, D)
+        R = ring_rows if ring_n >= 0 else 0
+        rk = caches[(B, "ring")] if ring_n >= 0 else None
+        q = torch.randn(B, H, D, generator=gen, device=device).to(
             torch.bfloat16)
-        rk = ring if ring_n >= 0 else None
         args = (q, *kv, lens, kv_len, ss)
         kw = dict(ring_kv=rk, ring_n=ring_n)
         before = decode_attention_int8.launches
@@ -867,19 +921,22 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
         if not (ok and torch.isfinite(got.float()).all()):
             raise AssertionError(f"decode_attention_int8 {label}: max abs "
                                  f"err {err}, {worst:.3g} x its bound")
-        plan = k6.decode_attention_launch(device, kv_len, B, Hh, 1, D,
-                                          R if rk is not None else 0)
-        ctas = k6._decode_ctas(device, D, 1)
-        smem = k6._decode_info(D, 1, False)
+        plan = k6.decode_attention_launch(device, kv_len, B, n_kv, n_rep, D,
+                                          R)
+        ctas = k6._decode_ctas(device, D, n_rep)
+        smem = k6._decode_info(D, n_rep, False)
+        groups = k6.head_groups(n_rep)[0]
         plan_s = (f"{plan.win_splits} window splits of {plan.per}"
-                  f"{' + the ring' if plan.ring else ''}, {ctas} CTAs/SM of "
-                  f"{smem} B")
+                  f"{' + the ring' if plan.ring else ''}"
+                  f"{f' x {groups} head groups' if groups > 1 else ''}, "
+                  f"{ctas} CTAs/SM of {smem} B")
         log(f"  decode_attention_int8 {label} plan: {plan_s}")
         t = timer(lambda: decode_attention_int8(*args, **kw),
                   "decode_attention_int8 " + label)
         tp = timer(lambda: decode_attention_int8_plain(*args, **kw),
                    "decode_attention_int8 plain " + label, iters=3)
-        # yardstick: SDPA over the dequantized bf16 window (and ring)
+        # yardstick: SDPA over the dequantized bf16 window (and ring), its
+        # kv heads repeated for their query heads
         kd = (kv[0][:, :, :kv_len].float() * kv[1][:, :, :kv_len, None])
         vd = (kv[2][:, :, :kv_len].float() * kv[3][:, :, :kv_len, None])
         pos = torch.arange(kv_len, device=device)
@@ -889,7 +946,8 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
             vd = torch.cat([vd, rk[2].float() * rk[3][..., None]], dim=2)
             rmask = (torch.arange(R, device=device) <= ring_n)[None]
             mask = torch.cat([mask, rmask.expand(B, R)], dim=1)
-        kd, vd = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+        kd = kd.to(torch.bfloat16).repeat_interleave(n_rep, dim=1)
+        vd = vd.to(torch.bfloat16).repeat_interleave(n_rep, dim=1)
         mask = mask[:, None, None, :]
         t_lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
             q[:, :, None], kd, vd, attn_mask=mask, scale=ss),
@@ -897,24 +955,83 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
         del kd, vd
         live = lens.long().add(1).clamp(0, kv_len).sum().item()
         live += B * (ring_n + 1 if ring_n >= 0 else 0)
-        nbytes = live * Hh * (2 * D + 2 * 4) + 2 * q.numel() * 2
-        flops = 4.0 * live * Hh * D
-        b, by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+        nbytes = live * n_kv * (2 * D + 2 * 4) + 2 * q.numel() * 2
+        flops = 4.0 * live * H * D
+        b, by = bound_ms(nbytes, flops)
         rows.append(dict(case=label, ms=t, plain_ms=tp, library_ms=t_lib,
-                         bound_ms=b, bound_by=by, max_abs_err=err,
+                         bound_ms=b, bound_by=by,
+                         bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         max_abs_err=err,
                          err_over_bound=worst, live_positions=live,
-                         plan=plan_s))
-        log(f"  decode_attention_int8 {label} ({B},{Hh},·,{D}): max abs err "
-            f"{err:.3g} ({worst:.3g} x bound)  kernel {t:.4f} ms  plain "
-            f"{tp:.4f}  sdpa-bf16 {t_lib:.4f} (reads 2x the bytes)  bound "
-            f"{b:.4f} ({by}, {live} live positions)")
+                         n_kv=n_kv, n_rep=n_rep, head_dim=D, plan=plan_s))
+        log(f"  decode_attention_int8 {label} ({B},{H},·,{D}) over {n_kv} kv "
+            f"heads: max abs err {err:.3g} ({worst:.3g} x bound)  kernel "
+            f"{t:.4f} ms  plain {tp:.4f}  sdpa-bf16 {t_lib:.4f} (reads 2x "
+            f"the bytes)  bound {b:.4f} ({by}; bytes alone "
+            f"{rows[-1]['bytes_ms']:.4f}; {live} live positions)")
+    return rows
+
+
+# K6 beyond 8 query heads per kv head (head groups), at head_dim 64:
+# (label, kv heads, query heads per kv head), Falcon's three geometries
+K6_FALCON = (("falcon-40b", 8, 16), ("falcon-180b", 8, 29),
+             ("falcon-7b", 1, 71))
+
+
+def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
+    """K6 at the int8 serving shapes: batch 32 with windows 256 and 512 of
+    a 512 cache, batch 8 with a 2048 window, lengths straddling 1024 and a
+    ring of 8 at ring_n 0 and 7 (LLaMA-7B: 32 kv heads of 128, one query
+    head each); then Falcon's query heads per kv head (K6_FALCON, head_dim
+    64: window 256 at batch 32, window 2048 at batch 8 without and with
+    the ring). The JSON entry is engine C's decode shape (batch 32, window
+    256), with every case under ``cases``; see _decode_rows."""
+    R, Hh = dims["ring"], dims["heads"]
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def edge_lengths(B, kv_len):
+        lens = torch.randint(0, kv_len, (B,), generator=gen, device=device,
+                             dtype=torch.int32)
+        lens[0], lens[1] = 0, kv_len - 1
+        return lens
+
+    b32, b8 = dims["batch"], dims["flash_batch"]
+    s8 = 2 * dims["flash_len"]
+    # the LLaMA caches, then the lengths, then each case's query: one
+    # stream in that order, so the rows keep the lengths of earlier runs
+    caches = {(b32, dims["max_len"]): _int8_kv(torch, device, gen, b32, Hh,
+                                               dims["max_len"], 128),
+              (b8, s8): _int8_kv(torch, device, gen, b8, Hh, s8, 128),
+              (b8, "ring"): _int8_kv(torch, device, gen, b8, Hh, R, 128)}
+    straddle = torch.tensor([1023, 1024, 2047, 0, 1500, 512, 1022, 1025],
+                            dtype=torch.int32, device=device)
+    e256, e512 = edge_lengths(b32, 256), edge_lengths(b32, 512)
+    cases = [("b32 kv256", b32, dims["max_len"], e256, 256, -1),
+             ("b32 kv512", b32, dims["max_len"], e512, 512, -1),
+             ("b8 kv2048", b8, s8, straddle, 2048, -1),
+             # a staged step_n passes lengths base - 1: slot 3 is idle
+             ("b8 kv2048 ring 0", b8, s8, straddle - 1, 2048, 0),
+             ("b8 kv2048 ring 7", b8, s8, straddle - 1, 2048, R - 1)]
+    rows = _decode_rows(torch, device, timer, Hh, 1, 128, cases, R, gen,
+                        caches)
+    del caches
+    for name, n_kv, n_rep in K6_FALCON:
+        cases = [(f"{name} b32 kv256", b32, 256, e256, 256, -1),
+                 (f"{name} b8 kv2048", b8, s8, straddle, 2048, -1),
+                 (f"{name} b8 kv2048 ring 7", b8, s8, straddle - 1, 2048,
+                  R - 1)]
+        rows += _decode_rows(
+            torch, device, timer, n_kv, n_rep, 64, cases, R,
+            torch.Generator(device=device).manual_seed(13 + n_rep), {})
+        torch.cuda.empty_cache()
     out["decode_attention_shapes"] = rows
     head = dict(rows[0])
     head["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     head["shape"] = ("q (32, 32, 128) bf16 over int8 codes (32, 32, 512, "
                      "128) + f32 scales, window 256, random lengths with 0 "
                      "and 255; library: SDPA over the bf16-dequantized "
-                     "window, 2x the bytes")
+                     "window, 2x the bytes; Falcon's 16, 29 and 71 query "
+                     "heads per kv head (head_dim 64) under cases")
     head["cases"] = rows
     return head
 
@@ -1671,6 +1788,9 @@ CALIB_PATHS = {
     "c_opt_w6a6_lwc_let": ("_unpack_to_int8", "_quant_matmul_int_dense",
                            "quant_matmul_int", "kv_cache_prefill_write",
                            "kv_cache_write"),
+    "f_falcon7b_w4a16g64_lwc": ("quant_matmul", "quant_matmul_planar_decode",
+                                "quant_matmul_planar_prefill",
+                                "kv_cache_prefill_write", "kv_cache_write"),
 }
 
 
@@ -1876,7 +1996,7 @@ def calibrate_run(torch, device, family, cfg, dense, train, held, name, kw,
         if inexact:
             raise AssertionError(f"{name}: packed words do not dequantize to "
                                  f"the folded weights: {inexact}")
-        layout = packed["layers"][0]["q_proj"].layout
+        layout = packed["layers"][0][family.linear_names[0]].layout
         log(f"  calibrate {name}: pack exact ({layout} words, "
             f"{len(family.linear_names) * cfg.num_hidden_layers} linears)")
     del omni
@@ -1966,8 +2086,8 @@ def engine_for(family):
     """The serving engine class of a model family."""
     from omniquant_tpu_torch import serving
 
-    return {"llama": serving.LlamaEngine,
-            "opt": serving.OPTEngine}[family.name]
+    return {"llama": serving.LlamaEngine, "opt": serving.OPTEngine,
+            "falcon": serving.FalconEngine}[family.name]
 
 
 # the perplexity check (ppl_check): the packed model, served in bf16
@@ -2135,25 +2255,34 @@ def opt_phase(torch, device, seed, out: dict) -> None:
 
 def opt_serve(torch, device, cfg, dense, seed, res: dict) -> None:
     """``dense`` packed W4 g128 (pairs), served by a bf16-KV and an int8-KV
-    OPTEngine: OPT_SERVE_BATCH x OPT_SERVE_LEN prompts, the first decode
-    and step_n(., 8), timed on the host clock behind a synchronisation;
-    prefill and first decode logits against a plain f32 opt.forward of the
-    dequantized pack at E2E_TOL; every kernel of OPT_SERVE_PATHS
-    launched."""
-    from omniquant_tpu_torch import kernels
-    from omniquant_tpu_torch.models import OPT, opt
+    OPTEngine (serve_and_hold, OPT_SERVE_PATHS)."""
+    from omniquant_tpu_torch.models import OPT
     from omniquant_tpu_torch.quant import QuantConfig
-    from omniquant_tpu_torch.serving import OPTEngine, pack_model
+    from omniquant_tpu_torch.serving import pack_model
 
     packed = pack_model(OPT, dense, QuantConfig(n_bits=4, group_size=128),
                         device=device)
-    n, length = OPT_SERVE_BATCH, OPT_SERVE_LEN
+    serve_and_hold(torch, device, OPT, cfg, packed, OPT_SERVE_PATHS,
+                   OPT_SERVE_BATCH, OPT_SERVE_LEN, seed, res, "OPT")
+
+
+def serve_and_hold(torch, device, family, cfg, packed, paths, n, length,
+                   seed, res: dict, label: str, counts_check=None) -> None:
+    """``packed`` served by the family's engine once per entry of ``paths``
+    (KV dtype -> kernels it must launch): n x length prompts, the first
+    decode and step_n(., 8), timed on the host clock behind a
+    synchronisation; prefill and first decode logits against a plain f32
+    forward of the dequantized pack at E2E_TOL. ``counts_check(kv, eng,
+    counts)``, when given, may raise on the run's launch counts."""
+    from omniquant_tpu_torch import kernels
+
+    engine = engine_for(family)
     reqs = prompts(torch, n, length, cfg.vocab_size, seed + 16)
     failed, logits = [], {}
-    for kv, path in OPT_SERVE_PATHS.items():
-        eng = OPTEngine(packed, cfg, max_batch=n, max_len=2 * length,
-                        dtype=torch.bfloat16, kv_dtype=kv, seed=seed,
-                        device=device)
+    for kv, path in paths.items():
+        eng = engine(packed, cfg, max_batch=n, max_len=2 * length,
+                     dtype=torch.bfloat16, kv_dtype=kv, seed=seed,
+                     device=device)
         warm = eng.add_requests(prompts(torch, 2, 16, cfg.vocab_size, seed))
         eng.step_n({x: eng._pending_next[x] for x in warm}, 2)
         for x in warm:
@@ -2173,37 +2302,38 @@ def opt_serve(torch, device, cfg, dense, seed, res: dict) -> None:
         torch.cuda.synchronize()
         decode_s = time.time() - t
         counts = kernels.launch_counts()
+        attn_kernel = eng.attn_kernel
+        if counts_check is not None:
+            counts_check(kv, eng, counts)
         del eng
         torch.cuda.empty_cache()
         if any(len(v) != 8 or not all(0 <= x < cfg.vocab_size for x in v)
                for v in streams.values()):
-            raise AssertionError(f"OPT {kv}: malformed token streams")
+            raise AssertionError(f"{label} {kv}: malformed token streams")
         r = res[f"serve_{kv}"] = dict(
             prefill_s=prefill_s, prefill_tok_s=n * length / prefill_s,
             decode_s=decode_s, decode_tok_s=n * 8 / decode_s,
-            launches=counts)
-        log(f"  OPT engine, {kv} KV, {n}x{length}: prefill "
+            launches=counts, attn_kernel=attn_kernel)
+        log(f"  {label} engine, {kv} KV, {n}x{length}: prefill "
             f"{r['prefill_tok_s']:.1f} tok/s ({prefill_s:.3f} s), step_n(., "
             f"8) {r['decode_tok_s']:.1f} tok/s ({decode_s:.3f} s); launches "
             f"{counts}")
         missing = [k for k in path if counts[k] <= 0]
         if missing:
-            raise AssertionError(f"OPT {kv} engine: kernels never launched "
-                                 f"on its path: {missing}")
+            raise AssertionError(f"{label} {kv} engine: kernels never "
+                                 f"launched on its path: {missing}")
         logits[kv] = (prefill, dec, first)
     ref_params = plain_reference_params(torch, packed)
-    del packed
-    torch.cuda.empty_cache()
     for kv, (prefill, dec, first) in logits.items():
         full = torch.cat([torch.tensor(reqs, device=device),
                           torch.tensor(first, device=device)[:, None]], dim=1)
         with torch.no_grad():
-            ref = opt.forward(ref_params, full, cfg)
+            ref = family.forward(ref_params, full, cfg)
         for what, got, i in (("prefill", prefill, length - 1),
                              ("decode", dec, length)):
             gap = res[f"serve_{kv}"][f"{what}_logits"] = logit_gap(
                 got, ref[:, i])
-            log(f"  OPT engine, {kv} KV, {what} logits: rms rel err "
+            log(f"  {label} engine, {kv} KV, {what} logits: rms rel err "
                 f"{gap['rms_rel']:.3g}, max rel err {gap['max_rel']:.3g} "
                 f"(tol {E2E_TOL['rms']}, {E2E_TOL['max']}), argmax "
                 f"agreement {gap['argmax_agree']:.3f}")
@@ -2213,7 +2343,161 @@ def opt_serve(torch, device, cfg, dense, seed, res: dict) -> None:
     del ref_params
     torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"OPT engines outside E2E_TOL: {failed}")
+        raise AssertionError(f"{label} engines outside E2E_TOL: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# falcon phase: the published widths of three Falcons (the config.json of
+# the HF repos tiiuae/falcon-7b, tiiuae/falcon-40b and tiiuae/falcon-rw-1b;
+# nothing is downloaded), depth cut, random weights from a seeded
+# generator. Every Falcon has head_dim 64.
+FALCON_MODELS = {
+    # multi-query (71 query heads on 1 kv head), parallel attention, rotary
+    "falcon-7b": dict(vocab_size=65024, hidden_size=4544,
+                      num_hidden_layers=2, num_attention_heads=71,
+                      multi_query=True, parallel_attn=True),
+    # the new decoder architecture: 128 query heads on 8 kv heads, two
+    # LayerNorms, rotary
+    "falcon-40b": dict(vocab_size=65024, hidden_size=8192,
+                       num_hidden_layers=1, num_attention_heads=128,
+                       num_kv_heads=8, new_decoder_architecture=True,
+                       parallel_attn=True),
+    # ALiBi, 32 heads, no multi-query, post-attention LayerNorm, biases
+    "falcon-rw-1b": dict(vocab_size=50304, hidden_size=2048,
+                         num_hidden_layers=2, num_attention_heads=32,
+                         multi_query=False, parallel_attn=False, alibi=True,
+                         bias=True),
+}
+# (bits, group size) of each pack: W4A16 g64 for 7B (4544 = 71 x 64 rows:
+# g128 does not divide them), g128 for the others
+FALCON_PACKS = {"falcon-7b": (4, 64), "falcon-40b": (4, 128),
+                "falcon-rw-1b": (4, 128)}
+FALCON_SERVE_BATCH, FALCON_SERVE_LEN = 8, 512
+# kernels each Falcon engine must launch (8 x 512 prompts, the first decode
+# and step_n(., 8)). 7B: of its four linears only dense_h_to_4h (N 18176)
+# has N % 128 == 0: qkv (N 4672), dense and dense_4h_to_h (N 4544) take the
+# dense reference in both packages, and at the m = 4096 prefill
+# dense_h_to_4h (column block 256) is dequantized once, so K1 runs only its
+# planar decode tile, for dense_h_to_4h. 40B: every linear through K1 (the
+# prefill tile at m = 4096, the decode tile); int8 K6 at 16 query heads a
+# kv head. RW-1B: ALiBi through K2 at the prefill; an int8 engine keeps the
+# fused decode attention off (the ALiBi bias lives in the additive mask),
+# so K6 never runs and step_n takes single steps (K4, no K5).
+FALCON_SERVE_PATHS = {
+    "falcon-7b": {
+        "native": ("quant_matmul", "quant_matmul_planar_decode",
+                   "flash_attention", "kv_cache_prefill_write",
+                   "kv_cache_write"),
+        "int8": ("quant_matmul", "quant_matmul_planar_decode",
+                 "flash_attention", "kv_cache_prefill_write",
+                 "kv_cache_write", "kv_cache_write_span",
+                 "decode_attention_int8")},
+    "falcon-40b": {
+        "native": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+                   "kv_cache_prefill_write", "kv_cache_write"),
+        "int8": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+                 "kv_cache_prefill_write", "kv_cache_write",
+                 "kv_cache_write_span", "decode_attention_int8")},
+    "falcon-rw-1b": {
+        "native": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+                   "kv_cache_prefill_write", "kv_cache_write"),
+        "int8": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+                 "kv_cache_prefill_write", "kv_cache_write")},
+}
+# (linears a layer that launch K1, forward passes that do): of a run's 10
+# passes (the prefill, the first decode, step_n(., 8)), 7B's one linear
+# launches K1 in the 9 decode passes; every linear of the others in all 10
+FALCON_K1 = {"falcon-7b": (1, 9), "falcon-40b": (4, 10),
+             "falcon-rw-1b": (4, 10)}
+# the LWC calibration at Falcon-7B widths (2 layers, calibrate_phase's
+# windows); its pack (planar W4 g64) served 16 x 128: K1 on dense_h_to_4h
+# (the planar prefill tile at m = 2048, the decode tile)
+FALCON_CALIB_RUNS = {
+    "f_falcon7b_w4a16g64_lwc": dict(wbits=4, abits=16, group_size=64,
+                                    lwc=True, epochs=2),
+}
+
+
+def falcon_dense(torch, device, cfg, seed):
+    """A random Falcon (falcon.init_params) whose LayerNorms are moved off
+    their init (weights 1 + N(0, 0.1), biases N(0, 0.02)) and whose
+    linear biases, where the model has them, are N(0, 0.02)."""
+    from omniquant_tpu_torch.models import falcon
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = falcon.init_params(gen, cfg, dtype=torch.float32, device=device)
+    for sub in [dense["ln_f"]] + [v for b in dense["layers"]
+                                  for v in b.values()]:
+        if sub.get("bias") is not None:
+            sub["bias"].normal_(0.0, 0.02, generator=gen)
+        if sub["weight"].dim() == 1:
+            sub["weight"].normal_(1.0, 0.1, generator=gen)
+    return dense
+
+
+def falcon_phase(torch, device, seed, out: dict) -> None:
+    """Each of FALCON_MODELS packed (FALCON_PACKS) and served by a bf16-KV
+    and an int8-KV FalconEngine (serve_and_hold, FALCON_SERVE_PATHS), the
+    K1 launches counted per linear and K6's head groups checked; then the
+    LWC calibration at Falcon-7B widths with calibrate_run's five checks
+    and ppl_check."""
+    from omniquant_tpu_torch.kernels.decode_attention import head_groups
+    from omniquant_tpu_torch.models import FALCON, falcon
+    from omniquant_tpu_torch.quant import QuantConfig
+    from omniquant_tpu_torch.serving import pack_model
+
+    res = out["falcon"] = {}
+    n, length = FALCON_SERVE_BATCH, FALCON_SERVE_LEN
+    for name, kw in FALCON_MODELS.items():
+        t0 = time.time()
+        cfg = falcon.FalconConfig(**kw)
+        dense = falcon_dense(torch, device, cfg, seed + 17)
+        bits, group = FALCON_PACKS[name]
+        packed = pack_model(FALCON, dense,
+                            QuantConfig(n_bits=bits, group_size=group),
+                            device=device)
+        del dense
+        layouts = {k: packed["layers"][0][k].layout
+                   for k in falcon.LINEAR_NAMES}
+        r = res[name] = dict(config=kw, pack=f"W{bits}A16 g{group}",
+                             layouts=layouts)
+        n_rep = cfg.num_attention_heads // cfg.effective_kv_heads
+        linears, passes = FALCON_K1[name]
+        k1_want = linears * passes * cfg.num_hidden_layers
+
+        def counts_check(kv, eng, counts, _want=k1_want, _name=name,
+                         _alibi=cfg.alibi):
+            if counts["quant_matmul"] != _want:
+                raise AssertionError(
+                    f"{_name} {kv}: {counts['quant_matmul']} K1 launches, "
+                    f"not {_want}")
+            if _alibi and (eng.attn_kernel
+                           or counts["decode_attention_int8"]):
+                raise AssertionError(f"{_name} {kv}: an ALiBi engine ran "
+                                     "the fused int8 decode attention")
+
+        log(f"  {name}: {cfg.num_hidden_layers} layer(s), hidden "
+            f"{cfg.hidden_size}, {cfg.num_attention_heads} query heads on "
+            f"{cfg.effective_kv_heads} kv heads (n_rep {n_rep}: "
+            f"{head_groups(n_rep)[0]} K6 head groups), W{bits}A16 g{group} "
+            f"({layouts}); K1 on {linears} linear(s) a layer in {passes} "
+            f"forward passes" + (": qkv (N 4672), dense and dense_4h_to_h (N 4544) "
+                        "take the dense reference, as in the JAX package "
+                        "(N % 128 != 0)" if name == "falcon-7b" else ""))
+        serve_and_hold(torch, device, FALCON, cfg, packed,
+                       FALCON_SERVE_PATHS[name], n, length, seed, r, name,
+                       counts_check)
+        del packed
+        torch.cuda.empty_cache()
+        r["phase_s"] = time.time() - t0
+    cfg = falcon.FalconConfig(**FALCON_MODELS["falcon-7b"])
+    dense = falcon_dense(torch, device, cfg, seed + 18)
+    for name, kw in FALCON_CALIB_RUNS.items():
+        res[name] = calibrate_run(torch, device, FALCON, cfg, dense,
+                                  *calib_windows(cfg, seed), name, kw, seed)
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2221,14 +2505,16 @@ def opt_serve(torch, device, cfg, dense, seed, res: dict) -> None:
 # the card) as a user runs it, once per synthetic net. At these widths the
 # projections with N % 128 != 0 take the dense reference instead of K1, as
 # the JAX package routes them: CLI_DENSE names them.
-CLI_NETS = ("tiny-opt", "tiny-llama")
+CLI_NETS = ("tiny-opt", "tiny-llama", "tiny-falcon")
 CLI_ARGS = ("--synthetic", "--wbits", "4", "--abits", "16", "--group_size",
             "64", "--lwc", "--epochs", "2", "--nsamples", "8", "--seqlen",
             "256", "--eval_ppl", "--real_quant", "--max_new_tokens", "16")
 CLI_PROMPT = "The quick brown fox jumps over the lazy dog"
 CLI_PATHS = ("quant_matmul", "kv_cache_prefill_write", "kv_cache_write")
 CLI_DENSE = {"tiny-opt": "qkv (N 192), out_proj and fc2 (N 64)",
-             "tiny-llama": "o_proj and down_proj (N 64)"}
+             "tiny-llama": "o_proj and down_proj (N 64)",
+             "tiny-falcon": "query_key_value (N 96), dense and dense_4h_to_h "
+                            "(N 64)"}
 
 
 def cli_phase(out: dict) -> None:
@@ -2406,7 +2692,17 @@ def main(argv=None) -> int:
     out["opt_phase_s"] = time.time() - t_opt
     log(f"  opt phase {out['opt_phase_s']:.1f} s")
 
-    log("cli: python -m omniquant_tpu_torch on tiny-opt and tiny-llama")
+    log("falcon: Falcon-7B (2 layers, W4A16 g64), 40B (1 layer, W4A16 g128) "
+        "and RW-1B (2 layers, W4A16 g128) widths: bf16- and int8-KV "
+        "FalconEngines, then LWC calibration at 7B widths -> pack -> serve "
+        "-> perplexity")
+    t_falcon = time.time()
+    falcon_phase(torch, device, args.seed, out)
+    out["falcon_phase_s"] = time.time() - t_falcon
+    log(f"  falcon phase {out['falcon_phase_s']:.1f} s")
+
+    log("cli: python -m omniquant_tpu_torch on tiny-opt, tiny-llama and "
+        "tiny-falcon")
     t_cli = time.time()
     cli_phase(out)
     out["cli_phase_s"] = time.time() - t_cli
@@ -2454,6 +2750,20 @@ def main(argv=None) -> int:
             f"{v['ppl']['packed']:.2f} "
             f"({v['ppl']['packed_s_per_window']:.4f})"
             for k, v in opt_res.items() if k in OPT_CALIB_RUNS)
+        + "; on:")
+    log(smi)
+    fal = out["falcon"]
+    log("falcon (prefill / step_n tok/s, native and int8 KV; LWC "
+        "calibration s a step, peak GiB, held-out MSE vs RTN): " + "; ".join(
+            f"{m} " + ", ".join(
+                f"{kv} {fal[m]['serve_' + kv]['prefill_tok_s']:.1f} / "
+                f"{fal[m]['serve_' + kv]['decode_tok_s']:.1f}"
+                for kv in FALCON_SERVE_PATHS[m]) for m in FALCON_MODELS)
+        + "; " + "; ".join(
+            f"{k} {v['step_s']:.4f}, {v['peak_gib']:.2f}, "
+            f"{v['held_out_mse']['calibrated']:.4g} vs "
+            f"{v['held_out_mse']['rtn']:.4g}"
+            for k, v in fal.items() if k in FALCON_CALIB_RUNS)
         + "; on:")
     log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(

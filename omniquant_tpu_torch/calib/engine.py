@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import resolve_device
-from ..models.common import ActQuantSpec, causal_mask
+from ..models.common import ActQuantSpec, causal_mask, embedding_device
 from ..models.registry import ModelFamily
 from ..quant.quantizer import QuantConfig, fake_quant_weight, weight_scale_zp
 from ..quant.transform import _truncate_fwd_value
@@ -101,10 +101,11 @@ def _resumed(template, saved, device):
 def _embed_all(family, params, model_cfg, tokens, dtype, device):
     """Layer-0 inputs of every window, embedded 8 windows at a time."""
     emb = {k: v for k, v in params.items() if k != "layers"}
+    emb_device = embedding_device(params)
     parts = []
     for i in range(0, tokens.shape[0], 8):
         t = tokens[i: i + 8]
-        x = family.embed(emb, t.to(emb["embed_tokens"].device), model_cfg)
+        x = family.embed(emb, t.to(emb_device), model_cfg)
         parts.append(x.to(device=device, dtype=dtype or x.dtype))
     return torch.cat(parts)
 

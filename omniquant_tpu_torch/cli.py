@@ -22,7 +22,7 @@ Unlike ``main.py``, which serves the fake-quant weights whatever the flag
 says, ``--real_quant`` serves the packed model: the weights the kernels
 take. Flags whose machinery is not ported yet (the task harness, tensor,
 sequence and multi-host parallelism, speculative decoding, the AutoGPTQ
-exporter, the falcon family) exit with the ROADMAP item that ports it.
+exporter) exit with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -124,7 +124,6 @@ def build_parser():
 
 # the unported flags: (is the flag set, what it needs)
 def _unported(args) -> list:
-    net = (args.net or args.model or "").lower()
     return [what for used, what in (
         (bool(args.tasks or args.eval_cache),
          "--tasks/--eval_cache need the eval harness (ROADMAP Queue 1 "
@@ -139,8 +138,7 @@ def _unported(args) -> list:
                                "(ROADMAP Queue 1 item 6)"),
         (args.export_autogptq, "--export_autogptq needs the AutoGPTQ "
                                "exporter (ROADMAP Queue 1 item 10)"),
-        ("falcon" in net, "--net falcon needs the falcon family (ROADMAP "
-                          "Queue 1 item 5)")) if used]
+    ) if used]
 
 
 TINY_CONFIGS = {
@@ -150,6 +148,9 @@ TINY_CONFIGS = {
     "tiny-llama": dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                        num_hidden_layers=2, num_attention_heads=4,
                        num_key_value_heads=2, max_position_embeddings=2048),
+    "tiny-falcon": dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, multi_query=True,
+                        parallel_attn=True),
 }
 
 
@@ -371,9 +372,10 @@ def _run(args, device, logger) -> dict:
             results[ds] = ppl
 
     if args.serve_prompt is not None:
-        from .serving import LlamaEngine, OPTEngine
+        from .serving import FalconEngine, LlamaEngine, OPTEngine
 
-        engine_cls = {"llama": LlamaEngine, "opt": OPTEngine}[family.name]
+        engine_cls = {"llama": LlamaEngine, "opt": OPTEngine,
+                      "falcon": FalconEngine}[family.name]
         max_len = min(getattr(model_cfg, "max_position_embeddings", 2048),
                       2048)
         eng = engine_cls(packed if packed is not None else params, model_cfg,

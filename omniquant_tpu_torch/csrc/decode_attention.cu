@@ -19,14 +19,21 @@
 // slots' lengths are.
 //
 // Design (flash-decoding):
-//   * A CTA of 128 threads takes one (window split, kv head, slot): a span
-//     of `per` positions (a multiple of the chunk, from
-//     kernels/decode_attention.py::decode_attention_plan, which never reads
-//     lengths) for all n_rep query heads of the kv head. The ring is a
-//     split of its own, the grid's last. A CTA whose split starts past the
-//     slot's live positions (read from lengths[b] on the device) leaves at
-//     once, so the grid is sized for the window and costs only the live
-//     part.
+//   * A CTA of 128 threads takes one (window split, kv head and group of
+//     query heads, slot): a span of `per` positions (a multiple of the
+//     chunk, from kernels/decode_attention.py::decode_attention_plan, which
+//     never reads lengths) for up to MAX_REP = 8 query heads of the kv head.
+//     A kv head with more (Falcon: 71 on one kv head for 7B, 16 for 40B,
+//     29 for 180B) spreads them over ceil(n_rep / 8) head groups, one CTA
+//     each along the grid's y with the kv heads; the last group is masked.
+//     Each group keeps its own online softmax and its own partials and
+//     ticket, so its merge is the same as a kv head's with <= 8 query
+//     heads. The groups of a kv head each read its window: at n_rep 71, 9
+//     reads of every code byte, all but the first mostly from L2 (the
+//     groups of a split run side by side). The ring is a split of its own,
+//     the grid's last. A CTA whose split starts past the slot's live
+//     positions (read from lengths[b] on the device) leaves at once, so the
+//     grid is sized for the window and costs only the live part.
 //   * The split's K and V code rows and their scales go through a ring of
 //     two chunks in shared memory by cp.async (16 bytes a code piece, 4 a
 //     scale); the next chunk is issued before this one is computed, and
@@ -71,7 +78,7 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
 constexpr int STAGES = 2;  // chunks in the ring (3 or 4: fewer CTAs, slower)
-constexpr int MAX_REP = 8;  // query heads per kv head
+constexpr int MAX_REP = 8;  // query heads a CTA holds (a head group)
 constexpr float NEG = -1e30f;
 
 // The geometry for head dim HD (64 or 128) and up to REP query heads.
@@ -157,9 +164,15 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    int ring_n, int per, int n_win, float score_scale) {
   using G = Geo<HD, REP>;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  // grid: (split, kv head x head group, slot); a group holds REP heads
+  const int n_groups = (n_rep + REP - 1) / REP;
+  const int s = blockIdx.x, hk = blockIdx.y / n_groups, b = blockIdx.z;
+  const int grp = blockIdx.y - hk * n_groups;
+  const int nq = min(REP, n_rep - grp * REP);  // this group's query heads
+  const int cap = min(REP, n_rep);             // heads a group's partial holds
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = b * n_kv + hk;
+  const int bh = b * n_kv + hk;                       // the kv rows
+  const int bg = b * gridDim.y + blockIdx.y;          // partials, ticket
   const int n_splits = gridDim.x;
 
   // live positions of the window and of the ring, and this split's rows
@@ -169,10 +182,10 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_live = live_win + (ring_live > 0);
   const bool is_ring = s == n_win;
   const int n_rows = is_ring ? ring_live : min(per, live - s * per);
-  const size_t head0 = (size_t)bh * n_rep;  // first query head
+  const size_t head0 = (size_t)bh * n_rep + grp * REP;  // first query head
   if (n_rows <= 0) {
     if (s == 0 && n_live == 0)  // an idle slot with no ring: 0
-      for (int i = tid; i < n_rep * HD; i += THREADS)
+      for (int i = tid; i < nq * HD; i += THREADS)
         out[head0 * HD + i] = __float2bfloat16(0.f);
     return;
   }
@@ -211,7 +224,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = tid; i < REP * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
     sq[r * G::QS + (d / (HD / G::TPR)) * G::QHALF + d % (HD / G::TPR)] =
-        r < n_rep ? __bfloat162float(q[head0 * HD + i]) : 0.f;
+        r < nq ? __bfloat162float(q[head0 * HD + i]) : 0.f;
   }
 
   float m_run[REP], l_run[REP], acc[REP][4];
@@ -320,8 +333,8 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  const size_t n_acc = (size_t)gridDim.z * n_kv * n_splits * n_rep * HD;
-  for (int i = tid; i < n_rep * HD; i += THREADS) {
+  const size_t n_acc = (size_t)gridDim.z * gridDim.y * n_splits * cap * HD;
+  for (int i = tid; i < nq * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
     float M = NEG;
 #pragma unroll
@@ -336,7 +349,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     if (n_live == 1) {
       out[head0 * HD + i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
     } else {
-      const size_t part = ((size_t)bh * n_splits + s) * n_rep + r;
+      const size_t part = ((size_t)bg * n_splits + s) * cap + r;
       ws[part * HD + d] = A;
       if (d == 0) {
         ws[n_acc + 2 * part] = M;
@@ -350,24 +363,24 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   __threadfence();
   __syncthreads();
   int* flag = reinterpret_cast<int*>(smem + G::FLAG_OFF);
-  if (tid == 0) *flag = atomicAdd(tickets + bh, 1);
+  if (tid == 0) *flag = atomicAdd(tickets + bg, 1);
   __syncthreads();
   if (*flag != n_live - 1) return;
   __threadfence();
-  if (tid == 0) tickets[bh] = 0;
-  for (int i = tid; i < n_rep * HD; i += THREADS) {
+  if (tid == 0) tickets[bg] = 0;
+  for (int i = tid; i < nq * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
     float M = NEG;
     for (int k = 0; k < n_live; ++k) {
       const int sk = k < live_win ? k : n_win;  // the ring is merged last
-      const size_t part = ((size_t)bh * n_splits + sk) * n_rep + r;
+      const size_t part = ((size_t)bg * n_splits + sk) * cap + r;
       M = fmaxf(M, __ldcg(ws + n_acc + 2 * part));
     }
     float L = 0.f, A = 0.f;
 #pragma unroll 4
     for (int k = 0; k < n_live; ++k) {
       const int sk = k < live_win ? k : n_win;
-      const size_t part = ((size_t)bh * n_splits + sk) * n_rep + r;
+      const size_t part = ((size_t)bg * n_splits + sk) * cap + r;
       const float a = __expf(__ldcg(ws + n_acc + 2 * part) - M);
       L = fmaf(__ldcg(ws + n_acc + 2 * part + 1), a, L);
       A = fmaf(__ldcg(ws + part * HD + d), a, A);
@@ -401,7 +414,8 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
            float score_scale, cudaStream_t st) {
   static const int ok = info<HD, REP>(false);
   if (ok < 0) return -ok;
-  const dim3 grid(n_win + (ring_n >= 0 ? 1 : 0), n_kv, B);
+  const dim3 grid(n_win + (ring_n >= 0 ? 1 : 0),
+                  n_kv * ((n_rep + REP - 1) / REP), B);
   decode_attn_kernel<HD, REP><<<grid, THREADS, Geo<HD, REP>::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kc),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
@@ -414,8 +428,10 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
   return (int)cudaGetLastError();
 }
 
+// The instance for n_rep >= 1 query heads a kv head: the least power of
+// two that holds them, at most MAX_REP (more take head groups of MAX_REP).
 int rep_class(int n_rep) {
-  return n_rep <= 1 ? 1 : n_rep <= 2 ? 2 : n_rep <= 4 ? 4 : 8;
+  return n_rep <= 1 ? 1 : n_rep <= 2 ? 2 : n_rep <= 4 ? 4 : MAX_REP;
 }
 
 }  // namespace
@@ -423,20 +439,23 @@ int rep_class(int n_rep) {
 // q (B, n_kv * n_rep, hd) bf16; k/v codes (B, n_kv, max_len, hd) int8; k/v
 // scales (B, n_kv, max_len) f32; lengths (B,) int32; ring codes (B, n_kv,
 // R, hd) int8 and scales (B, n_kv, R) f32, read only when ring_n >= 0; out
-// (B, n_kv * n_rep, hd) bf16. All contiguous; hd is 64 or 128, n_rep <= 8.
+// (B, n_kv * n_rep, hd) bf16. All contiguous; hd is 64 or 128, n_rep >= 1
+// (n_rep > 8: G = ceil(n_rep / 8) head groups of up to 8; else G = 1).
 // The window splits into n_win spans of `per` positions (a multiple of the
 // chunk: 64 rows at hd 128, 128 at hd 64), and the ring is one more. With
-// more than one split, ws holds (B, n_kv, splits, n_rep, hd) f32 sums and
-// then (B, n_kv, splits, n_rep, 2) f32 (m, l), and tickets is a zeroed
-// int32 per (slot, kv head), left zeroed.
+// more than one split, ws holds (B, n_kv, G, splits, C, hd) f32 sums and
+// then (B, n_kv, G, splits, C, 2) f32 (m, l), C = min(n_rep, 8), and
+// tickets is a zeroed int32 per (slot, kv head, group), left zeroed.
 extern "C" int decode_attention_int8(
     const void* q, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* lengths, const void* rkc, const void* rks,
     const void* rvc, const void* rvs, void* out, void* ws, void* tickets,
     int B, int n_kv, int n_rep, int hd, int max_len, int kv_len, int R,
     int ring_n, int per, int n_win, float score_scale, void* stream) {
-  if (n_rep < 1 || n_rep > MAX_REP || (hd != 64 && hd != 128) ||
-      n_win < 1 || per < 1 || per % (THREADS * 64 / hd) ||
+  if (n_rep < 1 || n_kv < 1 ||
+      (long long)n_kv * ((n_rep + MAX_REP - 1) / MAX_REP) > 65535 ||
+      (hd != 64 && hd != 128) || n_win < 1 || per < 1 ||
+      per % (THREADS * 64 / hd) ||
       (n_win + (ring_n >= 0) > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -458,11 +477,11 @@ extern "C" int decode_attention_int8(
   return (int)cudaErrorInvalidValue;
 }
 
-// The kernel for head dim hd and n_rep query heads a kv head: its shared
-// memory (ctas == 0) or the CTAs of it an SM holds (ctas != 0), or minus a
-// CUDA error.
+// The kernel for head dim hd and n_rep >= 1 query heads a kv head (the
+// instance of rep_class(n_rep)): its shared memory (ctas == 0) or the CTAs
+// of it an SM holds (ctas != 0), or minus a CUDA error.
 extern "C" int decode_attention_info(int hd, int n_rep, int ctas, void*) {
-  if (n_rep < 1 || n_rep > MAX_REP) return -(int)cudaErrorInvalidValue;
+  if (n_rep < 1) return -(int)cudaErrorInvalidValue;
   switch (hd * 16 + rep_class(n_rep)) {
     case 128 * 16 + 1: return info<128, 1>(ctas != 0);
     case 128 * 16 + 2: return info<128, 2>(ctas != 0);

@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.common import NO_ACT_QUANT, ActQuantSpec
+from ..models.common import NO_ACT_QUANT, ActQuantSpec, embedding_device
 from ..models.registry import ModelFamily
 
 
@@ -20,13 +20,13 @@ def evaluate_ppl(family: ModelFamily, params: dict, model_cfg, test_tokens,
                  seqlen: int = 2048, spec: ActQuantSpec = NO_ACT_QUANT,
                  limit: Optional[int] = None, logger=None) -> float:
     """Perplexity of ``params`` on ``test_tokens`` ((1, total) integer),
-    computed on the device of ``params['embed_tokens']`` in its dtype (a
+    computed on the device of the token embeddings in their dtype (a
     packed model's linears run its kernels, or the integer route when
     ``spec.act`` is enabled). With ``limit``, the loop stops after window
     ``limit`` but the divisor stays the full ``nsamples``, as in the
     reference (its limited runs compare only with its own)."""
     del logger  # the JAX counterpart takes one and logs nothing either
-    device = params["embed_tokens"].device
+    device = embedding_device(params)
     test_tokens = np.asarray(test_tokens).reshape(-1)
     nsamples = test_tokens.shape[0] // seqlen
     nlls = []

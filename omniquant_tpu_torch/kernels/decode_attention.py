@@ -10,13 +10,14 @@ positions <= lengths[b]; an optional ring of R staged tokens, positions
 scores at -1e30.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/decode_attention.cu`` (bf16 q and output, head_dim 64 or 128, at
-most 8 query heads per kv head) or raises; the kernel reads only the live
-part of each slot's window and never dequantizes the cache. It splits the
-window into spans per ``decode_attention_plan`` (one CTA a span, kv head
-and slot; the ring a split of its own) and merges the spans' partial
-softmax sums in the same launch, in split order. On a CPU tensor it runs
-the plain version, which dequantizes in f32 and attends densely.
+``csrc/decode_attention.cu`` (bf16 q and output, head_dim 64 or 128, any
+number of query heads per kv head) or raises; the kernel reads only the
+live part of each slot's window and never dequantizes the cache. It splits
+the window into spans per ``decode_attention_plan`` (one CTA a span, kv
+head, group of up to 8 query heads and slot; the ring a split of its own)
+and merges the spans' partial softmax sums in the same launch, in split
+order. On a CPU tensor it runs the plain version, which dequantizes in f32
+and attends densely.
 """
 from __future__ import annotations
 
@@ -29,16 +30,33 @@ from .quant_matmul import _device_buffer, _sm_count
 
 _NEG = -1e30
 _THREADS = 128  # threads of a CTA of csrc/decode_attention.cu
+_GROUP = 8      # query heads a CTA holds (MAX_REP there)
 _K6_CTAS: dict = {}       # (device, hd, rep class) -> CTAs an SM holds
 _K6_WORKSPACE: dict = {}  # device -> f32 partials, grown
 _K6_TICKETS: dict = {}    # device -> int32 tickets, zeroed once, grown
 
 
+def head_groups(n_rep: int) -> Tuple[int, int]:
+    """(groups, heads a group holds) of a kv head's n_rep query heads: one
+    group of n_rep up to 8, else ceil(n_rep / 8) groups of 8, the last
+    masked."""
+    cap = min(n_rep, _GROUP)
+    return -(-n_rep // cap), cap
+
+
+def rep_class(n_rep: int) -> int:
+    """The kernel instance (its REP) for n_rep >= 1 query heads a kv head:
+    the least of 1, 2, 4 and 8 that holds them, 8 above (head groups)."""
+    if n_rep < 1:
+        raise ValueError(f"n_rep must be at least 1, not {n_rep}")
+    return min(_GROUP, 1 << (n_rep - 1).bit_length())
+
+
 class DecodeAttnPlan(NamedTuple):
     """How K6 cuts a window of ``kv_len`` positions: ``win_splits`` spans
     of ``per`` positions (the last may be shorter), a multiple of the
-    kernel's ``chunk`` of rows, one CTA each per (kv head, slot); the ring,
-    when there is one, is one more split, merged last."""
+    kernel's ``chunk`` of rows, one CTA each per (kv head, head group,
+    slot); the ring, when there is one, is one more split, merged last."""
     chunk: int
     per: int
     win_splits: int
@@ -61,9 +79,11 @@ def decode_chunk(hd: int) -> int:
 
 
 def decode_attention_plan(kv_len: int, B: int, n_kv: int, R: int, hd: int,
-                          sm_count: int, ctas_per_sm: int) -> DecodeAttnPlan:
-    """K6's split of a ``kv_len`` window for B slots of n_kv kv heads and a
-    ring of R rows (0: none) on a card of ``sm_count`` SMs that hold
+                          sm_count: int, ctas_per_sm: int,
+                          n_rep: int) -> DecodeAttnPlan:
+    """K6's split of a ``kv_len`` window for B slots of n_kv kv heads of
+    n_rep query heads each (``head_groups`` CTAs a kv head) and a ring of
+    R rows (0: none) on a card of ``sm_count`` SMs that hold
     ``ctas_per_sm`` CTAs each. A pure function of the shapes: it never
     reads ``lengths`` (splits past a slot's live positions leave at once
     on the device), so planning needs no host synchronisation.
@@ -76,11 +96,12 @@ def decode_attention_plan(kv_len: int, B: int, n_kv: int, R: int, hd: int,
     at batch 32 with windows 256 and 512, four at batch 8 with 2048."""
     chunk = decode_chunk(hd)
     kv_len = max(kv_len, 1)
+    split_ctas = B * n_kv * head_groups(n_rep)[0]
     per = chunk
     while per < kv_len:
         per *= 2
     while (per > chunk
-           and B * n_kv * -(-kv_len // per) < sm_count * ctas_per_sm):
+           and split_ctas * -(-kv_len // per) < sm_count * ctas_per_sm):
         per //= 2
     return DecodeAttnPlan(chunk, per, -(-kv_len // per), R > 0)
 
@@ -141,10 +162,9 @@ def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
     if q.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
         raise ValueError("the CUDA decode attention takes bf16 q and gives "
                          "bf16 out")
-    if hd not in (64, 128) or n_rep > 8:
+    if hd not in (64, 128):
         raise ValueError(f"the CUDA decode attention takes head_dim 64 or "
-                         f"128 and at most 8 query heads per kv head; got "
-                         f"{hd} and {n_rep}")
+                         f"128, not {hd}")
     bufs = [k_codes, k_scale, v_codes, v_scale]
     shapes = [(B, n_kv, max_len, hd), (B, n_kv, max_len)] * 2
     R = ring_kv[0].shape[2] if ring_n >= 0 else 0
@@ -165,15 +185,17 @@ def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
     ring_ptrs = ([t.data_ptr() for t in ring_kv] if ring_n >= 0
                  else [None] * 4)
     # with more than one split the partials go to the device's workspace
-    # and the merge takes the (slot, kv head)'s ticket, which the merging
-    # CTA leaves zeroed: no call launches a memset
+    # and the merge takes the (slot, kv head, head group)'s ticket, which
+    # the merging CTA leaves zeroed: no call launches a memset
     ws = tickets = None
     if plan.win_splits + (ring_n >= 0) > 1:
+        groups, cap = head_groups(n_rep)
         ws = _device_buffer(
             _K6_WORKSPACE, q.device,
-            B * n_kv * (plan.win_splits + 1) * n_rep * (hd + 2),
+            B * n_kv * groups * (plan.win_splits + 1) * cap * (hd + 2),
             torch.float32).data_ptr()
-        tickets = _device_buffer(_K6_TICKETS, q.device, B * n_kv).data_ptr()
+        tickets = _device_buffer(_K6_TICKETS, q.device,
+                                 B * n_kv * groups).data_ptr()
     out = torch.empty_like(q)
     _build.launch("decode_attention", "decode_attention_int8",
                   "p" * 13 + "iiiiiiiiii" + "f",
@@ -199,8 +221,8 @@ def _decode_info(hd: int, n_rep: int, ctas: bool) -> int:
 
 def _decode_ctas(device, hd: int, n_rep: int) -> int:
     """``_decode_info``'s CTAs per SM, asked of the card once per instance
-    (query heads round up to 1, 2, 4 or 8)."""
-    rep = next(r for r in (1, 2, 4, 8) if n_rep <= r)
+    (``rep_class``)."""
+    rep = rep_class(n_rep)
     key = (device.index or 0, hd, rep)
     if key not in _K6_CTAS:
         _K6_CTAS[key] = _decode_info(hd, rep, True)
@@ -212,7 +234,7 @@ def decode_attention_launch(device, kv_len: int, B: int, n_kv: int,
     """The plan K6 runs on ``device``'s card for these shapes (R ring rows,
     0 for none)."""
     return decode_attention_plan(kv_len, B, n_kv, R, hd, _sm_count(device),
-                                 _decode_ctas(device, hd, n_rep))
+                                 _decode_ctas(device, hd, n_rep), n_rep)
 
 
 decode_attention_int8.launches = 0

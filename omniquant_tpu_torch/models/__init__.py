@@ -1,3 +1,3 @@
-from . import llama, opt
+from . import falcon, llama, opt
 from .common import NO_ACT_QUANT, ActQuantSpec, causal_mask
-from .registry import FAMILIES, LLAMA, OPT, ModelFamily, get_family
+from .registry import FAMILIES, FALCON, LLAMA, OPT, ModelFamily, get_family

@@ -41,6 +41,13 @@ class ActQuantSpec:
 NO_ACT_QUANT = ActQuantSpec()
 
 
+def embedding_device(params: dict) -> torch.device:
+    """The device of a model's token embeddings (``embed_tokens`` in LLaMA
+    and OPT, ``word_embeddings`` in Falcon)."""
+    emb = params.get("embed_tokens")
+    return (emb if emb is not None else params["word_embeddings"]).device
+
+
 def maybe_quant(x: torch.Tensor, cfg: Optional[QuantConfig]) -> torch.Tensor:
     return x if cfg is None else fake_quant_act(x, cfg)
 

@@ -1,4 +1,4 @@
-"""Model-family registry (LLaMA and OPT in this port so far).
+"""Model-family registry: LLaMA, OPT and Falcon.
 
 Counterpart of ``omniquant_tpu/models/registry.py``: the uniform interface
 the calibration engine, the evaluator and the serving engine use."""
@@ -7,7 +7,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from . import llama, opt
+from . import falcon, llama, opt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +60,24 @@ OPT = ModelFamily(
     let_scale_keys=opt.LET_SCALE_KEYS,
 )
 
-FAMILIES = {"llama": LLAMA, "opt": OPT}
+FALCON = ModelFamily(
+    name="falcon",
+    config_cls=falcon.FalconConfig,
+    linear_names=falcon.LINEAR_NAMES,
+    block_forward=falcon.block_forward,
+    effective_block_weights=falcon.effective_block_weights,
+    init_let_params=falcon.init_let_params,
+    init_lwc_params_block=falcon.init_lwc_params_block,
+    init_params=falcon.init_params,
+    from_hf_state_dict=falcon.from_hf_state_dict,
+    embed=falcon.embed,
+    head=falcon.head,
+    forward=falcon.forward,
+    let_scale_keys=(),
+    supports_let=False,  # LWC only: effective_block_weights rejects LET
+)
+
+FAMILIES = {"llama": LLAMA, "opt": OPT, "falcon": FALCON}
 
 
 def get_family(net_or_model_name: str) -> ModelFamily:
@@ -71,9 +88,7 @@ def get_family(net_or_model_name: str) -> ModelFamily:
     if "opt" in low:
         return OPT
     if "falcon" in low:
-        raise ValueError(
-            f"'{net_or_model_name}': the falcon family is not ported yet "
-            "(ROADMAP Queue 1 item 5; it needs Queue 2 A8 on the card)")
+        return FALCON
     raise ValueError(
         f"unsupported model family for '{net_or_model_name}' "
-        "(ported so far: llama, opt)")
+        "(supported: llama, opt, falcon)")

@@ -1,3 +1,4 @@
-from .engine import KVCache, LlamaEngine, OPTEngine, fuse_packed
+from .engine import (
+    FalconEngine, KVCache, LlamaEngine, OPTEngine, fuse_packed)
 from .export import pack_model
 from .sampling import sample_tokens

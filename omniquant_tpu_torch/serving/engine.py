@@ -2,10 +2,10 @@
 native-dtype or int8 KV cache.
 
 Counterpart of ``omniquant_tpu/serving/engine.py::LlamaEngine`` and its
-``OPTEngine`` (a subclass that overrides the family hooks). PyTorch
-runs eagerly, so the jitted step programs become plain methods; the
-bucketing of prompt lengths and attention windows is kept so the port
-computes on the same shapes as the reference. Weights may be dense or
+``OPTEngine`` and ``FalconEngine`` (subclasses that override the family
+hooks). PyTorch runs eagerly, so the jitted step programs become plain
+methods; the bucketing of prompt lengths and attention windows is kept so
+the port computes on the same shapes as the reference. Weights may be dense or
 PackedWeight (``models.common.linear``). With an activation spec
 (``ActQuantSpec.from_bits(4)`` or ``(6)``: W4A4, W6A6) every packed linear,
 the fused qkv and gate+up included, takes the integer path
@@ -43,6 +43,7 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.kv_update import (
     kv_cache_prefill_write, kv_cache_write, kv_cache_write_span,
     scale_plane_init)
+from ..models import falcon as tfalcon
 from ..models import llama as tllama
 from ..models import opt as topt
 from ..models.common import (
@@ -195,7 +196,8 @@ class LlamaEngine:
         for p in params["layers"]:
             if "qkv_fused" in p or "gate_up_fused" in p:
                 continue
-            qkv = fuse_packed([p["q_proj"], p["k_proj"], p["v_proj"]])
+            qkv = (fuse_packed([p["q_proj"], p["k_proj"], p["v_proj"]])
+                   if "q_proj" in p else None)
             if qkv is not None:
                 p["qkv_fused"] = qkv
                 del p["q_proj"], p["k_proj"], p["v_proj"]
@@ -790,3 +792,92 @@ class OPTEngine(LlamaEngine):
         h = layer_norm(x, p["final_layer_norm"], self._ocfg.layer_norm_eps)
         h = torch.relu(linear(h, p["fc1"], self.spec.act))
         return x + linear(h, p["fc2"], self.spec.act)
+
+
+class FalconEngine(LlamaEngine):
+    """Continuous-batching decoder for the Falcon family: multi-query,
+    classic multi-head and the new decoder architecture's grouped kv
+    heads; rotary or ALiBi positions; parallel attention, dual LayerNorms
+    or a post-attention LayerNorm.
+
+    Counterpart of ``omniquant_tpu/serving/engine.py::FalconEngine``. The
+    cache holds the model's true kv heads (one under multi-query) and the
+    attention paths repeat them on read. ALiBi is folded into the additive
+    mask in f32 (and handed to the flash prefill as slopes); the fused int8
+    decode attention never sees that mask, so an ALiBi engine keeps
+    ``attn_kernel`` off and its int8 decode takes the dequantized dense
+    path. The attention matmuls take no activation quantizer (only the
+    linears' inputs do)."""
+
+    def __init__(self, params: dict, cfg: tfalcon.FalconConfig, **kw):
+        self._fcfg = cfg
+        n_kv = cfg.effective_kv_heads
+        # the llama-named attributes the base engine reads
+        view = SimpleNamespace(
+            **dataclasses.asdict(cfg), num_key_value_heads=n_kv,
+            head_dim=cfg.head_dim, n_rep=cfg.num_attention_heads // n_kv,
+            rms_norm_eps=cfg.layer_norm_eps)
+        super().__init__(params, view, **kw)
+        self._slopes = self._bias = None
+        if cfg.alibi:
+            self.attn_kernel = False
+            # made once: the slopes come from a host list, and the copy of
+            # one to the card makes the host wait for it
+            self._slopes = tfalcon.alibi_slopes(cfg.num_attention_heads,
+                                                self.device)
+            self._bias = tfalcon.alibi_bias(cfg, self.max_len, self.device,
+                                            self._slopes)
+
+    def _alibi_slopes(self):
+        return self._slopes
+
+    def _quant_qkv(self, q, k, v):
+        return q, k, v  # the attention matmuls are not quantized
+
+    def _embed(self, params, tokens, positions):
+        return tfalcon.embed(params, tokens).to(self.dtype)
+
+    def _head(self, params, x):
+        return tfalcon.head(params, x, self._fcfg)
+
+    def _attn_qkv(self, p, hidden, positions):
+        cfg = self._fcfg
+        fused = linear(hidden, p["query_key_value"], self.spec.act)
+        q, k, v = (t.transpose(1, 2)
+                   for t in tfalcon.split_heads_kv(fused, cfg))
+        if not cfg.alibi:
+            cos, sin = tllama.rope_cos_sin(
+                positions, cfg.head_dim, cfg.rope_theta, dtype=hidden.dtype)
+            q, k = tllama.apply_rope(q, k, cos, sin)
+        return q, k, v
+
+    def _attn_out(self, p, attn):
+        return linear(attn, p["dense"], self.spec.act)
+
+    def _block(self, p, x, positions, mask, commit):
+        cfg = self._fcfg
+        if cfg.alibi:
+            # an f32 mask: the dense attention adds it to the scores and
+            # takes the softmax in f32 (alibi_bias)
+            mask = mask + self._bias[..., :mask.shape[-1]]
+        residual = x
+        if cfg.new_decoder_architecture:
+            attn_ln = layer_norm(x, p["ln_attn"], cfg.layer_norm_eps)
+            mlp_ln = layer_norm(x, p["ln_mlp"], cfg.layer_norm_eps)
+        else:
+            attn_ln = layer_norm(x, p["input_layernorm"], cfg.layer_norm_eps)
+            mlp_ln = None
+        attn_out = self._attn_core(p, attn_ln, positions, mask, commit)
+        if not cfg.new_decoder_architecture:
+            if cfg.parallel_attn:
+                mlp_ln = attn_ln
+            else:
+                residual = residual + attn_out
+                mlp_ln = layer_norm(residual, p["post_attention_layernorm"],
+                                    cfg.layer_norm_eps)
+        h = torch.nn.functional.gelu(
+            linear(mlp_ln, p["dense_h_to_4h"], self.spec.act))
+        mlp_out = linear(h, p["dense_4h_to_h"], self.spec.act)
+        if cfg.new_decoder_architecture or cfg.parallel_attn:
+            mlp_out = mlp_out + attn_out
+        return residual + mlp_out

@@ -1,7 +1,7 @@
 """The port's command line (``python -m omniquant_tpu_torch``, cli.py)
 against the repository's ``main.py``, on the CPU (``--platform cpu``).
 
-For tiny-opt and tiny-llama, ``main.py`` calibrates (W4A16 g32 LWC + LET,
+For tiny-opt, tiny-llama and tiny-falcon, ``main.py`` calibrates (W4A16 g32 LWC + LET,
 1 epoch of 4 synthetic windows of 64 tokens), evaluates the synthetic
 perplexity, saves the model and serves a prompt greedily. The port's CLI
 then starts from the same weights (``cli.load_model`` patched to return
@@ -15,7 +15,10 @@ main.py's. With
 ``load_pytree`` reads and that equal main.py's (packed words bit for bit,
 the fake-quant weights to the f32 ulps of the LWC sigmoid), and it serves
 the packed model, which gives the text of JAX's engine on main.py's
-packed model. Unported flags exit naming the ROADMAP item.
+packed model. Falcon is LWC only: asked for LET, both calibrate without
+it (the act statistics are still collected and written, as main.py does).
+Unported flags exit naming the ROADMAP item; a net with no synthetic
+config and no checkpoint exits as main.py does.
 """
 import importlib.util
 import json
@@ -30,6 +33,7 @@ import pytest
 import torch
 
 from omniquant_tpu.models import get_family as j_get_family
+from omniquant_tpu.serving.engine import FalconEngine as JFalconEngine
 from omniquant_tpu.serving.engine import LlamaEngine as JLlamaEngine
 from omniquant_tpu.serving.engine import OPTEngine as JOPTEngine
 from omniquant_tpu.utils.checkpoint import load_pytree as j_load_pytree
@@ -88,7 +92,8 @@ def _dirs(d, who):
             "--cache_dir", str(d / f"{who}_cache")]
 
 
-@pytest.fixture(scope="module", params=["tiny-opt", "tiny-llama"])
+@pytest.fixture(scope="module", params=["tiny-opt", "tiny-llama",
+                                        "tiny-falcon"])
 def runs(request, tmp_path_factory):
     net = request.param
     d = tmp_path_factory.mktemp(net)
@@ -123,8 +128,7 @@ def test_parser_matches_main_py():
     flags = {s for a in MAIN.build_parser()._actions for s in a.option_strings}
     assert flags == {s for a in cli.build_parser()._actions
                      for s in a.option_strings}
-    for name in ("tiny-opt", "tiny-llama"):
-        assert cli.TINY_CONFIGS[name] == MAIN.TINY_CONFIGS[name]
+    assert cli.TINY_CONFIGS == MAIN.TINY_CONFIGS
     tok = cli.CharTokenizer(256)
     assert tok.encode(PROMPT) == MAIN.CharTokenizer(256).encode(PROMPT)
     assert tok.decode([0, 65, 300]) == MAIN.CharTokenizer(256).decode(
@@ -135,11 +139,29 @@ def test_parser_matches_main_py():
     (["--tasks", "piqa"], "item 8"), (["--eval_cache", "x.db"], "item 8"),
     (["--tp", "2"], "item 9"), (["--sp", "2"], "item 9"),
     (["--num_processes", "2"], "item 9"), (["--spec_decode", "4"], "item 6"),
-    (["--export_autogptq"], "item 10"), (["--net", "falcon-7b"], "item 5"),
-    (["--net", "tiny-falcon"], "item 5")])
+    (["--export_autogptq"], "item 10")])
 def test_unported_flags_exit(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet: .*{item}"):
         cli.main(["--platform", "cpu", "--synthetic"] + flags)
+
+
+@pytest.mark.parametrize("synthetic", [False, True])
+def test_falcon_7b_without_a_checkpoint_exits_as_main_py(tmp_path,
+                                                         synthetic):
+    """--net falcon-7b is a Falcon now (no "not ported" exit): with no
+    --model and no --synthetic, or with --synthetic (no tiny config of
+    that name), the port exits with main.py's message."""
+    args = ["--platform", "cpu", "--net", "falcon-7b", "--wbits", "16",
+            "--abits", "16", "--output_dir", str(tmp_path / "out"),
+            "--cache_dir", str(tmp_path / "cache")]
+    args += ["--synthetic"] if synthetic else []
+    with pytest.raises(SystemExit) as want:
+        MAIN.main(args)
+    with pytest.raises(SystemExit) as got:
+        cli.main(args)
+    assert str(got.value) == str(want.value)
+    assert ("--synthetic supports nets" if synthetic
+            else "need --model") in str(got.value)
 
 
 def test_no_card_exits_without_falling_back():
@@ -256,7 +278,8 @@ def test_real_quant_serves_the_packed_model(runs):
         lambda a: None if a is None else jax.numpy.asarray(a),
         j_load_pytree(str(runs["dir"] / "jsave" / "model_packed.npz")),
         is_leaf=lambda a: a is None)
-    engine = {"opt": JOPTEngine, "llama": JLlamaEngine}[jfam.name]
+    engine = {"opt": JOPTEngine, "llama": JLlamaEngine,
+              "falcon": JFalconEngine}[jfam.name]
     eng = engine(packed, jcfg, max_batch=1, max_len=2048)
     tok = MAIN.CharTokenizer(jcfg.vocab_size)
     want = tok.decode(eng.generate(tok.encode(PROMPT), max_new_tokens=8))

@@ -96,3 +96,60 @@ def test_opt_tree_carries_across():
                      topt.OPTConfig(**cfg)).numpy(),
         np.asarray(jopt.forward(jp, jax.numpy.asarray(tokens),
                                 jopt.OPTConfig(**cfg))), rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_falcon_tree_carries_across(packed):
+    """A Falcon tree (word_embeddings, ln_f, the fused query_key_value; a
+    multi-query model without biases and an ALiBi one with them), dense
+    or packed W4 g32 by the JAX package, keeps its structure and values,
+    words bit for bit; the carried model's forward is JAX's."""
+    from omniquant_tpu.models import FALCON
+    from omniquant_tpu.models import falcon as jfalcon
+    from omniquant_tpu_torch.models import falcon as tfalcon
+
+    for kw in (dict(), dict(multi_query=False, parallel_attn=False,
+                            alibi=True, bias=True)):
+        cfg = dict(vocab_size=64, hidden_size=64, num_hidden_layers=2,
+                   num_attention_heads=4, **kw)
+        jp = jfalcon.init_params(jax.random.PRNGKey(5), jfalcon.FalconConfig(
+            **cfg))
+        if cfg.get("bias"):
+            jp["layers"][1]["dense"]["bias"] = jnp.linspace(-0.1, 0.1, 64)
+        if packed:
+            jp = pack_model(FALCON, jp, QuantConfig(n_bits=4, group_size=32))
+        tree = jax.tree.map(lambda a: None if a is None else np.asarray(a),
+                            jp, is_leaf=lambda a: a is None)
+        got = from_jax_params(tree, device="cpu")
+        assert got["lm_head"] is None
+        assert sorted(got["layers"][0]) == sorted(jp["layers"][0])
+        for name in tfalcon.LINEAR_NAMES:
+            a, b = jp["layers"][1][name], got["layers"][1][name]
+            if packed:
+                assert isinstance(b, PackedWeight)
+                np.testing.assert_array_equal(b.qweight.numpy(),
+                                              np.asarray(a.qweight))
+                a, b = {"bias": a.bias}, {"bias": b.bias}
+            assert (a["bias"] is None) == (b["bias"] is None) == (
+                not cfg.get("bias"))
+        dense = {k: v for k, v in jp.items() if k != "layers"}
+        dense["norms"] = [{k: v for k, v in layer.items()
+                           if k not in tfalcon.LINEAR_NAMES}
+                          for layer in jp["layers"]]
+        carried = {k: v for k, v in got.items() if k != "layers"}
+        carried["norms"] = [{k: v for k, v in layer.items()
+                             if k not in tfalcon.LINEAR_NAMES}
+                            for layer in got["layers"]]
+        if not packed:
+            dense["layers"], carried["layers"] = jp["layers"], got["layers"]
+        for a, b in zip(_leaves(dense), _leaves(carried)):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+        tokens = np.arange(9, dtype=np.int32)[None]
+        np.testing.assert_allclose(
+            tfalcon.forward(got, torch.from_numpy(tokens).long(),
+                            tfalcon.FalconConfig(**cfg)).numpy(),
+            np.asarray(jfalcon.forward(jp, jnp.asarray(tokens),
+                                       jfalcon.FalconConfig(**cfg))),
+            rtol=1e-4, atol=1e-5)

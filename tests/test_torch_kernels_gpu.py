@@ -354,6 +354,11 @@ def _flash_inputs(cuda, B, H, Hkv, Sq, Skv, D, alibi, seed):
     (1, 4, 4, 255, 255, 64, True, False),    # one short of a 128 edge
     (1, 8, 2, 300, 300, 64, True, True),     # ALiBi, GQA, odd tile count
     (1, 4, 4, 70, 300, 128, False, False),   # q and k maps' extents apart
+    # Falcon's heads: 7B's 71 on one kv head, 40B's 128 on 8, RW-1B's 32
+    # with ALiBi, each at head_dim 64
+    (1, 71, 1, 512, 512, 64, True, False),
+    (1, 128, 8, 384, 384, 64, True, False),
+    (2, 32, 32, 512, 512, 64, True, True),
 ])
 def test_flash_attention_kernel(cuda, B, H, Hkv, Sq, Skv, D, causal, alibi):
     q, k, v, slopes = _flash_inputs(cuda, B, H, Hkv, Sq, Skv, D, alibi,
@@ -486,11 +491,21 @@ def _decode_want(q, cache, lens, kv_len, ring, ring_n):
         (4, 2, 1, 64, 512, 512, [-1, 0, 511, 300], 0, -1),
         (2, 4, 5, 64, 300, 300, [-1, 299], 4, 3),
         (32, 32, 1, 128, 256, 512, [-1] + list(range(8, 256, 8)), 0, -1),
+        # more than 8 query heads a kv head: head groups of 8, the last
+        # part full (Falcon-7B's 71 on one kv head, 40B's 16, 180B's 29)
+        (8, 1, 71, 64, 2048, 2048, [1023, 1024, 2047, 0, 1500, 512, 1022,
+                                    -1], 0, -1),
+        (8, 1, 71, 64, 2048, 2048, [1022, 1023, 2046, -1, 1499, 511, 1021,
+                                    -1], 8, 7),
+        (32, 1, 71, 64, 256, 512, [-1] + list(range(8, 256, 8)), 0, -1),
+        (4, 8, 16, 64, 2048, 2048, "bounds", 8, 3),
+        (4, 8, 29, 64, 1536, 1600, "bounds", 0, -1),
+        (4, 2, 9, 128, 1000, 1024, [999, 0, -1, 500], 4, 2),
     ])
 def test_decode_attention_int8_kernel(cuda, B, n_kv, n_rep, hd, kv_len,
                                       max_len, lengths, R, ring_n):
     """K6 against its plain version (an idle slot without a ring against 0)
-    at hd 128 and 64, 1 to 8 query heads a kv head, windows cut into the
+    at hd 128 and 64, 1 to 71 query heads a kv head, windows cut into the
     card's splits with lengths on their boundaries, and the ring; one
     launch, counted."""
     q, cache, lens, ring = _decode_inputs(cuda, B, n_kv, n_rep, hd, kv_len,
@@ -550,6 +565,33 @@ def test_decode_attention_int8_leaves_no_stale_ticket(cuda):
             (first, big, 2048, 7), (between, small, 1536, -1)):
         ok, err, worst = tolerance.bf16_close(
             got, _decode_want(q, cache, lens, kv_len, ring, ring_n),
+            tolerance.DECODE_ATTENTION_SLACK)
+        assert ok, (err, worst)
+    assert int(decode_attention._K6_TICKETS[cuda.index or 0].abs().sum()) == 0
+
+
+def test_decode_attention_int8_head_groups_leave_no_stale_ticket(cuda):
+    """With head groups each (slot, kv head, group) has its own partials
+    and ticket: Falcon-7B's 71 query heads on one kv head with the ring,
+    then 40B's 16 on 8 kv heads, then the first again: the same bits, both
+    within their bound, every ticket 0."""
+    mqa = _decode_inputs(cuda, 8, 1, 71, 64, 2048, 2048,
+                         [-1, 1024, 2047, 0, -1, 512, 63, 1025], 8, 7, 33)
+    gqa = _decode_inputs(cuda, 4, 8, 16, 64, 2048, 2048, "bounds", 0, -1,
+                         34)
+    assert decode_attention_launch(cuda, 2048, 8, 1, 71, 64, 8).splits > 1
+    ss = 64 ** -0.5
+    first = decode_attention_int8(mqa[0], *mqa[1], mqa[2], 2048, ss,
+                                  ring_kv=mqa[3], ring_n=7)
+    between = decode_attention_int8(gqa[0], *gqa[1], gqa[2], 2048, ss)
+    again = decode_attention_int8(mqa[0], *mqa[1], mqa[2], 2048, ss,
+                                  ring_kv=mqa[3], ring_n=7)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for got, (q, cache, lens, ring), ring_n in ((first, mqa, 7),
+                                                (between, gqa, -1)):
+        ok, err, worst = tolerance.bf16_close(
+            got, _decode_want(q, cache, lens, 2048, ring, ring_n),
             tolerance.DECODE_ATTENTION_SLACK)
         assert ok, (err, worst)
     assert int(decode_attention._K6_TICKETS[cuda.index or 0].abs().sum()) == 0
@@ -1231,7 +1273,96 @@ def test_opt_decode_does_not_synchronize(cuda):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("net", ["tiny-opt", "tiny-llama"])
+# Falcon forms at hd 64 whose int8 decode runs K6 with head groups: 16
+# query heads on one kv head (multi-query), 16 on 2 (the new decoder
+# architecture), and 16 heads with ALiBi (K2's ALiBi path at prefill, no
+# fused decode attention)
+_FALCON_FORMS = {
+    "mqa": dict(),
+    "gqa": dict(new_decoder_architecture=True, num_kv_heads=2),
+    "alibi": dict(multi_query=False, parallel_attn=False, alibi=True,
+                  bias=True),
+}
+
+
+def _tiny_falcon(dev, form, kv_dtype, **kw):
+    """A 2-layer Falcon (hidden 1024, 16 heads of 64) of ``form``, packed
+    W4 g128 (pairs) on the CPU, as a bf16 FalconEngine on ``dev``."""
+    from omniquant_tpu_torch.models import FALCON, falcon
+    from omniquant_tpu_torch.serving import FalconEngine
+
+    cfg = falcon.FalconConfig(vocab_size=256, hidden_size=1024,
+                              num_hidden_layers=2, num_attention_heads=16,
+                              **_FALCON_FORMS[form])
+    gen = torch.Generator().manual_seed(9)
+    dense = falcon.init_params(gen, cfg, device="cpu")
+    for b in dense["layers"]:
+        for sub in b.values():
+            if sub.get("bias") is not None:
+                sub["bias"].normal_(0.0, 0.02, generator=gen)
+    packed = pack_model(FALCON, dense, QuantConfig(n_bits=4, group_size=128),
+                        device="cpu")
+    return FalconEngine(packed, cfg, dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                        device=dev, **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+@pytest.mark.parametrize("form", list(_FALCON_FORMS))
+def test_falcon_engine_on_the_card_matches_cpu(cuda, form, kv_dtype):
+    """The Falcon engine on the card (K1, K2 on the 40-token prompt's
+    64-row bucket, with the slopes under ALiBi, K3, K4; int8 without ALiBi:
+    K6 with its head groups, then step_n through the ring and K5) against
+    the same engine on the CPU: prefill and first decode logits at the
+    OPT engine test's rms bound, and the step_n streams' shape."""
+    from omniquant_tpu_torch import kernels
+
+    reqs = [[(7 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12))]
+    logits = []
+    for dev in ("cpu", "cuda"):
+        eng = _tiny_falcon(dev, form, kv_dtype, max_batch=4, max_len=128,
+                           flash_min_len=32)
+        kernels.reset_launch_counts()
+        slots, lg = eng.add_requests(reqs, return_logits=True)
+        toks, lens = eng._device_tokens({s: 1 for s in slots})
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))[:len(slots)]
+        logits.append(torch.cat([lg.float().cpu(), dec.float().cpu()]))
+        streams = eng.step_n({s: 1 for s in slots}, 4)
+        counts = kernels.launch_counts()
+        assert all(len(v) == 4 for v in streams.values())
+    path = ["quant_matmul", "quant_matmul_prefill", "flash_attention",
+            "kv_cache_prefill_write", "kv_cache_write"]
+    if kv_dtype == "int8" and form != "alibi":
+        path += ["decode_attention_int8", "kv_cache_write_span"]
+    assert all(counts[k] > 0 for k in path), counts
+    if form == "alibi":
+        assert counts["decode_attention_int8"] == 0
+    d = logits[1] - logits[0]
+    assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 2e-2
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+@pytest.mark.parametrize("form", ["mqa", "alibi"])
+def test_falcon_decode_does_not_synchronize(cuda, form, kv_dtype):
+    """The Falcon engine's decode step, step_n (the ring for int8 without
+    ALiBi) and verify pass run with no host synchronisation: multi-query,
+    and ALiBi, whose bias must not be copied from the host each layer."""
+    eng = _tiny_falcon(cuda, form, kv_dtype, max_batch=4, max_len=128)
+    slots = eng.add_requests([[1, 2, 3, 4, 5], [6, 7, 8]])
+    toks, lens = eng._device_tokens({s: 9 for s in slots})
+    verify = torch.full((4, 3), 5, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode_impl(toks, lens, 64)
+        eng._decode_multi_impl(toks, lens + 1, 64, 4, False)
+        eng._verify_impl(verify, lens + 5, 64, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("net", ["tiny-opt", "tiny-llama", "tiny-falcon"])
 def test_cli_on_the_card(cuda, tmp_path, net):
     """``python -m omniquant_tpu_torch`` on its default platform, the card:
     calibrate, perplexity, pack and serve; the results JSON last, and K1,
