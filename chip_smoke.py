@@ -25,11 +25,14 @@ prints no result. Any failure raises, so the exit code is non-zero.
               W2 and W4 g64 also at m = 128 and 4096). K2 runs causal at
               (8, 32, 1024, 128), the B/D/F prefill's shape, at
               (2, 32, 4096, 128), the same tokens as a 4x longer prompt,
-              and at Falcon's prefill heads (8 x 512, head_dim 64: 71
-              query heads on 1 kv head, 128 on 8, 32 with ALiBi). K6 runs
-              at LLaMA-7B's decode shapes and at 16, 29 and 71 query heads
-              per kv head (head groups; hd 64: window 256 at batch 32,
-              window 2048 at batch 8 with and without the ring).
+              at Falcon's prefill heads (8 x 512, head_dim 64: 71
+              query heads on 1 kv head, 128 on 8, 32 with ALiBi) and at
+              OPT-2.7B's 32 heads of 80 ((8, 32, 512, 80), the opt27b
+              prefill, and (1, 32, 2048, 80)). K6 runs at LLaMA-7B's
+              decode shapes, at OPT-2.7B's 32 kv heads of 80 and at 16, 29
+              and 71 query heads per kv head (head groups; hd 64), each at
+              window 256 at batch 32 and window 2048 at batch 8 with and
+              without the ring.
               K4 runs on bf16 k+v rows (A) and int8 codes + planes (C),
               K5 on an 8-row flush at C's and D's batch and window, each
               beside its empty launch with the same grid (the floor) and
@@ -103,7 +106,18 @@ prints no result. Any failure raises, so the exit code is non-zero.
               f32 fake-quant model and of its pack in bf16 (K1, or K8 + K9
               for quantized activations), seconds a window, held to the
               bound of ppl_check.
-7. falcon  -- the published widths of Falcon-7B (hidden 4544, 71 query
+7. opt27b  -- OPT-2.7B at its published widths and full depth
+              (facebook/opt-2.7b: vocab 50272, hidden 2560, ffn 10240, 32
+              layers, 32 heads of 80, pre-LN), random weights as in opt:
+              a W4 g128 (pairs) pack served by a bf16-KV and an int8-KV
+              OPTEngine (8 x 512 prompts: K1's prefill tile, K2 and K3 at
+              hd 80; the first decode and step_n(., 8): K1's decode tile,
+              K4, and for int8 K6 at hd 80 with the ring and K5; int8 also
+              verify_step of 4 tokens), prefill and first decode logits
+              against a plain f32 opt.forward at E2E_TOL; ppl_check of the
+              pack against its dequantized weights in f32; then LWC W4A16
+              g128 at 2 layers with calibrate's five checks.
+8. falcon  -- the published widths of Falcon-7B (hidden 4544, 71 query
               heads on 1 kv head, parallel attention, rotary, ffn 18176,
               vocab 65024; 2 layers, W4A16 g64 planar), Falcon-40B (hidden
               8192, 128 heads on 8 kv heads, the new decoder architecture,
@@ -122,14 +136,14 @@ prints no result. Any failure raises, so the exit code is non-zero.
               logits against the plain f32 forward at E2E_TOL. Then LWC
               calibration (W4A16 g64) at Falcon-7B widths with calibrate's
               five checks and the perplexity check.
-8. cli     -- ``python -m omniquant_tpu_torch`` as a subprocess on the card
+9. cli     -- ``python -m omniquant_tpu_torch`` as a subprocess on the card
               (its default platform), tiny-opt, tiny-llama and
               tiny-falcon: W4A16 g64
               LWC, 2 epochs of 8 x 256, --eval_ppl, --real_quant,
               --save_dir and a 16-token --serve_prompt of the packed model;
               exit 0, a results JSON last, and K1, K3 and K4 launched (the
               CLI logs its launch counts).
-9. profile -- last, so that no timed run follows a profiler session: A and
+10. profile -- last, so that no timed run follows a profiler session: A and
               E rebuilt on a fresh W4 model, prefilled as in serve, two
               step_n(., 8) on the host clock, then one under torch.profiler:
               the device's busy share of a decode step, the kernel launches
@@ -229,9 +243,9 @@ SERVE_PATHS = {
 }
 
 # measurements a kernel's JSON entry carries beside the contract's keys
-EXTRAS = ("prefill", "long_prompt", "falcon", "int_mm_ms", "kernel_ms",
-          "generic_kernel_ms", "verify", "widths", "floor_ms", "host_us",
-          "cases")
+EXTRAS = ("prefill", "long_prompt", "falcon", "opt27b", "int_mm_ms",
+          "kernel_ms", "generic_kernel_ms", "verify", "widths", "floor_ms",
+          "host_us", "cases")
 
 # e2e tolerance on logits, relative to the reference's rms / max magnitude:
 # the engine rounds activations to bf16 at every op (2^-9 relative each)
@@ -652,10 +666,17 @@ FLASH_FALCON = (("falcon-7b", 71, 1, False), ("falcon-40b", 128, 8, False),
                 ("falcon-rw-1b", 32, 32, True))
 
 
+# K2 at OPT-2.7B's 32 heads of 80 (the 128-column instance, columns 80..127
+# zero-filled by the loads): the opt27b phase's 8 x 512 prefill and one
+# 2048-token window
+FLASH_OPT27B = (("prefill", 8, 512), ("window_2048", 1, 2048))
+
+
 def check_flash(torch, device, timer, dims) -> dict:
     """K2 at the serving prefill shape (flash_batch x flash_len), under
-    "long_prompt" at a 4x longer prompt with the same tokens per batch, and
-    under "falcon" at FLASH_FALCON's shapes."""
+    "long_prompt" at a 4x longer prompt with the same tokens per batch,
+    under "falcon" at FLASH_FALCON's shapes and under "opt27b" at
+    FLASH_OPT27B's."""
     Hh, D = dims["heads"], 128
     row = _flash_row(torch, device, timer, dims["flash_batch"], Hh,
                      dims["flash_len"], D)
@@ -666,6 +687,8 @@ def check_flash(torch, device, timer, dims) -> dict:
                                       dims["flash_batch"], h, 512, 64, hkv,
                                       alibi)
                      for name, h, hkv, alibi in FLASH_FALCON}
+    row["opt27b"] = {name: _flash_row(torch, device, timer, b, 32, s, 80)
+                     for name, b, s in FLASH_OPT27B}
     return row
 
 
@@ -982,9 +1005,10 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
     """K6 at the int8 serving shapes: batch 32 with windows 256 and 512 of
     a 512 cache, batch 8 with a 2048 window, lengths straddling 1024 and a
     ring of 8 at ring_n 0 and 7 (LLaMA-7B: 32 kv heads of 128, one query
-    head each); then Falcon's query heads per kv head (K6_FALCON, head_dim
-    64: window 256 at batch 32, window 2048 at batch 8 without and with
-    the ring). The JSON entry is engine C's decode shape (batch 32, window
+    head each); then OPT-2.7B's (32 kv heads of 80, one query head each)
+    and Falcon's query heads per kv head (K6_FALCON, head_dim 64), each at
+    window 256 at batch 32 and window 2048 at batch 8 without and with the
+    ring. The JSON entry is engine C's decode shape (batch 32, window
     256), with every case under ``cases``; see _decode_rows."""
     R, Hh = dims["ring"], dims["heads"]
     gen = torch.Generator(device=device).manual_seed(11)
@@ -1015,6 +1039,14 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
     rows = _decode_rows(torch, device, timer, Hh, 1, 128, cases, R, gen,
                         caches)
     del caches
+    # OPT-2.7B: 32 kv heads of 80, one query head each
+    cases = [("opt-2.7b b32 kv256", b32, dims["max_len"], e256, 256, -1),
+             ("opt-2.7b b8 kv2048", b8, s8, straddle, 2048, -1),
+             ("opt-2.7b b8 kv2048 ring 7", b8, s8, straddle - 1, 2048,
+              R - 1)]
+    rows += _decode_rows(torch, device, timer, Hh, 1, 80, cases, R,
+                         torch.Generator(device=device).manual_seed(80), {})
+    torch.cuda.empty_cache()
     for name, n_kv, n_rep in K6_FALCON:
         cases = [(f"{name} b32 kv256", b32, 256, e256, 256, -1),
                  (f"{name} b8 kv2048", b8, s8, straddle, 2048, -1),
@@ -1030,8 +1062,9 @@ def check_decode_attention(torch, device, timer, dims, out: dict) -> dict:
     head["shape"] = ("q (32, 32, 128) bf16 over int8 codes (32, 32, 512, "
                      "128) + f32 scales, window 256, random lengths with 0 "
                      "and 255; library: SDPA over the bf16-dequantized "
-                     "window, 2x the bytes; Falcon's 16, 29 and 71 query "
-                     "heads per kv head (head_dim 64) under cases")
+                     "window, 2x the bytes; OPT-2.7B's head_dim 80 and "
+                     "Falcon's 16, 29 and 71 query heads per kv head "
+                     "(head_dim 64) under cases")
     head["cases"] = rows
     return head
 
@@ -1788,6 +1821,8 @@ CALIB_PATHS = {
     "c_opt_w6a6_lwc_let": ("_unpack_to_int8", "_quant_matmul_int_dense",
                            "quant_matmul_int", "kv_cache_prefill_write",
                            "kv_cache_write"),
+    "d_opt27b_w4a16g128_lwc": ("quant_matmul", "quant_matmul_prefill",
+                               "kv_cache_prefill_write", "kv_cache_write"),
     "f_falcon7b_w4a16g64_lwc": ("quant_matmul", "quant_matmul_planar_decode",
                                 "quant_matmul_planar_prefill",
                                 "kv_cache_prefill_write", "kv_cache_write"),
@@ -2267,13 +2302,16 @@ def opt_serve(torch, device, cfg, dense, seed, res: dict) -> None:
 
 
 def serve_and_hold(torch, device, family, cfg, packed, paths, n, length,
-                   seed, res: dict, label: str, counts_check=None) -> None:
+                   seed, res: dict, label: str, counts_check=None,
+                   verify=None) -> None:
     """``packed`` served by the family's engine once per entry of ``paths``
     (KV dtype -> kernels it must launch): n x length prompts, the first
-    decode and step_n(., 8), timed on the host clock behind a
-    synchronisation; prefill and first decode logits against a plain f32
-    forward of the dequantized pack at E2E_TOL. ``counts_check(kv, eng,
-    counts)``, when given, may raise on the run's launch counts."""
+    decode and step_n(., 8), and where ``verify`` (KV dtype -> tokens)
+    names the KV dtype a verify_step of that many tokens on every slot,
+    timed on the host clock behind a synchronisation; prefill and first
+    decode logits against a plain f32 forward of the dequantized pack at
+    E2E_TOL. ``counts_check(kv, eng, counts)``, when given, may raise on the
+    run's launch counts."""
     from omniquant_tpu_torch import kernels
 
     engine = engine_for(family)
@@ -2301,6 +2339,16 @@ def serve_and_hold(torch, device, family, cfg, packed, paths, n, length,
         streams = eng.step_n(dict(zip(slots, first)), 8)
         torch.cuda.synchronize()
         decode_s = time.time() - t
+        n_ver = (verify or {}).get(kv, 0)
+        if n_ver:
+            t = time.time()
+            ver = eng.verify_step({x: streams[x][-n_ver:] for x in slots})
+            torch.cuda.synchronize()
+            verify_s = time.time() - t
+            if any(len(ver[x]) != n_ver
+                   or not all(0 <= y < cfg.vocab_size for y in ver[x])
+                   for x in slots):
+                raise AssertionError(f"{label} {kv}: malformed verify_step")
         counts = kernels.launch_counts()
         attn_kernel = eng.attn_kernel
         if counts_check is not None:
@@ -2314,10 +2362,14 @@ def serve_and_hold(torch, device, family, cfg, packed, paths, n, length,
             prefill_s=prefill_s, prefill_tok_s=n * length / prefill_s,
             decode_s=decode_s, decode_tok_s=n * 8 / decode_s,
             launches=counts, attn_kernel=attn_kernel)
+        if n_ver:
+            r.update(verify_s=verify_s, verify_tok_s=n * n_ver / verify_s)
         log(f"  {label} engine, {kv} KV, {n}x{length}: prefill "
             f"{r['prefill_tok_s']:.1f} tok/s ({prefill_s:.3f} s), step_n(., "
-            f"8) {r['decode_tok_s']:.1f} tok/s ({decode_s:.3f} s); launches "
-            f"{counts}")
+            f"8) {r['decode_tok_s']:.1f} tok/s ({decode_s:.3f} s)"
+            + (f", verify_step of {n_ver} {r['verify_tok_s']:.1f} tok/s "
+               f"({verify_s:.3f} s)" if n_ver else "")
+            + f"; launches {counts}")
         missing = [k for k in path if counts[k] <= 0]
         if missing:
             raise AssertionError(f"{label} {kv} engine: kernels never "
@@ -2344,6 +2396,80 @@ def serve_and_hold(torch, device, family, cfg, packed, paths, n, length,
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"{label} engines outside E2E_TOL: {failed}")
+
+
+# ---------------------------------------------------------------------------
+# opt27b phase: OPT-2.7B at its published widths and full depth (the
+# config.json of facebook/opt-2.7b: vocab 50272, hidden 2560, ffn 10240, 32
+# layers, 32 heads of 80, 2048 positions, pre-LN, word_embed_proj_dim 2560,
+# so no project_in/out); random weights from a seeded generator, with
+# opt_dense's biases, LayerNorms and outlier channels. Every linear has
+# N % 128 == 0 (qkv 7680, out 2560, fc1 10240, fc2 2560) and reaches K1;
+# K2 and K6 run at head_dim 80.
+OPT_27B = dict(vocab_size=50272, hidden_size=2560, ffn_dim=10240,
+               num_hidden_layers=32, num_attention_heads=32,
+               max_position_embeddings=2048)
+# verify_step of 4 tokens on every slot of the int8 engine (K1's prefill
+# tile at m = 32, K5)
+OPT27B_VERIFY = {"int8": 4}
+# LWC W4A16 g128 at 2.7B widths, depth cut to OPT27B_CALIB_LAYERS, on
+# calibrate_phase's windows (CALIB_PATHS: its pack served 16 x 128)
+OPT27B_CALIB_LAYERS = 2
+OPT27B_CALIB_RUNS = {
+    "d_opt27b_w4a16g128_lwc": dict(wbits=4, abits=16, group_size=128,
+                                   lwc=True, epochs=2, batch_size=1,
+                                   lwc_lr=1e-2),
+}
+
+
+def opt27b_phase(torch, device, seed, out: dict) -> None:
+    """OPT-2.7B at full width and depth: a W4 g128 (pairs) pack served by a
+    bf16-KV and an int8-KV OPTEngine (serve_and_hold at OPT_SERVE_PATHS,
+    8 x 512 prompts, the first decode, step_n(., 8), verify_step of 4
+    tokens on the int8 engine), then ppl_check of the pack against its
+    dequantized weights in f32 (9 windows of 2048 tokens; the forward's
+    attention is dense, as the JAX package's), then LWC W4A16 g128 at
+    OPT27B_CALIB_LAYERS layers with calibrate_run's five checks."""
+    import dataclasses
+
+    from omniquant_tpu_torch.models import OPT, opt
+    from omniquant_tpu_torch.models.common import NO_ACT_QUANT
+    from omniquant_tpu_torch.quant import QuantConfig
+    from omniquant_tpu_torch.serving import pack_model
+
+    cfg = opt.OPTConfig(**OPT_27B)
+    assert cfg.head_dim == 80 and cfg.word_embed_proj_dim is None
+    res = out["opt27b"] = {}
+    dense = opt_dense(torch, device, cfg, seed + 27)
+    t = time.time()
+    packed = pack_model(OPT, dense, QuantConfig(n_bits=4, group_size=128),
+                        device=device)
+    torch.cuda.synchronize()
+    res["pack_s"] = time.time() - t
+    res["packed_gib"] = sum(
+        x.numel() * x.element_size() for b in packed["layers"]
+        for pw in b.values() if hasattr(pw, "qweight")
+        for x in (pw.qweight, pw.scales, pw.zeros)) / 2 ** 30
+    log(f"  OPT-2.7B: {cfg.num_hidden_layers} layers packed W4 g128 in "
+        f"{res['pack_s']:.1f} s, {res['packed_gib']:.3f} GiB of words, "
+        "scales and zeros")
+    serve_and_hold(torch, device, OPT, cfg, packed, OPT_SERVE_PATHS,
+                   OPT_SERVE_BATCH, OPT_SERVE_LEN, seed, res, "OPT-2.7B",
+                   verify=OPT27B_VERIFY)
+    torch.cuda.empty_cache()
+    res["ppl"] = ppl_check(torch, device, OPT, cfg,
+                           plain_reference_params(torch, packed), packed,
+                           NO_ACT_QUANT, "opt-2.7b W4 g128 (32 layers)", seed)
+    del packed
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=OPT27B_CALIB_LAYERS)
+    dense = dict(dense, layers=dense["layers"][:OPT27B_CALIB_LAYERS])
+    torch.cuda.empty_cache()
+    for name, kw in OPT27B_CALIB_RUNS.items():
+        res[name] = calibrate_run(torch, device, OPT, cfg2, dense,
+                                  *calib_windows(cfg2, seed), name, kw, seed)
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2692,6 +2818,14 @@ def main(argv=None) -> int:
     out["opt_phase_s"] = time.time() - t_opt
     log(f"  opt phase {out['opt_phase_s']:.1f} s")
 
+    log("opt27b: OPT-2.7B widths at full depth (heads of 80): W4 g128 "
+        "bf16- and int8-KV OPTEngines, perplexity of the pack, then LWC "
+        "W4A16 g128 at 2 layers -> pack -> serve -> perplexity")
+    t_opt27 = time.time()
+    opt27b_phase(torch, device, args.seed, out)
+    out["opt27b_phase_s"] = time.time() - t_opt27
+    log(f"  opt27b phase {out['opt27b_phase_s']:.1f} s")
+
     log("falcon: Falcon-7B (2 layers, W4A16 g64), 40B (1 layer, W4A16 g128) "
         "and RW-1B (2 layers, W4A16 g128) widths: bf16- and int8-KV "
         "FalconEngines, then LWC calibration at 7B widths -> pack -> serve "
@@ -2750,6 +2884,22 @@ def main(argv=None) -> int:
             f"{v['ppl']['packed']:.2f} "
             f"({v['ppl']['packed_s_per_window']:.4f})"
             for k, v in opt_res.items() if k in OPT_CALIB_RUNS)
+        + "; on:")
+    log(smi)
+    o27 = out["opt27b"]
+    log("opt27b (prefill / step_n tok/s, native and int8 KV; int8 verify "
+        "tok/s; perplexity f32 / packed; LWC s a step, peak GiB, held-out "
+        "MSE vs RTN): " + "; ".join(
+            f"{kv} {o27['serve_' + kv]['prefill_tok_s']:.1f} / "
+            f"{o27['serve_' + kv]['decode_tok_s']:.1f}"
+            for kv in OPT_SERVE_PATHS)
+        + f"; {o27['serve_int8']['verify_tok_s']:.1f}; "
+        f"{o27['ppl']['fake_quant']:.2f} / {o27['ppl']['packed']:.2f}; "
+        + "; ".join(
+            f"{k} {v['step_s']:.4f}, {v['peak_gib']:.2f}, "
+            f"{v['held_out_mse']['calibrated']:.4g} vs "
+            f"{v['held_out_mse']['rtn']:.4g}"
+            for k, v in o27.items() if k in OPT27B_CALIB_RUNS)
         + "; on:")
     log(smi)
     fal = out["falcon"]

@@ -39,14 +39,16 @@
 //     scale); the next chunk is issued before this one is computed, and
 //     six CTAs share an SM at hd 128 and one query head (the plan asks the
 //     card how many), so every SM keeps loads in flight. A chunk is 64 rows
-//     at hd 128 (128 at hd 64): 8 KB of K and 8 KB of V codes.
+//     at hd 128 (128 at hd 64 and 80): 8-10 KB of K and of V codes.
 //   * No block-wide reduction per chunk: warp w owns a quarter of each
 //     chunk's rows, and keeps its own online softmax (m, l) and output sums.
-//     Scores: two lanes a row at hd 128 (one at hd 64), each 64 code bytes
-//     from K rows padded to hd + 16 bytes (free of bank conflicts), against
-//     q in f32 in shared memory. P.V: each lane takes 4 output dimensions
-//     of a V row (one 32-bit read a row; two rows a step at hd 64) and
-//     walks the warp's rows, p * vs taken from the row's lane by a shuffle.
+//     Scores: two lanes a row at hd 128 (one at hd 64 and 80), each 64 (80)
+//     code bytes from K rows of an odd number of 16-byte pieces (hd 64 and
+//     128 padded by 16 bytes: free of bank conflicts), against q in f32 in
+//     shared memory. P.V: each lane takes 4 output dimensions of a V row
+//     (one 32-bit read a row; two rows a step at hd 64; at hd 80 20 lanes a
+//     row, the other 12 idle) and walks the warp's rows, p * vs taken from
+//     the row's lane by a shuffle.
 //     The codes become floats by a byte permute into the mantissa of 2^23
 //     and one subtraction (exact), not by the slower int-to-float
 //     conversion. The four warps' (m, l, sums) are combined once a split.
@@ -81,15 +83,32 @@ constexpr int STAGES = 2;  // chunks in the ring (3 or 4: fewer CTAs, slower)
 constexpr int MAX_REP = 8;  // query heads a CTA holds (a head group)
 constexpr float NEG = -1e30f;
 
-// The geometry for head dim HD (64 or 128) and up to REP query heads.
+// Lanes that score one K row: two at hd 128 (64 code bytes each), one at
+// hd 64 and 80 (one lane reads a whole 80-byte row: 40 bytes a lane would
+// not be whole 16-byte pieces). kernels/decode_attention.py::decode_chunk
+// follows the same rule.
+__host__ __device__ constexpr int lanes_per_k_row(int hd) {
+  return hd == 128 ? 2 : 1;
+}
+__host__ __device__ constexpr int chunk_rows(int hd) {
+  return THREADS / lanes_per_k_row(hd);
+}
+
+// The geometry for head dim HD (64, 80 or 128) and up to REP query heads;
+// kernels/decode_attention.py::decode_geometry models it.
 template <int HD, int REP>
 struct Geo {
-  static constexpr int TPR = HD / 64;         // lanes a K row (scores)
-  static constexpr int CH = THREADS / TPR;    // rows a chunk: 64 or 128
+  static constexpr int TPR = lanes_per_k_row(HD);  // lanes a K row (scores)
+  static constexpr int CH = chunk_rows(HD);   // rows a chunk: 64 or 128
   static constexpr int RPW = CH / NWARPS;     // rows a warp owns per chunk
-  static constexpr int KRS = HD + 16;         // K row stride in bytes
+  // K row stride in bytes: an odd number of 16-byte pieces, so the 8 lanes
+  // of a quarter warp reading 16 bytes of 8 rows hit 8 distinct bank
+  // quads (80 at hd 64 and 80, 144 at hd 128)
+  static constexpr int KRS = (HD / 16) % 2 ? HD : HD + 16;
   static constexpr int LPR = HD / 4;          // lanes a V row (P.V)
-  static constexpr int RPI = 32 / LPR;        // V rows a warp step
+  // V rows a warp step: 2 at hd 64, 1 at 80 (lanes 20..31 repeat lanes
+  // 0..11 on the same row; their sums are never stored) and 128
+  static constexpr int RPI = 32 / LPR;
   static constexpr int QS = HD + 8;           // q row stride in floats
   static constexpr int QHALF = HD / TPR + 4;  // q offset of a lane's half
   static constexpr int K_OFF = 0;
@@ -103,7 +122,8 @@ struct Geo {
   // the four warps' (m, l, sums), over the ring once the split is done
   static constexpr int RED_BYTES = NWARPS * REP * (HD + 2) * 4;
   static_assert(RED_BYTES <= Q_OFF, "the warps' sums must fit the ring");
-  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim 64, 80, 128");
+  static_assert(RPW % RPI == 0 && HD % 16 == 0, "whole steps and pieces");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -298,7 +318,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                            4 * (lane % G::LPR);
 #pragma unroll 4
     for (int jj = 0; jj < G::RPW; jj += G::RPI) {
-      const int j = jj + lane / G::LPR;  // the warp's row
+      const int j = jj + (lane / G::LPR) % G::RPI;  // the warp's row
       const uint32_t u =
           *reinterpret_cast<const uint32_t*>(vrow0 + j * HD) ^ 0x80808080u;
       float f[4];
@@ -439,13 +459,13 @@ int rep_class(int n_rep) {
 // q (B, n_kv * n_rep, hd) bf16; k/v codes (B, n_kv, max_len, hd) int8; k/v
 // scales (B, n_kv, max_len) f32; lengths (B,) int32; ring codes (B, n_kv,
 // R, hd) int8 and scales (B, n_kv, R) f32, read only when ring_n >= 0; out
-// (B, n_kv * n_rep, hd) bf16. All contiguous; hd is 64 or 128, n_rep >= 1
+// (B, n_kv * n_rep, hd) bf16. All contiguous; hd is 64, 80 or 128, n_rep >= 1
 // (n_rep > 8: G = ceil(n_rep / 8) head groups of up to 8; else G = 1).
 // The window splits into n_win spans of `per` positions (a multiple of the
-// chunk: 64 rows at hd 128, 128 at hd 64), and the ring is one more. With
-// more than one split, ws holds (B, n_kv, G, splits, C, hd) f32 sums and
-// then (B, n_kv, G, splits, C, 2) f32 (m, l), C = min(n_rep, 8), and
-// tickets is a zeroed int32 per (slot, kv head, group), left zeroed.
+// chunk: 64 rows at hd 128, 128 at hd 64 and 80), and the ring is one
+// more. With more than one split, ws holds (B, n_kv, G, splits, C, hd) f32
+// sums and then (B, n_kv, G, splits, C, 2) f32 (m, l), C = min(n_rep, 8),
+// and tickets is a zeroed int32 per (slot, kv head, group), left zeroed.
 extern "C" int decode_attention_int8(
     const void* q, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* lengths, const void* rkc, const void* rks,
@@ -454,8 +474,8 @@ extern "C" int decode_attention_int8(
     int ring_n, int per, int n_win, float score_scale, void* stream) {
   if (n_rep < 1 || n_kv < 1 ||
       (long long)n_kv * ((n_rep + MAX_REP - 1) / MAX_REP) > 65535 ||
-      (hd != 64 && hd != 128) || n_win < 1 || per < 1 ||
-      per % (THREADS * 64 / hd) ||
+      (hd != 64 && hd != 80 && hd != 128) || n_win < 1 || per < 1 ||
+      per % chunk_rows(hd) ||
       (n_win + (ring_n >= 0) > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -472,6 +492,10 @@ extern "C" int decode_attention_int8(
     case 64 * 16 + 2: return K6_LAUNCH(64, 2);
     case 64 * 16 + 4: return K6_LAUNCH(64, 4);
     case 64 * 16 + 8: return K6_LAUNCH(64, 8);
+    case 80 * 16 + 1: return K6_LAUNCH(80, 1);
+    case 80 * 16 + 2: return K6_LAUNCH(80, 2);
+    case 80 * 16 + 4: return K6_LAUNCH(80, 4);
+    case 80 * 16 + 8: return K6_LAUNCH(80, 8);
   }
 #undef K6_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -491,6 +515,10 @@ extern "C" int decode_attention_info(int hd, int n_rep, int ctas, void*) {
     case 64 * 16 + 2: return info<64, 2>(ctas != 0);
     case 64 * 16 + 4: return info<64, 4>(ctas != 0);
     case 64 * 16 + 8: return info<64, 8>(ctas != 0);
+    case 80 * 16 + 1: return info<80, 1>(ctas != 0);
+    case 80 * 16 + 2: return info<80, 2>(ctas != 0);
+    case 80 * 16 + 4: return info<80, 4>(ctas != 0);
+    case 80 * 16 + 8: return info<80, 8>(ctas != 0);
   }
   return -(int)cudaErrorInvalidValue;
 }

@@ -42,6 +42,11 @@
 //    packed only after P_{jt-1}.V_{jt-1} has read its registers;
 //  * the two warpgroups take turns issuing their products (named
 //    barriers), so one's softmax runs under the other's wgmmas.
+// Head dims other than 64 and 128 (multiples of 8 up to 128: OPT-2.7B's 80)
+// run the next instance up on maps of the true width (fa_instance): the
+// columns past D arrive as zeros and are never stored, as JAX pads head_dim
+// to 128 lanes, with no padded copy in memory. At hd 80 that is 128/80 =
+// 1.6x the tensor-core work of the true product.
 // The epilogue scales by 1/max(l, 1e-30), writes bf16 into the warpgroup's
 // rows of the tile's Q buffer in the swizzled layout, and stores them by
 // TMA (rows past Sq are not written). No atomics on the output and no
@@ -391,6 +396,18 @@ bool fa_map(CUtensorMap* map, const void* ptr, int planes, int rows, int D,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The instance that runs head_dim D: 64 up to 64 columns, 128 up to 128
+// (0: none). The maps keep the true D, so a box's columns past it arrive
+// as zeros (TMA's fill past a map's extent) and are never stored: at D 80
+// the second box of a tile holds columns 64..79 and 48 zero columns. Q.K^T
+// over zero columns adds nothing, and P.V writes zeros there, which the
+// output map's extent keeps out of memory. D must be a multiple of 8 (the
+// maps' row stride, 2 D bytes, a multiple of 16).
+int fa_instance(int D) {
+  if (D < 8 || D > 128 || D % 8) return 0;
+  return D <= 64 ? 64 : 128;
+}
+
 template <int D, bool ALIBI>
 int launch(const CUtensorMap (&maps)[4], const float* slopes, int B, int H,
            int Hkv, int Sq, int Skv, float sm_scale, int causal,
@@ -413,15 +430,16 @@ int launch(const CUtensorMap (&maps)[4], const float* slopes, int B, int H,
 }  // namespace
 
 // q (B, H, Sq, D), k/v (B, Hkv, Skv, D), out (B, H, Sq, D), all contiguous
-// bf16 at 16-byte aligned addresses; slopes (H,) f32 or null. D is 64 or
-// 128, H a multiple of Hkv, Sq and Skv at least 1.
+// bf16 at 16-byte aligned addresses; slopes (H,) f32 or null. D is a
+// multiple of 8 up to 128 (fa_instance), H a multiple of Hkv, Sq and Skv at
+// least 1.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* slopes,
                                     void* out, int B, int H, int Hkv, int Sq,
                                     int Skv, int D, float sm_scale, int causal,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0)
+  if (fa_instance(D) == 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k, v, (const void*)out})
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
@@ -433,7 +451,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const float* sl = static_cast<const float*>(slopes);
 #define FA_CASE(DD)                                                         \
-  if (D == DD)                                                              \
+  if (fa_instance(D) == DD)                                                 \
     return sl ? launch<DD, true>(maps, sl, B, H, Hkv, Sq, Skv, sm_scale,    \
                                  causal, st)                                \
               : launch<DD, false>(maps, sl, B, H, Hkv, Sq, Skv, sm_scale,   \

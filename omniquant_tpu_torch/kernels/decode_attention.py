@@ -10,8 +10,8 @@ positions <= lengths[b]; an optional ring of R staged tokens, positions
 scores at -1e30.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/decode_attention.cu`` (bf16 q and output, head_dim 64 or 128, any
-number of query heads per kv head) or raises; the kernel reads only the
+``csrc/decode_attention.cu`` (bf16 q and output, head_dim 64, 80 or 128,
+any number of query heads per kv head) or raises; the kernel reads only the
 live part of each slot's window and never dequantizes the cache. It splits
 the window into spans per ``decode_attention_plan`` (one CTA a span, kv
 head, group of up to 8 query heads and slot; the ring a split of its own)
@@ -72,10 +72,42 @@ class DecodeAttnPlan(NamedTuple):
                 for s in range(self.win_splits)]
 
 
+_HEAD_DIMS = (64, 80, 128)  # the kernel's instances
+
+
 def decode_chunk(hd: int) -> int:
     """Rows of one ring stage of the kernel: 64 at hd 128, 128 at hd 64
-    (two lanes score a K row at hd 128, one at hd 64)."""
-    return _THREADS * 64 // hd
+    and 80 (two lanes score a K row at hd 128, one at hd 64 and 80: the
+    kernel's ``lanes_per_k_row``)."""
+    return _THREADS // (2 if hd == 128 else 1)
+
+
+class DecodeGeometry(NamedTuple):
+    """``csrc/decode_attention.cu``'s ``Geo<HD, REP>``: rows a chunk, lanes
+    scoring a K row, the K row stride in bytes, lanes taking a V row and
+    V rows a warp step in P.V, and the shared memory of the instance
+    (``decode_attention_info`` reports the kernel's)."""
+    chunk: int
+    k_lanes: int
+    k_stride: int
+    v_lanes: int
+    v_rows: int
+    smem: int
+
+
+def decode_geometry(hd: int, rep: int) -> DecodeGeometry:
+    """The kernel's geometry at head_dim ``hd`` (64, 80 or 128) and ``rep``
+    query heads a CTA (its instance, ``rep_class``). K rows are an odd
+    number of 16-byte pieces (free of bank conflicts for the 16-byte reads
+    of a quarter warp); at hd 80 a V row takes 20 lanes, the other 12 of
+    the warp repeat lanes 0..11 and are never stored."""
+    chunk = decode_chunk(hd)
+    k_stride = hd if (hd // 16) % 2 else hd + 16
+    v_lanes = hd // 4
+    stage = chunk * (k_stride + hd + 8)  # K and V codes, both scales
+    smem = 2 * stage + rep * (hd + 8) * 4 + 16  # 2 stages, q in f32, flag
+    return DecodeGeometry(chunk, _THREADS // chunk, k_stride, v_lanes,
+                          32 // v_lanes, smem)
 
 
 def decode_attention_plan(kv_len: int, B: int, n_kv: int, R: int, hd: int,
@@ -162,9 +194,9 @@ def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
     if q.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
         raise ValueError("the CUDA decode attention takes bf16 q and gives "
                          "bf16 out")
-    if hd not in (64, 128):
-        raise ValueError(f"the CUDA decode attention takes head_dim 64 or "
-                         f"128, not {hd}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA decode attention takes head_dim 64, 80 "
+                         f"or 128, not {hd}")
     bufs = [k_codes, k_scale, v_codes, v_scale]
     shapes = [(B, n_kv, max_len, hd), (B, n_kv, max_len)] * 2
     R = ring_kv[0].shape[2] if ring_n >= 0 else 0

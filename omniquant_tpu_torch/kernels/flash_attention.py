@@ -8,9 +8,11 @@ where Sq == Skv, as every caller has it), optional ALiBi adding
 slope[h] * key_position * sm_scale, f32 softmax, output in q.dtype.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/flash_attention.cu`` (bf16, head_dim 64 or 128; TMA loads need
-every tensor at a 16-byte aligned address) or raises; on a CPU tensor it
-runs the plain version.
+``csrc/flash_attention.cu`` (bf16; head_dim a multiple of 8 up to 128,
+run by the 64- or 128-column instance with the columns past head_dim
+zero-filled by the loads, never padded in memory; TMA loads need every
+tensor at a 16-byte aligned address) or raises; on a CPU tensor it runs
+the plain version.
 """
 from __future__ import annotations
 
@@ -60,8 +62,9 @@ def flash_attention(q, k, v, sm_scale: Optional[float] = None,
         return flash_attention_plain(q, k, v, sm_scale, causal, alibi_slopes)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError("the CUDA flash kernel takes bf16 q, k and v")
-    if D not in (64, 128):
-        raise ValueError(f"the CUDA flash kernel takes head_dim 64 or 128, not {D}")
+    if D % 8 or not 8 <= D <= 128:
+        raise ValueError(f"the CUDA flash kernel takes a head_dim that is a "
+                         f"multiple of 8 up to 128, not {D}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:

@@ -384,6 +384,62 @@ def test_flash_attention_is_bitwise_repeatable(cuda):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,alibi", [
+    # OPT-2.7B's 32 heads of 80 at the opt27b phase's prefill; GQA and
+    # ragged; not causal with the maps' extents apart; ALiBi
+    (2, 32, 32, 512, 512, 80, True, False),
+    (1, 4, 2, 200, 200, 80, True, False),
+    (1, 4, 4, 70, 300, 80, False, False),
+    (1, 8, 8, 129, 129, 80, True, True),
+    # other multiples of 8 on the padded instances
+    (1, 4, 4, 256, 256, 96, True, False),
+    (1, 4, 1, 130, 130, 40, True, False),
+    (1, 2, 2, 64, 64, 8, True, False),
+])
+def test_flash_attention_kernel_padded_head_dims(cuda, B, H, Hkv, Sq, Skv, D,
+                                                 causal, alibi):
+    """Head dims other than 64 and 128 run the next instance up, the
+    columns past D zero-filled by the loads and clipped by the store:
+    against the plain version at the per-element rule, one launch, and the
+    output's own memory only (the bytes past it untouched)."""
+    q, k, v, slopes = _flash_inputs(cuda, B, H, Hkv, Sq, Skv, D, alibi,
+                                    seed=Sq + D)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, alibi_slopes=slopes)
+    want = flash_attention_plain(q, k, v, causal=causal, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (B, H, Sq, D)
+    ok, err, worst = tolerance.bf16_close(
+        got, want, tolerance.flash_attention_slack(
+            q, k, v, causal=causal, alibi_slopes=slopes))
+    assert ok, (err, worst)
+    # an output inside a larger buffer: the store leaves the rest alone
+    buf = torch.full((got.numel() + 64,), 7.0, dtype=torch.bfloat16,
+                     device=cuda)
+    out = buf[:got.numel()].view(got.shape)
+    real_empty = torch.empty_like
+    try:
+        torch.empty_like = lambda t, **kw: out if t is q else real_empty(
+            t, **kw)
+        flash_attention(q, k, v, causal=causal, alibi_slopes=slopes)
+    finally:
+        torch.empty_like = real_empty
+    torch.cuda.synchronize()
+    assert torch.equal(out, got) and (buf[got.numel():] == 7.0).all()
+
+
+@pytest.mark.parametrize("D", [100, 136, 4])
+def test_flash_attention_refuses_other_head_dims(cuda, D):
+    """A head_dim that is not a multiple of 8 up to 128 raises, naming
+    what the kernel takes, before any launch."""
+    q, k, v, _ = _flash_inputs(cuda, 1, 2, 2, 64, 64, D, False, 3)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+
+
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_flash_attention_refuses_misaligned(cuda, which):
     """TMA needs 16-byte aligned tensors: a contiguous view one element
@@ -597,6 +653,68 @@ def test_decode_attention_int8_head_groups_leave_no_stale_ticket(cuda):
     assert int(decode_attention._K6_TICKETS[cuda.index or 0].abs().sum()) == 0
 
 
+@pytest.mark.parametrize(
+    "B,n_kv,n_rep,kv_len,max_len,lengths,R,ring_n", [
+        # OPT-2.7B's 32 kv heads of 80, one query head each: the opt27b
+        # phase's decode (8 slots, window 1024 of 1024) and step_n ring
+        (8, 32, 1, 1024, 1024, [511, 512, 1023, 0, 600, -1, 127, 128], 0,
+         -1),
+        (8, 32, 1, 1024, 1024, [510, 511, 1022, -1, 599, -1, 126, 127], 8,
+         7),
+        (32, 32, 1, 256, 512, [-1] + list(range(8, 256, 8)), 0, -1),
+        (4, 32, 1, 2048, 2048, "bounds", 0, -1),
+        (4, 32, 1, 2048, 2048, "bounds", 8, 3),
+        # GQA and head groups at hd 80
+        (4, 4, 2, 1536, 1600, "bounds", 4, 0),
+        (3, 2, 4, 300, 300, [299, 0, -1], 0, -1),
+        (4, 2, 8, 1536, 1536, "bounds", 8, 7),
+        (2, 1, 12, 640, 640, [639, 100], 4, 2),
+    ])
+def test_decode_attention_int8_kernel_hd80(cuda, B, n_kv, n_rep, kv_len,
+                                           max_len, lengths, R, ring_n):
+    """K6 at head_dim 80 (chunks of 128 rows, one lane a K row, 20 lanes a
+    V row) against its plain version, with the ring and idle slots, at 1
+    to 12 query heads a kv head; one launch, and the same bits twice."""
+    hd = 80
+    q, cache, lens, ring = _decode_inputs(cuda, B, n_kv, n_rep, hd, kv_len,
+                                          max_len, lengths, R, ring_n,
+                                          kv_len + R + ring_n + n_rep)
+    before = decode_attention_int8.launches
+    got = decode_attention_int8(q, *cache, lens, kv_len, hd ** -0.5,
+                                ring_kv=ring, ring_n=ring_n)
+    again = decode_attention_int8(q, *cache, lens, kv_len, hd ** -0.5,
+                                  ring_kv=ring, ring_n=ring_n)
+    want = _decode_want(q, cache, lens, kv_len, ring, ring_n)
+    torch.cuda.synchronize()
+    assert decode_attention_int8.launches == before + 2
+    assert torch.equal(got, again)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    ok, err, worst = tolerance.bf16_close(got, want,
+                                          tolerance.DECODE_ATTENTION_SLACK)
+    assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_decode_geometry_matches_the_kernel(cuda, hd):
+    """decode_geometry's shared memory is the kernel's (Geo<HD, REP>, as
+    decode_attention_info reports it) for every instance."""
+    for rep in (1, 2, 4, 8):
+        assert (decode_attention.decode_geometry(hd, rep).smem
+                == decode_attention._decode_info(hd, rep, False)), rep
+
+
+@pytest.mark.parametrize("hd", [96, 72, 48])
+def test_decode_attention_int8_refuses_other_head_dims(cuda, hd):
+    """A head_dim without an instance raises, naming the ones there are,
+    before any launch."""
+    q, cache, lens, _ = _decode_inputs(cuda, 2, 2, 1, hd, 64, 64, [10, 63],
+                                       0, -1, 5)
+    before = decode_attention_int8.launches
+    with pytest.raises(ValueError, match="64, 80 or 128"):
+        decode_attention_int8(q, *cache, lens, 64, hd ** -0.5)
+    assert decode_attention_int8.launches == before
+
+
 def test_decode_attention_int8_is_one_launch(cuda):
     """One call of a split window with a ring runs one kernel on the card:
     no memset of the tickets, no second pass to merge the splits."""
@@ -613,10 +731,13 @@ def test_decode_attention_int8_is_one_launch(cuda):
                              ProfilerActivity.CUDA]) as prof:
         decode_attention_int8(*args, ring_kv=ring, ring_n=7)
         torch.cuda.synchronize()
-    on_card = [(e.key, e.count) for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
-    assert len(on_card) == 1 and on_card[0][1] == 1, on_card
-    assert "decode_attn_kernel" in on_card[0][0], on_card
+    # every event goes into the message, so a failure says what the trace
+    # held beside (or instead of) the kernel
+    events = [(e.key, e.device_type.name, e.count)
+              for e in prof.key_averages()]
+    on_card = [(k, n) for k, d, n in events if d == "CUDA"]
+    assert len(on_card) == 1 and on_card[0][1] == 1, events
+    assert "decode_attn_kernel" in on_card[0][0], events
 
 
 def _offset_view(t, offset_bytes):
@@ -1204,14 +1325,16 @@ def test_calibration_step_on_the_card_matches_cpu(cuda, monkeypatch, let,
                     <= tol["step"] * d_cpu[g].norm()), g
 
 
-def _tiny_opt(dev, kv_dtype, **kw):
-    """A 2-layer OPT (hidden 256, 2 heads of 128) with random biases,
-    packed W4 g128 (pairs) on the CPU, as a bf16 OPTEngine on ``dev``."""
+def _tiny_opt(dev, kv_dtype, widths=(256, 512, 2), **kw):
+    """A 2-layer OPT (hidden, ffn and heads ``widths``: by default 256,
+    512 and 2 heads of 128) with random biases, packed W4 g128 (pairs) on
+    the CPU, as a bf16 OPTEngine on ``dev``."""
     from omniquant_tpu_torch.models import OPT, opt
     from omniquant_tpu_torch.serving import OPTEngine
 
-    cfg = opt.OPTConfig(vocab_size=256, hidden_size=256, ffn_dim=512,
-                        num_hidden_layers=2, num_attention_heads=2,
+    hidden, ffn, heads = widths
+    cfg = opt.OPTConfig(vocab_size=256, hidden_size=hidden, ffn_dim=ffn,
+                        num_hidden_layers=2, num_attention_heads=heads,
                         max_position_embeddings=512)
     gen = torch.Generator().manual_seed(7)
     dense = opt.init_params(gen, cfg, device="cpu")
@@ -1271,6 +1394,74 @@ def test_opt_decode_does_not_synchronize(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# OPT at head_dim 80 (OPT-2.7B's): hidden 640 in 8 heads, ffn 2560, so
+# every linear has N % 128 == 0 and reaches K1, as at 2.7B's widths
+_OPT_HD80 = (640, 2560, 8)
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_opt_hd80_engine_on_the_card_matches_cpu(cuda, kv_dtype):
+    """An OPT engine with heads of 80 on the card (K1 on every linear, K2 on
+    the 40-token prompt's 64-row bucket at hd 80, K3, K4; int8: K6 at hd
+    80, and step_n's ring with K5) against the same engine on the CPU:
+    prefill and first decode logits within 2e-2 of the logits' rms, as
+    test_opt_engine_on_the_card_matches_cpu."""
+    from omniquant_tpu_torch import kernels
+
+    reqs = [[(7 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12))]
+    logits = []
+    for dev in ("cpu", "cuda"):
+        eng = _tiny_opt(dev, kv_dtype, _OPT_HD80, max_batch=4, max_len=128,
+                        flash_min_len=32)
+        assert eng.cfg.head_dim == 80
+        kernels.reset_launch_counts()
+        slots, lg = eng.add_requests(reqs, return_logits=True)
+        toks, lens = eng._device_tokens({s: 1 for s in slots})
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))[:len(slots)]
+        logits.append(torch.cat([lg.float().cpu(), dec.float().cpu()]))
+        out = eng.step_n({s: 2 for s in slots}, 4)
+        assert all(0 <= t < 256 for ts in out.values() for t in ts)
+        counts = kernels.launch_counts()
+    path = ["quant_matmul", "quant_matmul_prefill", "flash_attention",
+            "kv_cache_prefill_write", "kv_cache_write"]
+    if kv_dtype == "int8":
+        path += ["decode_attention_int8", "kv_cache_write_span"]
+    assert all(counts[k] > 0 for k in path), counts
+    d = logits[1] - logits[0]
+    assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 2e-2
+
+
+def test_opt_hd80_launches_k2_and_k6_without_synchronizing(cuda):
+    """At head_dim 80 the int8 OPT engine's flash prefill (K2), decode
+    step (K6), step_n (K6 with the ring) and verify pass queue their work
+    with no host synchronisation, and K2 and K6 launch."""
+    eng = _tiny_opt(cuda, "int8", _OPT_HD80, max_batch=4, max_len=128,
+                    flash_min_len=32)
+    tokens = torch.tensor([[(3 * i + j) % 256 for i in range(64)]
+                           for j in range(2)], dtype=torch.int32,
+                          device=cuda)
+    slots = eng.add_requests([[1, 2, 3, 4, 5], [6, 7, 8]])
+    toks, lens = eng._device_tokens({s: 9 for s in slots})
+    verify = torch.full((4, 3), 5, dtype=torch.int32, device=cuda)
+    prefill_slots = torch.tensor([2, 3], dtype=torch.int32, device=cuda)
+    last_idx = torch.tensor([63, 63], dtype=torch.int32, device=cuda)
+    eng._ensure_prefill_capacity(64)
+    k2, k6 = flash_attention.launches, decode_attention_int8.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._prefill_multi_impl(tokens, prefill_slots, last_idx, 64)
+        eng._decode_impl(toks, lens, 64)
+        eng._decode_multi_impl(toks, lens + 1, 64, 4, False)
+        eng._verify_impl(verify, lens + 5, 64, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert flash_attention.launches > k2
+    assert decode_attention_int8.launches > k6
 
 
 # Falcon forms at hd 64 whose int8 decode runs K6 with head groups: 16
