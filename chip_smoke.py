@@ -143,7 +143,38 @@ prints no result. Any failure raises, so the exit code is non-zero.
               --save_dir and a 16-token --serve_prompt of the packed model;
               exit 0, a results JSON last, and K1, K3 and K4 launched (the
               CLI logs its launch counts).
-10. profile -- last, so that no timed run follows a profiler session: A and
+10. spec    -- speculative decoding (serving/spec_decode.py: SpecDecoder's
+              fused spec_steps rounds, each checked to run without a host
+              synchronisation) and the growing KV cache (auto_grow), random
+              weights from a seeded generator at LLaMA-7B widths (vocab
+              32000, hidden 4096, inter 11008, 32 heads): A a layer-skip
+              self-draft (4 of 32 layers, W4 g128) at gamma 4, 4 rounds a
+              dispatch, batch 8 x 128, max_len 1024, bf16 and int8 KV (K1's
+              decode tile at m = 8 and its prefill tile at the m = 40
+              verify, K4, K5, int8 K6; the int8 run's draft head packed at
+              4 bits, K1 at N = 32000): the round in ms and in sequential
+              step_n(., 8) steps, acceptance, spec and step_n tok/s, the
+              draft's extra memory (its KV cache only, within 1 %), and
+              generate against target.generate for 64 tokens; B a W2 g128
+              pack of the same weights drafting for the W4 g128 target (full
+              depth, max_len 512); C a W6A6 target at 2 layers with a
+              one-layer draft, 8 x 512 prompts (K8 + K9 and K2 at the
+              prefill, K7 at m = 8 and 40); D auto_grow from 256 to 1024
+              rows while 8 x 128 prompts decode 600 tokens each, LLaMA-7B
+              and Falcon-RW-1B (ALiBi) widths at 2 layers, bf16 and int8,
+              full-depth self-drafts, against engines built at 1024 (copy
+              ms, peak GiB); one sample_spec_step round at temperature 0.8
+              with a full-depth self-draft, then one greedy dispatch on it
+              (A_full: rounds that accept their proposals emit several
+              tokens). The kernels phase holds K1 and K7 at this phase's
+              shapes (SPEC_K1_M, SPEC_K7_M). Every card stream is held
+              whole to the near-tie rule (stream_gaps, near_tie): each
+              token lies at most SPEC_TIE x E2E_TOL's max bound (W6A6:
+              E2E_INT_TOL[6]'s) x its row's largest |logit| below the
+              row's argmax in one causal pass of the plain f32 forward over
+              the stream; a planted fault (the draft's own stream) must
+              fail it.
+11. profile -- last, so that no timed run follows a profiler session: A and
               E rebuilt on a fresh W4 model, prefilled as in serve, two
               step_n(., 8) on the host clock, then one under torch.profiler:
               the device's busy share of a decode step, the kernel launches
@@ -163,6 +194,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -463,14 +495,26 @@ def _k1_prefill_sum(rows, m) -> dict:
     return tot
 
 
+# K1's shapes on the spec phase's path beyond the serving rows: generate's
+# single-slot draft and target steps (m = 1) and verify pass (m = 5, the
+# decode tile), the batched verify (m = 8 x 5 = 40, the prefill tile) and
+# the batched prefill of 8 x 128 prompts (m = 1024); a W2 g128 draft
+# (pairs) at its steps and prefill; a 4-bit packed draft head (4096 x 32000)
+# at its steps. Their inputs come from a generator of their own, so the
+# serving rows keep theirs.
+SPEC_K1_M = {"W4 g128": (1, 5, 40, 1024), "W2 g128": (1, 8, 1024),
+             "head": (1, 8)}
+
+
 def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
     """K1 on pairs words (W4 g128) at the decode (m = 32 and 8), verify (m =
-    128) and prefill (m = 4096 and 8192) shapes of the serving path; two
-    calls must give the same bits (the decode tile's split-K slices are
-    added in a fixed order, the prefill tile runs unsplit). The JSON entry
-    sums one decoder layer's four decode products at m = 32, and under
-    ``prefill`` qkv + o + down at m = 4096; the log also sums the four at
-    m = 8."""
+    128) and prefill (m = 4096 and 8192) shapes of the serving path, and at
+    the spec phase's (SPEC_K1_M; rows marked ``spec``); two calls must give
+    the same bits (the decode tile's split-K slices are added in a fixed
+    order, the prefill tile runs unsplit). The JSON entry sums one decoder
+    layer's four decode products at m = 32, and under ``prefill`` qkv + o +
+    down at m = 4096; the log also sums the four at m = 8. Its error is the
+    largest of every row."""
     shapes = _seven_b_shapes(dims)
     ms_list = [(32, ("qkv", "o", "gate_up", "down")),
                (8, ("qkv", "o", "gate_up", "down")),
@@ -478,7 +522,17 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
                (dims["prefill_m"], ("qkv", "o", "down")),
                (dims["flash_m"], ("qkv", "o", "down"))]
     gen = torch.Generator(device=device).manual_seed(1234)
+    spec_gen = torch.Generator(device=device).manual_seed(1235)
     rows = []
+
+    def spec_rows(tag, name, pw, w_lib, K):
+        for m in SPEC_K1_M[tag]:
+            x = torch.randn(m, K, generator=spec_gen, device=device).to(
+                torch.bfloat16)
+            rows.append(dict(shape=name, weights=tag, spec=True, **_k1_row(
+                torch, timer, f"quant_matmul {tag} {name} m={m}", pw, w_lib,
+                x)))
+
     for name, (K, N) in shapes.items():
         pw, w_lib = _k1_weight(torch, device, gen, 4, 128, K, N)
         assert pw.layout == "pairs"
@@ -489,10 +543,21 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
                 torch.bfloat16)
             rows.append(dict(shape=name, **_k1_row(
                 torch, timer, f"quant_matmul {name} m={m}", pw, w_lib, x)))
+        spec_rows("W4 g128", name, pw, w_lib, K)
         del pw, w_lib
+    for tag, bits, todo in (
+            ("W2 g128", 2, shapes),
+            ("head", 4, {"lm_head": (dims["hidden"],
+                                     SPEC_MODEL["vocab_size"])})):
+        for name, (K, N) in todo.items():
+            pw, w_lib = _k1_weight(torch, device, spec_gen, bits, 128, K, N)
+            assert pw.layout == "pairs"
+            spec_rows(tag, name, pw, w_lib, K)
+            del pw, w_lib
     out["quant_matmul_shapes"] = rows
-    m32 = [r for r in rows if r["m"] == 32]
-    m8 = [r for r in rows if r["m"] == 8]
+    serving = [r for r in rows if not r.get("spec")]
+    m32 = [r for r in serving if r["m"] == 32]
+    m8 = [r for r in serving if r["m"] == 8]
     tot = _k1_total(m32, rows,
                     "one decoder layer at decode, m=32: qkv 4096x12288, o "
                     "4096x4096, gate_up 4096x22016, down 11008x4096")
@@ -500,7 +565,7 @@ def check_quant_matmul(torch, device, timer, dims, out: dict) -> dict:
         f"ms, library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}; "
         f"m=8 kernel {sum(r['ms'] for r in m8):.4f} ms, library "
         f"{sum(r['library_ms'] for r in m8):.4f}")
-    tot["prefill"] = _k1_prefill_sum(rows, dims["prefill_m"])
+    tot["prefill"] = _k1_prefill_sum(serving, dims["prefill_m"])
     _log_prefill_sum("quant_matmul", tot["prefill"])
     return tot
 
@@ -1127,10 +1192,18 @@ def _int_call_held(torch, qmm, label, call, want, mag, launched):
     return _int_held(torch, label, got, want, tolerance.INT_MATMUL_SLACK * mag)
 
 
+# K7's rows on the spec phase's W6A6 path: generate's single-slot steps (m =
+# 1) and verify (m = 5), the batched draft steps (m = 8) and verify (m = 8 x
+# 5 = 40)
+SPEC_K7_M = (1, 5, 8, 40)
+
+
 def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
     """quant_matmul_int on W6 planar g128 weights of the four 7B projections
     at decode (m = 32) and verify (m = 128) rows with 6-bit activations, as
-    the engine calls it: the activation quantizer, then K7. Held to the
+    the engine calls it: the activation quantizer, then K7; and at the spec
+    phase's W6A6 rows (SPEC_K7_M; marked ``spec``, their activations from a
+    generator of their own). Held to the
     plain path on the same x (quantize_act_int, quant_matmul_int_plain) and
     timed whole; K7 alone on the same codes (kernel_ms) gives the
     quantizer's share, and K7 with its generic path forced
@@ -1142,15 +1215,16 @@ def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
     from omniquant_tpu_torch.quant import QuantConfig, dequantize_packed
 
     gen = torch.Generator(device=device).manual_seed(4321)
+    spec_gen = torch.Generator(device=device).manual_seed(4322)
     acfg = QuantConfig(n_bits=6)
     rows = []
     for name, (K, N) in _seven_b_shapes(dims).items():
         pw = _seven_b_packed(torch, device, gen, 6, K, N)
         assert pw.layout == "planar"
         w_lib = dequantize_packed(pw, dtype=torch.bfloat16)
-        for m in (32, 128):
-            x = torch.randn(m, K, generator=gen, device=device).to(
-                torch.bfloat16)
+        for m in (32, 128) + SPEC_K7_M:
+            x = torch.randn(m, K, generator=gen if m in (32, 128)
+                            else spec_gen, device=device).to(torch.bfloat16)
             xc, xs = qmm.quantize_act_int(x, acfg)
             want, mag = qmm.quant_matmul_int_plain(xc, xs, pw, magnitude=True)
             lbl = f"quant_matmul_int {name} m={m}"
@@ -1176,7 +1250,8 @@ def check_quant_matmul_int(torch, device, timer, dims, out: dict) -> dict:
             ops = 2.0 * m * K * N
             b, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
             rows.append(dict(
-                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk,
+                shape=name, m=m, K=K, N=N, spec=m in SPEC_K7_M, ms=t,
+                kernel_ms=tk,
                 generic_kernel_ms=tg, plain_ms=tp, library_ms=tl, bound_ms=b,
                 bound_by=by, max_abs_err=max(err, g_err),
                 err_over_bound=worst,
@@ -1310,7 +1385,8 @@ def check_int_dense(torch, device, timer, dims, out: dict) -> dict:
             b, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
             share = ops / INT8_OPS_PER_S * 1e3 / tn
             rows.append(dict(
-                shape=name, m=m, K=K, N=N, ms=t, kernel_ms=tk, launch_ms=tn,
+                shape=name, m=m, K=K, N=N, spec=m in SPEC_K7_M, ms=t,
+                kernel_ms=tk, launch_ms=tn,
                 unpack_ms=tu, plain_ms=tp, library_ms=tl, int_mm_ms=ti,
                 bound_ms=b, bound_by=by, int8_peak_share=share,
                 max_abs_err=err, err_over_bound=worst,
@@ -2644,37 +2720,63 @@ CLI_DENSE = {"tiny-opt": "qkv (N 192), out_proj and fc2 (N 64)",
 
 
 def cli_phase(out: dict) -> None:
-    """Each CLI_NETS run as a subprocess, in a fresh directory under the
-    git-ignored build/: it must exit 0, end with a results JSON holding a
-    finite synthetic perplexity and a generation, and log the launch of
-    every kernel of CLI_PATHS."""
+    """The CLI_NETS runs as subprocesses started together, each in a fresh
+    directory under the git-ignored build/ with its output in files there:
+    each must exit 0, end with a results JSON holding a finite synthetic
+    perplexity and a generation, and log the launch of every kernel of
+    CLI_PATHS. A run still going after 600 s is killed and fails."""
     import re
     import shutil
 
     res = out["cli"] = {}
-    for net in CLI_NETS:
-        d = os.path.join(HERE, "build", "cli_smoke", net)
-        shutil.rmtree(d, ignore_errors=True)
-        cmd = [sys.executable, "-m", "omniquant_tpu_torch", "--net", net,
-               *CLI_ARGS, "--serve_prompt", CLI_PROMPT,
-               "--save_dir", os.path.join(d, "save"),
-               "--output_dir", os.path.join(d, "out"),
-               "--cache_dir", os.path.join(d, "cache")]
-        env = dict(os.environ, PYTHONPATH=HERE)
-        t = time.time()
-        p = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
-                           text=True, timeout=600)
-        wall = time.time() - t
-        if p.returncode != 0:
-            log(p.stdout[-4000:])
-            log(p.stderr[-4000:])
-            raise AssertionError(f"cli {net}: exit code {p.returncode}")
-        last = json.loads(p.stdout.strip().splitlines()[-1])
+    env = dict(os.environ, PYTHONPATH=HERE)
+    runs = {}
+    try:
+        for net in CLI_NETS:
+            d = os.path.join(HERE, "build", "cli_smoke", net)
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(d)
+            cmd = [sys.executable, "-m", "omniquant_tpu_torch", "--net", net,
+                   *CLI_ARGS, "--serve_prompt", CLI_PROMPT,
+                   "--save_dir", os.path.join(d, "save"),
+                   "--output_dir", os.path.join(d, "out"),
+                   "--cache_dir", os.path.join(d, "cache")]
+            logs = [open(os.path.join(d, f), "w+")
+                    for f in ("stdout.log", "stderr.log")]
+            runs[net] = dict(logs=logs, t=time.time(), wall=None,
+                             p=subprocess.Popen(cmd, cwd=HERE, env=env,
+                                                stdout=logs[0],
+                                                stderr=logs[1]))
+        deadline = time.time() + 600
+        while any(r["wall"] is None for r in runs.values()):
+            if time.time() > deadline:
+                raise AssertionError("cli: a run took more than 600 s")
+            time.sleep(0.2)
+            for r in runs.values():
+                if r["wall"] is None and r["p"].poll() is not None:
+                    r["wall"] = time.time() - r["t"]
+    finally:
+        for r in runs.values():
+            if r["p"].poll() is None:
+                r["p"].kill()
+                r["p"].wait()
+    for net, r in runs.items():
+        for f in r["logs"]:
+            f.seek(0)
+        stdout, stderr = (f.read() for f in r["logs"])
+        for f in r["logs"]:
+            f.close()
+        wall = r["wall"]
+        if r["p"].returncode != 0:
+            log(stdout[-4000:])
+            log(stderr[-4000:])
+            raise AssertionError(f"cli {net}: exit code {r['p'].returncode}")
+        last = json.loads(stdout.strip().splitlines()[-1])
         counts = json.loads(re.search(r"kernel launches: (\{.*\})",
-                                      p.stdout).group(1))
+                                      stdout).group(1))
         res[net] = dict(results=last, launches=counts, wall_s=wall)
-        log(f"  cli {net}: exit 0 in {wall:.1f} s; synthetic ppl "
-            f"{last.get('synthetic')}, generation "
+        log(f"  cli {net}: exit 0 in {wall:.1f} s (the {len(runs)} runs "
+            f"together); synthetic ppl {last.get('synthetic')}, generation "
             f"{last.get('generation')!r}; launches {counts}; at these widths "
             f"{CLI_DENSE[net]} take the dense reference, as in the JAX "
             "package (N % 128 != 0)")
@@ -2685,6 +2787,496 @@ def cli_phase(out: dict) -> None:
         if missing:
             raise AssertionError(f"cli {net}: kernels never launched: "
                                  f"{missing}")
+
+
+# ---------------------------------------------------------------------------
+# spec phase: speculative decoding (serving/spec_decode.py) and the growing
+# KV cache (auto_grow), after the JAX package's bench.py stage 4 and
+# scripts/bench_spec_w2draft.py. A: a layer-skip self-draft of a LLaMA-7B
+# (full width and depth, W4 g128); B: a W2 g128 pack of the same weights
+# drafting for it; C: a W6A6 target at 2 layers; D: engines that grow from
+# 256 to 1024 rows while they decode; between A and B, one sampling round
+# and one greedy dispatch with a full-depth self-draft.
+SPEC_MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                  num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=32)
+SPEC_BATCH, SPEC_PROMPT_LEN, SPEC_GAMMA, SPEC_ROUNDS = 8, 128, 4, 4
+SPEC_DRAFT_LAYERS = 4
+SPEC_DISPATCHES = 3     # timed spec_steps dispatches a run
+SPEC_GEN_TOKENS = 64    # SpecDecoder.generate against target.generate (A;
+#                         half as many in B and C)
+SPEC_INT_PROMPT_LEN = 512            # C: 8 x 512 prompts (K8 + K9, K2)
+SPEC_GROW = (256, 1024, 600)         # D: max_len, grown max_len, tokens
+SPEC_TEMPERATURE = 0.8
+# the near-tie rule (stream_gaps, near_tie): every token of a card's greedy
+# stream lies at most SPEC_TIE x the engine's largest-error bound (E2E_TOL's
+# "max", or E2E_INT_TOL[6]'s for W6A6) x its row's largest |logit| below
+# that row's argmax in the plain f32 forward over the stream's own
+# context. Logits within that error bound of the f32 row move each of the
+# two tokens by at most the bound, so an engine that meets it never emits a
+# token further down. A rule in units of the row's rms (4 x 5e-2) failed a
+# correct int8 stream over 64 tokens at 0.236 rms on an H100 at 32 layers:
+# the int8 cache's rounding, which the f32 forward does not model, is
+# within E2E_TOL and not within that. A planted fault, the
+# draft's own greedy stream, must fail the rule (A_native).
+SPEC_TIE = 2
+# kernels each run must launch. A, B, D: the batched prefill on K1's
+# prefill tile and K3; the draft's decode steps on K1's decode tile (m = 8)
+# and K4 (with K6 on an int8 cache); the verify pass on K1's prefill tile
+# at m = 40 and K5. C (W6A6): the 8 x 512 prefill through K8 + K9 and K2,
+# the draft's steps (m = 8) and the verify (m = 40) through K7. D's ALiBi
+# Falcon keeps K6 off on its int8 cache.
+_SPEC_A16 = ("quant_matmul", "quant_matmul_prefill", "kv_cache_prefill_write",
+             "kv_cache_write", "kv_cache_write_span")
+SPEC_PATHS = {
+    "A_native": _SPEC_A16,
+    "A_int8": _SPEC_A16 + ("decode_attention_int8",),
+    "A_full": _SPEC_A16,
+    "B": _SPEC_A16,
+    "C": ("_unpack_to_int8", "_quant_matmul_int_dense", "quant_matmul_int",
+          "flash_attention", "kv_cache_prefill_write", "kv_cache_write",
+          "kv_cache_write_span"),
+    "D_llama_native": _SPEC_A16,
+    "D_llama_int8": _SPEC_A16 + ("decode_attention_int8",),
+    "D_falcon_native": _SPEC_A16,
+    "D_falcon_int8": _SPEC_A16,
+}
+
+
+def plain_logits(torch, family, cfg, packed, tokens, spec, n):
+    """The plain f32 forward's logits at the last ``n`` positions of
+    ``tokens`` (B, S), (B, n, V): the packed model dequantized as
+    plain_reference_params does, one layer at a time (a 32-layer 7B model
+    never sits in memory in f32)."""
+    top = plain_reference_params(
+        torch, {k: v for k, v in packed.items() if k != "layers"})
+    with torch.no_grad():
+        x = family.embed(top, tokens, cfg)
+        for layer in packed["layers"]:
+            x = _chain(torch, family, cfg,
+                       [plain_reference_params(torch, layer)], x, spec)
+        return family.head(top, x[:, -n:], cfg).float()
+
+
+def stream_gaps(torch, family, cfg, packed, prompts, streams, spec) -> list:
+    """Each token of each greedy stream (prompts of one length) against one
+    causal pass of the plain f32 forward of the packed model over its
+    prompt and the stream before it: the gap between the row's f32 argmax
+    logit and the token's, over the row's largest |logit|. The rows are
+    padded on the right, which no earlier position sees. Returns a list of
+    gaps a stream."""
+    from omniquant_tpu_torch.models.common import embedding_device
+
+    n = max(len(s) for s in streams)
+    device = embedding_device(packed)
+    ctx = torch.tensor([list(p) + list(s[:-1]) + [0] * (n - len(s))
+                        for p, s in zip(prompts, streams)], device=device)
+    got = torch.tensor([list(s) + [0] * (n - len(s)) for s in streams],
+                       device=device)
+    logits = plain_logits(torch, family, cfg, packed, ctx, spec, n)
+    gap = ((logits.max(-1).values - logits.gather(-1, got[..., None])[..., 0])
+           / logits.abs().amax(-1)).tolist()
+    return [g[:len(s)] for g, s in zip(gap, streams)]
+
+
+def near_tie(gaps: list, bound: float) -> dict:
+    """The near-tie rule over streams' gaps (stream_gaps): every token at
+    most ``bound`` x its row's largest |logit| below the row's f32
+    argmax."""
+    flat = sorted(x for g in gaps for x in g)
+    return dict(tokens=len(flat), at_argmax=sum(x == 0 for x in flat),
+                over=sum(x > bound for x in flat), worst=flat[-1],
+                median=flat[len(flat) // 2], limit=bound,
+                ok=flat[-1] <= bound)
+
+
+def _log_tie(t: dict) -> str:
+    return (f"{t['tokens']} tokens, {t['at_argmax']} at the f32 argmax, "
+            f"{t['over']} beyond the near-tie limit; gap to the argmax "
+            f"median {t['median']:.4f}, worst {t['worst']:.4f} of the row's "
+            f"largest |logit| (limit {t['limit']:.4f})")
+
+
+def _no_sync_rounds(torch, sd) -> None:
+    """sd's fused rounds (everything spec_steps runs between building its
+    inputs and copying its results to the host) under
+    set_sync_debug_mode("error"): a host synchronisation there raises. The
+    wrapper holds sd weakly, so a deleted decoder is freed at once."""
+    ref, inner = weakref.ref(sd), type(sd)._rounds
+
+    def rounds(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(ref(), *a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    sd._rounds = rounds
+
+
+def _cache_bytes(eng) -> int:
+    return sum(t.numel() * t.element_size()
+               for bufs in (eng.cache.k, eng.cache.v, eng.cache.k_scale,
+                            eng.cache.v_scale) if bufs for t in bufs)
+
+
+def _own_head_bytes(sd) -> int:
+    """The bytes of a draft head that is not the target's (a packed one)."""
+    head = sd.draft.params.get("lm_head")
+    if head is None or head is sd.target.params.get("lm_head"):
+        return 0
+    return sum(t.numel() * t.element_size() for t in (
+        head.qweight, head.scales, head.zeros))
+
+
+def spec_decoder(torch, target, res: dict, **kw):
+    """A SpecDecoder over ``target``; with the default layer-skip draft,
+    the memory it adds must be its KV cache (and packed head) within 1 %."""
+    from omniquant_tpu_torch.serving import SpecDecoder
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sd = SpecDecoder(target, gamma=SPEC_GAMMA, **kw)
+    torch.cuda.synchronize()
+    if kw.get("draft") is None:
+        extra = torch.cuda.memory_allocated() - before
+        cache, head = _cache_bytes(sd.draft), _own_head_bytes(sd)
+        want = cache + head
+        res.update(draft_extra_gib=extra / 2**30,
+                   draft_cache_gib=cache / 2**30,
+                   draft_head_gib=head / 2**30)
+        log(f"    layer-skip draft of {len(sd.draft.params['layers'])} "
+            f"layers: {extra / 2**30:.4f} GiB more allocated, its KV cache "
+            f"{cache / 2**30:.4f} GiB"
+            + (f" and packed head {head / 2**30:.4f} GiB" if head else ""))
+        if abs(extra - want) > 0.01 * want:
+            raise AssertionError("the layer-skip draft holds more than its "
+                                 "KV cache: it copied the target's weights")
+    _no_sync_rounds(torch, sd)
+    return sd
+
+
+def _warm(torch, sd, vocab, seed) -> None:
+    """Two short requests through both engines, one fused round and one
+    step_n of the target (allocator, library handles, workspaces)."""
+    t, d = sd.target, sd.draft
+    reqs = prompts(torch, 2, 16, vocab, seed)
+    slots = t.add_requests(reqs)
+    d.add_requests(reqs)
+    last = {s: t._pending_next[s] for s in slots}
+    last = {s: v[-1] for s, v in sd.spec_steps(last, rounds=1).items()}
+    t.step_n(last, 2)
+    for s in slots:
+        sd.release(s)
+    torch.cuda.synchronize()
+
+
+def spec_run(torch, name, sd, reqs, vocab, res: dict, total: dict,
+             dispatches=SPEC_DISPATCHES, tokens=0, tag="") -> dict:
+    """The main path of one spec run, its launch counts set to 0 before and
+    read after: both engines prefilled with ``reqs`` (add_requests), then
+    ``dispatches`` fused spec_steps(., SPEC_ROUNDS) dispatches (or, with
+    ``tokens``, as many as every slot needs for that many tokens), then,
+    without ``tokens``, two step_n(., 8) of the target alone. Every kernel
+    of SPEC_PATHS[name] must launch. Returns the slots' streams."""
+    from omniquant_tpu_torch import kernels
+
+    t, d = sd.target, sd.draft
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    slots = t.add_requests(reqs)
+    if d.add_requests(reqs) != slots:
+        raise AssertionError(f"spec {name}: target and draft slots differ")
+    torch.cuda.synchronize()
+    res["prefill_s"] = time.time() - t0
+    last = {s: t._pending_next[s] for s in slots}
+    streams = {s: [v] for s, v in last.items()}
+    p0, a0 = sd.proposed, sd.accepted
+    times, slot_rounds = [], 0
+    while len(times) < dispatches or tokens:
+        # with ``tokens``, a slot that has them leaves the requests (its
+        # rows still take the bystander writes, past its length)
+        live = {s: v for s, v in last.items()
+                if not tokens or len(streams[s]) < tokens}
+        if not live:
+            break
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = sd.spec_steps(live, rounds=SPEC_ROUNDS)  # ends on the host
+        times.append(time.time() - t0)
+        slot_rounds += len(live) * SPEC_ROUNDS
+        for s, v in got.items():
+            streams[s] += v
+            last[s] = v[-1]
+    spec_s = sum(times)
+    emitted = sum(len(v) - 1 for v in streams.values())
+    res.update(dispatches=len(times), spec_s=spec_s,
+               round_ms=spec_s / (len(times) * SPEC_ROUNDS) * 1e3,
+               spec_tok_s=emitted / spec_s,
+               tokens_per_round=emitted / slot_rounds,
+               acceptance=(sd.accepted - a0) / (sd.proposed - p0))
+    line = (f"  spec {name}{tag}: {len(slots)} x {len(reqs[0])}, gamma "
+            f"{sd.gamma}, {len(times)} dispatches of {SPEC_ROUNDS} rounds: "
+            f"a round {res['round_ms']:.2f} ms, "
+            f"{res['tokens_per_round']:.3f} tokens a slot a round, "
+            f"acceptance {res['acceptance']:.4f}, spec {res['spec_tok_s']:.1f}"
+            " tok/s")
+    if not tokens:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(2):
+            last = {s: v[-1] for s, v in t.step_n(last, 8).items()}
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / 16
+        res.update(step_n_tok_s=len(slots) / step_s, step_ms=step_s * 1e3,
+                   round_in_steps=res["round_ms"] / (step_s * 1e3))
+        line += (f"; step_n(., 8) {res['step_n_tok_s']:.1f} tok/s, a round "
+                 f"costs {res['round_in_steps']:.2f} sequential steps")
+    counts = kernels.launch_counts()
+    for s in slots:
+        sd.release(s)
+    res["launches"] = counts
+    log(line + f"; launches {counts}")
+    if any(not all(0 <= x < vocab for x in v) for v in streams.values()):
+        raise AssertionError(f"spec {name}: malformed token streams")
+    missing = [k for k in SPEC_PATHS[name] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"spec {name}: kernels never launched on its "
+                             f"path: {missing}")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return streams
+
+
+def spec_generate(torch, name, family, cfg, packed, sd, prompt, n, spec,
+                  bound, res: dict, want=None, fault=False) -> list:
+    """SpecDecoder.generate for ``n`` tokens, every token held to the
+    near-tie rule; the tokens equal to target.generate (``want``, when
+    given) before the first divergence are reported. With ``fault``, a
+    planted fault goes through the same rule and must fail it: the draft's
+    own greedy stream, which a decoder that accepted every proposal
+    unchecked would emit."""
+    if want is None:
+        want = sd.target.generate(prompt, max_new_tokens=n)
+    got = sd.generate(prompt, max_new_tokens=n)
+    streams = [got] + ([sd.draft.generate(prompt, max_new_tokens=n)]
+                       if fault else [])
+    gaps = stream_gaps(torch, family, cfg, packed, [prompt] * len(streams),
+                       streams, spec)
+    agreed = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                  min(len(got), len(want)))
+    tie = res["generate"] = dict(near_tie(gaps[:1], bound), agreed=agreed)
+    log(f"  spec {name} generate: {agreed} of {n} tokens equal to "
+        f"target.generate before the first divergence; near-tie rule over "
+        f"the whole stream: {_log_tie(tie)}")
+    if fault:
+        f = res["planted_fault"] = near_tie(gaps[1:], bound)
+        log(f"  spec {name} planted fault (the draft's own greedy stream): "
+            f"{_log_tie(f)}")
+        if f["ok"]:
+            raise AssertionError(f"spec {name}: the near-tie rule passes a "
+                                 "planted fault")
+    if not tie["ok"] or len(got) != n:
+        raise AssertionError(f"spec {name}: generate emits a token at no "
+                             "near tie with the f32 argmax")
+    return want
+
+
+def spec_phase(torch, device, seed, out: dict) -> dict:
+    """A-D, the sampling round and A_full (see the module docstring);
+    returns the launch counts summed over their main-path runs."""
+    import dataclasses
+
+    from omniquant_tpu_torch.models import FALCON, LLAMA, falcon, llama
+    from omniquant_tpu_torch.models.common import NO_ACT_QUANT, ActQuantSpec
+    from omniquant_tpu_torch.quant import QuantConfig
+    from omniquant_tpu_torch.serving import (
+        FalconEngine, LlamaEngine, pack_model)
+
+    res = out["spec"] = {}
+    total = {}
+    cfg = llama.LlamaConfig(**SPEC_MODEL)
+    V = cfg.vocab_size
+    reqs = prompts(torch, SPEC_BATCH, SPEC_PROMPT_LEN, V, seed + 19)
+    w4 = make_packed(torch, cfg, device, seed + 19, 4, 128)
+    bound = SPEC_TIE * E2E_TOL["max"]
+    want = {}
+    for kv in ("native", "int8"):
+        name = f"A_{kv}"
+        r = res[name] = {}
+        eng = LlamaEngine(w4, cfg, max_batch=SPEC_BATCH, max_len=1024,
+                          dtype=torch.bfloat16, kv_dtype=kv, seed=seed,
+                          device=device)
+        # the int8 run's draft packs its head at 4 bits (K1 at N = 32000)
+        sd = spec_decoder(torch, eng, r, draft_layers=SPEC_DRAFT_LAYERS,
+                          draft_head_bits=4 if kv == "int8" else None)
+        _warm(torch, sd, V, seed)
+        spec_run(torch, name, sd, reqs, V, r, total)
+        want[kv] = spec_generate(torch, name, LLAMA, cfg, w4, sd, reqs[0],
+                                 SPEC_GEN_TOKENS, NO_ACT_QUANT, bound, r,
+                                 fault=kv == "native")
+        del sd, eng
+        torch.cuda.empty_cache()
+
+    # the full-depth self-draft (q == p): one sampling round on every slot,
+    # then greedy rounds, where nearly every proposal is accepted
+    r = res["sampling"] = {}
+    eng = LlamaEngine(w4, cfg, max_batch=SPEC_BATCH, max_len=1024,
+                      dtype=torch.bfloat16, seed=seed, device=device)
+    sd = spec_decoder(torch, eng, r, draft_layers=cfg.num_hidden_layers)
+    slots = eng.add_requests(reqs, temperature=SPEC_TEMPERATURE)
+    sd.draft.add_requests(reqs, temperature=SPEC_TEMPERATURE)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = sd.sample_spec_step({s: eng._pending_next[s] for s in slots})
+    r.update(round_s=time.time() - t0, acceptance=sd.acceptance_rate,
+             emitted=sum(len(v) for v in got.values()))
+    log(f"  spec sampling (temperature {SPEC_TEMPERATURE}, full-depth "
+        f"self-draft, {len(slots)} slots): one sample_spec_step round "
+        f"{r['round_s'] * 1e3:.1f} ms, acceptance {r['acceptance']:.4f}, "
+        f"{r['emitted']} tokens")
+    if r["acceptance"] < 0.9 or not all(
+            0 <= x < V for v in got.values() for x in v):
+        raise AssertionError("spec sampling: a full-depth self-draft must "
+                             "accept nearly every proposal")
+    for s in slots:
+        sd.release(s)
+    r = res["A_full"] = {}
+    _warm(torch, sd, V, seed)
+    streams = list(spec_run(torch, "A_full", sd, reqs, V, r, total,
+                            dispatches=1).values())
+    tie = r["held"] = near_tie(stream_gaps(torch, LLAMA, cfg, w4, reqs,
+                                           streams, NO_ACT_QUANT), bound)
+    r["most_in_dispatch"] = max(len(v) - 1 for v in streams)
+    log(f"  spec A_full: at most {r['most_in_dispatch']} tokens from "
+        f"{SPEC_ROUNDS} rounds; near-tie rule over the {len(streams)} "
+        f"streams: {_log_tie(tie)}")
+    if r["most_in_dispatch"] <= SPEC_ROUNDS or not tie["ok"]:
+        raise AssertionError("spec A_full: no round accepted a proposal, or "
+                             "a token at no near tie with the f32 argmax")
+    del sd, eng
+    torch.cuda.empty_cache()
+
+    # B: a W2 g128 pack of the same weights drafts for the W4 g128 target
+    w2 = make_packed(torch, cfg, device, seed + 19, 2, 128)
+    r = res["B"] = {}
+    target = LlamaEngine(w4, cfg, max_batch=SPEC_BATCH, max_len=512,
+                         dtype=torch.bfloat16, seed=seed, device=device)
+    draft = LlamaEngine(w2, cfg, max_batch=SPEC_BATCH, max_len=512,
+                        dtype=torch.bfloat16, seed=seed, device=device)
+    sd = spec_decoder(torch, target, r, draft=draft)
+    _warm(torch, sd, V, seed)
+    spec_run(torch, "B", sd, reqs, V, r, total, dispatches=2)
+    n_gen = SPEC_GEN_TOKENS // 2
+    spec_generate(torch, "B", LLAMA, cfg, w4, sd, reqs[0], n_gen,
+                  NO_ACT_QUANT, bound, r, want=want["native"][:n_gen])
+    del sd, target, draft, w2, w4
+    torch.cuda.empty_cache()
+
+    # C: W6A6 at 2 layers, a one-layer self-draft
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    w6 = make_packed(torch, cfg2, device, seed + 20, 6, 128)
+    spec6 = ActQuantSpec.from_bits(6)
+    r = res["C"] = {}
+    eng = LlamaEngine(w6, cfg2, max_batch=SPEC_BATCH, max_len=1024,
+                      dtype=torch.bfloat16, spec=spec6, seed=seed,
+                      device=device)
+    sd = spec_decoder(torch, eng, r, draft_layers=1)
+    _warm(torch, sd, V, seed)
+    reqs_c = prompts(torch, SPEC_BATCH, SPEC_INT_PROMPT_LEN, V, seed + 20)
+    spec_run(torch, "C", sd, reqs_c, V, r, total, dispatches=2)
+    spec_generate(torch, "C", LLAMA, cfg2, w6, sd, reqs_c[0], n_gen, spec6,
+                  SPEC_TIE * E2E_INT_TOL[6]["max"], r)
+    del sd, eng, w6
+    torch.cuda.empty_cache()
+
+    # D: auto_grow, LLaMA-7B widths and Falcon-RW-1B's (ALiBi) at 2 layers
+    w4_2 = make_packed(torch, cfg2, device, seed + 21, 4, 128)
+    fcfg = falcon.FalconConfig(**dict(FALCON_MODELS["falcon-rw-1b"],
+                                      num_hidden_layers=2))
+    fdense = falcon_dense(torch, device, fcfg, seed + 21)
+    fw4 = pack_model(FALCON, fdense, QuantConfig(n_bits=4, group_size=128),
+                     device=device)
+    del fdense
+    for fam, engine, mcfg, packed in (("llama", LlamaEngine, cfg2, w4_2),
+                                      ("falcon", FalconEngine, fcfg, fw4)):
+        family = LLAMA if fam == "llama" else FALCON
+        d_reqs = prompts(torch, SPEC_BATCH, SPEC_PROMPT_LEN,
+                         mcfg.vocab_size, seed + 22)
+        for kv in ("native", "int8"):
+            name = f"D_{fam}_{kv}"
+            r = res[name] = {}
+            streams = {}
+            for grow in (True, False):
+                eng = engine(packed, mcfg, max_batch=SPEC_BATCH,
+                             max_len=SPEC_GROW[0 if grow else 1],
+                             dtype=torch.bfloat16, kv_dtype=kv, seed=seed,
+                             device=device, auto_grow=grow)
+                # a full-depth self-draft: rounds emit several tokens, so
+                # the growths meet multi-row writes, in fewer rounds
+                sd = spec_decoder(torch, eng, {},
+                                  draft_layers=mcfg.num_hidden_layers)
+                _warm(torch, sd, mcfg.vocab_size, seed)
+                growths = r.setdefault("growths", [])
+                if grow:
+                    for e in (sd.target, sd.draft):
+                        _time_growth(torch, e, growths)
+                got = spec_run(
+                    torch, name, sd, d_reqs, mcfg.vocab_size,
+                    r if grow else {}, total if grow else {},
+                    tokens=SPEC_GROW[2],
+                    tag="" if grow else f" (built at {SPEC_GROW[1]})")
+                streams[grow] = [v[:SPEC_GROW[2]] for v in got.values()]
+                if grow and sd.target.max_len != SPEC_GROW[1]:
+                    raise AssertionError(f"spec {name}: grew to "
+                                         f"{sd.target.max_len}, not "
+                                         f"{SPEC_GROW[1]}")
+                del sd, eng
+                torch.cuda.empty_cache()
+            tie = r["held"] = near_tie(stream_gaps(
+                torch, family, mcfg, packed, d_reqs * 2,
+                streams[True] + streams[False], NO_ACT_QUANT), bound)
+            r["equal"] = sum(a == b for a, b in zip(streams[True],
+                                                    streams[False]))
+            log(f"  spec {name}: max_len {SPEC_GROW[0]} grew to "
+                f"{SPEC_GROW[1]} ({len(r['growths'])} growths of target and "
+                "draft: copy ms / peak GiB " + ", ".join(
+                    f"{g['ms']:.2f} / {g['peak_gib']:.3f}"
+                    for g in r["growths"])
+                + f"); {r['equal']} of {SPEC_BATCH} streams equal to the "
+                f"engine built at {SPEC_GROW[1]} over {SPEC_GROW[2]} "
+                f"tokens; near-tie rule over both engines' streams: "
+                + _log_tie(tie))
+            if not tie["ok"]:
+                raise AssertionError(f"spec {name}: a token at no near tie "
+                                     "with the f32 argmax")
+    del w4_2, fw4
+    torch.cuda.empty_cache()
+    out["spec_launches"] = total
+    return total
+
+
+def _time_growth(torch, eng, growths: list) -> None:
+    """Times each _grow of ``eng`` (host clock behind synchronisations) and
+    records the peak memory while its old and new caches are both held.
+    The wrapper holds ``eng`` weakly."""
+    ref, inner = weakref.ref(eng), type(eng)._grow
+
+    def grow(need):
+        e = ref()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        old = e.max_len
+        t0 = time.time()
+        inner(e, need)
+        torch.cuda.synchronize()
+        growths.append(dict(rows=(old, e.max_len),
+                            ms=(time.time() - t0) * 1e3,
+                            peak_gib=torch.cuda.max_memory_allocated()
+                            / 2**30))
+
+    eng._grow = grow
 
 
 # ---------------------------------------------------------------------------
@@ -2842,10 +3434,22 @@ def main(argv=None) -> int:
     out["cli_phase_s"] = time.time() - t_cli
     log(f"  cli phase {out['cli_phase_s']:.1f} s")
 
+    log("spec: speculative decoding at LLaMA-7B widths (A: layer-skip "
+        "self-draft, 32 layers, bf16 and int8 KV; B: W2 g128 draft for W4 "
+        "g128; C: W6A6 at 2 layers; a full-depth self-draft sampling and "
+        "greedy) and auto_grow (D: 256 -> 1024 rows, LLaMA-7B and "
+        "Falcon-RW-1B widths at 2 layers)")
+    t_spec = time.time()
+    spec_counts = spec_phase(torch, device, args.seed, out)
+    out["spec_phase_s"] = time.time() - t_spec
+    log(f"  spec phase {out['spec_phase_s']:.1f} s")
+
     log("profile: one decode step of engines A and E under torch.profiler")
     profile_decode(torch, device, cfg, dims, args.seed, out)
 
-    # the serve phase's launches per entry: K1's count holds both layouts
+    # the serve and spec phases' launches per entry: K1's count holds both
+    # layouts
+    counts = {k: v + spec_counts.get(k, 0) for k, v in counts.items()}
     planar = (counts["quant_matmul_planar_decode"]
               + counts["quant_matmul_planar_prefill"])
     launches = dict(counts, quant_matmul=counts["quant_matmul"] - planar,
@@ -2915,6 +3519,21 @@ def main(argv=None) -> int:
             f"{v['held_out_mse']['rtn']:.4g}"
             for k, v in fal.items() if k in FALCON_CALIB_RUNS)
         + "; on:")
+    log(smi)
+    sp = out["spec"]
+    log("spec (a round ms, in sequential steps, acceptance, spec / step_n "
+        "tok/s, draft extra GiB): " + "; ".join(
+            f"{k} {sp[k]['round_ms']:.2f}, {sp[k]['round_in_steps']:.2f}, "
+            f"{sp[k]['acceptance']:.4f}, {sp[k]['spec_tok_s']:.1f} / "
+            f"{sp[k]['step_n_tok_s']:.1f}"
+            + (f", {sp[k]['draft_extra_gib']:.4f}"
+               if "draft_extra_gib" in sp[k] else "")
+            for k in ("A_native", "A_int8", "A_full", "B", "C"))
+        + f"; sampling acceptance {sp['sampling']['acceptance']:.4f}; "
+        "auto_grow copy ms / peak GiB: " + "; ".join(
+            f"{k[2:]} " + ", ".join(f"{g['ms']:.2f} / {g['peak_gib']:.3f}"
+                                   for g in sp[k]["growths"])
+            for k in sp if k.startswith("D_")) + "; on:")
     log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(
         f"{n} {out['serve_' + n]['prefill_tok_s']:.1f} / "

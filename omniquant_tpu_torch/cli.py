@@ -20,8 +20,10 @@ serving engine. The last line of standard output is the results JSON.
 
 Unlike ``main.py``, which serves the fake-quant weights whatever the flag
 says, ``--real_quant`` serves the packed model: the weights the kernels
-take. Flags whose machinery is not ported yet (the task harness, tensor,
-sequence and multi-host parallelism, speculative decoding, the AutoGPTQ
+take. ``--spec_decode GAMMA`` serves through ``SpecDecoder`` (a layer-skip
+self-draft of ``--draft_layers`` blocks) and logs its acceptance, as
+``main.py`` does. Flags whose machinery is not ported yet (the task
+harness, tensor, sequence and multi-host parallelism, the AutoGPTQ
 exporter) exit with the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -116,9 +118,13 @@ def build_parser():
     p.add_argument("--temperature", type=float, default=0.0,
                    help="serving sampling temperature (0 = greedy)")
     p.add_argument("--spec_decode", type=int, default=0, metavar="GAMMA",
-                   help="not ported yet")
+                   help="speculative decoding with GAMMA proposals per "
+                        "round (layer-skip self-draft of --draft_layers "
+                        "blocks). Greedy (--temperature 0): output is the "
+                        "plain greedy stream; with --temperature > 0: "
+                        "rejection-sampling acceptance")
     p.add_argument("--draft_layers", type=int, default=4,
-                   help="with --spec_decode only")
+                   help="blocks in the layer-skip self-draft")
     return p
 
 
@@ -134,8 +140,6 @@ def _unported(args) -> list:
                       "(ROADMAP Queue 1 item 9)"),
         (args.num_processes > 1, "--num_processes > 1 needs the multi-host "
                                  "layer (ROADMAP Queue 1 item 9)"),
-        (args.spec_decode > 0, "--spec_decode needs the speculative decoder "
-                               "(ROADMAP Queue 1 item 6)"),
         (args.export_autogptq, "--export_autogptq needs the AutoGPTQ "
                                "exporter (ROADMAP Queue 1 item 10)"),
     ) if used]
@@ -385,8 +389,21 @@ def _run(args, device, logger) -> dict:
         logger.info(f"serving the {'fake-quant' if packed is None else 'packed'}"
                     f" model with {engine_cls.__name__}")
         toks = tokenizer.encode(args.serve_prompt, add_special_tokens=False)
-        out = eng.generate(list(toks), max_new_tokens=args.max_new_tokens,
-                           temperature=args.temperature)
+        if args.spec_decode > 0:
+            from .serving import SpecDecoder
+
+            sd = SpecDecoder(eng, draft_layers=args.draft_layers,
+                             gamma=args.spec_decode)
+            # temperature > 0 takes speculative sampling: the stream is
+            # distributed as plain sampling from the target
+            out = sd.generate(list(toks), max_new_tokens=args.max_new_tokens,
+                              temperature=args.temperature)
+            logger.info(f"spec-decode acceptance {sd.acceptance_rate:.2f} "
+                        f"({sd.accepted}/{sd.proposed})")
+            del sd
+        else:
+            out = eng.generate(list(toks), max_new_tokens=args.max_new_tokens,
+                               temperature=args.temperature)
         del eng
         text = tokenizer.decode(out)
         logger.info(f"generated {len(out)} tokens")

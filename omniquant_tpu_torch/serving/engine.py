@@ -22,11 +22,14 @@ default) reads the codes through ``decode_attention_int8``, and ``step_n``
 then stages each step's k/v in small per-layer rings that the kernel
 attends, flushing them with one span write per layer at the end. The
 speculative-decoding verify pass (``verify_step``, ``verify_step_logits``)
-serves both cache dtypes.
+serves both cache dtypes; ``spec_decode.SpecDecoder`` drives it.
 
-Not ported yet: ``auto_grow`` raises NotImplementedError; ``SpecDecoder``
-lives only in the JAX package; ``prefetch_grow`` and the AOT tables only hid
-XLA compiles and have no counterpart.
+``auto_grow=True`` lets the cache grow: a slot that would write past
+``max_len`` (a decode, a verify, a prompt longer than the cache) doubles
+it, up to ``grow_limit``, copying the live codes or rows (and an int8
+cache's scale planes) into new buffers. The JAX engine's ``prefetch_grow``,
+its AOT tables and ``_seen_steps`` only hid XLA compiles of the grown
+shapes and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -150,16 +153,19 @@ class LlamaEngine:
                  spec: ActQuantSpec = NO_ACT_QUANT,
                  attn_kernel: Optional[bool] = None, seed: int = 0,
                  flash_min_len: int = 256, auto_grow: bool = False,
-                 device="cuda"):
+                 grow_limit: Optional[int] = None, device="cuda"):
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"kv_dtype must be 'native' or 'int8', not "
                              f"{kv_dtype!r}")
-        if auto_grow:
-            raise NotImplementedError("auto_grow is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
+        # a growing cache doubles instead of refusing a slot that would
+        # outrun max_len, up to the model's positions (else 16 x max_len)
+        self.auto_grow = auto_grow
+        self.grow_limit = grow_limit or getattr(
+            cfg, "max_position_embeddings", 0) or (max_len * 16)
         self.dtype = dtype
         self.kv_int8 = kv_dtype == "int8"
         # a non-identity softmax-probs quantizer cannot be honoured inside
@@ -614,22 +620,57 @@ class LlamaEngine:
     def _check_capacity(self, slots, n: int):
         """Refuse a decode whose write position would reach max_len, for
         every active slot as well as the requested ones (a step writes a row
-        for every slot). The CUDA write drops such a row rather than
-        clamping it, but the slot's history would still be cut short."""
+        for every slot); with auto_grow the cache grows instead. The CUDA
+        write drops such a row rather than clamping it, but the slot's
+        history would still be cut short."""
         check = set(int(s) for s in np.nonzero(self.active)[0])
         check.update(int(s) for s in slots)
-        over = [s for s in sorted(check) if self.lengths[s] + n > self.max_len]
-        if over:
+        need = max((int(self.lengths[s]) + n for s in check), default=0)
+        if need <= self.max_len:
+            return
+        if not self.auto_grow:
+            over = [s for s in sorted(check)
+                    if self.lengths[s] + n > self.max_len]
             raise RuntimeError(
                 f"slots {over} would exceed max_len={self.max_len} after "
                 f"{n} step(s) (lengths {[int(self.lengths[s]) for s in over]});"
-                " release them or build the engine with a larger max_len")
+                " release them, enable auto_grow, or build the engine with"
+                " a larger max_len")
+        self._grow(need)
 
     def _ensure_prefill_capacity(self, bucket: int):
-        if bucket > self.max_len:
+        """A prompt bucket longer than the cache grows it or is refused."""
+        if bucket <= self.max_len:
+            return
+        if not self.auto_grow:
             raise RuntimeError(
                 f"prompt bucket {bucket} exceeds max_len={self.max_len}; "
-                "build the engine with a larger max_len")
+                "enable auto_grow or build the engine with a larger max_len")
+        self._grow(bucket)
+
+    def _grow_target(self, need: int) -> int:
+        new_len = self.max_len
+        while new_len < need:
+            new_len *= 2
+        if new_len > self.grow_limit:
+            raise RuntimeError(
+                f"cannot grow cache to {new_len} (> grow_limit="
+                f"{self.grow_limit}, cfg.max_position_embeddings)")
+        return new_len
+
+    def _grow(self, need: int):
+        """Double max_len (to at least ``need``, at most grow_limit) and copy
+        the cache into new buffers at [:, :, :old max_len]: each layer's
+        codes or rows and an int8 cache's scale planes. The old and the new
+        buffers are both held until the copy ends."""
+        new_len = self._grow_target(need)
+        old, old_len = self.cache, self.max_len
+        self.max_len = new_len
+        self.cache = self._init_cache()
+        for name in ("k", "v", "k_scale", "v_scale"):
+            for dst, src in zip(getattr(self.cache, name) or (),
+                                getattr(old, name) or ()):
+                dst[:, :, :old_len].copy_(src)
 
     def _kv_len(self, extra: int) -> int:
         """Attention window: the power of two above the longest live
@@ -821,12 +862,19 @@ class FalconEngine(LlamaEngine):
         self._slopes = self._bias = None
         if cfg.alibi:
             self.attn_kernel = False
-            # made once: the slopes come from a host list, and the copy of
-            # one to the card makes the host wait for it
+            # made once (and again when the cache grows): the slopes come
+            # from a host list, and the copy of one to the card makes the
+            # host wait for it
             self._slopes = tfalcon.alibi_slopes(cfg.num_attention_heads,
                                                 self.device)
             self._bias = tfalcon.alibi_bias(cfg, self.max_len, self.device,
                                             self._slopes)
+
+    def _grow(self, need: int):
+        super()._grow(need)
+        if self._bias is not None:  # the ALiBi bias spans max_len
+            self._bias = tfalcon.alibi_bias(self._fcfg, self.max_len,
+                                            self.device, self._slopes)
 
     def _alibi_slopes(self):
         return self._slopes

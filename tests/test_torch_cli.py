@@ -138,11 +138,41 @@ def test_parser_matches_main_py():
 @pytest.mark.parametrize("flags,item", [
     (["--tasks", "piqa"], "item 8"), (["--eval_cache", "x.db"], "item 8"),
     (["--tp", "2"], "item 9"), (["--sp", "2"], "item 9"),
-    (["--num_processes", "2"], "item 9"), (["--spec_decode", "4"], "item 6"),
+    (["--num_processes", "2"], "item 9"),
     (["--export_autogptq"], "item 10")])
 def test_unported_flags_exit(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet: .*{item}"):
         cli.main(["--platform", "cpu", "--synthetic"] + flags)
+
+
+def _spec_line(out_dir):
+    """The spec-decode acceptance line of a run's log file."""
+    lines = [ln for f in sorted(out_dir.glob("log_*.txt"))
+             for ln in f.read_text().splitlines()
+             if "spec-decode acceptance" in ln]
+    assert len(lines) == 1, lines
+    return lines[0][lines[0].index("spec-decode acceptance"):]
+
+
+def test_spec_decode_serves_main_pys_text(tmp_path):
+    """--spec_decode 2 --draft_layers 1 on tiny-llama (16-bit weights, so
+    nothing is calibrated; JAX's weights carried across): the greedy text
+    of main.py's run, and its acceptance line (rate, accepted/proposed)."""
+    args = ["--platform", "cpu", "--synthetic", "--net", "tiny-llama",
+            "--wbits", "16", "--abits", "16", "--serve_prompt", PROMPT,
+            "--max_new_tokens", "16", "--spec_decode", "2",
+            "--draft_layers", "1"]
+    want = MAIN.main(args + _dirs(tmp_path, "jax"))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cli, "load_model", carried_load_model)
+    try:
+        got = cli.main(args + _dirs(tmp_path, "port"))
+    finally:
+        mp.undo()
+    assert got == want and len(got["generation"]) == 16
+    line = _spec_line(tmp_path / "port_out")
+    assert line == _spec_line(tmp_path / "jax_out")
+    assert "/" in line and not line.endswith("(0/0)")
 
 
 @pytest.mark.parametrize("synthetic", [False, True])

@@ -226,10 +226,18 @@ def test_decode_logits_match_jax_forward(packed, prompt_len):
 
 
 def test_unported_options_raise(packed):
-    _, tp = packed
+    """auto_grow is ported: its grow_limit is cfg.max_position_embeddings
+    (256 here) unless given, else 16 x max_len, as in the JAX engine."""
+    jp, tp = packed
     cfg = tllama.LlamaConfig(**CFG)
-    with pytest.raises(NotImplementedError):
-        TEngine(tp, cfg, auto_grow=True, device="cpu")
+    for kw in ({}, dict(grow_limit=1024), dict(auto_grow=True)):
+        je = JEngine(jp, jllama.LlamaConfig(**CFG), max_len=64, **kw)
+        te = TEngine(tp, cfg, max_len=64, device="cpu", **kw)
+        assert (te.auto_grow, te.grow_limit) == (je.auto_grow, je.grow_limit)
+    assert te.grow_limit == 256 and te.auto_grow
+    no_positions = dataclasses.replace(cfg, max_position_embeddings=0)
+    assert TEngine(tp, no_positions, max_len=64,
+                   device="cpu").grow_limit == 64 * 16
 
 
 def test_deleted_engine_is_freed_at_once(packed):

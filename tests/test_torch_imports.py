@@ -37,11 +37,11 @@ def test_no_jax_or_jax_package_loaded():
     assert res["bad"] == []
     for sub in ("quant.packing", "kernels.quant_matmul", "kernels._build",
                 "kernels.tolerance", "kernels.decode_attention",
-                "serving.engine", "utils.convert", "models.llama",
-                "models.common", "calib", "calib.engine", "calib.act_stats",
-                "calib.data", "quant.transform", "utils.checkpoint",
-                "models.opt", "eval", "eval.ppl", "utils.logging", "cli",
-                "__main__"):
+                "serving.engine", "serving.spec_decode", "utils.convert",
+                "models.llama", "models.common", "calib", "calib.engine",
+                "calib.act_stats", "calib.data", "quant.transform",
+                "utils.checkpoint", "models.opt", "eval", "eval.ppl",
+                "utils.logging", "cli", "__main__"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 

@@ -1583,3 +1583,126 @@ def test_cli_on_the_card(cuda, tmp_path, net):
     for k in ("quant_matmul", "kv_cache_prefill_write", "kv_cache_write"):
         assert counts[k] > 0, counts
     assert (tmp_path / "save" / "model_packed.npz").exists()
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and auto_grow: the shapes their paths reach first
+
+
+@pytest.mark.parametrize("m", [5, 8, 40])
+@pytest.mark.parametrize("in_f,out_f", [
+    (4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+    (4096, 32000)])
+def test_quant_matmul_at_spec_shapes(cuda, in_f, out_f, m):
+    """K1 (W4 g128 pairs) at the LLaMA-7B products of a spec round: the
+    draft's decode steps (m = 8, and 5, a verify of gamma + 1 = 5 tokens on
+    one slot) on the decode tile, the verify pass of 8 slots x 5 tokens (m
+    = 40) on the prefill tile, and N = 32000, a draft head packed at 4 bits
+    (draft_head_bits), each against its plain version."""
+    pw = _packed(cuda, 4, 128, out_f, in_f, seed=m + out_f)
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, in_f, generator=gen, device=cuda).to(torch.bfloat16)
+    before = quant_matmul.launches, quant_matmul.launches_prefill
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert (quant_matmul.launches, quant_matmul.launches_prefill) == (
+        before[0] + 1, before[1] + (m > 32))
+    ok, err, worst = tolerance.bf16_close(got, quant_matmul_reference(x, pw),
+                                          tolerance.QUANT_MATMUL_SLACK)
+    assert ok, (err, worst)
+
+
+@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("in_f,out_f", [(4096, 12288), (11008, 4096),
+                                        (4096, 22016)])
+def test_quant_matmul_int_at_verify_shape(cuda, in_f, out_f, m):
+    """K7 (W6 g128 planar, 6-bit activations) at a W6A6 spec round's shapes:
+    the draft's steps (m = 8) and the verify pass of 8 x 5 tokens (m = 40),
+    one launch each, against the plain version."""
+    pw = _int_packed(cuda, 6, 128, out_f, in_f, "planar", seed=m + in_f)
+    cfg = QuantConfig(n_bits=6)
+    x = torch.randn(m, in_f, device=cuda).to(torch.bfloat16)
+    before = qmm.quant_matmul_int.launches
+    got = qmm.quant_matmul_int(x, pw, cfg)
+    torch.cuda.synchronize()
+    assert qmm.quant_matmul_int.launches == before + 1
+    _int_check(got, x, pw, cfg)
+
+
+def _tiny_spec_engine(dev, kv_dtype, **kw):
+    from omniquant_tpu_torch.models import LLAMA
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=3,
+                            num_attention_heads=2, num_key_value_heads=2)
+    dense = llama.init_params(torch.Generator().manual_seed(4), cfg,
+                              device="cpu")
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+                        device="cpu")
+    return LlamaEngine(packed, cfg, max_batch=4, dtype=torch.bfloat16,
+                       kv_dtype=kv_dtype, device=dev, **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_spec_rounds_do_not_synchronize(cuda, kv_dtype):
+    """SpecDecoder's fused rounds (the draft's decode steps and argmaxes,
+    the verify pass, the accepted counts, the next lengths) queue their
+    work without a host synchronisation; the layer-skip draft adds only its
+    KV cache to the memory allocated."""
+    from omniquant_tpu_torch.serving import SpecDecoder
+
+    eng = _tiny_spec_engine(cuda, kv_dtype, max_len=128)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sd = SpecDecoder(eng, draft_layers=1, gamma=3)
+    torch.cuda.synchronize()
+    cache = sum(t.numel() * t.element_size()
+                for bufs in (sd.draft.cache.k, sd.draft.cache.v,
+                             sd.draft.cache.k_scale, sd.draft.cache.v_scale)
+                if bufs for t in bufs)
+    assert torch.cuda.memory_allocated() - before == cache
+    slots = [sd.add_request(p) for p in ([1, 2, 3, 4, 5], [6, 7, 8])]
+    sd.spec_steps({s: 9 for s in slots}, rounds=1)  # builds the libraries
+    toks, lens = eng._device_tokens({s: 9 for s in slots})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, n_emit = sd._rounds(toks, lens, 2, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert outs.shape == (2, 4, 4) and n_emit.shape == (2, 4)
+    assert bool(((n_emit >= 1) & (n_emit <= 4)).all())
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_grown_cache_on_the_card_keeps_its_rows(cuda, kv_dtype):
+    """auto_grow on the card: the grown buffers hold the old rows bit for
+    bit (codes and scale planes for int8) and zeros past them, and a decode
+    step after the growth (K4, and K6 over the grown int8 window) gives the
+    logits of an engine built at the grown length holding the same
+    cache."""
+    eng = _tiny_spec_engine(cuda, kv_dtype, max_len=64, auto_grow=True)
+    slots = eng.add_requests([list(range(1, 41)), list(range(7, 30))])
+    eng.step_n({s: 3 for s in slots}, 8)
+    c = eng.cache
+    old = [t.clone() for bufs in (c.k, c.v, c.k_scale, c.v_scale) if bufs
+           for t in bufs]
+    eng._check_capacity(slots, 30)
+    assert eng.max_len == 128
+    c = eng.cache
+    new = [t for bufs in (c.k, c.v, c.k_scale, c.v_scale) if bufs
+           for t in bufs]
+    for o, n in zip(old, new):
+        assert torch.equal(n[:, :, :64], o) and not n[:, :, 64:].any()
+    big = _tiny_spec_engine(cuda, kv_dtype, max_len=128)
+    big.lengths[:], big.active[:] = eng.lengths, eng.active
+    for dst, src in zip([t for bufs in (big.cache.k, big.cache.v,
+                                        big.cache.k_scale, big.cache.v_scale)
+                         if bufs for t in bufs], new):
+        dst.copy_(src)
+    toks, lens = eng._device_tokens({s: 5 for s in slots})
+    got = eng._decode_impl(toks, lens, eng._kv_len(1))
+    want = big._decode_impl(toks, lens, big._kv_len(1))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
