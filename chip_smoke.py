@@ -115,8 +115,30 @@ prints no result. Any failure raises, so the exit code is non-zero.
               K4, and for int8 K6 at hd 80 with the ring and K5; int8 also
               verify_step of 4 tokens), prefill and first decode logits
               against a plain f32 opt.forward at E2E_TOL; ppl_check of the
-              pack against its dequantized weights in f32; then LWC W4A16
-              g128 at 2 layers with calibrate's five checks.
+              pack against its dequantized weights in f32; then the harness
+              on the same pack (below); then LWC W4A16 g128 at 2 layers
+              with calibrate's five checks.
+   harness -- the evaluation harness as the CLI's --tasks runs it
+              (eval/harness: run_tasks over a TorchLM, seqlen 2048, batch
+              4, bf16), on task docs made from the seed and the CLI's
+              CharTokenizer: piqa (64 docs), lambada_openai (32), wikitext
+              (3 docs of 3 rolling windows) and gsm8k (16 greedy_until
+              contexts, some of 300 characters and more, 16 tokens each):
+              scoring through K1's prefill tile (and, at 8192 rows, the
+              dense route on the linears whose N K1 takes only below 4096
+              rows), generation through the engine (K2, K3, K4, K1's decode
+              tile). Each loglikelihood, greedy flag, rolling sum,
+              generated stream and task metric is held token by token
+              against the plain f32 forward (harness_hold). Planted faults
+              go through the same run and hold, which must reject them:
+              the scales x 1.01 in the second of the pack's first two
+              layers (beside a clean run of those two layers, which must
+              pass), x 1.1 in the middle layer of all 32. Then W4A4 on a
+              planar W4 g128 pack of the
+              same weights at 2 layers (K7 below 2048 rows and at decode,
+              K8 + K9 from 2048), held the same way at E2E_INT_TOL[4].
+              Requests/s, windows/s and tokens/s of the three request
+              types.
 8. falcon  -- the published widths of Falcon-7B (hidden 4544, 71 query
               heads on 1 kv head, parallel attention, rotary, ffn 18176,
               vocab 65024; 2 layers, W4A16 g64 planar), Falcon-40B (hidden
@@ -188,6 +210,7 @@ to a JSON file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -2498,16 +2521,16 @@ OPT27B_CALIB_RUNS = {
 }
 
 
-def opt27b_phase(torch, device, seed, out: dict) -> None:
+def opt27b_phase(torch, device, seed, out: dict) -> dict:
     """OPT-2.7B at full width and depth: a W4 g128 (pairs) pack served by a
     bf16-KV and an int8-KV OPTEngine (serve_and_hold at OPT_SERVE_PATHS,
     8 x 512 prompts, the first decode, step_n(., 8), verify_step of 4
     tokens on the int8 engine), then ppl_check of the pack against its
     dequantized weights in f32 (9 windows of 2048 tokens; the forward's
-    attention is dense, as the JAX package's), then LWC W4A16 g128 at
-    OPT27B_CALIB_LAYERS layers with calibrate_run's five checks."""
-    import dataclasses
-
+    attention is dense, as the JAX package's), then the harness phase on
+    the same pack (harness_phase), then LWC W4A16 g128 at
+    OPT27B_CALIB_LAYERS layers with calibrate_run's five checks. Returns
+    the harness phase's launches."""
     from omniquant_tpu_torch.models import OPT, opt
     from omniquant_tpu_torch.models.common import NO_ACT_QUANT
     from omniquant_tpu_torch.quant import QuantConfig
@@ -2536,6 +2559,12 @@ def opt27b_phase(torch, device, seed, out: dict) -> None:
     res["ppl"] = ppl_check(torch, device, OPT, cfg,
                            plain_reference_params(torch, packed), packed,
                            NO_ACT_QUANT, "opt-2.7b W4 g128 (32 layers)", seed)
+    torch.cuda.empty_cache()
+    log("harness: run_tasks (the CLI's --tasks path) on OPT-2.7B W4 g128 "
+        "(32 layers) and W4A4 (2 layers), held token by token against the "
+        "plain f32 forward")
+    harness_counts = harness_phase(torch, device, cfg, dense, packed, seed,
+                                   out)
     del packed
     cfg2 = dataclasses.replace(cfg, num_hidden_layers=OPT27B_CALIB_LAYERS)
     dense = dict(dense, layers=dense["layers"][:OPT27B_CALIB_LAYERS])
@@ -2546,6 +2575,569 @@ def opt27b_phase(torch, device, seed, out: dict) -> None:
         torch.cuda.empty_cache()
     del dense
     torch.cuda.empty_cache()
+    return harness_counts
+
+
+# ---------------------------------------------------------------------------
+# harness phase: the evaluation harness (eval/harness: run_tasks over a
+# TorchLM, as the CLI's --tasks runs it, at its defaults: seqlen 2048, batch
+# 4) on opt27b's W4 g128 pack of OPT-2.7B (32 layers, bf16), on task docs
+# made from the seed (nothing downloaded) and the CLI's CharTokenizer:
+# piqa (multiple choice), lambada_openai (loglikelihood and its greedy
+# flag), wikitext (rolling windows of 2048 tokens) and gsm8k (greedy_until,
+# some contexts of 256 tokens and more, so the engine's prefill takes K2).
+# Then W4A4 (ActQuantSpec.from_bits(4)) on a planar W4 g128 pack of the
+# same weights at HARNESS_INT_LAYERS layers: scoring chunks below 2048 rows
+# and the decode through K7, chunks from 2048 rows through K8 + K9.
+HARNESS_DOCS = {"piqa": 64, "lambada_openai": 32, "wikitext": 3, "gsm8k": 16}
+HARNESS_GEN_TOKS = 16     # TorchLM.max_gen_toks for gsm8k's greedy_until
+HARNESS_WIKI_CHARS = 5000  # each wikitext doc: 3 rolling windows of 2048
+HARNESS_INT_LAYERS = 2
+# kernels each run must launch; K1's decode tile (m <= 4 here) is checked
+# apart: quant_matmul's launches less its prefill tile's
+HARNESS_PATHS = {
+    "w4a16": ("quant_matmul", "quant_matmul_prefill", "flash_attention",
+              "kv_cache_prefill_write", "kv_cache_write"),
+    "w4a4": ("quant_matmul_int", "_unpack_to_int8",
+             "_quant_matmul_int_dense", "flash_attention",
+             "kv_cache_prefill_write", "kv_cache_write"),
+}
+# the planted faults, each run through run_tasks and harness_hold as the
+# clean run is, which must reject it: name -> (layers of the model, the
+# faulted layer, the factor on every scale of its linears). At 32 layers
+# the bf16 forward's own per-token gap (0.0177 nats on an H100) hides a 1 %
+# fault (the rms rule sees a systematic error from about 0.75 of that
+# noise: 1.25^2 - 1 = 0.75^2), so 1 % is planted in the second of the
+# pack's first two layers, beside a clean run of those two layers, and
+# 10 % in the middle layer of all 32.
+HARNESS_FAULTS = {"layer_1_of_2_x1.01": (2, 1, 1.01),
+                  "layer_16_of_32_x1.1": (32, 16, 1.1)}
+_WORDS = ("time person year way day thing man world life hand part child "
+          "eye woman place work week case point number group problem fact "
+          "be have do say get make go know take see come think look want "
+          "give use find tell ask seem feel try leave call good new first "
+          "last long great little own other old right big high different "
+          "small large next early young important few public bad same able "
+          "red cup table stone river apple water glass paper bread").split()
+
+
+def harness_docs(seed) -> dict:
+    """Task docs in the schemas of tests/test_harness.py, from ``seed``."""
+    import random
+
+    rnd = random.Random(seed)
+
+    def words(n):
+        return " ".join(rnd.choice(_WORDS) for _ in range(n))
+
+    def para(chars):
+        text = ""
+        while len(text) < chars:
+            text += words(12) + " . "
+        return text[:chars]
+
+    piqa = [{"goal": words(rnd.randint(6, 16)),
+             "sol1": words(rnd.randint(3, 12)),
+             "sol2": words(rnd.randint(3, 12)), "label": rnd.randint(0, 1)}
+            for _ in range(HARNESS_DOCS["piqa"])]
+    lambada = [{"text": words(rnd.randint(15, 40))}
+               for _ in range(HARNESS_DOCS["lambada_openai"])]
+    wiki = []
+    for _ in range(HARNESS_DOCS["wikitext"]):
+        wiki += [f" = {words(2)} = \n", para(HARNESS_WIKI_CHARS) + " \n"]
+    gsm = [{"question": para(rnd.choice((60, 120, 300, 420))) + "?",
+            "answer": f"{words(6)}\n#### {rnd.randint(0, 999)}"}
+           for _ in range(HARNESS_DOCS["gsm8k"])]
+    return {"piqa": {"train": [], "validation": piqa},
+            "lambada_openai": {"test": lambada},
+            "wikitext": {"test": wiki, "validation": wiki[:2]},
+            "gsm8k": {"train": [], "test": gsm}}
+
+
+def _recording_lm(torch, base):
+    """A TorchLM subclass that keeps each call's requests, responses and
+    seconds (behind a synchronisation), and counts the tokens the engine
+    generates; ``holder["lm"]`` is the last one built (pop it)."""
+    holder = {}
+
+    class RecordingLM(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.max_gen_toks = HARNESS_GEN_TOKS
+            self.record = {}
+            holder["lm"] = self
+
+        def _timed(self, kind, requests, fn):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(requests)
+            torch.cuda.synchronize()
+            self.record[kind] = dict(requests=list(requests), responses=out,
+                                     s=time.time() - t)
+            return out
+
+        def loglikelihood(self, requests):
+            return self._timed("loglikelihood", requests,
+                               super().loglikelihood)
+
+        def loglikelihood_rolling(self, requests):
+            return self._timed("loglikelihood_rolling", requests,
+                               super().loglikelihood_rolling)
+
+        def greedy_until(self, requests):
+            eng = self._get_engine()
+            step_n, add = eng.step_n, eng.add_requests
+            made = [0]
+
+            def counted_step_n(last, n):
+                made[0] += n * len(last)
+                return step_n(last, n)
+
+            def counted_add(reqs, **kw):
+                made[0] += len(reqs)
+                return add(reqs, **kw)
+
+            eng.step_n, eng.add_requests = counted_step_n, counted_add
+            try:
+                out = self._timed("greedy_until", requests,
+                                  super().greedy_until)
+            finally:
+                del eng.step_n, eng.add_requests
+            self.record["greedy_until"]["tokens"] = made[0]
+            return out
+
+    return RecordingLM, holder
+
+
+def _token_stats(torch, family, cfg, params, spec, pairs, seqlen, batch,
+                 device, rows=False):
+    """Per-token log-probabilities and argmax flags of each (context,
+    continuation) token pair, in TorchLM's chunks (batch pairs, longest
+    first, padded on the right to the chunk's longest); with ``rows`` also
+    each row's gap between its top two logits and its largest |logit|."""
+    out = [None] * len(pairs)
+    order = sorted(range(len(pairs)),
+                   key=lambda i: -(len(pairs[i][0]) + len(pairs[i][1])))
+    with torch.inference_mode():
+        for start in range(0, len(order), batch):
+            chunk = order[start:start + batch]
+            seqs = [(list(pairs[i][0]) + list(pairs[i][1]))[-(seqlen + 1):]
+                    for i in chunk]
+            toks = torch.zeros((len(chunk), max(map(len, seqs))),
+                               dtype=torch.int64)
+            for r, s in enumerate(seqs):
+                toks[r, :len(s)] = torch.tensor(s)
+            toks = toks.to(device)
+            logits = family.forward(params, toks[:, :-1], cfg, spec).float()
+            logp = torch.log_softmax(logits, dim=-1)
+            tgt = toks[:, 1:]
+            lp = logp.gather(-1, tgt[..., None])[..., 0].cpu()
+            greedy = (logp.argmax(-1) == tgt).cpu()
+            if rows:
+                top2 = logits.topk(2, dim=-1).values
+                top_gap = (top2[..., 0] - top2[..., 1]).cpu()
+                mag = logits.abs().amax(-1).cpu()
+            for r, i in enumerate(chunk):
+                n, cl = len(seqs[r]), len(pairs[i][1])
+                sl = slice(n - 1 - cl, n - 1)
+                st = dict(lp=lp[r, sl].double(), greedy=greedy[r, sl])
+                if rows:
+                    st.update(top_gap=top_gap[r, sl].double(),
+                              mag=mag[r, sl].double())
+                out[i] = st
+            del logits, logp
+    return out
+
+
+def _scored_pairs(lm, record) -> tuple:
+    """The token pairs a run scored, as TorchLM encodes them: its
+    loglikelihood requests, then each rolling request's disjoint windows;
+    and each rolling request's window indices."""
+    from omniquant_tpu_torch.eval.harness import (
+        get_rolling_token_windows, make_disjoint_window)
+
+    pairs = [([lm.eot_token_id] if c == "" else lm.tok_encode(c),
+              lm.tok_encode(x))
+             for c, x in record["loglikelihood"]["requests"]]
+    owners = []
+    for (string,) in record["loglikelihood_rolling"]["requests"]:
+        w = [make_disjoint_window(x) for x in get_rolling_token_windows(
+            lm.tok_encode(string), lm.eot_token_id, lm.seqlen, 1)]
+        owners.append(list(range(len(pairs), len(pairs) + len(w))))
+        pairs += w
+    return pairs, owners
+
+
+class _ReplayLM:
+    """Responses looked up by request: loglikelihoods and rolling sums from
+    ``ll``/``rolling`` (request -> response), generations from ``gen``."""
+
+    def __init__(self, ll, rolling, gen):
+        self.ll, self.rolling, self.gen = ll, rolling, gen
+
+    def loglikelihood(self, requests):
+        return [self.ll[tuple(r)] for r in requests]
+
+    def loglikelihood_rolling(self, requests):
+        return [self.rolling[tuple(r)] for r in requests]
+
+    def greedy_until(self, requests):
+        return [self.gen[(r[0], tuple(r[1]))] for r in requests]
+
+
+def text_stream_gaps(torch, family, cfg, ref, spec, lm, requests, texts,
+                     device) -> list:
+    """stream_gaps for greedy_until's texts: each text re-encoded (the
+    CharTokenizer's tokens map back one to one, apart from chr(1), which
+    both the end-of-text token 0 and token 1 decode to), each token's gap
+    to its row's argmax in the plain f32 forward ``ref`` over the prompt
+    TorchLM gave the engine and the stream before it, over the row's
+    largest |logit|. Returns a list of gaps a non-empty text."""
+    keep = max(1, lm.seqlen - lm.max_gen_toks)
+    gaps = []
+    with torch.inference_mode():
+        for (ctx, _), text in zip(requests, texts):
+            stream = lm.tok_encode(text)
+            if not stream:
+                continue
+            prompt = lm.tok_encode(ctx)[-keep:] or [lm.eot_token_id]
+            toks = torch.tensor([prompt + stream[:-1]], device=device)
+            logits = family.forward(ref, toks, cfg, spec)[0, -len(stream):]
+            logits = logits.float()
+            cand = torch.tensor(stream, device=device)
+            alt = torch.where(cand == 1, 0, cand)
+            top = logits.max(-1).values
+            tok = torch.maximum(logits.gather(-1, cand[:, None])[:, 0],
+                                logits.gather(-1, alt[:, None])[:, 0])
+            gaps.append(((top - tok) / logits.abs().amax(-1)).tolist())
+    return gaps
+
+
+class HoldFailed(AssertionError):
+    """harness_hold's rejection: the checks that failed and the
+    measurements."""
+
+    def __init__(self, label, reasons, res):
+        super().__init__(f"harness {label}: outside the hold: {reasons}")
+        self.reasons, self.res = reasons, res
+
+
+def harness_hold(torch, device, family, cfg, lm, results, ref, plain16,
+                 spec, tol_max, docs, label) -> dict:
+    """Holds one run_tasks run against the plain f32 forward ``ref`` of the
+    same pack (plain_reference_params; ``plain16`` is it in bf16, plain
+    PyTorch ops, no kernel), token by token:
+
+    - ppl_check's rule over every scored token (loglikelihoods and rolling
+      windows): the rms of the run's per-token log-probability gap to ref
+      at most PPL_VS_PLAIN x the bf16 plain forward's;
+    - each loglikelihood and each rolling sum within the e2e bound applied
+      per token: a row whose logits lie within ``tol_max`` x its largest
+      |logit| moves a token's log-probability by at most twice that;
+    - each greedy flag equal to ref's, except where a token's argmax
+      flipped on a near tie (ref's top-2 gap at most SPEC_TIE x
+      ``tol_max`` x the row's largest |logit|); each multiple-choice doc's
+      chosen answer likewise, except where ref's margin lies within the two
+      answers' e2e bounds; both counted;
+    - each generated stream by the near-tie rule (each token at most
+      SPEC_TIE x ``tol_max`` x its row's largest |logit| below the row's
+      f32 argmax, over the stream's own context);
+    - the task metrics: the evaluator's over ref's scores (the run's
+      generations replayed), accuracies apart from the counted near ties,
+      perplexities between those over ref's scores -/+ their e2e bounds.
+
+    Raises HoldFailed outside it; returns the measurements."""
+    from omniquant_tpu_torch.eval.harness import evaluate, get_task_dict
+
+    rec = lm.record
+    pairs, owners = _scored_pairs(lm, rec)
+    n_ll = len(rec["loglikelihood"]["requests"])
+
+    def stats(params, rows=False):
+        # in the run's chunks: the loglikelihood requests in one call, each
+        # rolling request's windows in one call of their own
+        out = []
+        for idx in [range(n_ll)] + owners:
+            out += _token_stats(torch, family, cfg, params, spec,
+                                [pairs[k] for k in idx], lm.seqlen,
+                                lm.batch_size, device, rows=rows)
+        return out
+
+    got, want, p16 = stats(lm.params), stats(ref, True), stats(plain16)
+    res = {}
+    # the re-scored chunks are the run's: the same sums, bit for bit up to
+    # the summation order
+    replay = [float(g["lp"].sum()) for g in got[:n_ll]]
+    res["rescore_max_abs"] = max(
+        abs(a - b[0]) for a, b in zip(replay, rec["loglikelihood"]["responses"]))
+    d_got = torch.cat([g["lp"] - w["lp"] for g, w in zip(got, want)])
+    d_p16 = torch.cat([p["lp"] - w["lp"] for p, w in zip(p16, want)])
+    res["tokens"] = d_got.numel()
+    res["nll_rms_gap"] = d_got.pow(2).mean().sqrt().item()
+    res["nll_rms_gap_bf16_forward"] = d_p16.pow(2).mean().sqrt().item()
+    bound = [2 * tol_max * w["mag"].sum().item() for w in want]
+    failed = []
+    if not res["nll_rms_gap"] <= PPL_VS_PLAIN * res["nll_rms_gap_bf16_forward"]:
+        failed.append("per-token rms gap")
+    if res["rescore_max_abs"] > 1e-3:
+        failed.append("re-scored chunks differ from the run's")
+    ll_ref, ll_lo, ll_hi, ties, over = {}, {}, {}, 0, []
+    limit = SPEC_TIE * tol_max
+    for i, (req, (ll, flag)) in enumerate(zip(
+            rec["loglikelihood"]["requests"],
+            rec["loglikelihood"]["responses"])):
+        w = want[i]
+        ref_ll = w["lp"].sum().item()
+        if abs(ll - ref_ll) > bound[i]:
+            over.append(f"loglikelihood {i}")
+        ll_ref[tuple(req)] = (ref_ll, bool(w["greedy"].all()))
+        ll_lo[tuple(req)] = (ref_ll - bound[i], ll_ref[tuple(req)][1])
+        ll_hi[tuple(req)] = (ref_ll + bound[i], ll_ref[tuple(req)][1])
+        if flag != ll_ref[tuple(req)][1]:
+            flips = got[i]["greedy"] != w["greedy"]
+            if (w["top_gap"][flips] / w["mag"][flips]).max() > limit:
+                over.append(f"greedy flag {i}")
+            ties += 1
+    res["flag_near_ties"] = ties
+    # multiple-choice docs: the requests of one context, in order
+    by_ctx = {}
+    for i, (c, _) in enumerate(rec["loglikelihood"]["requests"]):
+        by_ctx.setdefault(c, []).append(i)
+    mc_ties = 0
+    for idx in (v for v in by_ctx.values() if len(v) > 1):
+        conts = [rec["loglikelihood"]["requests"][i][1] for i in idx]
+        g = [rec["loglikelihood"]["responses"][i][0] for i in idx]
+        r = [want[i]["lp"].sum().item() for i in idx]
+        for norm in (1.0, None):
+            div = [1.0 if norm else float(len(c) - 1) for c in conts]
+            a = max(range(len(idx)), key=lambda k: g[k] / div[k])
+            b = max(range(len(idx)), key=lambda k: r[k] / div[k])
+            if a != b:
+                margin = r[b] / div[b] - r[a] / div[a]
+                if margin > (bound[idx[a]] / div[a] + bound[idx[b]] / div[b]):
+                    over.append(f"choice of context {idx[0]}")
+                mc_ties += 1
+    res["choice_near_ties"] = mc_ties
+    roll_ref, roll_lo, roll_hi = {}, {}, {}
+    for req, s, ws in zip(rec["loglikelihood_rolling"]["requests"],
+                          rec["loglikelihood_rolling"]["responses"], owners):
+        r = sum(want[k]["lp"].sum().item() for k in ws)
+        b = sum(bound[k] for k in ws)
+        if abs(s - r) > b:
+            over.append(f"rolling sum of {len(ws)} windows")
+        roll_ref[tuple(req)], roll_lo[tuple(req)], roll_hi[tuple(req)] = (
+            r, r - b, r + b)
+    # streams: each generated token against the f32 forward over its context
+    gen = rec["greedy_until"]
+    gaps = text_stream_gaps(torch, family, cfg, ref, spec, lm,
+                            gen["requests"], gen["responses"], device)
+    res["streams"] = near_tie(gaps, limit) if gaps else dict(tokens=0,
+                                                             ok=False)
+    if not res["streams"]["ok"]:
+        over.append("generated streams")
+    # the metrics over ref's scores, and over ref's -/+ the bounds
+    gen_map = {(c, tuple(u)): t for (c, u), t in zip(gen["requests"],
+                                                     gen["responses"])}
+    metrics = {}
+    for key, ll, roll in (("ref", ll_ref, roll_ref), ("lo", ll_lo, roll_lo),
+                          ("hi", ll_hi, roll_hi)):
+        metrics[key] = evaluate(_ReplayLM(ll, roll, gen_map),
+                                get_task_dict(list(docs), docs))["results"]
+    res["metrics"] = results["results"]
+    res["metrics_ref"] = metrics["ref"]
+    n_docs = {t: HARNESS_DOCS[t] for t in docs}
+    for task, ms in results["results"].items():
+        for m, v in ms.items():
+            if m.endswith("_stderr"):
+                continue
+            r = metrics["ref"][task][m]
+            if m.startswith("acc"):
+                allowed = (mc_ties if task == "piqa" else
+                           ties if task == "lambada_openai" else 0)
+                ok = abs(v - r) * n_docs[task] <= allowed + 1e-9
+            else:
+                lo, hi = sorted((metrics["lo"][task][m],
+                                 metrics["hi"][task][m]))
+                ok = lo - 1e-9 * abs(lo) <= v <= hi + 1e-9 * abs(hi)
+            if not ok:
+                over.append(f"{task} {m}: {v} against {r}")
+    log(f"  harness {label} hold: {res['tokens']} scored tokens, per-token "
+        f"rms gap {res['nll_rms_gap']:.4g} (bf16 plain forward "
+        f"{res['nll_rms_gap_bf16_forward']:.4g}, at most {PPL_VS_PLAIN} x "
+        f"that); greedy flags flipped on near ties: {ties}, choices: "
+        f"{mc_ties}; re-scored chunks within {res['rescore_max_abs']:.3g}; "
+        f"streams: " + (_log_tie(res["streams"]) if gaps else "none"))
+    for task, ms in results["results"].items():
+        log(f"    {task}: " + ", ".join(
+            f"{m} {v:.4f} (f32 {metrics['ref'][task][m]:.4f})"
+            for m, v in ms.items() if not m.endswith("_stderr")))
+    if failed or over:
+        raise HoldFailed(label, failed + over, res)
+    return res
+
+
+def _faulted(params, layers, factor):
+    """``params`` with every PackedWeight scale of ``layers`` x factor."""
+    out = dict(params, layers=list(params["layers"]))
+    for i in layers:
+        out["layers"][i] = {
+            k: (dataclasses.replace(v, scales=v.scales * factor)
+                if hasattr(v, "scales") else v)
+            for k, v in params["layers"][i].items()}
+    return out
+
+
+def harness_run(torch, device, family, cfg, packed, spec, docs, label,
+                paths, tol_max) -> tuple:
+    """run_tasks (the CLI's --tasks path) on ``packed`` in bf16 through a
+    recording TorchLM, with the launch counts set to 0 before it and read
+    after it; checks that every kernel of ``paths`` and K1's decode tile
+    launched. Returns (results, the LM, the counts, seconds)."""
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.cli import CharTokenizer
+    from omniquant_tpu_torch.eval import harness
+
+    base = harness.TorchLM
+    RecordingLM, holder = _recording_lm(torch, base)
+    harness.TorchLM = RecordingLM
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.time()
+        results = harness.run_tasks(
+            family, packed, cfg, CharTokenizer(cfg.vocab_size),
+            list(HARNESS_DOCS), spec=spec, task_data=docs, device=device,
+            dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        run_s = time.time() - t
+        counts = kernels.launch_counts()
+    finally:
+        harness.TorchLM = base
+    # popped: the holder, reached from the class's __init__, would keep the
+    # LM (its bf16 params and engine) in a cycle until the collector ran
+    lm = holder.pop("lm")
+    rec = lm.record
+    n_win = sum(len(w) for w in _scored_pairs(lm, rec)[1])
+    rates = dict(
+        loglikelihood_req_s=len(rec["loglikelihood"]["requests"])
+        / rec["loglikelihood"]["s"],
+        rolling_windows_s=n_win / rec["loglikelihood_rolling"]["s"],
+        greedy_until_tok_s=rec["greedy_until"]["tokens"]
+        / rec["greedy_until"]["s"],
+        loglikelihood_requests=len(rec["loglikelihood"]["requests"]),
+        rolling_windows=n_win, generated_tokens=rec["greedy_until"]["tokens"],
+        run_s=run_s)
+    decode_tile = (counts["quant_matmul"] - counts["quant_matmul_prefill"]
+                   - counts["quant_matmul_planar_decode"]
+                   - counts["quant_matmul_planar_prefill"])
+    log(f"  harness {label}: run_tasks {run_s:.2f} s: loglikelihood "
+        f"{rates['loglikelihood_req_s']:.1f} requests/s "
+        f"({rates['loglikelihood_requests']}), loglikelihood_rolling "
+        f"{rates['rolling_windows_s']:.2f} windows/s ({n_win} of "
+        f"{lm.seqlen}), greedy_until {rates['greedy_until_tok_s']:.1f} "
+        f"tokens/s ({rates['generated_tokens']}); launches {counts}")
+    missing = [k for k in paths if counts[k] <= 0]
+    if spec.act is None and decode_tile <= 0:
+        missing.append("quant_matmul (decode tile)")
+    if missing:
+        raise AssertionError(f"harness {label}: kernels never launched on "
+                             f"its path: {missing}")
+    return results, lm, counts, rates
+
+
+def harness_checked(torch, device, cfg, packed, docs, label, ref=None):
+    """harness_run of W4A16 ``packed`` (OPT, ``cfg``), then harness_hold
+    against ``ref`` (by default the pack's own plain f32 forward) and its
+    bf16 copy. Returns (the hold's measurements, rates, launches); raises
+    HoldFailed outside the hold."""
+    from omniquant_tpu_torch.models import OPT
+    from omniquant_tpu_torch.models.common import NO_ACT_QUANT
+    from omniquant_tpu_torch.serving.engine import _to_engine
+
+    results, lm, counts, rates = harness_run(
+        torch, device, OPT, cfg, packed, NO_ACT_QUANT, docs, label,
+        HARNESS_PATHS["w4a16"], E2E_TOL["max"])
+    ref = plain_reference_params(torch, packed) if ref is None else ref
+    try:
+        return harness_hold(torch, device, OPT, cfg, lm, results, ref,
+                            _to_engine(ref, device, torch.bfloat16),
+                            NO_ACT_QUANT, E2E_TOL["max"], docs,
+                            label), rates, counts
+    finally:
+        del lm, ref
+        torch.cuda.empty_cache()
+
+
+def harness_phase(torch, device, cfg, dense, packed, seed, out: dict) -> dict:
+    """The harness on OPT-2.7B: W4A16 (``packed``, 32 layers) held token by
+    token against the plain f32 forward (harness_hold); the planted faults
+    (HARNESS_FAULTS), each held against the plain f32 forward of the pack
+    it faults and rejected, the 2-layer one beside the clean 2-layer run;
+    then W4A4 at HARNESS_INT_LAYERS layers held the same way at
+    E2E_INT_TOL[4]. Returns the launches of the clean 32-layer and W4A4
+    runs."""
+    from omniquant_tpu_torch.models import OPT
+    from omniquant_tpu_torch.models.common import ActQuantSpec
+    from omniquant_tpu_torch.quant import QuantConfig
+    from omniquant_tpu_torch.serving import pack_model
+    from omniquant_tpu_torch.serving.engine import _to_engine
+
+    t0 = time.time()
+    mem0 = torch.cuda.memory_allocated()
+    res = out["harness"] = {}
+    docs = harness_docs(seed)
+    hold, rates, counts = harness_checked(torch, device, cfg, packed, docs,
+                                          "W4A16 g128")
+    total = dict(counts)
+    res["w4a16"] = dict(rates=rates, launches=counts, **hold)
+    faults = res["faults"] = {}
+    for name, (n, layer, factor) in HARNESS_FAULTS.items():
+        cfg_n = dataclasses.replace(cfg, num_hidden_layers=n)
+        clean = dict(packed, layers=packed["layers"][:n])
+        ref = plain_reference_params(torch, clean)
+        if n < cfg.num_hidden_layers:
+            faults[f"clean_{n}_layers"] = harness_checked(
+                torch, device, cfg_n, clean, docs, f"W4A16 g128, {n} layers",
+                ref)[0]
+        try:
+            harness_checked(torch, device, cfg_n,
+                            _faulted(clean, [layer], factor), docs,
+                            f"planted fault {name}", ref)
+        except HoldFailed as e:
+            faults[name] = dict(e.res, reasons=e.reasons)
+            log(f"  harness planted fault {name}: rejected for {e.reasons}")
+        else:
+            raise AssertionError(f"harness: the hold admitted the planted "
+                                 f"fault {name}")
+        del ref, clean
+        torch.cuda.empty_cache()
+
+    # W4A4 at HARNESS_INT_LAYERS layers on planar words (K7 below 2048 rows)
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=HARNESS_INT_LAYERS)
+    dense2 = dict(dense, layers=dense["layers"][:HARNESS_INT_LAYERS])
+    packed2 = pack_model(OPT, dense2, QuantConfig(n_bits=4, group_size=128),
+                         layout="planar", device=device)
+    spec = ActQuantSpec.from_bits(4)
+    tol4 = E2E_INT_TOL[4]["max"]
+    results, lm, counts, rates = harness_run(
+        torch, device, OPT, cfg2, packed2, spec, docs, "W4A4",
+        HARNESS_PATHS["w4a4"], tol4)
+    total = {k: v + counts[k] for k, v in total.items()}
+    ref = plain_reference_params(torch, packed2)
+    hold = harness_hold(torch, device, OPT, cfg2, lm, results, ref,
+                        _to_engine(ref, device, torch.bfloat16), spec, tol4,
+                        docs, "W4A4")
+    res["w4a4"] = dict(rates=rates, launches=counts, **hold)
+    del lm, ref, packed2
+    torch.cuda.empty_cache()
+    left = (torch.cuda.memory_allocated() - mem0) / 2**30
+    if left > 0.5:
+        raise AssertionError(f"harness: {left:.2f} GiB still allocated after "
+                             "the phase: a TorchLM or engine was kept")
+    res["launches"] = total
+    res["phase_s"] = time.time() - t0
+    log(f"  harness phase {res['phase_s']:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3414,9 +4006,10 @@ def main(argv=None) -> int:
         "bf16- and int8-KV OPTEngines, perplexity of the pack, then LWC "
         "W4A16 g128 at 2 layers -> pack -> serve -> perplexity")
     t_opt27 = time.time()
-    opt27b_phase(torch, device, args.seed, out)
+    harness_counts = opt27b_phase(torch, device, args.seed, out)
     out["opt27b_phase_s"] = time.time() - t_opt27
-    log(f"  opt27b phase {out['opt27b_phase_s']:.1f} s")
+    log(f"  opt27b phase {out['opt27b_phase_s']:.1f} s (the harness phase "
+        f"{out['harness']['phase_s']:.1f} s of it)")
 
     log("falcon: Falcon-7B (2 layers, W4A16 g64), 40B (1 layer, W4A16 g128) "
         "and RW-1B (2 layers, W4A16 g128) widths: bf16- and int8-KV "
@@ -3447,9 +4040,10 @@ def main(argv=None) -> int:
     log("profile: one decode step of engines A and E under torch.profiler")
     profile_decode(torch, device, cfg, dims, args.seed, out)
 
-    # the serve and spec phases' launches per entry: K1's count holds both
-    # layouts
-    counts = {k: v + spec_counts.get(k, 0) for k, v in counts.items()}
+    # the serve, spec and harness phases' launches per entry: K1's count
+    # holds both layouts
+    counts = {k: v + spec_counts.get(k, 0) + harness_counts.get(k, 0)
+              for k, v in counts.items()}
     planar = (counts["quant_matmul_planar_decode"]
               + counts["quant_matmul_planar_prefill"])
     launches = dict(counts, quant_matmul=counts["quant_matmul"] - planar,
@@ -3519,6 +4113,16 @@ def main(argv=None) -> int:
             f"{v['held_out_mse']['rtn']:.4g}"
             for k, v in fal.items() if k in FALCON_CALIB_RUNS)
         + "; on:")
+    log(smi)
+    hr = out["harness"]
+    log("harness (run_tasks on OPT-2.7B: loglikelihood requests/s, "
+        "loglikelihood_rolling windows/s, greedy_until tokens/s, run s; the "
+        "phase's s): " + "; ".join(
+            f"{k} {hr[k]['rates']['loglikelihood_req_s']:.1f}, "
+            f"{hr[k]['rates']['rolling_windows_s']:.2f}, "
+            f"{hr[k]['rates']['greedy_until_tok_s']:.1f}, "
+            f"{hr[k]['rates']['run_s']:.2f}" for k in ("w4a16", "w4a4"))
+        + f"; {hr['phase_s']:.1f}; on:")
     log(smi)
     sp = out["spec"]
     log("spec (a round ms, in sequential steps, acceptance, spec / step_n "

@@ -15,15 +15,20 @@ through ``transformers``); calibrate it (tokens cached under
 ``--save_dir``: write ``model_fakequant.npz`` and ``config.json``, and with
 ``--real_quant`` also ``model_packed.npz``, in the npz format both packages
 read; ``--eval_ppl``: perplexity on each test split there is a local copy
-of (offline, only ``synthetic``); ``--serve_prompt``: generate with the
-serving engine. The last line of standard output is the results JSON.
+of (offline, only ``synthetic``); ``--tasks``: the evaluation harness
+(``eval/harness``: ``run_tasks`` over a ``TorchLM``, its scores cached in
+the sqlite db ``--eval_cache`` when given); ``--serve_prompt``: generate
+with the serving engine. The last line of standard output is the results
+JSON.
 
-Unlike ``main.py``, which serves the fake-quant weights whatever the flag
-says, ``--real_quant`` serves the packed model: the weights the kernels
-take. ``--spec_decode GAMMA`` serves through ``SpecDecoder`` (a layer-skip
-self-draft of ``--draft_layers`` blocks) and logs its acceptance, as
-``main.py`` does. Flags whose machinery is not ported yet (the task
-harness, tensor, sequence and multi-host parallelism, the AutoGPTQ
+Unlike ``main.py``, which evaluates and serves the fake-quant weights
+whatever the flag says, ``--real_quant`` runs ``--tasks`` and serves
+``--serve_prompt`` on the packed model, in bf16 as the engine holds it: the
+weights the kernels take; its ``--eval_cache`` fingerprint, main.py's
+otherwise, then ends in ``|real_quant``. ``--spec_decode GAMMA`` serves through
+``SpecDecoder`` (a layer-skip self-draft of ``--draft_layers`` blocks) and
+logs its acceptance, as ``main.py`` does. Flags whose machinery is not
+ported yet (tensor, sequence and multi-host parallelism, the AutoGPTQ
 exporter) exit with the ROADMAP item that ports it.
 """
 from __future__ import annotations
@@ -65,8 +70,12 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--seqlen", type=int, default=2048)
     p.add_argument("--seed", type=int, default=2)
-    p.add_argument("--tasks", default="", help="not ported yet")
-    p.add_argument("--eval_cache", default="", help="not ported yet")
+    p.add_argument("--tasks", default="",
+                   help="comma-separated harness task names (fnmatch "
+                        "patterns)")
+    p.add_argument("--eval_cache", default="",
+                   help="sqlite path caching the --tasks scores (keyed by "
+                        "the flags that change the model)")
     p.add_argument("--eval_ppl", action="store_true")
     p.add_argument("--num_fewshot", type=int, default=0)
     p.add_argument("--wbits", type=int, default=4)
@@ -131,9 +140,6 @@ def build_parser():
 # the unported flags: (is the flag set, what it needs)
 def _unported(args) -> list:
     return [what for used, what in (
-        (bool(args.tasks or args.eval_cache),
-         "--tasks/--eval_cache need the eval harness (ROADMAP Queue 1 "
-         "item 8)"),
         (args.tp > 1, "--tp > 1 needs tensor parallelism (ROADMAP Queue 1 "
                       "item 9)"),
         (args.sp > 1, "--sp > 1 needs sequence-parallel calibration "
@@ -374,6 +380,34 @@ def _run(args, device, logger) -> dict:
                 limit=None if args.limit < 0 else args.limit, logger=logger)
             logger.info(f"{ds} : {ppl}")
             results[ds] = ppl
+
+    if args.tasks:
+        from .eval.harness import run_tasks
+
+        t_results = run_tasks(
+            family, packed if packed is not None else params, model_cfg,
+            tokenizer, args.tasks.split(","), num_fewshot=args.num_fewshot,
+            limit=None if args.limit < 0 else args.limit,
+            spec=cc.act_quant_spec, logger=logger,
+            cache_db=args.eval_cache or None,
+            # main.py's fingerprint: every flag that changes the evaluated
+            # model, in its order; --real_quant, under which the port (not
+            # main.py) evaluates the packed model in bf16, adds a marker, so
+            # a db of fake-quant scores never serves it
+            cache_fingerprint="|".join(map(str, (
+                args.net, args.model, args.wbits, args.abits,
+                args.group_size, args.lwc, args.let, args.symmetric,
+                args.epochs, args.resume, args.seed,
+                args.calib_dataset, args.nsamples, args.batch_size,
+                args.seqlen, args.alpha, args.aug_loss,
+                args.act_scales, args.act_shifts,
+                args.let_lr, args.lwc_lr, args.wd,
+                args.sp, args.offload_layers, args.bf16_buffers,
+                args.synthetic))) + ("|real_quant" if args.real_quant
+                                     else ""),
+            device=device,
+            dtype=torch.bfloat16 if packed is not None else None)
+        results.update(t_results)
 
     if args.serve_prompt is not None:
         from .serving import FalconEngine, LlamaEngine, OPTEngine

@@ -18,7 +18,12 @@ the packed model, which gives the text of JAX's engine on main.py's
 packed model. Falcon is LWC only: asked for LET, both calibrate without
 it (the act statistics are still collected and written, as main.py does).
 Unported flags exit naming the ROADMAP item; a net with no synthetic
-config and no checkpoint exits as main.py does.
+config and no checkpoint exits as main.py does. ``--tasks`` (piqa and
+lambada_openai, both packages' task download patched to the same injected
+docs) gives main.py's task results; a second ``--eval_cache`` run, and a
+run on main.py's db, are served from the db without one LM call; and
+``python -m omniquant_tpu_torch.generate_act_stats`` writes the npz files
+of the repository's generate_act_stats.py.
 """
 import importlib.util
 import json
@@ -136,7 +141,6 @@ def test_parser_matches_main_py():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tasks", "piqa"], "item 8"), (["--eval_cache", "x.db"], "item 8"),
     (["--tp", "2"], "item 9"), (["--sp", "2"], "item 9"),
     (["--num_processes", "2"], "item 9"),
     (["--export_autogptq"], "item 10")])
@@ -337,3 +341,111 @@ def test_module_entry_prints_results_json_last(tmp_path):
     assert sorted(last) == ["generation", "synthetic"]
     assert np.isfinite(last["synthetic"]) and len(last["generation"]) == 4
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+TASK_ARGS = ["--platform", "cpu", "--synthetic", "--net", "tiny-opt",
+             "--nsamples", "2", "--seqlen", "64", "--tasks",
+             "piqa,lambada_openai", "--num_fewshot", "1"]
+
+
+@pytest.fixture
+def task_docs_injected(monkeypatch):
+    """Both packages' piqa and lambada_openai read the same injected docs
+    instead of downloading them."""
+    import omniquant_tpu.eval.harness.tasks as j_tasks
+    import omniquant_tpu_torch.eval.harness.tasks as t_tasks
+
+    from test_torch_harness import task_docs
+
+    docs = task_docs(seed=4)
+    for mod in (j_tasks, t_tasks):
+        for cls, name in ((mod.PIQA, "piqa"),
+                          (mod.LambadaOpenAI, "lambada_openai")):
+            monkeypatch.setattr(
+                cls, "download",
+                lambda self, _d=docs[name]: setattr(self, "_data", _d))
+
+
+@pytest.mark.parametrize("quant", [["--wbits", "16", "--abits", "16"],
+                                   ["--wbits", "4", "--abits", "16",
+                                    "--group_size", "32", "--epochs", "0"]],
+                         ids=["w16", "w4_rtn"])
+def test_tasks_match_main_py(tmp_path, task_docs_injected, monkeypatch,
+                             quant):
+    """--tasks on tiny-opt (JAX's weights carried across; W4 round to
+    nearest at --epochs 0): main.py's results, versions and config."""
+    from test_torch_harness import assert_results_match
+
+    want = MAIN.main(TASK_ARGS + quant + _dirs(tmp_path, "jax"))
+    monkeypatch.setattr(cli, "load_model", carried_load_model)
+    got = cli.main(TASK_ARGS + quant + _dirs(tmp_path, "port"))
+    assert sorted(got) == sorted(want) == ["config", "results", "versions"]
+    assert_results_match(got, want)
+
+
+def test_eval_cache_serves_repeat_runs(tmp_path, task_docs_injected,
+                                       monkeypatch):
+    """--eval_cache: the port's second run, and a run on the db main.py
+    wrote (the same fingerprint), are served without one LM call; a
+    --real_quant run (the packed model in bf16, another fingerprint) on the
+    db the port's fake-quant run wrote is not served from it."""
+    from omniquant_tpu_torch.eval.harness import TorchLM
+
+    flags = TASK_ARGS + ["--wbits", "4", "--abits", "16", "--group_size",
+                         "32", "--epochs", "0"]
+    monkeypatch.setattr(cli, "load_model", carried_load_model)
+    first = cli.main(flags + ["--eval_cache", str(tmp_path / "port.db")]
+                     + _dirs(tmp_path, "a"))
+    want = MAIN.main(flags + ["--eval_cache", str(tmp_path / "jax.db")]
+                     + _dirs(tmp_path, "jax"))
+
+    calls = []
+
+    def counted(reqtype, fn):
+        def call(self, requests):
+            calls.append(reqtype)
+            return fn(self, requests)
+        return call
+
+    for reqtype in ("loglikelihood", "loglikelihood_rolling", "greedy_until"):
+        monkeypatch.setattr(TorchLM, reqtype,
+                            counted(reqtype, getattr(TorchLM, reqtype)))
+    again = cli.main(flags + ["--eval_cache", str(tmp_path / "port.db")]
+                     + _dirs(tmp_path, "b"))
+    assert again == first
+    served = cli.main(flags + ["--eval_cache", str(tmp_path / "jax.db")]
+                      + _dirs(tmp_path, "c"))
+    assert served == want
+    assert calls == [], "the cache should have served these requests"
+    cli.main(flags + ["--real_quant", "--eval_cache",
+                      str(tmp_path / "port.db")] + _dirs(tmp_path, "d"))
+    assert "loglikelihood" in calls, "a --real_quant run was served"
+
+
+@pytest.mark.parametrize("net", ["tiny-opt", "tiny-llama"])
+def test_generate_act_stats_matches_the_jax_script(tmp_path, monkeypatch,
+                                                   net):
+    """The port's generate_act_stats (JAX's weights carried across) writes
+    <net>_scales.npz and <net>_shifts.npz equal to the repository's
+    generate_act_stats.py's, at test_act_stats_files_match_main_py's
+    tolerance."""
+    from omniquant_tpu_torch import generate_act_stats
+
+    spec = importlib.util.spec_from_file_location(
+        "_repo_generate_act_stats", REPO / "generate_act_stats.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    args = ["--synthetic", "--net", net, "--nsamples", "4", "--seqlen", "64"]
+    script.main(args + ["--output_dir", str(tmp_path / "jax")])
+    monkeypatch.setattr(cli, "load_model", carried_load_model)
+    generate_act_stats.main(args + ["--platform", "cpu", "--output_dir",
+                                    str(tmp_path / "port")])
+    for k in ("scales", "shifts"):
+        want = j_load_pytree(str(tmp_path / "jax" / f"{net}_{k}.npz"))
+        got = j_load_pytree(str(tmp_path / "port" / f"{net}_{k}.npz"))
+        assert len(got) == len(want) == 2
+        for gl, wl in zip(got, want):
+            assert sorted(gl) == sorted(wl)
+            for name in wl:
+                np.testing.assert_allclose(gl[name], wl[name], rtol=1e-5,
+                                           atol=1e-6, err_msg=f"{k} {name}")

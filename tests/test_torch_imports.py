@@ -41,7 +41,17 @@ def test_no_jax_or_jax_package_loaded():
                 "models.llama", "models.common", "calib", "calib.engine",
                 "calib.act_stats", "calib.data", "quant.transform",
                 "utils.checkpoint", "models.opt", "eval", "eval.ppl",
-                "utils.logging", "cli", "__main__"):
+                "utils.logging", "cli", "__main__", "eval.harness",
+                "eval.harness.base", "eval.harness.caching",
+                "eval.harness.categories", "eval.harness.datasets_local",
+                "eval.harness.evaluator", "eval.harness.metrics",
+                "eval.harness.remote", "eval.harness.tasks",
+                "eval.harness.tasks_bias", "eval.harness.tasks_blimp",
+                "eval.harness.tasks_gen", "eval.harness.tasks_glue",
+                "eval.harness.tasks_math", "eval.harness.tasks_pile",
+                "eval.harness.tasks_qa", "eval.harness.tasks_translation",
+                "decontamination", "decontamination.janitor",
+                "decontamination.decontaminate", "generate_act_stats"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 
@@ -98,4 +108,10 @@ def test_default_device_raises_without_a_card():
         calibrate(LLAMA, params, cfg, tokens, CalibConfig(nsamples=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         collect_act_stats(LLAMA, params, cfg, tokens)
+    from omniquant_tpu_torch.eval.harness import TorchLM, run_tasks
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchLM(LLAMA, params, cfg, tokenizer=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tasks(LLAMA, params, cfg, None, ["piqa"])
     assert resolve_device("cpu") == torch.device("cpu")

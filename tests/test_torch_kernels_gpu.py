@@ -1706,3 +1706,103 @@ def test_grown_cache_on_the_card_keeps_its_rows(cuda, kv_dtype):
     want = big._decode_impl(toks, lens, big._kv_len(1))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _tiny_opt_packed(widths=_OPT_HD80):
+    """(cfg, pack): _tiny_opt's model, packed W4 g128 on the CPU."""
+    from omniquant_tpu_torch.models import OPT, opt
+
+    hidden, ffn, heads = widths
+    cfg = opt.OPTConfig(vocab_size=256, hidden_size=hidden, ffn_dim=ffn,
+                        num_hidden_layers=2, num_attention_heads=heads,
+                        max_position_embeddings=512)
+    gen = torch.Generator().manual_seed(7)
+    dense = opt.init_params(gen, cfg, device="cpu")
+    for b in dense["layers"]:
+        for sub in b.values():
+            sub["bias"].normal_(0.0, 0.02, generator=gen)
+    return cfg, pack_model(OPT, dense, QuantConfig(n_bits=4, group_size=128),
+                           device="cpu")
+
+
+def _harness_requests(seed=3):
+    """Loglikelihood requests (contexts of 5 to 300 characters), a rolling
+    doc longer than the 512-token window, and greedy_until contexts of
+    which one is 300 characters (K2 at the engine's prefill)."""
+    import random
+
+    rnd = random.Random(seed)
+
+    def text(n):
+        return "".join(rnd.choice("abcdefghij klmnop.") for _ in range(n))
+
+    ll = [(text(n), " " + text(rnd.randint(1, 12)))
+          for n in (5, 17, 40, 90, 120, 300, 8, 64, 33)] + [("", "xyz")]
+    return ll, [(text(1200),)], [(text(n), ["\n"]) for n in (300, 20, 70)]
+
+
+def test_torchlm_on_the_card_matches_cpu(cuda):
+    """TorchLM on the card (bf16: K1 on the scoring chunks' prefill tile
+    and the decode tile, K2 on a 300-token prompt, K3, K4) against TorchLM
+    on the CPU (every plain version) on a tiny packed OPT at head_dim 80:
+    each loglikelihood and the rolling sum within the e2e bound applied per
+    token (chip_smoke.harness_hold's: twice E2E_TOL's max times each row's
+    largest |logit| in the plain f32 forward), each token's greedy flag
+    (the card's chunks re-scored) equal to the plain forward's but where
+    that token is a near tie, and the card's greedy texts held by the
+    near-tie rule."""
+    import chip_smoke as cs
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.cli import CharTokenizer
+    from omniquant_tpu_torch.eval.harness import TorchLM
+    from omniquant_tpu_torch.models import OPT
+    from omniquant_tpu_torch.models.common import NO_ACT_QUANT
+
+    cfg, packed = _tiny_opt_packed()
+    ll, rolling, gen = _harness_requests()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        lm = TorchLM(OPT, packed, cfg, CharTokenizer(256), seqlen=512,
+                     batch_size=4, max_gen_toks=12, device=dev,
+                     dtype=torch.bfloat16)
+        kernels.reset_launch_counts()
+        out[dev] = (lm.loglikelihood(ll), lm.loglikelihood_rolling(rolling),
+                    lm.greedy_until(gen), kernels.launch_counts())
+    counts = out["cuda"][3]
+    for k in ("quant_matmul_prefill", "flash_attention",
+              "kv_cache_prefill_write", "kv_cache_write"):
+        assert counts[k] > 0, (k, counts)
+    assert counts["quant_matmul"] > counts["quant_matmul_prefill"], counts
+    ref = cs.plain_reference_params(torch, packed)
+    pairs = [([0] if c == "" else lm.tok_encode(c), lm.tok_encode(x))
+             for c, x in ll]
+    want = cs._token_stats(torch, OPT, cfg, ref, NO_ACT_QUANT, pairs, 512, 4,
+                           "cpu", rows=True)
+    # the card's per-token flags: its chunks re-scored (the same sums)
+    got = cs._token_stats(torch, OPT, cfg, lm.params, NO_ACT_QUANT, pairs,
+                          512, 4, lm.device)
+    tol = cs.E2E_TOL["max"]
+    for (g, gf), (c, cf), w, t in zip(out["cuda"][0], out["cpu"][0], want,
+                                      got):
+        bound = 2 * tol * w["mag"].sum().item()
+        assert abs(g - c) <= bound and abs(g - w["lp"].sum().item()) <= bound
+        assert abs(t["lp"].sum().item() - g) <= 1e-3
+        assert gf == bool(t["greedy"].all())
+        # every token whose argmax flipped is itself a near tie
+        flips = t["greedy"] != w["greedy"]
+        if flips.any():
+            assert (w["top_gap"][flips] / w["mag"][flips]).max() <= (
+                cs.SPEC_TIE * tol)
+    from omniquant_tpu_torch.eval.harness import (
+        get_rolling_token_windows, make_disjoint_window)
+
+    windows = [make_disjoint_window(w) for w in get_rolling_token_windows(
+        lm.tok_encode(rolling[0][0]), 0, 512, 1)]
+    assert len(windows) == 3
+    bound = sum(2 * tol * w["mag"].sum().item() for w in cs._token_stats(
+        torch, OPT, cfg, ref, NO_ACT_QUANT, windows, 512, 4, "cpu",
+        rows=True))
+    assert abs(out["cuda"][1][0] - out["cpu"][1][0]) <= bound
+    gaps = cs.text_stream_gaps(torch, OPT, cfg, ref, NO_ACT_QUANT, lm, gen,
+                               out["cuda"][2], "cpu")
+    assert gaps and cs.near_tie(gaps, cs.SPEC_TIE * tol)["ok"]
