@@ -164,7 +164,9 @@ prints no result. Any failure raises, so the exit code is non-zero.
               LWC, 2 epochs of 8 x 256, --eval_ppl, --real_quant,
               --save_dir and a 16-token --serve_prompt of the packed model;
               exit 0, a results JSON last, and K1, K3 and K4 launched (the
-              CLI logs its launch counts).
+              CLI logs its launch counts); tiny-llama again with --sp 2
+              (its mesh logged, K2 with stats launched as the ring's
+              schedule says, its perplexity near the run without --sp).
 10. spec    -- speculative decoding (serving/spec_decode.py: SpecDecoder's
               fused spec_steps rounds, each checked to run without a host
               synchronisation) and the growing KV cache (auto_grow), random
@@ -196,7 +198,27 @@ prints no result. Any failure raises, so the exit code is non-zero.
               row's argmax in one causal pass of the plain f32 forward over
               the stream; a planted fault (the draft's own stream) must
               fail it.
-11. profile -- last, so that no timed run follows a profiler session: A and
+11. sp      -- sequence-parallel calibration with all shards on the card:
+              (a) K2 with its softmax stats (return_stats) at the ring's
+              blocks, (1, 32, 2048, 128) and (1, 32, 1024, 128), and
+              OPT-2.7B's (1, 32, 1024, 80), causal and not, against its
+              plain version (out at K2's rule and equal to the call without
+              stats; m and l at tolerance.flash_stats_close), timed with
+              and without stats beside aten's flash attention with its
+              logsumexp; (b) ring attention over 4096 tokens at sp 2 and 4,
+              the flash ring against the plain ring and K2 over the whole
+              sequence; (c) calibrate(..., sp_mesh=[cuda:0] * 2) at
+              LLaMA-2-7B's published widths (meta-llama/Llama-2-7b-hf:
+              vocab 32000, hidden 4096, inter 11008, 32 heads, 4096
+              positions, rms eps 1e-5; 2 layers, random seeded weights) on
+              4 windows of 4096 tokens, W4A16 g128 LWC, 2 epochs, and (d)
+              at OPT-2.7B's widths (2 layers, heads of 80, sm_scale 1.0) on
+              4 windows of 2048, each against the run without sp_mesh on
+              the same card and windows (losses, LWC factors, folded
+              weights, packed codes; held-out MSE below round-to-nearest),
+              seconds a step and peak GiB of both, and the K2 stats
+              launches and ring calls the schedule implies.
+12. profile -- last, so that no timed run follows a profiler session: A and
               E rebuilt on a fresh W4 model, prefilled as in serve, two
               step_n(., 8) on the host clock, then one under torch.profiler:
               the device's busy share of a decode step, the kernel launches
@@ -244,6 +266,14 @@ KERNELS = {
         "omniquant_tpu_torch/csrc/flash_attention.cu",
         "per element 2 bf16 ulps of |plain| + 2^-8 * (plain attention over "
         "|v|) (the kernel rounds p to bf16 for p.v)"),
+    # K2 with its softmax stats (return_stats): the same kernel source and
+    # pallas_call, its stats written in the epilogue, counted apart
+    "flash_attention_stats": (
+        "omniquant_tpu/kernels/flash_attention.py:146",
+        "omniquant_tpu_torch/csrc/flash_attention.cu",
+        "out as flash_attention; m within 2^-12 (1 + |m|) and l within "
+        "2^-12 l of the plain version's (f32 scores summed in another "
+        "order, ex2.approx)"),
     "kv_cache_prefill_write": (
         "omniquant_tpu/kernels/kv_update.py:230",
         "omniquant_tpu_torch/csrc/kv_update.cu", "exact"),
@@ -300,7 +330,8 @@ SERVE_PATHS = {
 # measurements a kernel's JSON entry carries beside the contract's keys
 EXTRAS = ("prefill", "long_prompt", "falcon", "opt27b", "int_mm_ms",
           "kernel_ms", "generic_kernel_ms", "verify", "widths", "floor_ms",
-          "host_us", "cases")
+          "host_us", "cases", "ms_without_stats", "stats_m_max_abs_err",
+          "stats_l_max_rel_err")
 
 # e2e tolerance on logits, relative to the reference's rms / max magnitude:
 # the engine rounds activations to bf16 at every op (2^-9 relative each)
@@ -3299,7 +3330,16 @@ def falcon_phase(torch, device, seed, out: dict) -> None:
 # the card) as a user runs it, once per synthetic net. At these widths the
 # projections with N % 128 != 0 take the dense reference instead of K1, as
 # the JAX package routes them: CLI_DENSE names them.
-CLI_NETS = ("tiny-opt", "tiny-llama", "tiny-falcon")
+# run name -> (net, extra flags): the three nets, and tiny-llama again with
+# sequence-parallel calibration over 2 shards on the card (--sp 2)
+CLI_RUNS = {"tiny-opt": ("tiny-opt", ()), "tiny-llama": ("tiny-llama", ()),
+            "tiny-falcon": ("tiny-falcon", ()),
+            "tiny-llama-sp2": ("tiny-llama", ("--sp", "2"))}
+# the --sp 2 run's K2 stats launches: 2 layers x 8 windows x 2 capture
+# passes x 3 ring blocks; its perplexity within CLI_SP_PPL_RTOL of the run
+# without --sp (its capture passes attend in bf16, so the two calibrations
+# may drift apart; equal in PERF.md's runs, PR 21)
+CLI_SP_STATS, CLI_SP_PPL_RTOL = 2 * 8 * 2 * 3, 1e-3
 CLI_ARGS = ("--synthetic", "--wbits", "4", "--abits", "16", "--group_size",
             "64", "--lwc", "--epochs", "2", "--nsamples", "8", "--seqlen",
             "256", "--eval_ppl", "--real_quant", "--max_new_tokens", "16")
@@ -3312,11 +3352,13 @@ CLI_DENSE = {"tiny-opt": "qkv (N 192), out_proj and fc2 (N 64)",
 
 
 def cli_phase(out: dict) -> None:
-    """The CLI_NETS runs as subprocesses started together, each in a fresh
+    """The CLI_RUNS as subprocesses started together, each in a fresh
     directory under the git-ignored build/ with its output in files there:
     each must exit 0, end with a results JSON holding a finite synthetic
     perplexity and a generation, and log the launch of every kernel of
-    CLI_PATHS. A run still going after 600 s is killed and fails."""
+    CLI_PATHS; the --sp 2 run must log its mesh, launch K2 with stats
+    CLI_SP_STATS times and give tiny-llama's perplexity within
+    CLI_SP_PPL_RTOL. A run still going after 600 s is killed and fails."""
     import re
     import shutil
 
@@ -3324,18 +3366,18 @@ def cli_phase(out: dict) -> None:
     env = dict(os.environ, PYTHONPATH=HERE)
     runs = {}
     try:
-        for net in CLI_NETS:
-            d = os.path.join(HERE, "build", "cli_smoke", net)
+        for run, (net, extra) in CLI_RUNS.items():
+            d = os.path.join(HERE, "build", "cli_smoke", run)
             shutil.rmtree(d, ignore_errors=True)
             os.makedirs(d)
             cmd = [sys.executable, "-m", "omniquant_tpu_torch", "--net", net,
-                   *CLI_ARGS, "--serve_prompt", CLI_PROMPT,
+                   *CLI_ARGS, *extra, "--serve_prompt", CLI_PROMPT,
                    "--save_dir", os.path.join(d, "save"),
                    "--output_dir", os.path.join(d, "out"),
                    "--cache_dir", os.path.join(d, "cache")]
             logs = [open(os.path.join(d, f), "w+")
                     for f in ("stdout.log", "stderr.log")]
-            runs[net] = dict(logs=logs, t=time.time(), wall=None,
+            runs[run] = dict(logs=logs, t=time.time(), wall=None,
                              p=subprocess.Popen(cmd, cwd=HERE, env=env,
                                                 stdout=logs[0],
                                                 stderr=logs[1]))
@@ -3352,7 +3394,8 @@ def cli_phase(out: dict) -> None:
             if r["p"].poll() is None:
                 r["p"].kill()
                 r["p"].wait()
-    for net, r in runs.items():
+    for run, r in runs.items():
+        net = CLI_RUNS[run][0]
         for f in r["logs"]:
             f.seek(0)
         stdout, stderr = (f.read() for f in r["logs"])
@@ -3362,23 +3405,35 @@ def cli_phase(out: dict) -> None:
         if r["p"].returncode != 0:
             log(stdout[-4000:])
             log(stderr[-4000:])
-            raise AssertionError(f"cli {net}: exit code {r['p'].returncode}")
+            raise AssertionError(f"cli {run}: exit code {r['p'].returncode}")
         last = json.loads(stdout.strip().splitlines()[-1])
         counts = json.loads(re.search(r"kernel launches: (\{.*\})",
                                       stdout).group(1))
-        res[net] = dict(results=last, launches=counts, wall_s=wall)
-        log(f"  cli {net}: exit 0 in {wall:.1f} s (the {len(runs)} runs "
+        res[run] = dict(results=last, launches=counts, wall_s=wall,
+                        mesh_logged="sequence-parallel calibration over "
+                                    "2 devices" in stdout)
+        log(f"  cli {run}: exit 0 in {wall:.1f} s (the {len(runs)} runs "
             f"together); synthetic ppl {last.get('synthetic')}, generation "
             f"{last.get('generation')!r}; launches {counts}; at these widths "
             f"{CLI_DENSE[net]} take the dense reference, as in the JAX "
             "package (N % 128 != 0)")
         if not (math.isfinite(last.get("synthetic", math.nan))
                 and len(last.get("generation", "")) == 16):
-            raise AssertionError(f"cli {net}: results {last}")
+            raise AssertionError(f"cli {run}: results {last}")
         missing = [k for k in CLI_PATHS if counts[k] <= 0]
         if missing:
-            raise AssertionError(f"cli {net}: kernels never launched: "
+            raise AssertionError(f"cli {run}: kernels never launched: "
                                  f"{missing}")
+    sp, one = res["tiny-llama-sp2"], res["tiny-llama"]
+    gap = abs(sp["results"]["synthetic"] / one["results"]["synthetic"] - 1)
+    sp["ppl_rel_gap"] = gap
+    log(f"  cli tiny-llama-sp2: mesh logged {sp['mesh_logged']}, K2 stats "
+        f"launches {sp['launches']['flash_attention_stats']} (the schedule's "
+        f"{CLI_SP_STATS}), perplexity {gap:.3g} relative from the run "
+        f"without --sp (tol {CLI_SP_PPL_RTOL})")
+    if not (sp["mesh_logged"] and gap <= CLI_SP_PPL_RTOL and
+            sp["launches"]["flash_attention_stats"] == CLI_SP_STATS):
+        raise AssertionError(f"cli tiny-llama-sp2: {sp}")
 
 
 # ---------------------------------------------------------------------------
@@ -3872,6 +3927,444 @@ def _time_growth(torch, eng, growths: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# sp phase: sequence-parallel calibration (calib/engine.py, calibrate(...,
+# sp_mesh=...)), ring attention (parallel/ring_attention.py) and K2 with
+# its softmax stats (return_stats), all shards on the one card.
+# LLaMA-2-7B's published widths (meta-llama/Llama-2-7b-hf: vocab 32000,
+# hidden 4096, intermediate 11008, 32 heads on 32 kv heads, 4096
+# positions, rms eps 1e-5), depth cut to 2 layers, random seeded weights
+SP_LLAMA = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                num_hidden_layers=2, num_attention_heads=32,
+                num_key_value_heads=32, max_position_embeddings=4096,
+                rms_norm_eps=1e-5)
+# K2 with stats at the ring's block shapes: seqlen 4096 at sp 2 (2048-row
+# blocks) and sp 4 (1024), and OPT-2.7B's heads of 80 at sp 2 of 2048;
+# each causal (the ring's diagonal) and not (an off-diagonal block)
+SP_K2 = ((1, 32, 2048, 128), (1, 32, 1024, 128), (1, 32, 1024, 80))
+SP_RING_LEN, SP_RING_SHARDS = 4096, (2, 4)
+# name -> (family, seqlen, shards); each calibrates W4A16 g128 LWC on
+# SP_NSAMPLES windows, with and without sp_mesh, then SP_HELD windows
+SP_CALIB_RUNS = {"llama2_7b_4096_sp2": ("llama", 4096, 2),
+                 "opt27b_2048_sp2": ("opt", 2048, 2)}
+SP_CALIB = dict(wbits=4, abits=16, group_size=128, lwc=True, epochs=2,
+                batch_size=1, lwc_lr=1e-2)
+SP_NSAMPLES, SP_HELD = 4, 2
+# the SP run against the run without sp_mesh on the same card and windows.
+# The capture passes attend in bf16 (K2) where the single-device run's
+# dense attention is f32, so the targets move by bf16 noise and the two
+# runs drift apart by that much: layer 0's fp capture of window 0 within
+# SP_CAPTURE_RMS rms relative; losses within SP_LOSS_RTOL relative; LWC
+# factors within SP_LWC_RMS rms; folded weights apart by more than a 1e-4
+# share of the tensor's largest on at most SP_WEIGHT_SHARE of them, and
+# the packed codes equal but on at most SP_CODE_SHARE of them. Each limit
+# sits 3.4-10 times above the sound runs' largest reading and below what
+# each planted fault (SP_FAULTS) reads on the checks it moves (PERF.md,
+# PR 21)
+SP_CAPTURE_RMS, SP_LOSS_RTOL, SP_LWC_RMS = 2e-2, 5e-3, 2e-3
+SP_WEIGHT_SHARE, SP_CODE_SHARE = 2e-4, 1e-4
+# planted faults, each an SP run that the checks above must reject: the
+# last shard's MSE left out of the train loss, and (LLaMA, whose blocks
+# apply RoPE; OPT's positions are in its embedding) every shard's block
+# run at local positions 0 .. S/n - 1
+SP_FAULTS = {"llama": ("drop_last_mse", "local_positions"),
+             "opt": ("drop_last_mse",)}
+
+
+def _stats_row(torch, device, timer, B, H, S, D, causal) -> dict:
+    """K2 with stats at (B, H, S, D) against its plain version (out at K2's
+    rule, bit for bit the output without stats; m and l at
+    tolerance.flash_stats_close), timed with and without stats beside the
+    plain version, aten's flash attention with its logsumexp (the library
+    call; timed only) and the bound."""
+    from omniquant_tpu_torch.kernels import tolerance
+    from omniquant_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+
+    gen = torch.Generator(device=device).manual_seed(S + D + causal)
+    q, k, v = (torch.randn(B, H, S, D, generator=gen, device=device).to(
+        torch.bfloat16) for _ in range(3))
+    kw = dict(sm_scale=D ** -0.5, causal=causal)
+    out, m, l = flash_attention(q, k, v, return_stats=True, **kw)
+    alone = flash_attention(q, k, v, **kw)
+    want, m_p, l_p = flash_attention_plain(q, k, v, return_stats=True, **kw)
+    ok, err, worst = tolerance.bf16_close(
+        out, want, tolerance.flash_attention_slack(q, k, v, **kw))
+    s_ok, dm, rel_l, s_worst = tolerance.flash_stats_close(m, l, m_p, l_p)
+    same = torch.equal(alone, out)
+    del out, m, l, alone, want, m_p, l_p
+    shape = f"({B},{H},{S},{D}) {'causal' if causal else 'not causal'}"
+    if not (ok and s_ok and same):
+        raise AssertionError(
+            f"flash_attention stats {shape}: out within K2's rule {ok} "
+            f"({worst:.3g}), stats {s_ok} ({s_worst:.3g}), out equal to the "
+            f"call without stats {same}")
+    t = timer(lambda: flash_attention(q, k, v, return_stats=True, **kw),
+              "flash_attention stats")
+    t_alone = timer(lambda: flash_attention(q, k, v, **kw),
+                    "flash_attention")
+    t_plain = timer(lambda: flash_attention_plain(q, k, v, return_stats=True,
+                                                  **kw),
+                    "flash_attention stats plain", iters=3)
+    t_lib = timer(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, causal, False, scale=D ** -0.5),
+        "flash_attention stats library")
+    nbytes = 4 * q.numel() * 2 + 2 * B * H * S * 4
+    flops = 4.0 * B * H * S * S * D / (2 if causal else 1)
+    b, by = bound_ms(nbytes, flops)
+    log(f"  flash_attention stats {shape}: out max abs err {err:.3g} "
+        f"({worst:.3g} x bound), m max abs err {dm:.3g}, l max rel err "
+        f"{rel_l:.3g} ({s_worst:.3g} x bound); kernel {t:.4f} ms (without "
+        f"stats {t_alone:.4f}), plain {t_plain:.4f}, aten flash with "
+        f"logsumexp {t_lib:.4f}, bound {b:.4f} ({by})")
+    return dict(ms=t, ms_without_stats=t_alone, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b, bound_by=by, max_abs_err=err,
+                err_over_bound=worst, stats_m_max_abs_err=dm,
+                stats_l_max_rel_err=rel_l, stats_over_bound=s_worst,
+                shape=f"q {shape} bf16")
+
+
+def _ring_row(torch, device, timer, S, sp) -> dict:
+    """Ring attention over sp shards of an S-token sequence on ``device``
+    (LLaMA-7B's 32 heads of 128, bf16): the flash ring (K2 with stats,
+    sp (sp + 1) / 2 launches) and the plain ring against the plain attention
+    over the whole sequence at K2's rule, and the flash ring against K2
+    causal over the whole sequence at twice that rule (each lies within it
+    of the plain attention); on f32 q/k/v, what the flash ring's bf16 cast
+    costs against the plain f32 ring; device times of the three."""
+    import importlib
+
+    from omniquant_tpu_torch.kernels import tolerance
+    from omniquant_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    ra = importlib.import_module("omniquant_tpu_torch.parallel.ring_attention")
+
+    gen = torch.Generator(device=device).manual_seed(S + sp)
+    q, k, v = (torch.randn(1, 32, S, 128, generator=gen, device=device).to(
+        torch.bfloat16) for _ in range(3))
+    mesh = [device] * sp
+    before = flash_attention.launches_stats
+    flash = ra.ring_attention(q, k, v, mesh, impl="flash")
+    launched = flash_attention.launches_stats - before
+    plain = ra.ring_attention(q, k, v, mesh, impl="plain")
+    full = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    slack = tolerance.flash_attention_slack(q, k, v)
+    # against K2: twice K2's rule (bf16_close adds 2 ulps of |K2| itself)
+    held = {"flash vs plain": tolerance.bf16_close(flash, want, slack),
+            "plain ring vs plain": tolerance.bf16_close(plain, want, slack),
+            "flash vs K2 whole": tolerance.bf16_close(
+                flash, full, 2 * slack + 2 * tolerance.bf16_ulp(want))}
+    del flash, plain, full, want, slack
+    log(f"  ring sp {sp} over {S} tokens: " + "; ".join(
+        f"{k_} max abs err {e:.3g} ({w:.3g} x bound)"
+        for k_, (_, e, w) in held.items())
+        + f"; K2 stats launches {launched}")
+    bad = [k_ for k_, (ok, _, _) in held.items() if not ok]
+    if bad or launched != sp * (sp + 1) // 2:
+        raise AssertionError(f"ring sp {sp}: {bad or 'launches'} "
+                             f"({launched} K2 launches)")
+    # what the bf16 cast at K2 costs on f32 q/k/v (calibration's buffers):
+    # the flash ring against the plain f32 ring
+    q32, k32, v32 = (torch.randn(1, 32, S, 128, generator=gen,
+                                 device=device) for _ in range(3))
+    cast = ra.ring_attention(q32, k32, v32, mesh, impl="flash")
+    f32 = ra.ring_attention(q32, k32, v32, mesh, impl="plain")
+    cast_err = dict(rms_rel=rms_rel_err(cast, f32),
+                    max_abs=(cast - f32).abs().max().item())
+    del q32, k32, v32, cast, f32
+    log(f"  ring sp {sp} on f32 q/k/v: the flash ring (K2 in bf16) against "
+        f"the plain f32 ring: rms rel {cast_err['rms_rel']:.3g}, max abs "
+        f"{cast_err['max_abs']:.3g}")
+    t_flash = timer(lambda: ra.ring_attention(q, k, v, mesh, impl="flash"),
+                    f"ring flash sp {sp}", iters=5)
+    t_plain = timer(lambda: ra.ring_attention(q, k, v, mesh, impl="plain"),
+                    f"ring plain sp {sp}", iters=3)
+    t_k2 = timer(lambda: flash_attention(q, k, v), "flash_attention")
+    log(f"  ring sp {sp}: flash {t_flash:.4f} ms, plain {t_plain:.4f} ms, "
+        f"K2 causal over the whole sequence {t_k2:.4f} ms")
+    return dict(flash_ms=t_flash, plain_ms=t_plain, k2_whole_ms=t_k2,
+                k2_launches=launched, bf16_cast_error=cast_err,
+                held={k_: dict(max_abs_err=e, over_bound=w)
+                      for k_, (_, e, w) in held.items()})
+
+
+def _code_share(torch, family, a, b) -> float:
+    """The share of the packed codes of pack ``a`` that differ from
+    ``b``'s, over every linear of every layer."""
+    from omniquant_tpu_torch.quant.packing import unpack_codes
+
+    diff = total = 0
+    for la, lb in zip(a["layers"], b["layers"]):
+        for n in family.linear_names:
+            ca, cb = (unpack_codes(p.qweight, p.bits, p.in_features,
+                                   p.group_size, p.tile_k, p.layout)
+                      for p in (la[n], lb[n]))
+            diff += (ca != cb).sum().item()
+            total += ca.numel()
+    return diff / total
+
+
+def _sp_family(torch, family, capture, fault):
+    """``family`` with a block_forward that keeps, per positions tensor,
+    the output of its first call under no_grad (layer 0's fp capture of
+    window 0: the whole sequence without sp_mesh, a shard's block with it)
+    in ``capture``, and, for the planted fault "local_positions", runs
+    every shard's block at positions 0 .. S/n - 1."""
+    import dataclasses
+
+    inner = family.block_forward
+
+    def block_forward(layer, x, cfg, mask, positions, *a, **kw):
+        pos = positions
+        if fault == "local_positions" and kw.get("attn_impl") is not None:
+            pos = positions - positions[:1]
+        y = inner(layer, x, cfg, mask, pos, *a, **kw)
+        if not torch.is_grad_enabled() and id(positions) not in capture:
+            capture[id(positions)] = (positions, y[0][0].clone())
+        return y
+
+    return dataclasses.replace(family, block_forward=block_forward)
+
+
+def _sp_calibrate(torch, device, family, cfg, dense, train, cc, mesh,
+                  fault=None) -> dict:
+    """calibrate on a copy of ``dense`` with ``sp_mesh=mesh`` (None: the
+    single-device run) and ``fault`` planted (SP_FAULTS; "drop_last_mse"
+    takes the last shard's terms out of the train loss): its params, omni
+    parameters, losses, timings, peak GiB, launches, ring calls and layer
+    0's fp capture of window 0, (S, hidden)."""
+    import importlib
+    import statistics
+
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.calib import calibrate
+    ra = importlib.import_module("omniquant_tpu_torch.parallel.ring_attention")
+
+    params = dict(dense, layers=[
+        {k: {n: (None if t is None else t.clone()) for n, t in v.items()}
+         for k, v in b.items()} for b in dense["layers"]])
+    losses, timings, capture = [], {}, {}
+    run = ra.SPMesh.run
+
+    def drop_last(self, fn, *shard_args):
+        res = run(self, fn, *shard_args)
+        return res[:-1] if isinstance(res[-1], list) else res
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    calls = dict(ra.ring_attention_local.calls)
+    if fault == "drop_last_mse":
+        ra.SPMesh.run = drop_last
+    t0 = time.time()
+    try:
+        params, omni = calibrate(
+            _sp_family(torch, family, capture, fault), params, cfg, train,
+            cc, device=device, timings=timings, sp_mesh=mesh,
+            progress_cb=lambda i, e, x: losses.append(x))
+        torch.cuda.synchronize()
+    finally:
+        ra.SPMesh.run = run
+    return dict(
+        params=params, omni=omni, losses=losses, phase_s=time.time() - t0,
+        steps=len(timings["step_s"]),
+        step_s=statistics.median(timings["step_s"][1:]),
+        fp_pass_s=timings["fp_pass_s"], propagate_s=timings["propagate_s"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=kernels.launch_counts(),
+        ring_calls={k: v - calls[k]
+                    for k, v in ra.ring_attention_local.calls.items()},
+        capture=torch.cat([y for _, y in sorted(
+            capture.values(), key=lambda c: int(c[0][0]))]))
+
+
+def _sp_readings(torch, device, family, cfg, wcfg, run, one, held,
+                 dense) -> dict:
+    """``run`` (an SP run) against ``one`` (the single-device run): layer
+    0's fp capture gap (rms relative), the losses' largest relative gap,
+    the LWC factors' rms gap, the shares of folded weights and of packed
+    codes apart, the held-out last-block MSE of both and of
+    round-to-nearest, and the checks that fail."""
+    import dataclasses
+
+    from omniquant_tpu_torch.models.common import NO_ACT_QUANT
+    from omniquant_tpu_torch.serving import pack_model
+
+    layers = cfg.num_hidden_layers
+    capture = ((run["capture"] - one["capture"]).pow(2).mean().sqrt()
+               / one["capture"].pow(2).mean().sqrt()).item()
+    loss_gap = max(abs(a - b) / abs(b)
+                   for a, b in zip(run["losses"], one["losses"]))
+    d = torch.cat([(run["omni"][i]["lwc"][n][f] - one["omni"][i]["lwc"][n][f])
+                   .flatten() for i in range(layers)
+                   for n in family.linear_names
+                   for f in one["omni"][i]["lwc"][n]])
+    lwc_rms = d.pow(2).mean().sqrt().item()
+    apart = max((
+        ((run["params"]["layers"][i][n]["weight"]
+          - one["params"]["layers"][i][n]["weight"]).abs()
+         > 1e-4 * one["params"]["layers"][i][n]["weight"].abs().max())
+        .float().mean().item())
+        for i in range(layers) for n in family.linear_names)
+    with torch.no_grad():
+        packs = [pack_model(family, r["params"], wcfg, r["omni"],
+                            device=device) for r in (run, one)]
+        codes = _code_share(torch, family, *packs)
+        del packs
+        rtn_cfg = dataclasses.replace(wcfg, lwc=False)
+        rtn = [family.effective_block_weights(b, rtn_cfg, None, None, cfg)
+               for b in dense["layers"]]
+        mse = {"sp": 0.0, "single": 0.0, "rtn": 0.0}
+        for w in held:
+            x = family.embed(dense, torch.as_tensor(w, device=device)[None],
+                             cfg)
+            fp = _chain(torch, family, cfg, dense["layers"], x, NO_ACT_QUANT)
+            for key, ls in (("sp", run["params"]["layers"]),
+                            ("single", one["params"]["layers"]),
+                            ("rtn", rtn)):
+                mse[key] += (_chain(torch, family, cfg, ls, x, NO_ACT_QUANT)
+                             - fp).pow(2).mean().item() / len(held)
+        del rtn, fp, x
+    failed = [what for what, bad in (
+        ("capture", not capture <= SP_CAPTURE_RMS),
+        ("losses", not all(map(math.isfinite, run["losses"]))
+         or not loss_gap <= SP_LOSS_RTOL),
+        ("lwc", not lwc_rms <= SP_LWC_RMS),
+        ("weights", not apart <= SP_WEIGHT_SHARE),
+        ("codes", not codes <= SP_CODE_SHARE),
+        ("held-out", not mse["sp"] < mse["rtn"])) if bad]
+    return dict(capture_rms_gap=capture, loss_max_rel_gap=loss_gap,
+                lwc_rms_gap=lwc_rms, weights_apart_share=apart,
+                codes_apart_share=codes, held_out_mse=mse, failed=failed)
+
+
+def sp_calib_run(torch, device, name, family, cfg, dense, seed) -> dict:
+    """One SP_CALIB_RUNS entry: calibrate ``dense`` without and with
+    sp_mesh = [device] * shards on the same windows, each with its seconds
+    a step, peak GiB and launches; the SP run's K2 launches, all with
+    stats, must number layers x windows x 2 passes x shards (shards + 1) /
+    2, its flash ring calls layers x windows x 2 and its plain ring calls
+    its train steps (none on the capture passes). Then the SP run is held
+    against the single-device one (SP_CAPTURE_RMS, SP_LOSS_RTOL,
+    SP_LWC_RMS, SP_WEIGHT_SHARE, SP_CODE_SHARE, and its held-out MSE below
+    round-to-nearest's), and each planted fault of SP_FAULTS, run and read
+    the same way, must fail a check."""
+    from omniquant_tpu_torch.calib import (
+        CalibConfig, get_synthetic, sample_windows)
+
+    _, seqlen, shards = SP_CALIB_RUNS[name]
+    train, test = get_synthetic(SP_NSAMPLES, seed, seqlen,
+                                vocab_size=cfg.vocab_size)
+    held = sample_windows(test, SP_HELD, seed + 1, seqlen)
+    cc = CalibConfig(nsamples=SP_NSAMPLES, **SP_CALIB)
+    layers = cfg.num_hidden_layers
+    runs = {}
+    for key, mesh, fault in (
+            ("single", None, None), ("sp", [device] * shards, None),
+            *((f, [device] * shards, f) for f in SP_FAULTS[family.name])):
+        r = runs[key] = _sp_calibrate(torch, device, family, cfg, dense,
+                                      train, cc, mesh, fault)
+        log(f"  sp {name} {key}: {r['steps']} steps, {r['step_s']:.4f} s a "
+            f"step; fp pass " + ", ".join(f"{t:.3f}" for t in r["fp_pass_s"])
+            + " s, propagation " + ", ".join(f"{t:.3f}" for t in
+                                             r["propagate_s"])
+            + f" s a layer; phase {r['phase_s']:.1f} s; peak "
+            f"{r['peak_gib']:.2f} GiB; K2 launches "
+            f"{r['launches']['flash_attention']} (with stats "
+            f"{r['launches']['flash_attention_stats']}), ring calls "
+            f"{r['ring_calls']}; losses " + ", ".join(
+                f"{x:.6e}" for x in r["losses"]))
+    one, sp = runs["single"], runs["sp"]
+    steps = sp["steps"]
+    stats = layers * SP_NSAMPLES * 2 * shards * (shards + 1) // 2
+    want = dict(stats=stats, k2=stats, flash=layers * SP_NSAMPLES * 2,
+                plain=steps)
+    got = dict(stats=sp["launches"]["flash_attention_stats"],
+               k2=sp["launches"]["flash_attention"],
+               flash=sp["ring_calls"]["flash"],
+               plain=sp["ring_calls"]["plain"])
+    if got != want or one["launches"]["flash_attention"] or any(
+            one["ring_calls"].values()):
+        raise AssertionError(f"sp {name}: launches {got}, the schedule's "
+                             f"{want}; single-device run "
+                             f"{one['launches']['flash_attention']}, "
+                             f"{one['ring_calls']}")
+    readings = {key: _sp_readings(torch, device, family, cfg,
+                                  cc.weight_quant_config, r, one, held, dense)
+                for key, r in runs.items() if key != "single"}
+    for key, rd in readings.items():
+        mse = rd["held_out_mse"]
+        log(f"  sp {name} {key} against single-device: layer 0's fp capture "
+            f"rms gap {rd['capture_rms_gap']:.3g} (tol {SP_CAPTURE_RMS}); "
+            f"losses max rel gap {rd['loss_max_rel_gap']:.3g} (tol "
+            f"{SP_LOSS_RTOL}); LWC factors rms gap {rd['lwc_rms_gap']:.3g} "
+            f"(tol {SP_LWC_RMS}); folded weights apart on "
+            f"{rd['weights_apart_share']:.3g} (tol {SP_WEIGHT_SHARE}), "
+            f"packed codes on {rd['codes_apart_share']:.3g} (tol "
+            f"{SP_CODE_SHARE}); "
+            "held-out "
+            f"last-block MSE sp {mse['sp']:.6e}, single {mse['single']:.6e}, "
+            f"round-to-nearest {mse['rtn']:.6e}; failed {rd['failed']}")
+    log(f"  sp {name}: a step {sp['step_s']:.4f} s against "
+        f"{one['step_s']:.4f}, peak {sp['peak_gib']:.2f} GiB against "
+        f"{one['peak_gib']:.2f}")
+    res = dict(
+        seqlen=seqlen, shards=shards, layers=layers, nsamples=SP_NSAMPLES,
+        config=SP_CALIB, steps=steps,
+        **{f"{k}_{m}": runs[k][m] for k in ("single", "sp")
+           for m in ("step_s", "peak_gib", "phase_s", "losses", "fp_pass_s",
+                     "propagate_s")},
+        launches=got, **readings.pop("sp"), faults=readings)
+    del runs, sp, one
+    torch.cuda.empty_cache()
+    admitted = [f for f, rd in readings.items() if not rd["failed"]]
+    if res["failed"] or admitted:
+        raise AssertionError(f"sp {name}: failed {res['failed']}; planted "
+                             f"faults admitted {admitted}")
+    return res
+
+
+def sp_phase(torch, device, seed, out: dict) -> dict:
+    """(a) K2 with stats at SP_K2's shapes, causal and not, against its plain
+    version and timed; (b) the ring over SP_RING_LEN tokens at
+    SP_RING_SHARDS; (c) SP calibration of LLaMA-2-7B widths at 4096 tokens
+    and (d) of OPT-2.7B widths at 2048 (SP_CALIB_RUNS), each against the
+    single-device run. Returns the launch counts of the SP runs (the main
+    path's): K2's, and those of them with stats."""
+    from omniquant_tpu_torch.models import LLAMA, OPT, llama, opt
+
+    res = out["sp"] = {}
+    timer = Timer(torch, device)
+    res["k2_stats"] = {f"{s}{'' if c else ' not causal'}": _stats_row(
+        torch, device, timer, *s, c) for s in SP_K2 for c in (True, False)}
+    res["ring"] = {sp: _ring_row(torch, device, timer, SP_RING_LEN, sp)
+                   for sp in SP_RING_SHARDS}
+    res["host_in_window"] = timer.host_in_window
+    del timer
+    torch.cuda.empty_cache()
+    counts = {}
+    for name, (fam, _, _) in SP_CALIB_RUNS.items():
+        if fam == "llama":
+            family, cfg = LLAMA, llama.LlamaConfig(**SP_LLAMA)
+            gen = torch.Generator(device=device).manual_seed(seed + 21)
+            dense = llama.init_params(gen, cfg, dtype=torch.float32,
+                                      device=device)
+        else:
+            family = OPT
+            cfg = opt.OPTConfig(**dict(OPT_27B, num_hidden_layers=2))
+            dense = opt_dense(torch, device, cfg, seed + 21)
+        r = res[name] = sp_calib_run(torch, device, name, family, cfg, dense,
+                                     seed)
+        for k, v in (("flash_attention", "k2"),
+                     ("flash_attention_stats", "stats")):
+            counts[k] = counts.get(k, 0) + r["launches"][v]
+        del dense
+        torch.cuda.empty_cache()
+    return counts
+
+
 def profile_decode(torch, device, cfg, dims, seed, out: dict) -> None:
     """Engines A and E of serve_plans, rebuilt on a fresh W4 model and
     prefilled as serve prefills them: after one step_n to warm up, two
@@ -4037,13 +4530,26 @@ def main(argv=None) -> int:
     out["spec_phase_s"] = time.time() - t_spec
     log(f"  spec phase {out['spec_phase_s']:.1f} s")
 
+    log("sp: sequence-parallel calibration on the card: K2 with its softmax "
+        "stats, the ring over 4096 tokens at sp 2 and 4, then LLaMA-2-7B "
+        "widths (2 layers) at 4096 tokens and OPT-2.7B widths (2 layers) at "
+        "2048, each over 2 shards, against the single-device run")
+    t_sp = time.time()
+    sp_counts = sp_phase(torch, device, args.seed, out)
+    out["sp_phase_s"] = time.time() - t_sp
+    log(f"  sp phase {out['sp_phase_s']:.1f} s")
+    stats = out["sp"]["k2_stats"]
+    head = str(SP_K2[0])
+    results["flash_attention_stats"] = dict(
+        stats[head], cases={k: v for k, v in stats.items() if k != head})
+
     log("profile: one decode step of engines A and E under torch.profiler")
     profile_decode(torch, device, cfg, dims, args.seed, out)
 
-    # the serve, spec and harness phases' launches per entry: K1's count
-    # holds both layouts
+    # the serve, spec, harness and sp phases' launches per entry: K1's
+    # count holds both layouts
     counts = {k: v + spec_counts.get(k, 0) + harness_counts.get(k, 0)
-              for k, v in counts.items()}
+              + sp_counts.get(k, 0) for k, v in counts.items()}
     planar = (counts["quant_matmul_planar_decode"]
               + counts["quant_matmul_planar_prefill"])
     launches = dict(counts, quant_matmul=counts["quant_matmul"] - planar,
@@ -4138,6 +4644,17 @@ def main(argv=None) -> int:
             f"{k[2:]} " + ", ".join(f"{g['ms']:.2f} / {g['peak_gib']:.3f}"
                                    for g in sp[k]["growths"])
             for k in sp if k.startswith("D_")) + "; on:")
+    log(smi)
+    log("sp (K2 ms with / without stats at (1, 32, 2048, 128) causal; ring "
+        "flash / plain ms over 4096 tokens; SP and single-device calibration "
+        "s a step, peak GiB; held-out MSE SP vs RTN): "
+        f"{stats[head]['ms']:.4f} / {stats[head]['ms_without_stats']:.4f}; "
+        + "; ".join(f"sp {n} {r['flash_ms']:.4f} / {r['plain_ms']:.4f}"
+                    for n, r in out["sp"]["ring"].items()) + "; " + "; ".join(
+            f"{k} {v['sp_step_s']:.4f}, {v['sp_peak_gib']:.2f} vs "
+            f"{v['single_step_s']:.4f}, {v['single_peak_gib']:.2f}; "
+            f"{v['held_out_mse']['sp']:.4g} vs {v['held_out_mse']['rtn']:.4g}"
+            for k, v in out["sp"].items() if k in SP_CALIB_RUNS) + "; on:")
     log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(
         f"{n} {out['serve_' + n]['prefill_tok_s']:.1f} / "

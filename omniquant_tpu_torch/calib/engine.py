@@ -18,8 +18,17 @@ in turn:
 
 Everything is f32 by default (``buffer_dtype``), under no_grad except the
 train step, and no graph outlives its step. ``offload_layers`` keeps every
-block on the host and one on the device at a time. Sequence-parallel
-calibration is not part of this package.
+block on the host and one on the device at a time.
+
+Sequence-parallel (SP) mode (``sp_mesh``, a sequence of n devices, which
+may repeat) splits every activation buffer along the sequence into n
+blocks, block p on device p, and runs each block forward as n shard
+programs (``parallel.SPMesh``) whose attention is ring attention
+(``parallel/ring_attention.py``): the fp and propagation passes with
+``sp_attn_impl`` (K2 with its softmax stats on a card, the plain ring on
+the CPU), the train step with the plain, differentiable ring, its loss the
+mean over shards of each shard's MSE (JAX's ``pmean``). LLaMA and OPT only,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ from typing import Callable, Optional
 import torch
 
 from .. import resolve_device
-from ..models.common import ActQuantSpec, causal_mask, embedding_device
+from ..models.common import (
+    NO_ACT_QUANT, ActQuantSpec, causal_mask, embedding_device, maybe_quant)
 from ..models.registry import ModelFamily
 from ..quant.quantizer import QuantConfig, fake_quant_weight, weight_scale_zp
 from ..quant.transform import _truncate_fwd_value
@@ -121,6 +131,89 @@ def _blockwise(family, layer, xs, model_cfg, mask, positions, spec=None):
     return xs
 
 
+def _sp_mode(family, model_cfg, sp_mesh, seqlen, spec, device, impl):
+    """SP mode's pieces: (block pass, window batch, buffer copy, loss of
+    effective weights, split of a full buffer into shard blocks), as JAX's
+    ``calibrate`` sets them up under ``sp_mesh``; the same pieces as the
+    single-device ones in ``calibrate``, on lists of shard blocks."""
+    from ..parallel import SPMesh
+
+    if family.name not in ("llama", "opt"):
+        raise ValueError("sequence-parallel calibration supports llama and "
+                         f"opt (got {family.name})")
+    mesh = SPMesh(sp_mesh)
+    n = mesh.n
+    if seqlen % n:
+        raise ValueError(f"seqlen {seqlen} does not split into {n} "
+                         "sequence-parallel blocks")
+    if spec.p is not None and spec.p.enabled:
+        raise ValueError("softmax-probs quantizers are not supported under sp")
+    # OPT's q arrives pre-scaled and q/k/v pre-quantized (the hook's spec
+    # holds only the probs quantizer), so its ring runs at scale 1.0
+    sm_scale = 1.0 if family.name == "opt" else None
+    s_local = seqlen // n
+    pos = [torch.arange(p * s_local, (p + 1) * s_local, device=d)
+           for p, d in enumerate(mesh.devices)]
+
+    def hook(p, ring_impl):
+        def attn(q, k, v, spec_):
+            # per-token quantization is row-local: exact on a shard
+            q = maybe_quant(q, spec_.q)
+            k = maybe_quant(k, spec_.k)
+            v = maybe_quant(v, spec_.v)
+            return mesh.ring_attention(p, q, k, v, sm_scale=sm_scale,
+                                       causal=True, impl=ring_impl)
+        return attn
+
+    def on_devices(tree):
+        return {d: _to(tree, d) for d in mesh.devices}
+
+    def blockwise(layer, shards, spec_=None):
+        """Every window through the block, in place, the shards' programs
+        run together (JAX's scan under shard_map)."""
+        on = on_devices(layer)
+
+        def shard(p, xs):
+            attn = hook(p, impl)
+            for j in range(xs.shape[0]):
+                y, _ = family.block_forward(
+                    on[mesh.devices[p]], xs[j: j + 1], model_cfg, None,
+                    pos[p], spec_ or NO_ACT_QUANT, attn_impl=attn)
+                xs[j: j + 1] = y
+        mesh.run(shard, shards)
+
+    def batch(shards, idx, bs):
+        return [x[idx: idx + bs] for x in shards]
+
+    def copy_(dst, src):
+        for d, s_ in zip(dst, src):
+            d.copy_(s_)
+
+    def loss(eff, qin, fp_out, fp_out_2):
+        on = on_devices(eff)
+
+        def shard(p, q_in, fp, fp2):
+            out, _ = family.block_forward(
+                on[mesh.devices[p]], q_in, model_cfg, None, pos[p], spec,
+                attn_impl=hook(p, "plain"))
+            out = out.float()
+            mse = [(out - fp.float()).pow(2).mean()]
+            if fp2 is not None:
+                mse.append((out - fp2.float()).pow(2).mean())
+            return [m.to(device) for m in mse]
+
+        per_shard = mesh.run(shard, qin, fp_out,
+                             fp_out_2 if fp_out_2 is not None else [None] * n)
+        # pmean of each term over the shards
+        return sum(torch.stack(t).mean() for t in zip(*per_shard))
+
+    def split(x):
+        return [c.contiguous().to(d)
+                for c, d in zip(x.chunk(n, dim=1), mesh.devices)]
+
+    return blockwise, batch, copy_, loss, split
+
+
 def _truncate_stored_let(let: dict) -> None:
     """The stored LET scales truncated in place (|s| >= 1e-2), as the
     reference does before every step; ``effective_block_weights``' own
@@ -154,7 +247,8 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
               cc: CalibConfig, act_scales: Optional[list] = None,
               act_shifts: Optional[list] = None, logger=None,
               progress_cb: Optional[Callable] = None,
-              device="cuda", timings: Optional[dict] = None) -> tuple:
+              device="cuda", timings: Optional[dict] = None,
+              sp_mesh=None, sp_attn_impl: Optional[str] = None) -> tuple:
     """Calibrate ``params['layers']`` block by block, in place, on
     ``device``; ``calib_tokens`` is (nsamples, seqlen) integer.
 
@@ -168,7 +262,13 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
     ``timings``, when a dict, receives host-clock seconds around work that
     ends in a device synchronisation (which it adds: one per train step):
     lists ``step_s`` (every train step), ``fp_pass_s``, ``propagate_s``
-    and ``layer_s`` (one per layer)."""
+    and ``layer_s`` (one per layer).
+
+    ``sp_mesh``, a sequence of devices, turns on sequence-parallel mode
+    (the module docstring; ``seqlen`` a multiple of their number);
+    ``sp_attn_impl`` ("flash" or "plain"; by default the ring's own rule,
+    "flash" on a card and "plain" on the CPU) is the ring of its fp and
+    propagation passes."""
     log = logger.info if logger else (lambda *a: None)
     device = resolve_device(device)
 
@@ -193,22 +293,46 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
     with torch.no_grad():
         quant_inps = _embed_all(family, params, model_cfg, tokens,
                                 cc.buffer_dtype, device)
-    fp_inps = quant_inps.clone()
-    fp_inps_2 = quant_inps.clone() if cc.aug_loss else None
-    mask = causal_mask(seqlen, seqlen, dtype=cc.buffer_dtype, device=device)
-    positions = torch.arange(seqlen, device=device)
+    if sp_mesh is None:
+        mask = causal_mask(seqlen, seqlen, dtype=cc.buffer_dtype,
+                           device=device)
+        positions = torch.arange(seqlen, device=device)
+
+        def blockwise(layer, xs, spec_=None):
+            _blockwise(family, layer, xs, model_cfg, mask, positions, spec_)
+
+        def batch(xs, idx, bs):
+            return xs[idx: idx + bs]
+
+        def copy_(dst, src):
+            dst.copy_(src)
+
+        def forward_loss(eff, qin, fp_out, fp_out_2):
+            out, _ = family.block_forward(eff, qin, model_cfg, mask,
+                                          positions, spec)
+            out = out.to(f32)
+            loss = (out - fp_out.to(f32)).pow(2).mean()
+            if fp_out_2 is not None:
+                loss = loss + (out - fp_out_2.to(f32)).pow(2).mean()
+            return loss
+    else:
+        blockwise, batch, copy_, forward_loss, split = _sp_mode(
+            family, model_cfg, sp_mesh, seqlen, spec, device, sp_attn_impl)
+        quant_inps = split(quant_inps)
+        log(f"sequence-parallel calibration over {len(sp_mesh)} shards on "
+            f"{[str(d) for d in sp_mesh]} (ring attention, seqlen {seqlen})")
+
+    def clone(x):  # a buffer, or an SP buffer's list of shard blocks
+        return [t.clone() for t in x] if isinstance(x, list) else x.clone()
+
+    fp_inps = clone(quant_inps)
+    fp_inps_2 = clone(quant_inps) if cc.aug_loss else None
 
     def loss_fn(trainable, layer, qin, fp_out, fp_out_2):
         eff = family.effective_block_weights(
             layer, wcfg, trainable.get("lwc") or None,
             trainable.get("let") or None, model_cfg)
-        out, _ = family.block_forward(eff, qin, model_cfg, mask, positions,
-                                      spec)
-        out = out.to(f32)
-        loss = (out - fp_out.to(f32)).pow(2).mean()
-        if fp_out_2 is not None:
-            loss = loss + (out - fp_out_2.to(f32)).pow(2).mean()
-        return loss
+        return forward_loss(eff, qin, fp_out, fp_out_2)
 
     if cc.let and not family.supports_let:
         log(f"WARNING: {family.name} does not support LET "
@@ -232,12 +356,11 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
         if cc.epochs > 0:
             t_fp = clock()
             with torch.no_grad():
-                _blockwise(family, layer, fp_inps, model_cfg, mask, positions)
+                blockwise(layer, fp_inps)
                 if cc.aug_loss:
                     # the fp block applied to the quantized trajectory
-                    fp_inps_2.copy_(quant_inps)
-                    _blockwise(family, layer, fp_inps_2, model_cfg, mask,
-                               positions)
+                    copy_(fp_inps_2, quant_inps)
+                    blockwise(layer, fp_inps_2)
             record("fp_pass_s", t_fp)
 
         trainable = {}
@@ -276,9 +399,9 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
                     if "let" in trainable:
                         _truncate_stored_let(trainable["let"])
                     loss = loss_fn(
-                        trainable, layer, quant_inps[idx: idx + bs],
-                        fp_inps[idx: idx + bs],
-                        fp_inps_2[idx: idx + bs] if cc.aug_loss else None)
+                        trainable, layer, batch(quant_inps, idx, bs),
+                        batch(fp_inps, idx, bs),
+                        batch(fp_inps_2, idx, bs) if cc.aug_loss else None)
                     loss.backward()
                     for p in all_ps:  # optax steps every leaf
                         if p.grad is None:
@@ -313,8 +436,7 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
                 folded, qparams = layer, {}
             if cc.epochs > 0:
                 t_prop = clock()
-                _blockwise(family, folded, quant_inps, model_cfg, mask,
-                           positions, spec)
+                blockwise(folded, quant_inps, spec)
                 record("propagate_s", t_prop)
         layers[i] = _to(folded, "cpu") if cc.offload_layers else folded
         del layer, folded

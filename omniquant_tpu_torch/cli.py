@@ -27,9 +27,11 @@ whatever the flag says, ``--real_quant`` runs ``--tasks`` and serves
 weights the kernels take; its ``--eval_cache`` fingerprint, main.py's
 otherwise, then ends in ``|real_quant``. ``--spec_decode GAMMA`` serves through
 ``SpecDecoder`` (a layer-skip self-draft of ``--draft_layers`` blocks) and
-logs its acceptance, as ``main.py`` does. Flags whose machinery is not
-ported yet (tensor, sequence and multi-host parallelism, the AutoGPTQ
-exporter) exit with the ROADMAP item that ports it.
+logs its acceptance, as ``main.py`` does. ``--sp N`` calibrates sequence-
+parallel over N shards taken cyclically over the visible devices (N shards
+on one card; on the CPU N shards in this process). Flags whose machinery is
+not ported yet (tensor and multi-host parallelism, the AutoGPTQ exporter)
+exit with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -96,7 +98,12 @@ def build_parser():
     p.add_argument("--tp_overlap", type=int, default=1,
                    help="with --tp > 1 only")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree (only 1: not ported yet)")
+                   help="sequence-parallel degree for calibration: the "
+                        "activation buffers split on the sequence axis "
+                        "over this many shards (taken cyclically over the "
+                        "visible devices: all on one card when there is "
+                        "one) and block forwards run ring attention "
+                        "(llama and opt)")
     p.add_argument("--offload_layers", action="store_true",
                    help="keep the blocks on the host during calibration, "
                         "one on the device at a time")
@@ -141,13 +148,11 @@ def build_parser():
 def _unported(args) -> list:
     return [what for used, what in (
         (args.tp > 1, "--tp > 1 needs tensor parallelism (ROADMAP Queue 1 "
-                      "item 9)"),
-        (args.sp > 1, "--sp > 1 needs sequence-parallel calibration "
-                      "(ROADMAP Queue 1 item 9)"),
+                      "item 2)"),
         (args.num_processes > 1, "--num_processes > 1 needs the multi-host "
-                                 "layer (ROADMAP Queue 1 item 9)"),
+                                 "layer (ROADMAP Queue 1 item 3)"),
         (args.export_autogptq, "--export_autogptq needs the AutoGPTQ "
-                               "exporter (ROADMAP Queue 1 item 10)"),
+                               "exporter (ROADMAP Queue 1 item 4)"),
     ) if used]
 
 
@@ -278,6 +283,18 @@ def main(argv=None):
     return results
 
 
+def sp_devices(device, n: int) -> list:
+    """An SP mesh of n shards over the visible devices of ``device``'s
+    type, taken cyclically: n shards on one card when there is one (as
+    main.py gives the CPU n virtual devices)."""
+    import torch
+
+    if device.type != "cuda":
+        return [device] * n
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
 def _run(args, device, logger) -> dict:
     """main.py's steps after its set-up: load, calibrate, save, evaluate,
     serve; returns the results."""
@@ -334,9 +351,16 @@ def _run(args, device, logger) -> dict:
                     device=device)
                 save_pytree(f"{args.output_dir}/act_scales.npz", act_scales)
                 save_pytree(f"{args.output_dir}/act_shifts.npz", act_shifts)
+        sp_mesh = None
+        if args.sp > 1:
+            sp_mesh = sp_devices(device, args.sp)
+            logger.info(
+                f"sequence-parallel calibration over {args.sp} devices "
+                f"(ring attention, seqlen {args.seqlen}): "
+                f"{[str(d) for d in sp_mesh]}")
         params, omni_parameters = calibrate(
             family, params, model_cfg, train_tokens, cc, act_scales,
-            act_shifts, logger=logger, device=device)
+            act_shifts, logger=logger, device=device, sp_mesh=sp_mesh)
         logger.info(f"quantization took {time.time() - tick:.1f}s")
 
     packed = None

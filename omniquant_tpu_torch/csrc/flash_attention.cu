@@ -51,6 +51,14 @@
 // rows of the tile's Q buffer in the swizzled layout, and stores them by
 // TMA (rows past Sq are not written). No atomics on the output and no
 // split over keys: two calls on the same inputs give the same bits.
+// With stats (return_stats in the TPU kernel, which ring attention merges
+// across key blocks: m_out and l_out not null), the lane of a quad that
+// holds a row (t4 == 0) writes, after the quad sum of l, the row's max in
+// the units of the scaled score (JAX's m: the running max, kept in raw
+// score units, or in the exp2 domain with ALiBi, times c or 1, over
+// log2(e)), -1e30 for a row that saw no key, and l = sum exp2(s*c - m*c)
+// = sum exp(scaled score - m), in f32, for rows below Sq. The null check
+// sits in the epilogue, outside the key loop.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +71,7 @@ constexpr int FA_BQ = 128, FA_BK = 128;  // query rows and keys of a tile
 constexpr int FA_STAGES = 2, FA_THREADS = 256;
 constexpr int FA_BOX = 128 * 128;  // 128 rows x 64 bf16: one swizzled box
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // dynamic shared memory: two Q tiles, then per slot a K and a V tile, then
 // the barriers and the slots' counts; every tile (D / 64 boxes) at a
@@ -177,8 +186,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  const __grid_constant__ CUtensorMap map_o,
-                 const float* __restrict__ slopes, int H, int Hkv, int Sq,
-                 int Skv, float c, int causal) {
+                 const float* __restrict__ slopes, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int H, int Hkv, int Sq, int Skv,
+                 float c, int causal) {
   using L = FaLayout<D>;
   extern __shared__ uint8_t fa_raw[];
   const uint32_t raw = smem_u32(fa_raw);
@@ -353,6 +363,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
       inv[hh] = 1.f / fmaxf(l[hh], 1e-30f);
     }
+    if (m_out != nullptr && t4 == 0) {
+      // m in scaled-score units: raw * c / log2(e), or exp2-domain / log2(e)
+      const float to_scaled = (ALIBI ? 1.f : c) * LN2;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + 8 * hh;
+        if (row < Sq) {
+          const size_t at = (size_t)(b * H + h) * Sq + row;
+          m_out[at] = m[hh] == -INFINITY ? -1e30f : m[hh] * to_scaled;
+          l_out[at] = l[hh];
+        }
+      }
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -409,9 +432,9 @@ int fa_instance(int D) {
 }
 
 template <int D, bool ALIBI>
-int launch(const CUtensorMap (&maps)[4], const float* slopes, int B, int H,
-           int Hkv, int Sq, int Skv, float sm_scale, int causal,
-           cudaStream_t st) {
+int launch(const CUtensorMap (&maps)[4], const float* slopes, float* m_out,
+           float* l_out, int B, int H, int Hkv, int Sq, int Skv,
+           float sm_scale, int causal, cudaStream_t st) {
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -422,24 +445,27 @@ int launch(const CUtensorMap (&maps)[4], const float* slopes, int B, int H,
   }
   dim3 grid((Sq + 2 * FA_BQ - 1) / (2 * FA_BQ), H, B);
   flash_wgmma_kernel<D, ALIBI><<<grid, FA_THREADS, FaLayout<D>::BYTES, st>>>(
-      maps[0], maps[1], maps[2], maps[3], slopes, H, Hkv, Sq, Skv,
-      sm_scale * LOG2E, causal);
+      maps[0], maps[1], maps[2], maps[3], slopes, m_out, l_out, H, Hkv, Sq,
+      Skv, sm_scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, H, Sq, D), k/v (B, Hkv, Skv, D), out (B, H, Sq, D), all contiguous
-// bf16 at 16-byte aligned addresses; slopes (H,) f32 or null. D is a
+// bf16 at 16-byte aligned addresses; slopes (H,) f32 or null; m_out and
+// l_out (B, H, Sq) f32, both null (no stats) or both given. D is a
 // multiple of 8 up to 128 (fa_instance), H a multiple of Hkv, Sq and Skv at
 // least 1.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, const void* slopes,
-                                    void* out, int B, int H, int Hkv, int Sq,
-                                    int Skv, int D, float sm_scale, int causal,
+                                    void* out, void* m_out, void* l_out,
+                                    int B, int H, int Hkv, int Sq, int Skv,
+                                    int D, float sm_scale, int causal,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fa_instance(D) == 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0)
+  if (fa_instance(D) == 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0 ||
+      (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k, v, (const void*)out})
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
@@ -450,12 +476,14 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       !fa_map(&maps[3], out, B * H, Sq, D, 64))
     return (int)cudaErrorInvalidValue;
   const float* sl = static_cast<const float*>(slopes);
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
 #define FA_CASE(DD)                                                         \
   if (fa_instance(D) == DD)                                                 \
-    return sl ? launch<DD, true>(maps, sl, B, H, Hkv, Sq, Skv, sm_scale,    \
-                                 causal, st)                                \
-              : launch<DD, false>(maps, sl, B, H, Hkv, Sq, Skv, sm_scale,   \
-                                  causal, st);
+    return sl ? launch<DD, true>(maps, sl, mo, lo, B, H, Hkv, Sq, Skv,      \
+                                 sm_scale, causal, st)                      \
+              : launch<DD, false>(maps, sl, mo, lo, B, H, Hkv, Sq, Skv,     \
+                                  sm_scale, causal, st);
   FA_CASE(128)
   FA_CASE(64)
 #undef FA_CASE

@@ -3,7 +3,8 @@ PyTorch versions, one module each. Each wrapper counts its kernel launches
 in its ``launches`` attribute; ``quant_matmul`` also counts its prefill
 tile's launches on pairs words in ``launches_prefill`` (m > 32) and its
 launches on planar words, by tile, in ``launches_planar_decode`` (m <= 32)
-and ``launches_planar_prefill`` (m > 32)."""
+and ``launches_planar_prefill`` (m > 32); ``flash_attention`` counts its
+launches with softmax stats (ring attention) again in ``launches_stats``."""
 from . import decode_attention, flash_attention, kv_update, quant_matmul
 
 KERNEL_WRAPPERS = {
@@ -20,6 +21,8 @@ KERNEL_WRAPPERS = {
 
 # count name -> (wrapper, attribute)
 _COUNTERS = {name: (f, "launches") for name, f in KERNEL_WRAPPERS.items()}
+_COUNTERS["flash_attention_stats"] = (flash_attention.flash_attention,
+                                      "launches_stats")
 _COUNTERS["quant_matmul_prefill"] = (quant_matmul.quant_matmul,
                                      "launches_prefill")
 _COUNTERS["quant_matmul_planar_decode"] = (quant_matmul.quant_matmul,
@@ -30,8 +33,8 @@ _COUNTERS["quant_matmul_planar_prefill"] = (quant_matmul.quant_matmul,
 
 def launch_counts() -> dict:
     """{count name: kernel launches since the last reset}: one per wrapper,
-    quant_matmul's pairs prefill launches, and its planar launches by
-    tile."""
+    flash_attention's launches with stats, quant_matmul's pairs prefill
+    launches, and its planar launches by tile."""
     return {name: getattr(f, attr) for name, (f, attr) in _COUNTERS.items()}
 
 

@@ -70,3 +70,30 @@ def flash_attention_slack(q, k, v, sm_scale: Optional[float] = None,
     return 2.0 ** -8 * flash_attention_plain(
         q.float(), k.float(), v.float().abs(), sm_scale, causal, alibi_slopes)
 
+
+
+# flash_attention's softmax stats (return_stats, which ring attention
+# merges): both versions take each score as an f32 sum of the same exact
+# bf16 products, in another order, which moves a scaled score by at most
+# D 2^-24 sum_i |q_i k_i| sm_scale (8.6e-5 for unit-variance q and k at
+# head_dim 128); the kernel's max runs on raw or exp2-domain scores and is
+# converted to scaled units in its epilogue (an ulp), and its l sums
+# ex2.approx terms (2 ulps each) in f32. So m is held to 2^-12 (1 + |m|)
+# absolute and l to 2^-12 of itself: a max in raw-score units, a lost key
+# tile or an unrescaled sum fails (tests/test_torch_ring_attention.py).
+FLASH_STATS_SLACK = 2.0 ** -12
+
+
+def flash_stats_close(m_got, l_got, m_want, l_want) -> tuple:
+    """Hold K2's stats to the plain version's, element-wise: |dm| <=
+    2^-12 (1 + |m|), |dl| <= 2^-12 l. Returns (within the bounds, max abs
+    error of m, max relative error of l, largest error / bound)."""
+    m_want, l_want = m_want.float(), l_want.float()
+    dm = (m_got.float() - m_want).abs()
+    dl = (l_got.float() - l_want).abs()
+    worst = max(
+        (dm / (FLASH_STATS_SLACK * (1 + m_want.abs()))).max().item(),
+        torch.where(dl == 0, 0.0,
+                    dl / (FLASH_STATS_SLACK * l_want)).max().item())
+    rel_l = (dl / l_want.clamp_min(1e-30)).max().item()
+    return worst <= 1.0, dm.max().item(), rel_l, worst

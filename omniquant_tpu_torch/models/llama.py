@@ -85,11 +85,15 @@ def block_forward(p: dict, x: torch.Tensor, cfg: LlamaConfig,
                   positions: Optional[torch.Tensor] = None,
                   spec: ActQuantSpec = NO_ACT_QUANT,
                   kv_cache: Optional[tuple] = None,
-                  tap: Optional[dict] = None):
+                  tap: Optional[dict] = None, attn_impl=None):
     """One decoder block: pre-norm attention with RoPE and GQA, pre-norm
     SwiGLU MLP. Returns (y, (k, v)) with k/v including ``kv_cache``.
     ``tap``, when a dict, receives each linear's input activation under the
-    linear's name (the activation statistics read them)."""
+    linear's name (the activation statistics read them). ``attn_impl``,
+    when given, replaces the attention core: attn_impl(q, k, v, spec) ->
+    (b, heads, s, hd), with k/v repeated to the query heads; sequence-
+    parallel calibration runs ring attention through it, and ``positions``
+    are then the global positions of this shard's rows."""
     b, s, _ = x.shape
     hd, n_heads, n_kv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     residual = x
@@ -113,9 +117,13 @@ def block_forward(p: dict, x: torch.Tensor, cfg: LlamaConfig,
         v = torch.cat([kv_cache[1], v], dim=2)
     new_cache = (k, v)
     k_r, v_r = repeat_kv(k, cfg.n_rep), repeat_kv(v, cfg.n_rep)
-    if mask is None:
-        mask = causal_mask(s, k_r.shape[2], dtype=x.dtype, device=x.device)
-    attn = attention_core(q, k_r, v_r, mask, 1.0 / (hd ** 0.5), spec)
+    if attn_impl is not None:
+        attn = attn_impl(q, k_r, v_r, spec)
+    else:
+        if mask is None:
+            mask = causal_mask(s, k_r.shape[2], dtype=x.dtype,
+                               device=x.device)
+        attn = attention_core(q, k_r, v_r, mask, 1.0 / (hd ** 0.5), spec)
     attn = attn.transpose(1, 2).reshape(b, s, n_heads * hd)
     if tap is not None:
         tap["o_proj"] = attn

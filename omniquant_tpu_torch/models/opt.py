@@ -74,12 +74,16 @@ def block_forward(p: dict, x: torch.Tensor, cfg: OPTConfig,
                   positions: Optional[torch.Tensor] = None,
                   spec: ActQuantSpec = NO_ACT_QUANT,
                   kv_cache: Optional[tuple] = None,
-                  tap: Optional[dict] = None):
+                  tap: Optional[dict] = None, attn_impl=None):
     """One decoder block: LayerNorm before (or, with
     ``do_layer_norm_before=False``, after) the attention and the ReLU MLP.
     Returns (y, (k, v)) with k/v including ``kv_cache``. ``positions`` is
     unused (positions live in ``embed``); ``tap``, when a dict, receives
-    each linear's input activation under the linear's name."""
+    each linear's input activation under the linear's name. ``attn_impl``,
+    when given, replaces the attention core (the sequence-parallel hook, as
+    in llama.block_forward): it receives q pre-scaled and q/k/v already
+    quantized, with a spec holding only the softmax quantizer, so it
+    attends at scale 1.0."""
     del positions
     b, s, h = x.shape
     n_heads, hd = cfg.num_attention_heads, cfg.head_dim
@@ -106,10 +110,14 @@ def block_forward(p: dict, x: torch.Tensor, cfg: OPTConfig,
         v = torch.cat([kv_cache[1], v], dim=2)
     new_cache = (k, v)
 
-    if mask is None:
-        mask = causal_mask(s, k.shape[2], dtype=x.dtype, device=x.device)
     # q/k/v are quantized already: only the softmax quantizer is left
-    attn = attention_core(q, k, v, mask, 1.0, ActQuantSpec(p=spec.p))
+    p_only = ActQuantSpec(p=spec.p)
+    if attn_impl is not None:
+        attn = attn_impl(q, k, v, p_only)
+    else:
+        if mask is None:
+            mask = causal_mask(s, k.shape[2], dtype=x.dtype, device=x.device)
+        attn = attention_core(q, k, v, mask, 1.0, p_only)
     attn = attn.transpose(1, 2).reshape(b, s, h)
     if tap is not None:
         tap["out_proj"] = attn

@@ -17,6 +17,7 @@ the fake-quant weights to the f32 ulps of the LWC sigmoid), and it serves
 the packed model, which gives the text of JAX's engine on main.py's
 packed model. Falcon is LWC only: asked for LET, both calibrate without
 it (the act statistics are still collected and written, as main.py does).
+``--sp 2`` calibrates sequence-parallel as main.py's ``--sp 2`` does.
 Unported flags exit naming the ROADMAP item; a net with no synthetic
 config and no checkpoint exits as main.py does. ``--tasks`` (piqa and
 lambada_openai, both packages' task download patched to the same injected
@@ -65,6 +66,10 @@ def _main_py():
 
 
 MAIN = _main_py()
+# test_sp_calibrates_as_main_py: the port's --sp 2 perplexity against
+# main.py's --sp 2 run and the port's run without --sp (measured 4.8e-7
+# relative to each)
+SP_PPL_RTOL = 1e-5
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -141,12 +146,57 @@ def test_parser_matches_main_py():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "item 9"), (["--sp", "2"], "item 9"),
-    (["--num_processes", "2"], "item 9"),
-    (["--export_autogptq"], "item 10")])
+    (["--tp", "2"], "item 2"), (["--num_processes", "2"], "item 3"),
+    (["--export_autogptq"], "item 4")])
 def test_unported_flags_exit(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet: .*{item}"):
         cli.main(["--platform", "cpu", "--synthetic"] + flags)
+
+
+def _log_lines(out_dir, needle):
+    return [ln[ln.index(needle):] for f in sorted(out_dir.glob("log_*.txt"))
+            for ln in f.read_text().splitlines() if needle in ln]
+
+
+def test_sp_calibrates_as_main_py(tmp_path):
+    """--sp 2 on tiny-llama (W4A16 g32 LWC + LET, 1 epoch of 4 windows of 64
+    tokens, JAX's weights carried across): sequence-parallel calibration on
+    a mesh of 2 CPU shards, logged as main.py logs its mesh; the perplexity
+    within SP_PPL_RTOL of main.py's --sp 2 run (two calibrations, each
+    summing in its own order) and of the port's own run without --sp, and
+    main.py's generated text."""
+    args = COMMON + ["--net", "tiny-llama", "--epochs", "1"]
+    mp = pytest.MonkeyPatch()
+    update = jax.config.update
+
+    def keep_the_conftest_devices(name, value):
+        # main.py asks for --sp virtual CPU devices, which JAX refuses once
+        # its backend is up; the conftest's 8 already hold its mesh
+        if name == "jax_num_cpu_devices" and len(jax.devices()) >= value:
+            return
+        update(name, value)
+
+    mp.setattr(jax.config, "update", keep_the_conftest_devices)
+    try:
+        want = MAIN.main(args + ["--sp", "2"] + _dirs(tmp_path, "jax"))
+    finally:
+        mp.undo()
+    mp.setattr(cli, "load_model", carried_load_model)
+    try:
+        got = cli.main(args + ["--sp", "2"] + _dirs(tmp_path, "port"))
+        one = cli.main(args + _dirs(tmp_path, "one"))
+    finally:
+        mp.undo()
+    needle = "sequence-parallel calibration over 2 devices"
+    assert len(_log_lines(tmp_path / "jax_out", needle)) == 1
+    assert _log_lines(tmp_path / "port_out", needle) == [
+        f"{needle} (ring attention, seqlen 64): ['cpu', 'cpu']"]
+    assert got["generation"] == want["generation"]
+    assert sorted(got) == sorted(want) == ["generation", "synthetic"]
+    assert got["synthetic"] == pytest.approx(want["synthetic"],
+                                             rel=SP_PPL_RTOL)
+    assert got["synthetic"] == pytest.approx(one["synthetic"],
+                                             rel=SP_PPL_RTOL)
 
 
 def _spec_line(out_dir):

@@ -51,7 +51,8 @@ def test_no_jax_or_jax_package_loaded():
                 "eval.harness.tasks_math", "eval.harness.tasks_pile",
                 "eval.harness.tasks_qa", "eval.harness.tasks_translation",
                 "decontamination", "decontamination.janitor",
-                "decontamination.decontaminate", "generate_act_stats"):
+                "decontamination.decontaminate", "generate_act_stats",
+                "parallel", "parallel.ring_attention"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 

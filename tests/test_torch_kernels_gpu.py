@@ -457,6 +457,121 @@ def test_flash_attention_refuses_misaligned(cuda, which):
     assert flash_attention.launches == before
 
 
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,alibi", [
+    (1, 32, 32, 2048, 128, True, False),   # the ring's diagonal at sp 2
+    (1, 32, 32, 1024, 128, False, False),  # an off-diagonal block at sp 4
+    (1, 32, 32, 1024, 80, True, False),    # OPT-2.7B's heads of 80
+    (1, 8, 2, 300, 64, False, False),      # GQA, ragged
+    (1, 8, 8, 129, 128, True, True),       # ALiBi, one past a 128 edge
+    (1, 4, 4, 1, 128, True, False),        # a single query
+])
+def test_flash_attention_stats_kernel(cuda, B, H, Hkv, S, D, causal, alibi):
+    """K2 with its softmax stats against the plain version: out at K2's
+    rule and bit for bit the output without stats, m and l at
+    tolerance.flash_stats_close; one launch, counted as a stats launch;
+    two calls give the same bits."""
+    q, k, v, slopes = _flash_inputs(cuda, B, H, Hkv, S, S, D, alibi,
+                                    seed=S + D + 1)
+    before = (flash_attention.launches, flash_attention.launches_stats)
+    out, m, l = flash_attention(q, k, v, causal=causal, alibi_slopes=slopes,
+                                return_stats=True)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_stats) == (
+        before[0] + 1, before[1] + 1)
+    assert m.shape == l.shape == (B, H, S) and m.dtype == torch.float32
+    want, m_p, l_p = flash_attention_plain(
+        q, k, v, causal=causal, alibi_slopes=slopes, return_stats=True)
+    ok, err, worst = tolerance.bf16_close(
+        out, want, tolerance.flash_attention_slack(
+            q, k, v, causal=causal, alibi_slopes=slopes))
+    assert ok, (err, worst)
+    ok, dm, rel_l, worst = tolerance.flash_stats_close(m, l, m_p, l_p)
+    assert ok, (dm, rel_l, worst)
+    alone = flash_attention(q, k, v, causal=causal, alibi_slopes=slopes)
+    again = flash_attention(q, k, v, causal=causal, alibi_slopes=slopes,
+                            return_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, out)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, m, l)))
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_flash_ring_against_plain_ring(cuda, sp):
+    """Ring attention over sp shards on one card (LLaMA-7B's 32 heads of
+    128, 2048 tokens): the flash ring (K2 with stats, n(n+1)/2 launches)
+    and the plain ring against the plain attention over the whole
+    sequence, both at K2's rule; the plain ring launches nothing."""
+    from omniquant_tpu_torch.parallel import ring_attention
+
+    q, k, v, _ = _flash_inputs(cuda, 1, 32, 32, 2048, 2048, 128, False, sp)
+    want = flash_attention_plain(q, k, v)
+    slack = tolerance.flash_attention_slack(q, k, v)
+    before = flash_attention.launches_stats
+    flash = ring_attention(q, k, v, [cuda] * sp, impl="flash")
+    torch.cuda.synchronize()
+    assert flash_attention.launches_stats == before + sp * (sp + 1) // 2
+    plain = ring_attention(q, k, v, [cuda] * sp, impl="plain")
+    torch.cuda.synchronize()
+    assert flash_attention.launches_stats == before + sp * (sp + 1) // 2
+    for got in (flash, plain):
+        ok, err, worst = tolerance.bf16_close(got, want, slack)
+        assert ok, (err, worst)
+
+
+def test_sp_calibrate_on_the_card_matches_the_single_device_run(cuda):
+    """calibrate(..., sp_mesh=[cuda] * 2) of a small LLaMA at seqlen 1024
+    (W4A16 g128 LWC, 2 epochs of 2 windows): its fp and propagation passes
+    through the flash ring (K2 with stats: layers x windows x 2 passes x 3
+    launches), its train steps through the plain ring, against the run
+    without sp_mesh. The capture passes' bf16 attention moves the targets,
+    so the runs drift apart a little: losses within 5e-3 relative, LWC
+    factors within 5e-4 rms, and folded weights apart by more than 1e-4 of
+    the tensor's largest (a grid step is ~1/15 of a group's range) on at
+    most 1e-4 of them; each limit 4-7 times the card's reading (PERF.md,
+    PR 21)."""
+    import copy
+
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.calib import CalibConfig, calibrate
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=512,
+                            intermediate_size=1024, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=4,
+                            max_position_embeddings=1024)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params = llama.init_params(gen, cfg, dtype=torch.float32, device=cuda)
+    tokens = torch.randint(0, 512, (2, 1024), generator=gen, device=cuda)
+    cc = CalibConfig(wbits=4, abits=16, group_size=128, lwc=True, epochs=2,
+                     nsamples=2)
+    runs = []
+    for mesh in (None, [cuda] * 2):
+        losses = []
+        kernels.reset_launch_counts()
+        p, omni = calibrate(LLAMA, copy.deepcopy(params), cfg, tokens, cc,
+                            device=cuda, sp_mesh=mesh,
+                            progress_cb=lambda i, e, x: losses.append(x))
+        runs.append((p, omni, losses, kernels.launch_counts()))
+    (p1, o1, l1, c1), (p2, o2, l2, c2) = runs
+    assert c1["flash_attention_stats"] == 0
+    assert c2["flash_attention_stats"] == 2 * 2 * 2 * 3
+    assert len(l2) == len(l1) == 4
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    d = torch.cat([(t - o1[i]["lwc"][name][f]).flatten()
+                   for i in range(2) for name in LLAMA.linear_names
+                   for f, t in o2[i]["lwc"][name].items()])
+    lwc_rms = d.pow(2).mean().sqrt().item()
+    apart = max(
+        ((p2["layers"][i][name]["weight"] - p1["layers"][i][name]["weight"])
+         .abs() > 1e-4 * p1["layers"][i][name]["weight"].abs().max())
+        .float().mean().item()
+        for i in range(2) for name in LLAMA.linear_names)
+    readings = dict(loss_gap=loss_gap, lwc_rms=lwc_rms, apart=apart)
+    print("sp calibrate on the card against the single-device run:", readings)
+    assert loss_gap <= 5e-3, readings
+    assert lwc_rms <= 5e-4, readings
+    assert apart <= 1e-4, readings
+
+
 def test_kv_update_kernels_exact(cuda):
     B, H, S, D = 4, 3, 40, 128
     gen = torch.Generator(device=cuda).manual_seed(5)
