@@ -218,11 +218,38 @@ prints no result. Any failure raises, so the exit code is non-zero.
               weights, packed codes; held-out MSE below round-to-nearest),
               seconds a step and peak GiB of both, and the K2 stats
               launches and ring calls the schedule implies.
-12. profile -- last, so that no timed run follows a profiler session: A and
-              E rebuilt on a fresh W4 model, prefilled as in serve, two
-              step_n(., 8) on the host clock, then one under torch.profiler:
-              the device's busy share of a decode step, the kernel launches
-              per step and the kernels that took the most device time.
+12. profile -- A and E rebuilt on a fresh W4 model, prefilled as in serve,
+              two step_n(., 8) on the host clock, then one under
+              torch.profiler: the device's busy share of a decode step, the
+              kernel launches per step and the kernels that took the most
+              device time.
+13. tp      -- last: tensor-parallel serving (serving/tp_engine.py) with
+              every shard on the card (make_mesh(tp=n, devices=[cuda:0] *
+              n), one thread a shard): LLaMA-2-7B's published widths
+              (meta-llama/Llama-2-7b-hf) at 2 layers and tp 2, W4A16 g128
+              (pairs) and W4A4 on a planar W4 g128 pack (K7 at decode, K8 +
+              K9 at the prefill, the min/max all-reduce), intermediate
+              11008 padded to 11264; then LLaMA-2-70B's (meta-llama/
+              Llama-2-70b-hf: vocab 32000, hidden 8192, intermediate 28672,
+              64 heads on 8 kv heads) at TP_70B_LAYERS of its 80 layers and
+              tp 8, W3 g128 packed layer by layer as scripts/rehearse_70b.py
+              lays it out, bf16 and int8 KV; random weights from seeded
+              generators. Each run: batch 8 x 256-token prompts, max_len
+              2048, the first decode and two step_n(., 8), on the single
+              LlamaEngine of the same pack and on the TP engine (decoding
+              from the single engine's first tokens), timed;
+              every plain version and dense route counted (none may run);
+              the TP engine's launches exactly tp times a shard's
+              (_tp_expected); its prefill and first-decode logits against
+              the single engine's at E2E_TOL (W4A4: E2E_INT_TOL[4]) and its
+              streams under the near-tie rule; the planted fault (the last
+              shard's partial left out of every sum) must fail that hold.
+              The 70B int8 run ends with one step_n(., 8) of each engine
+              under torch.profiler (the card's busy share). The kernels
+              phase holds and times K1 at the per-shard shapes (TP_K1:
+              70B's at tp 8, 7B's at tp 2, OPT-2.7B's out_proj retiled to
+              256 and 128 rows) and K6 at a 70B shard's one kv head of 8
+              query heads.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line ``{"kernels": [...]}``; the last line is
@@ -331,7 +358,7 @@ SERVE_PATHS = {
 EXTRAS = ("prefill", "long_prompt", "falcon", "opt27b", "int_mm_ms",
           "kernel_ms", "generic_kernel_ms", "verify", "widths", "floor_ms",
           "host_us", "cases", "ms_without_stats", "stats_m_max_abs_err",
-          "stats_l_max_rel_err")
+          "stats_l_max_rel_err", "tp")
 
 # e2e tolerance on logits, relative to the reference's rms / max magnitude:
 # the engine rounds activations to bf16 at every op (2^-9 relative each)
@@ -4404,6 +4431,547 @@ def profile_decode(torch, device, cfg, dims, seed, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# tp phase: tensor-parallel serving (serving/tp_engine.py), every shard on
+# the one card. LLaMA-2-70B's published widths (meta-llama/Llama-2-70b-hf
+# config.json: vocab 32000, hidden 8192, intermediate 28672, 64 heads on 8
+# kv heads of 128, 4096 positions, rms eps 1e-5), depth cut to
+# TP_70B_LAYERS of its 80 layers, at tp 8: the north star's geometry (W3
+# g128, int8 KV, batch 8, max_len 2048; scripts/rehearse_70b.py), packed
+# layer by layer as that script lays it out (o_proj and down_proj planar,
+# whose packed rows split 8 ways on whole tiles; the others pairs). Then
+# LLaMA-2-7B's widths at 2 layers and tp 2 (intermediate 11008, padded to
+# 11264 by pad_intermediate_packed): W4A16 (pairs, auto layout) and W4A4
+# on a planar W4 g128 pack (K7 at decode, K8 + K9 at the 2048-row
+# prefill, the column-parallel inputs' ranges through the min/max
+# all-reduce). Random weights from seeded generators.
+LLAMA2_70B = dict(vocab_size=32000, hidden_size=8192, intermediate_size=28672,
+                  num_hidden_layers=80, num_attention_heads=64,
+                  num_key_value_heads=8, max_position_embeddings=4096,
+                  rms_norm_eps=1e-5)
+LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_hidden_layers=2, num_attention_heads=32,
+                 num_key_value_heads=32, max_position_embeddings=4096,
+                 rms_norm_eps=1e-5)
+TP_70B_LAYERS = 8
+TP_BATCH, TP_PROMPT_LEN, TP_MAX_LEN = 8, 256, 2048  # prefill m = 2048 < 4096
+TP_DISPATCHES = 2   # timed step_n(., 8) dispatches a run
+# run -> (model, tp, KV dtype, activation bits)
+TP_RUNS = {"7b_w4a16": ("7b", 2, "native", 16),
+           "7b_w4a4": ("7b", 2, "native", 4),
+           "70b_bf16": ("70b", 8, "native", 16),
+           "70b_int8": ("70b", 8, "int8", 16)}
+_TP_ATTN_KV = ("kv_cache_prefill_write", "flash_attention", "kv_cache_write",
+               "kv_cache_write_span", "decode_attention_int8")
+# kernels every shard launches: K1's decode tile at m = 8 and its prefill
+# tile at m = 2048 (pairs: quant_matmul_prefill), K2 at the 256-token
+# prefill, K3, K4 at the first decode; int8: K5 flushes step_n's rings and
+# K6 attends; W4A4: K8 + K9 on the row-parallel prefill, K7 on the
+# row-parallel decode, planar K1 on the column-parallel sites
+_TP_A16 = ("quant_matmul", "flash_attention", "kv_cache_prefill_write",
+           "kv_cache_write")
+TP_PATHS = {"70b_bf16": _TP_A16 + ("quant_matmul_prefill",
+                                   "quant_matmul_planar_decode",
+                                   "quant_matmul_planar_prefill"),
+            "7b_w4a16": _TP_A16 + ("quant_matmul_prefill",),
+            "7b_w4a4": ("quant_matmul_int", "_unpack_to_int8",
+                        "_quant_matmul_int_dense", "flash_attention",
+                        "kv_cache_prefill_write", "kv_cache_write",
+                        "quant_matmul_planar_decode",
+                        "quant_matmul_planar_prefill"),
+            "70b_int8": _TP_A16 + ("quant_matmul_prefill",
+                                   "quant_matmul_planar_decode",
+                                   "quant_matmul_planar_prefill",
+                                   "kv_cache_write_span",
+                                   "decode_attention_int8")}
+
+
+def _llama2_70b_pack(torch, device, layers, seed):
+    """LLaMA-2-70B widths at ``layers`` layers, N(0, 0.02) weights and
+    norms near 1 from a seeded generator, each linear packed at W3 g128 as
+    soon as it is drawn (a layer's f32 weights are 3.4 GB; the model's never
+    exist at once): o_proj and down_proj planar, the others by the auto
+    layout (pairs). Embeddings and head f32."""
+    from omniquant_tpu_torch.models import llama
+    from omniquant_tpu_torch.quant import QuantConfig, pack_weight
+
+    cfg = llama.LlamaConfig(**dict(LLAMA2_70B, num_hidden_layers=layers))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    wcfg = QuantConfig(n_bits=3, group_size=128)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    shapes = {"q_proj": (H, H), "k_proj": (kv, H), "v_proj": (kv, H),
+              "o_proj": (H, H), "gate_proj": (I, H), "up_proj": (I, H),
+              "down_proj": (H, I)}
+
+    def norm():
+        return {"weight": 1.0 + 0.1 * torch.randn(H, generator=gen,
+                                                  device=device)}
+
+    blocks = []
+    for _ in range(layers):
+        block = {"input_layernorm": norm(), "post_attention_layernorm": norm()}
+        for name, (n, k) in shapes.items():
+            w = torch.randn(n, k, generator=gen, device=device) * 0.02
+            block[name] = pack_weight(
+                w, wcfg, layout="planar" if name in ("o_proj", "down_proj")
+                else "auto")
+            del w
+        blocks.append(block)
+    top = {k: torch.randn(cfg.vocab_size, H, generator=gen,
+                          device=device) * 0.02
+           for k in ("embed_tokens", "lm_head")}
+    return cfg, dict(top, layers=blocks, norm=norm())
+
+
+def _llama2_7b_pack(torch, device, layout, seed):
+    from omniquant_tpu_torch.models import LLAMA, llama
+    from omniquant_tpu_torch.quant import QuantConfig
+    from omniquant_tpu_torch.serving import pack_model
+
+    cfg = llama.LlamaConfig(**LLAMA2_7B)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = llama.init_params(gen, cfg, device=device)
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+                        layout=layout, device=device)
+    return cfg, packed
+
+
+class _Fallbacks:
+    """Counts calls of every plain version and dense route a kernel wrapper
+    could take (quant_matmul's reference and its dequantize-once route, the
+    integer path's and the attention and cache kernels' plain versions)
+    while it is entered; the card path must make none."""
+
+    NAMES = {"quant_matmul": ("quant_matmul_reference", "dequantize_packed",
+                              "quant_matmul_int_plain",
+                              "quant_matmul_int_dense_plain",
+                              "unpack_to_int8_plain"),
+             "flash_attention": ("flash_attention_plain",),
+             "decode_attention": ("decode_attention_int8_plain",),
+             "kv_update": ("kv_cache_prefill_write_plain",
+                           "kv_cache_write_plain",
+                           "kv_cache_write_span_plain")}
+
+    def __init__(self):
+        import importlib
+
+        self.calls = {}
+        self._saved = []
+        for mod_name, names in self.NAMES.items():
+            mod = importlib.import_module(
+                f"omniquant_tpu_torch.kernels.{mod_name}")
+            self._saved += [(mod, n, getattr(mod, n)) for n in names]
+
+    def __enter__(self):
+        for mod, n, f in self._saved:
+            def counted(*a, _f=f, _n=n, **kw):
+                self.calls[_n] = self.calls.get(_n, 0) + 1
+                return _f(*a, **kw)
+            setattr(mod, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, f in self._saved:
+            setattr(mod, n, f)
+
+
+def _tree_bytes(torch, *trees) -> int:
+    """Bytes of the distinct tensors in ``trees`` (a tensor shared by two
+    shards counts once)."""
+    from omniquant_tpu_torch.quant import PackedWeight
+
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, PackedWeight):
+            for t in (x.qweight, x.scales, x.zeros, x.bias):
+                walk(t)
+        elif isinstance(x, torch.Tensor):
+            key = (x.data_ptr(), x.numel())
+            if key not in seen:
+                seen.add(key)
+                total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+
+    for t in trees:
+        walk(t)
+    return total
+
+
+def _tp_expected(run, tp, layers, steps, dispatches) -> dict:
+    """The launches every shard's step programs make, times tp: per layer a
+    K3 pair at the prefill, one K2, K4 at the first decode; K6 at every
+    decode step and K5 at every step_n dispatch on an int8 cache; K1's
+    prefill tile 4 times a layer on an A16 model (W4A4: its planar tile
+    twice, the column-parallel sites), K8 + K9 twice (the row-parallel
+    ones)."""
+    model, _, kv, abits = TP_RUNS[run]
+    n = tp * layers
+    # K4 writes the first decode's rows; a bf16 cache's step_n steps write
+    # theirs one by one, an int8 cache's go to the rings (K5 flushes them)
+    want = {"kv_cache_prefill_write": 2 * n, "flash_attention": n,
+            "kv_cache_write": n * (1 if kv == "int8" else steps)}
+    if kv == "int8":
+        want.update(kv_cache_write_span=n * dispatches,
+                    decode_attention_int8=n * steps)
+    if abits == 4:
+        want.update(_unpack_to_int8=2 * n, _quant_matmul_int_dense=2 * n,
+                    quant_matmul_int=2 * n * steps,
+                    quant_matmul_planar_decode=2 * n * steps,
+                    quant_matmul_planar_prefill=2 * n)
+    elif model == "70b":  # qkv and gate_up pairs, o and down planar
+        want.update(quant_matmul=4 * n * (steps + 1),
+                    quant_matmul_prefill=2 * n,
+                    quant_matmul_planar_prefill=2 * n,
+                    quant_matmul_planar_decode=2 * n * steps)
+    else:
+        want.update(quant_matmul=4 * n * (steps + 1),
+                    quant_matmul_prefill=4 * n)
+    return want
+
+
+def _serve_timed(torch, eng, reqs, res: dict, first=None):
+    """Warm up, then prefill ``reqs`` (logits kept), the first decode's
+    logits (engine._decode_impl) and TP_DISPATCHES step_n(., 8) on the host
+    clock behind synchronisations, the launch counts and the peak memory
+    reset at its start; every plain version and dense route counted.
+    ``first``, when given, replaces the prefill's first tokens (so that two
+    engines decode from the same tokens where their prefills' argmaxes
+    part)."""
+    from omniquant_tpu_torch import kernels
+
+    warm = eng.add_requests([r[:16] for r in reqs[:2]])
+    eng.step_n({x: eng._pending_next[x] for x in warm}, 2)
+    for x in warm:
+        eng.release(x)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _Fallbacks() as fb:
+        t = time.time()
+        slots, prefill = eng.add_requests(reqs, return_logits=True)
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t
+        if first is None:
+            first = [eng._pending_next[x] for x in slots]
+        toks, lens = eng._device_tokens(dict(zip(slots, first)))
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+        last = dict(zip(slots, first))
+        streams = {x: [] for x in slots}
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(TP_DISPATCHES):
+            out = eng.step_n(last, 8)
+            for x in slots:
+                streams[x].extend(out[x])
+            last = {x: out[x][-1] for x in slots}
+        torch.cuda.synchronize()
+        decode_s = time.time() - t
+    n_tok = sum(len(r) for r in reqs)
+    res.update(prefill_s=prefill_s, prefill_tok_s=n_tok / prefill_s,
+               decode_s=decode_s, step_s=decode_s / (8 * TP_DISPATCHES),
+               decode_tok_s=len(reqs) * 8 * TP_DISPATCHES / decode_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               run_peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               launches=kernels.launch_counts(), fallbacks=fb.calls)
+    if fb.calls:
+        raise AssertionError(f"plain versions or dense routes ran on the "
+                             f"card path: {fb.calls}")
+    return prefill, dec, [[f] + streams[x] for f, x in zip(first, slots)], \
+        last
+
+
+def _tp_hold(torch, cfg, packed, reqs, single, tp, spec, tol, bound):
+    """The TP engine's prefill and first-decode logits against the single
+    engine's (``tol``), and its streams (first token included) under the
+    near-tie rule at ``bound`` against one causal pass of the plain f32
+    forward over prompt and stream; the single engine's streams read the
+    same way. Returns the readings and whether all held."""
+    from omniquant_tpu_torch.models import LLAMA
+
+    r = {}
+    for what, i in (("prefill", 0), ("decode", 1)):
+        r[f"{what}_logits"] = logit_gap(tp[i], single[i])
+    for who, got in (("tp", tp), ("single", single)):
+        gaps = stream_gaps(torch, LLAMA, cfg, packed, reqs, got[2], spec)
+        r[f"{who}_streams"] = near_tie(gaps, bound)
+    r["streams_equal"] = sum(a == b for a, b in zip(tp[2], single[2]))
+    r["ok"] = (gap_within(r["prefill_logits"], tol)
+               and gap_within(r["decode_logits"], tol)
+               and r["tp_streams"]["ok"])
+    return r
+
+
+class _DropLastPartial:
+    """The planted fault: every sum all-reduce of ``mesh`` leaves out the
+    last shard's partial (its heads' attention output and its slice of the
+    MLP never reach the residual stream)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        reduce = self.mesh._reduce
+
+        def faulty(xs, op):
+            if op == "sum":
+                xs = list(xs[:-1]) + [xs[-1] * 0]
+            return reduce(xs, op)
+
+        self.mesh._reduce = faulty
+        return self
+
+    def __exit__(self, *exc):
+        del self.mesh._reduce
+
+
+def tp_run(torch, device, name, cfg, packed, seed, out: dict):
+    """One TP_RUNS entry: the single LlamaEngine and the TP engine (tp
+    shards on ``device``) on ``packed``, each timed by _serve_timed; the
+    hold (_tp_hold) must pass, the TP engine's launches must be tp times a
+    shard's (_tp_expected, exactly) and cover TP_PATHS, and the planted
+    fault (_DropLastPartial) must fail the hold. Returns (the two engines,
+    the last tokens of each) for the profile."""
+    from omniquant_tpu_torch.models.common import ActQuantSpec
+    from omniquant_tpu_torch.parallel import make_mesh
+    from omniquant_tpu_torch.serving import LlamaEngine, TPLlamaEngine
+
+    model, tp, kv, abits = TP_RUNS[name]
+    spec = ActQuantSpec.from_bits(abits)
+    kw = dict(max_batch=TP_BATCH, max_len=TP_MAX_LEN, dtype=torch.bfloat16,
+              kv_dtype=kv, spec=spec, seed=seed)
+    reqs = prompts(torch, TP_BATCH, TP_PROMPT_LEN, cfg.vocab_size, seed + 22)
+    res = out[name] = dict(tp=tp, kv=kv, abits=abits,
+                           layers=cfg.num_hidden_layers)
+    single = LlamaEngine(packed, cfg, device=device, **kw)
+    s_got = _serve_timed(torch, single, reqs, res.setdefault("single", {}))
+    torch.cuda.synchronize()
+    t = time.time()
+    eng = TPLlamaEngine(packed, cfg, make_mesh(tp=tp, devices=[device] * tp),
+                        **kw)
+    torch.cuda.synchronize()
+    res["place_s"] = time.time() - t
+    t_got = _serve_timed(torch, eng, reqs, res.setdefault("tp_engine", {}),
+                         first=[s[0] for s in s_got[2]])
+    r = res["tp_engine"]
+    r["shard_gib"] = [_tree_bytes(torch, s.params, s.cache) / 2**30
+                      for s in eng.shards]
+    r["total_gib"] = _tree_bytes(torch, [s.params for s in eng.shards],
+                                 [s.cache for s in eng.shards]) / 2**30
+    res["single"]["engine_gib"] = _tree_bytes(
+        torch, single.params, single.cache) / 2**30
+    steps = 1 + 8 * TP_DISPATCHES
+    want = _tp_expected(name, tp, cfg.num_hidden_layers, steps,
+                        TP_DISPATCHES)
+    counts = r["launches"]
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    # the single engine's attention and cache kernels: a shard's share
+    one = {k: v // tp for k, v in want.items() if k in _TP_ATTN_KV}
+    s_wrong = {k: (res["single"]["launches"][k], v) for k, v in one.items()
+               if res["single"]["launches"][k] != v}
+    missing = [k for k in TP_PATHS[name] if counts[k] <= 0]
+    if wrong or missing or s_wrong:
+        raise AssertionError(f"tp {name}: launches (got, want) {wrong}, "
+                             f"single {s_wrong}, never launched {missing}")
+    tol = E2E_TOL if abits == 16 else E2E_INT_TOL[abits]
+    bound = SPEC_TIE * tol["max"]
+    hold = res["hold"] = _tp_hold(torch, cfg, packed, reqs, s_got, t_got,
+                                  spec, tol, bound)
+    log(f"  tp {name} ({model}, {cfg.num_hidden_layers} layers, tp {tp}, "
+        f"{kv} KV, A{abits}): placed in {res['place_s']:.2f} s; prefill "
+        f"{r['prefill_tok_s']:.1f} tok/s (single "
+        f"{res['single']['prefill_tok_s']:.1f}), step_n(., 8) "
+        f"{r['decode_tok_s']:.1f} tok/s (single "
+        f"{res['single']['decode_tok_s']:.1f}), a step {r['step_s'] * 1e3:.2f}"
+        f" ms (single {res['single']['step_s'] * 1e3:.2f}); a shard "
+        f"{max(r['shard_gib']):.3f} GiB, the shards {r['total_gib']:.3f} GiB "
+        f"(single engine {res['single']['engine_gib']:.3f}), peak "
+        f"{r['peak_gib']:.2f} GiB on the card (the run "
+        f"{r['run_peak_gib']:.2f}); launches {counts}")
+    for what in ("prefill", "decode"):
+        g = hold[f"{what}_logits"]
+        log(f"  tp {name} {what} logits against the single engine: rms rel "
+            f"{g['rms_rel']:.3g}, max rel {g['max_rel']:.3g} (tol "
+            f"{tol['rms']}, {tol['max']}), argmax agreement "
+            f"{g['argmax_agree']:.3f}")
+    log(f"  tp {name} streams: TP {_log_tie(hold['tp_streams'])}; single "
+        f"{_log_tie(hold['single_streams'])}; {hold['streams_equal']} of "
+        f"{len(reqs)} streams equal")
+    if not hold["ok"]:
+        raise AssertionError(f"tp {name}: the TP engine fails its hold")
+    return single, eng, s_got, t_got, reqs, spec, tol, bound
+
+
+def tp_fault(torch, cfg, packed, single_got, eng, reqs, spec, tol, bound,
+             res: dict) -> None:
+    """The planted fault through the same run and hold: it must fail."""
+    for x in [i for i, a in enumerate(eng.active) if a]:
+        eng.release(x)
+    with _DropLastPartial(eng.mesh):
+        slots, prefill = eng.add_requests(reqs, return_logits=True)
+        first = [s[0] for s in single_got[2]]
+        toks, lens = eng._device_tokens(dict(zip(slots, first)))
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+        out = eng.step_n(dict(zip(slots, first)), 8)
+    got = (prefill, dec, [[f] + out[x] for f, x in zip(first, slots)])
+    fault = res["fault"] = _tp_hold(torch, cfg, packed, reqs,
+                                    (single_got[0], single_got[1],
+                                     [s[:9] for s in single_got[2]]),
+                                    got, spec, tol, bound)
+    log(f"  tp fault (the last shard's partial left out of every sum): "
+        f"prefill logits rms rel {fault['prefill_logits']['rms_rel']:.3g}, "
+        f"decode {fault['decode_logits']['rms_rel']:.3g}; streams "
+        f"{_log_tie(fault['tp_streams'])}: "
+        f"{'REJECTED' if not fault['ok'] else 'PASSED'}")
+    if fault["ok"]:
+        raise AssertionError("tp: the planted fault passed the hold")
+    for x in slots:
+        eng.release(x)
+
+
+def tp_phase(torch, device, seed, out: dict) -> dict:
+    """TP_RUNS in order; the last (LLaMA-2-70B widths, int8 KV) ends with
+    one step_n(., 8) of the single and the TP engine under torch.profiler
+    (profile_step: the card's busy share of a step). Returns the TP
+    engines' launches summed over the runs."""
+    res = out["tp"] = {}
+    counts = {}
+    packs = {}
+    for name, (model, tp, kv, abits) in TP_RUNS.items():
+        t0 = time.time()
+        key = (model, abits)
+        if key not in packs:
+            packs.clear()
+            torch.cuda.empty_cache()
+            if model == "70b":
+                packs[key] = _llama2_70b_pack(torch, device, TP_70B_LAYERS,
+                                              seed + 70)
+            else:
+                packs[key] = _llama2_7b_pack(
+                    torch, device, "planar" if abits == 4 else "auto",
+                    seed + 7)
+        cfg, packed = packs[key]
+        single, eng, s_got, t_got, reqs, spec, tol, bound = tp_run(
+            torch, device, name, cfg, packed, seed, res)
+        for k, v in res[name]["tp_engine"]["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        tp_fault(torch, cfg, packed, s_got, eng, reqs, spec, tol, bound,
+                 res[name])
+        if name == "70b_int8":
+            for who, e in (("single", single), ("tp_engine", eng)):
+                for x in [i for i, a in enumerate(e.active) if a]:
+                    e.release(x)
+                slots = e.add_requests(reqs)
+                last = {x: e._pending_next[x] for x in slots}
+                last = {x: r[-1] for x, r in e.step_n(last, 8).items()}
+                p = res[name][who]["profile"] = profile_step(
+                    torch, e, last, 8, res[name][who]["step_s"])
+                busy = p["busy_share"]
+                log(f"  tp {name} {who} profiled step_n(8): device "
+                    f"{p['device_ms_per_step']:.2f} ms of a "
+                    f"{p['step_ms']:.2f} ms step ("
+                    f"{busy if isinstance(busy, str) else f'{busy:.1%}'} "
+                    f"busy), {p['launches_per_step']:.0f} launches a step; "
+                    "most device time: " + ", ".join(
+                        f"{k} {v:.3f} ms" for k, v in p["top_kernels"]))
+        del single, eng
+        torch.cuda.empty_cache()
+        res[name]["run_s"] = time.time() - t0
+    del packs
+    torch.cuda.empty_cache()
+    return counts
+
+
+# K1 and K6 at the tp phase's per-shard shapes: (label, bits, group,
+# layout, N, K, tp, padded K); a column-parallel weight is packed whole,
+# padded, made splittable (OPT-2.7B's out_proj retiles from 512 rows to 256
+# at tp 2 and 128 at tp 4) and split as the TP engine places it; a
+# row-parallel shard is a pack of its own lanes (70B's fused qkv: 1280
+# lanes a shard, gate_up 7168)
+TP_K1 = (("70b qkv tp8", 3, 128, "pairs", 1280, 8192, 1, 8192),
+         ("70b o tp8", 3, 128, "planar", 8192, 8192, 8, 8192),
+         ("70b gate_up tp8", 3, 128, "pairs", 7168, 8192, 1, 8192),
+         ("70b down tp8", 3, 128, "planar", 8192, 28672, 8, 28672),
+         ("7b o tp2", 4, 128, "pairs", 4096, 4096, 2, 4096),
+         ("7b down tp2", 4, 128, "pairs", 4096, 11008, 2, 11264),
+         ("opt27b out tp2", 4, 128, "pairs", 2560, 2560, 2, 2560),
+         ("opt27b out tp4", 4, 128, "pairs", 2560, 2560, 4, 2560))
+TP_K1_M = (8, TP_BATCH * TP_PROMPT_LEN)
+
+
+def tp_shard_weight(torch, device, gen, bits, group_size, layout, N, K, tp,
+                    k_pad):
+    """Shard 0 of a random (N, K) weight placed column-parallel over tp
+    shards (tp 1: the whole weight), bf16 scales and zeros; and its bf16
+    dequantized weight (the library call's operand)."""
+    from omniquant_tpu_torch.parallel import tp_forward as tpf
+    from omniquant_tpu_torch.parallel.sharding import local_packed
+    from omniquant_tpu_torch.quant import (QuantConfig, dequantize_packed,
+                                           pack_weight)
+
+    w = torch.randn(N, K, generator=gen, device=device) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout=layout)
+    del w
+    pw = pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    if k_pad != K:
+        pw = tpf._pad_packed_in(pw, k_pad)
+    pw = tpf._ensure_col_splittable(pw, tp)
+    pw = local_packed(pw, tpf.local_spec(pw, False), tp, 0, device)
+    return pw, dequantize_packed(pw, dtype=torch.bfloat16)
+
+
+def check_tp_kernels(torch, device, timer, out: dict) -> tuple:
+    """K1 at every TP_K1 shape and m in TP_K1_M (the tp phase's decode and
+    prefill rows), each one launch of the kernel (never the dense route),
+    held and timed by _k1_row; K6 at a 70B shard's decode (8 slots, one kv
+    head of 8 query heads, window 2048, with and without the ring) by
+    _decode_rows. Returns (K1 rows, K6 rows)."""
+    from omniquant_tpu_torch.kernels.quant_matmul import quant_matmul
+
+    gen = torch.Generator(device=device).manual_seed(2208)
+    rows = []
+    for label, bits, gs, layout, N, K, tp, k_pad in TP_K1:
+        pw, w_lib = tp_shard_weight(torch, device, gen, bits, gs, layout, N,
+                                    K, tp, k_pad)
+        for m in TP_K1_M:
+            x = torch.randn(m, k_pad // tp, generator=gen,
+                            device=device).to(torch.bfloat16)
+            before = quant_matmul.launches
+            quant_matmul(x, pw)
+            if quant_matmul.launches != before + 1:
+                raise AssertionError(f"quant_matmul {label} m={m}: not one "
+                                     "kernel launch")
+            rows.append(dict(shape=label, tile_k=pw.tile_k, layout=layout,
+                             **_k1_row(torch, timer,
+                                       f"quant_matmul {label} m={m} "
+                                       f"(tile {pw.tile_k})", pw, w_lib, x)))
+        del pw, w_lib
+        torch.cuda.empty_cache()
+    gen6 = torch.Generator(device=device).manual_seed(2209)
+    straddle = torch.tensor([1023, 1024, 2047, 0, 1500, 512, 1022, 1025],
+                            dtype=torch.int32, device=device)
+    cases = [("70b tp8 shard b8 kv2048", 8, 2048, straddle, 2048, -1),
+             ("70b tp8 shard b8 kv2048 ring 7", 8, 2048, straddle - 1, 2048,
+              7)]
+    k6 = _decode_rows(torch, device, timer, 1, 8, 128, cases, 8, gen6, {})
+    out["tp_kernel_shapes"] = dict(quant_matmul=rows,
+                                   decode_attention_int8=k6)
+    return rows, k6
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4461,6 +5029,17 @@ def main(argv=None) -> int:
                                                    out)
     results["_quant_matmul_int_dense"] = check_int_dense(torch, device, timer,
                                                          dims, out)
+    log("kernels at the tp phase's per-shard shapes (LLaMA-2-70B at tp 8, "
+        "LLaMA-2-7B at tp 2, OPT-2.7B's retiled out_proj)")
+    tp_k1, tp_k6 = check_tp_kernels(torch, device, timer, out)
+    results["quant_matmul"]["tp"] = tp_k1
+    results["quant_matmul"]["max_abs_err"] = max(
+        [results["quant_matmul"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in tp_k1])
+    results["decode_attention_int8"]["tp"] = tp_k6
+    results["decode_attention_int8"]["max_abs_err"] = max(
+        [results["decode_attention_int8"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in tp_k6])
     out["host_in_window"] = timer.host_in_window
     log(f"  timings that include host time (the function synchronises): "
         f"{timer.host_in_window or 'none'}")
@@ -4546,10 +5125,20 @@ def main(argv=None) -> int:
     log("profile: one decode step of engines A and E under torch.profiler")
     profile_decode(torch, device, cfg, dims, args.seed, out)
 
-    # the serve, spec, harness and sp phases' launches per entry: K1's
+    log(f"tp: tensor-parallel serving with every shard on the card: "
+        f"LLaMA-2-7B widths at tp 2 (2 layers, W4A16 and W4A4), then "
+        f"LLaMA-2-70B widths at tp 8 ({TP_70B_LAYERS} of 80 layers, W3 g128, "
+        f"bf16 and int8 KV), each against the single engine of its pack")
+    t_tp = time.time()
+    tp_counts = tp_phase(torch, device, args.seed, out)
+    out["tp_phase_s"] = time.time() - t_tp
+    log(f"  tp phase {out['tp_phase_s']:.1f} s")
+
+    # the serve, spec, harness, sp and tp phases' launches per entry: K1's
     # count holds both layouts
     counts = {k: v + spec_counts.get(k, 0) + harness_counts.get(k, 0)
-              + sp_counts.get(k, 0) for k, v in counts.items()}
+              + sp_counts.get(k, 0) + tp_counts.get(k, 0)
+              for k, v in counts.items()}
     planar = (counts["quant_matmul_planar_decode"]
               + counts["quant_matmul_planar_prefill"])
     launches = dict(counts, quant_matmul=counts["quant_matmul"] - planar,
@@ -4655,6 +5244,25 @@ def main(argv=None) -> int:
             f"{v['single_step_s']:.4f}, {v['single_peak_gib']:.2f}; "
             f"{v['held_out_mse']['sp']:.4g} vs {v['held_out_mse']['rtn']:.4g}"
             for k, v in out["sp"].items() if k in SP_CALIB_RUNS) + "; on:")
+    log(smi)
+    tpr = out["tp"]
+    log("tp (TP engine / single engine: prefill tok/s, step_n tok/s, a step "
+        "ms; a shard's / the shards' GiB; peak GiB; prefill logits rms rel; "
+        "fault prefill rms rel): " + "; ".join(
+            f"{k} tp {v['tp']} {v['tp_engine']['prefill_tok_s']:.1f} / "
+            f"{v['single']['prefill_tok_s']:.1f}, "
+            f"{v['tp_engine']['decode_tok_s']:.1f} / "
+            f"{v['single']['decode_tok_s']:.1f}, "
+            f"{v['tp_engine']['step_s'] * 1e3:.2f} / "
+            f"{v['single']['step_s'] * 1e3:.2f}; "
+            f"{max(v['tp_engine']['shard_gib']):.3f} / "
+            f"{v['tp_engine']['total_gib']:.3f}; "
+            f"{v['tp_engine']['peak_gib']:.2f}; "
+            f"{v['hold']['prefill_logits']['rms_rel']:.3g}; "
+            f"{v['fault']['prefill_logits']['rms_rel']:.3g}"
+            for k, v in tpr.items()) + "; busy share TP / single: "
+        + " / ".join(str(tpr["70b_int8"][w]["profile"]["busy_share"])
+                     for w in ("tp_engine", "single")) + "; on:")
     log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(
         f"{n} {out['serve_' + n]['prefill_tok_s']:.1f} / "

@@ -29,9 +29,16 @@ otherwise, then ends in ``|real_quant``. ``--spec_decode GAMMA`` serves through
 ``SpecDecoder`` (a layer-skip self-draft of ``--draft_layers`` blocks) and
 logs its acceptance, as ``main.py`` does. ``--sp N`` calibrates sequence-
 parallel over N shards taken cyclically over the visible devices (N shards
-on one card; on the CPU N shards in this process). Flags whose machinery is
-not ported yet (tensor and multi-host parallelism, the AutoGPTQ exporter)
-exit with the ROADMAP item that ports it.
+on one card; on the CPU N shards in this process). ``--tp N`` serves
+``--serve_prompt`` through the family's tensor-parallel engine
+(``serving/tp_engine.py``, ``--tp_overlap`` chunks of each all-reduce) and
+scores ``--eval_ppl`` through the tensor-parallel trunk (``parallel/
+tp_forward.py``, which takes no activation quantizers, so it needs
+``--abits 16``), over the first N visible cards (it exits when there are
+fewer; ``chip_smoke.py`` puts N shards on one card through the library),
+or N shards in this process on the CPU. Flags whose machinery is not
+ported yet (multi-host parallelism, the AutoGPTQ exporter) exit with the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -94,9 +101,12 @@ def build_parser():
     p.add_argument("--symmetric", default=False, action="store_true")
     p.add_argument("--limit", type=int, default=-1)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (only 1: not ported yet)")
+                   help="tensor-parallel degree of --serve_prompt's engine "
+                        "and --eval_ppl's trunk (the first N visible cards; "
+                        "N shards in this process on the CPU)")
     p.add_argument("--tp_overlap", type=int, default=1,
-                   help="with --tp > 1 only")
+                   help="with --tp > 1: split each column-parallel "
+                        "all-reduce into this many chunks")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel degree for calibration: the "
                         "activation buffers split on the sequence axis "
@@ -147,8 +157,6 @@ def build_parser():
 # the unported flags: (is the flag set, what it needs)
 def _unported(args) -> list:
     return [what for used, what in (
-        (args.tp > 1, "--tp > 1 needs tensor parallelism (ROADMAP Queue 1 "
-                      "item 2)"),
         (args.num_processes > 1, "--num_processes > 1 needs the multi-host "
                                  "layer (ROADMAP Queue 1 item 3)"),
         (args.export_autogptq, "--export_autogptq needs the AutoGPTQ "
@@ -255,6 +263,17 @@ def main(argv=None):
     if (args.epochs > 0 and (args.wbits < 16 or args.abits < 16)
             and not (args.lwc or args.let)):
         raise SystemExit("--epochs > 0 requires --lwc or --let")
+    if args.tp > 1 and args.eval_ppl and args.abits < 16:
+        raise SystemExit(
+            "--eval_ppl with --tp > 1 scores through the tensor-parallel "
+            "trunk, which takes no activation quantizers (JAX's "
+            "make_tp_forward neither): use --abits 16 or --tp 1")
+    mesh = None
+    if args.tp > 1:
+        try:  # fail before calibrating when there are too few cards
+            mesh = tp_mesh(device, args.tp)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
     for d in (args.output_dir, args.cache_dir, args.save_dir,
               args.profile_dir):
         if d:
@@ -273,7 +292,7 @@ def main(argv=None):
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = scope.enter_context(torch.profiler.profile(activities=acts))
-        results = _run(args, device, logger)
+        results = _run(args, device, logger, mesh)
     if prof is not None:
         trace = os.path.join(args.profile_dir, "trace.json")
         prof.export_chrome_trace(trace)
@@ -295,9 +314,21 @@ def sp_devices(device, n: int) -> list:
     return [torch.device("cuda", i % count) for i in range(n)]
 
 
-def _run(args, device, logger) -> dict:
+def tp_mesh(device, n: int):
+    """The tensor-parallel mesh of ``--tp n``: the first n visible cards
+    (``make_mesh``, which raises when there are fewer), or n shards in this
+    process on the CPU."""
+    from .parallel import make_mesh
+
+    if device.type == "cuda":
+        return make_mesh(tp=n)
+    return make_mesh(tp=n, devices=[device] * n)
+
+
+def _run(args, device, logger, mesh) -> dict:
     """main.py's steps after its set-up: load, calibrate, save, evaluate,
-    serve; returns the results."""
+    serve (``mesh``: the tensor-parallel mesh of ``--tp``); returns the
+    results."""
     import torch
 
     from . import kernels
@@ -382,9 +413,18 @@ def _run(args, device, logger) -> dict:
             save_pytree(f"{args.save_dir}/model_packed.npz", packed)
             logger.info("saved packed real-quant weights")
 
+    tp_forward = None
+    if mesh is not None:
+        logger.info(f"tensor-parallel over tp={args.tp}: "
+                    f"{[str(d) for d in mesh.devices]}")
     if args.eval_ppl:
         eval_sets = (["synthetic"] if args.synthetic
                      else ["wikitext2", "ptb", "c4", "ptb-new", "c4-new"])
+        if mesh is not None:
+            from .parallel import make_tp_model_forward
+
+            tp_forward = make_tp_model_forward(
+                family, params, model_cfg, mesh, args.tp_overlap)
         for ds in eval_sets:
             cache = Path(args.cache_dir) / f"testloader_{args.net}_{ds}.npz"
             if cache.exists():
@@ -401,7 +441,8 @@ def _run(args, device, logger) -> dict:
             ppl = evaluate_ppl(
                 family, params, model_cfg, test_tokens, seqlen=seqlen,
                 spec=cc.act_quant_spec,
-                limit=None if args.limit < 0 else args.limit, logger=logger)
+                limit=None if args.limit < 0 else args.limit, logger=logger,
+                forward=tp_forward)
             logger.info(f"{ds} : {ppl}")
             results[ds] = ppl
 
@@ -440,10 +481,18 @@ def _run(args, device, logger) -> dict:
                       "falcon": FalconEngine}[family.name]
         max_len = min(getattr(model_cfg, "max_position_embeddings", 2048),
                       2048)
-        eng = engine_cls(packed if packed is not None else params, model_cfg,
-                         max_batch=1, max_len=max_len,
-                         kv_dtype=args.serve_kv_dtype, auto_grow=False,
-                         device=device)
+        kw = dict(max_batch=1, max_len=max_len,
+                  kv_dtype=args.serve_kv_dtype, auto_grow=False)
+        if mesh is not None:
+            from .serving import TP_ENGINES
+
+            engine_cls = TP_ENGINES[family.name]
+            eng = engine_cls(packed if packed is not None else params,
+                             model_cfg, mesh, overlap_chunks=args.tp_overlap,
+                             **kw)
+        else:
+            eng = engine_cls(packed if packed is not None else params,
+                             model_cfg, device=device, **kw)
         logger.info(f"serving the {'fake-quant' if packed is None else 'packed'}"
                     f" model with {engine_cls.__name__}")
         toks = tokenizer.encode(args.serve_prompt, add_special_tokens=False)

@@ -98,7 +98,8 @@ class TorchLM(LM):
     requests, longest first, padded on the right to the chunk's longest
     sequence (causal masking keeps every request's result what it is
     alone); ``greedy_until`` runs the family's serving engine, built once
-    with ``max_batch=batch_size`` and ``max_len=seqlen``. Both run the model
+    with ``max_batch=batch_size`` and ``max_len=seqlen`` (with ``tp_mesh``, a
+    ``parallel.mesh.Mesh``, the family's TP engine over it). Both run the model
     in ``dtype`` (by default that of the first floating leaf of ``params``,
     dict keys in sorted order): the floating tensors of ``params``, packed
     scales, zeros and biases too, are cast to it, as an engine casts
@@ -112,10 +113,6 @@ class TorchLM(LM):
         from ...models.common import NO_ACT_QUANT
         from ...serving.engine import _to_engine
 
-        if tp_mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel generation (tp_mesh) needs the parallel "
-                "layer (ROADMAP Queue 1 item 9)")
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else _first_float_dtype(params)
         self.family = family
@@ -225,7 +222,14 @@ class TorchLM(LM):
     def _get_engine(self):
         """Lazily build the family's serving engine over the same params
         for KV-cached generation."""
-        if self._engine is None:
+        if self._engine is None and self.tp_mesh is not None:
+            from ...serving.tp_engine import TP_ENGINES
+
+            self._engine = TP_ENGINES[self.family.name](
+                self.params, self.cfg, self.tp_mesh,
+                max_batch=self.batch_size, max_len=self.seqlen,
+                dtype=self.dtype, spec=self.spec)
+        elif self._engine is None:
             from ...serving.engine import FalconEngine, LlamaEngine, OPTEngine
 
             eng_cls = {"llama": LlamaEngine, "opt": OPTEngine,

@@ -18,13 +18,16 @@ from ..models.registry import ModelFamily
 
 def evaluate_ppl(family: ModelFamily, params: dict, model_cfg, test_tokens,
                  seqlen: int = 2048, spec: ActQuantSpec = NO_ACT_QUANT,
-                 limit: Optional[int] = None, logger=None) -> float:
+                 limit: Optional[int] = None, logger=None,
+                 forward=None) -> float:
     """Perplexity of ``params`` on ``test_tokens`` ((1, total) integer),
     computed on the device of the token embeddings in their dtype (a
     packed model's linears run its kernels, or the integer route when
     ``spec.act`` is enabled). With ``limit``, the loop stops after window
     ``limit`` but the divisor stays the full ``nsamples``, as in the
-    reference (its limited runs compare only with its own)."""
+    reference (its limited runs compare only with its own). ``forward``,
+    when given, scores each (1, seqlen) window in place of the family's
+    forward (the CLI's tensor-parallel trunk, ``--tp``)."""
     del logger  # the JAX counterpart takes one and logs nothing either
     device = embedding_device(params)
     test_tokens = np.asarray(test_tokens).reshape(-1)
@@ -35,7 +38,8 @@ def evaluate_ppl(family: ModelFamily, params: dict, model_cfg, test_tokens,
             window = torch.as_tensor(
                 test_tokens[i * seqlen: (i + 1) * seqlen].astype(np.int64),
                 device=device)
-            logits = family.forward(params, window[None], model_cfg, spec)
+            logits = (forward(window[None]) if forward is not None else
+                      family.forward(params, window[None], model_cfg, spec))
             logp = torch.log_softmax(logits[0, :-1].float(), dim=-1)
             nll = -logp.gather(-1, window[1:, None]).mean()
             nlls.append(nll * seqlen)

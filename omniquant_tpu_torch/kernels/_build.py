@@ -15,7 +15,9 @@ source rather than the sum.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises on anything but 0. Nothing here
-runs when the module is imported.
+runs when the module is imported. ``count`` adds one to a wrapper's launch
+counters under a lock: the shards of a tensor-parallel mesh launch from
+threads of their own.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -34,6 +37,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, *attrs: str) -> None:
+    """Add one to each of ``fn``'s launch counters ``attrs`` (one kernel
+    launch), atomically with respect to other threads."""
+    with _COUNT_LOCK:
+        for attr in attrs:
+            setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _nvcc() -> str:

@@ -236,7 +236,7 @@ def decode_attention_int8(q, k_codes, k_scale, v_codes, v_scale, lengths,
                   *ring_ptrs, out.data_ptr(), ws, tickets, B, n_kv, n_rep,
                   hd, max_len, kv_len, R, ring_n, plan.per, plan.win_splits,
                   float(score_scale))
-    decode_attention_int8.launches += 1
+    _build.count(decode_attention_int8, "launches")
     return out
 
 

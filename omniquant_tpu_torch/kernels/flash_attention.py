@@ -100,10 +100,10 @@ def flash_attention(q, k, v, sm_scale: Optional[float] = None,
                   None if m is None else m.data_ptr(),
                   None if l is None else l.data_ptr(),
                   B, H, Hkv, Sq, Skv, D, float(sm_scale), int(causal))
-    flash_attention.launches += 1
     if not return_stats:
+        _build.count(flash_attention, "launches")
         return out
-    flash_attention.launches_stats += 1
+    _build.count(flash_attention, "launches", "launches_stats")
     return out, m, l
 
 

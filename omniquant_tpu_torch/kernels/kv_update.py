@@ -84,7 +84,7 @@ def kv_cache_prefill_write(cache: torch.Tensor, new: torch.Tensor,
     _build.launch("kv_update", "kv_prefill_write", "pppiiiiii",
                   new.data_ptr(), cache.data_ptr(), slots.data_ptr(),
                   N, H, S, S_p, B, row_vecs)
-    kv_cache_prefill_write.launches += 1
+    _build.count(kv_cache_prefill_write, "launches")
     return cache
 
 
@@ -228,7 +228,7 @@ def kv_cache_write(caches: Sequence[torch.Tensor],
             kv_cache_write_plain(cache, new, lengths)
         return tuple(caches)
     _launch_rows(caches, news, lengths, None)
-    kv_cache_write.launches += 1
+    _build.count(kv_cache_write, "launches")
     return tuple(caches)
 
 
@@ -251,7 +251,7 @@ def kv_cache_write_span(caches: Sequence[torch.Tensor],
             kv_cache_write_span_plain(cache, new, lengths)
         return tuple(caches)
     _launch_rows(caches, news, lengths, span)
-    kv_cache_write_span.launches += 1
+    _build.count(kv_cache_write_span, "launches")
     return tuple(caches)
 
 

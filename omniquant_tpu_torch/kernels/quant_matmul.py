@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -127,6 +128,7 @@ _SM_COUNT: dict = {}
 _K7_REG_CTAS: dict = {}
 _K1_PL_CTAS: dict = {}
 _K1_TICKETS: dict = {}
+_BUFFER_LOCK = threading.Lock()
 
 
 def quant_matmul_reference(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
@@ -402,13 +404,15 @@ def _device_buffer(store: dict, device, numel: int,
                    dtype=torch.int32) -> torch.Tensor:
     """``store``'s buffer on ``device``, of at least ``numel`` elements:
     zeroed when made, grown by doubling. Launches on one stream at a time
-    share it."""
+    share it (the shards of a tensor-parallel mesh on one card do: they
+    all launch on its default stream)."""
     key = device.index or 0
-    t = store.get(key)
-    if t is None or t.numel() < numel:
-        t = torch.zeros(max(numel, 2 * (0 if t is None else t.numel())),
-                        dtype=dtype, device=device)
-        store[key] = t
+    with _BUFFER_LOCK:
+        t = store.get(key)
+        if t is None or t.numel() < numel:
+            t = torch.zeros(max(numel, 2 * (0 if t is None else t.numel())),
+                            dtype=dtype, device=device)
+            store[key] = t
     return t
 
 
@@ -509,13 +513,14 @@ def _qmm_cuda(x2: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
         "quant_matmul", "qmm_planar_bf16" if planar else "qmm_pairs_bf16",
         "p" * (len(ptrs) + 1) + "iiiiiiiiiii", *ptrs, y.data_ptr(), m, K, N,
         k_pad, G, group_rows, pw.tile_k, pw.bits, x_vec, plan.splits, plan.per)
-    quant_matmul.launches += 1
     if planar and m <= 32:
-        quant_matmul.launches_planar_decode += 1
+        _build.count(quant_matmul, "launches", "launches_planar_decode")
     elif planar:
-        quant_matmul.launches_planar_prefill += 1
+        _build.count(quant_matmul, "launches", "launches_planar_prefill")
     elif m > 32:
-        quant_matmul.launches_prefill += 1
+        _build.count(quant_matmul, "launches", "launches_prefill")
+    else:
+        _build.count(quant_matmul, "launches")
     return y
 
 
@@ -727,7 +732,7 @@ def _unpack_to_int8(pw: PackedWeight) -> torch.Tensor:
     _build.launch("quant_matmul_int", "unpack_to_int8", "ppiiiii",
                   pw.qweight.data_ptr(), out.data_ptr(), N, pw.k_pad,
                   pw.tile_k, pw.bits, int(pw.layout == "pairs"))
-    _unpack_to_int8.launches += 1
+    _build.count(_unpack_to_int8, "launches")
     return out
 
 
@@ -799,7 +804,7 @@ def _quant_matmul_int_dense(x: torch.Tensor, pw: PackedWeight,
         y = quant_matmul_int_dense_plain(xc, xs, w8, pw, x.dtype)
     else:
         y = _qmm_int_dense_cuda(xc, xs, w8, pw, x.dtype)
-        _quant_matmul_int_dense.launches += 1
+        _build.count(_quant_matmul_int_dense, "launches")
     if pw.bias is not None:
         y = y + pw.bias.to(y.dtype)
     return y.reshape(*lead, n)
@@ -993,7 +998,7 @@ def quant_matmul_int(x: torch.Tensor, pw: PackedWeight,
     xc, xs = quantize_act_int(x.reshape(m, x.shape[-1]), act_cfg)
     if xc.is_cuda:
         y = _qmm_int_cuda(xc, xs, pw, x.dtype)
-        quant_matmul_int.launches += 1
+        _build.count(quant_matmul_int, "launches")
     else:
         y = quant_matmul_int_plain(xc, xs, pw, x.dtype)
     if pw.bias is not None:

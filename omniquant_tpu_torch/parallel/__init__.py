@@ -1,5 +1,14 @@
-"""The parallel layer: ring attention over a sequence-parallel mesh (a
-sequence of devices), which sequence-parallel calibration runs."""
+"""The parallel layer: the in-process device mesh and its collectives,
+ring attention over a sequence-parallel mesh (sequence-parallel
+calibration), and tensor-parallel layouts, placement and block forwards
+(the TP trunk and, in ``serving/tp_engine.py``, the TP engines)."""
+from .mesh import Mesh, make_mesh
 from .ring_attention import SPMesh, ring_attention, ring_attention_local
+from .sharding import (
+    COL_PARALLEL, ROW_PARALLEL, block_specs, model_specs, shard_params)
+from .tp_forward import make_tp_forward, make_tp_model_forward
 
-__all__ = ["SPMesh", "ring_attention", "ring_attention_local"]
+__all__ = ["Mesh", "make_mesh", "SPMesh", "ring_attention",
+           "ring_attention_local", "ROW_PARALLEL", "COL_PARALLEL",
+           "block_specs", "model_specs", "shard_params", "make_tp_forward",
+           "make_tp_model_forward"]

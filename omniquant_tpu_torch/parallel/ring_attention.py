@@ -15,7 +15,7 @@ process runs step i of every shard in lockstep, rotating with
 ``.to(device of shard p + 1, non_blocking=True)``, a peer copy between
 cards and nothing on one card. ``SPMesh.run`` runs one program per shard,
 each in its own thread, and ``SPMesh.ring_attention`` is the collective
-those programs call.
+those programs call (``parallel/mesh.py`` holds the thread machinery).
 
 Two per-block implementations:
   impl="flash" (the default on a CUDA tensor): K2 with its softmax stats
@@ -35,11 +35,11 @@ implementations here skip it.
 """
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Optional, Sequence
 
 import torch
+
+from .mesh import Mesh, _on
 
 _NEG = -1e30
 
@@ -155,14 +155,6 @@ def ring_attention_local(qs: Sequence[torch.Tensor],
 ring_attention_local.calls = {"flash": 0, "plain": 0}
 
 
-def _on(device: torch.device):
-    """A context that makes ``device`` current where it is a card (the
-    kernels launch on the current device's stream)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
-
-
 def ring_attention(q, k, v, devices: Sequence,
                    sm_scale: Optional[float] = None, causal: bool = True,
                    impl: Optional[str] = None):
@@ -184,58 +176,12 @@ def ring_attention(q, k, v, devices: Sequence,
     return torch.cat([o.to(q.device) for o in outs], dim=2)
 
 
-class SPMesh:
+class SPMesh(Mesh):
     """A sequence-parallel mesh: n shards, shard p on ``devices[p]`` (the
-    devices may repeat). ``run`` runs one program per shard, each in its
-    own thread (JAX's ``shard_map``); the programs meet at the collective
-    ``ring_attention``, which every shard calls in turn with its blocks."""
-
-    def __init__(self, devices: Sequence):
-        self.devices = [torch.device(d) for d in devices]
-        if not self.devices:
-            raise ValueError("an SP mesh needs at least one device")
-        self._barrier = threading.Barrier(len(self.devices))
-        self._slots = [None] * len(self.devices)
-        self._result = None
-
-    @property
-    def n(self) -> int:
-        return len(self.devices)
-
-    def run(self, fn, *shard_args) -> list:
-        """[fn(p, *(a[p] for a in shard_args)) for each shard p], the n
-        calls run together, each in its own thread with the caller's grad
-        mode and, on a card, its shard's device current. The first error
-        of any shard is raised once every shard has stopped."""
-        if self.n == 1:
-            return [fn(0, *(a[0] for a in shard_args))]
-        grad = torch.is_grad_enabled()
-        results = [None] * self.n
-        errors = []
-        lock = threading.Lock()
-
-        def work(p):
-            try:
-                with torch.set_grad_enabled(grad), _on(self.devices[p]):
-                    results[p] = fn(p, *(a[p] for a in shard_args))
-            except BaseException as e:  # handed to the caller below
-                with lock:
-                    errors.append(e)
-                self._barrier.abort()  # wake shards waiting at a collective
-
-        threads = [threading.Thread(target=work, args=(p,), daemon=True)
-                   for p in range(self.n)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        self._slots, self._result = [None] * self.n, None
-        if errors:
-            self._barrier.reset()
-            raise next((e for e in errors
-                        if not isinstance(e, threading.BrokenBarrierError)),
-                       errors[0])
-        return results
+    devices may repeat). ``run`` (``Mesh.run``) runs one program per shard,
+    each in its own thread (JAX's ``shard_map``); the programs meet at the
+    collective ``ring_attention``, which every shard calls in turn with its
+    blocks."""
 
     def ring_attention(self, p: int, q, k, v,
                        sm_scale: Optional[float] = None, causal: bool = True,
@@ -243,17 +189,6 @@ class SPMesh:
         """The collective: shard p's (B, H, S/n, D) q and (B, Hkv, S/n, D)
         k/v blocks in, its output block out. Every shard must call it; one
         of them runs ``ring_attention_local`` for all n."""
-        if self.n == 1:
-            return ring_attention_local([q], [k], [v], sm_scale, causal,
-                                        impl)[0]
-        self._slots[p] = (q, k, v)
-        if self._barrier.wait() == 0:
-            try:
-                qs, ks, vs = zip(*self._slots)
-                self._result = ring_attention_local(qs, ks, vs, sm_scale,
-                                                    causal, impl)
-            except BaseException:
-                self._barrier.abort()
-                raise
-        self._barrier.wait()
-        return self._result[p]
+        return self._collective(
+            p, (q, k, v), lambda blocks: ring_attention_local(
+                *zip(*blocks), sm_scale, causal, impl))

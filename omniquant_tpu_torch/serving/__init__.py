@@ -3,3 +3,5 @@ from .engine import (
 from .export import pack_model
 from .sampling import sample_tokens
 from .spec_decode import SpecDecoder, layer_skip_params
+from .tp_engine import (
+    TP_ENGINES, TPFalconEngine, TPLlamaEngine, TPOPTEngine)

@@ -321,7 +321,19 @@ class LlamaEngine:
         return rms_norm(x, p["input_layernorm"], self.cfg.rms_norm_eps)
 
     def _attn_out(self, p, attn):
-        return linear(attn, p["o_proj"], self.spec.act)
+        return self._out_linear(attn, p["o_proj"])
+
+    def _out_linear(self, x, w):
+        """The linears whose input is split over the heads or the
+        intermediate under tensor parallelism (o/down, out_proj/fc2,
+        dense/dense_4h_to_h): the TP engine's shards all-reduce them."""
+        return linear(x, w, self.spec.act)
+
+    def _token_quant(self, x, qcfg):
+        """A per-token activation quantizer over x's last axis (OPT's q/k/v
+        before the head reshape): the TP engine's shards take its ranges
+        over every shard's features."""
+        return maybe_quant(x, qcfg)
 
     def _attn_qkv(self, p, hidden, positions):
         cfg = self.cfg
@@ -359,7 +371,7 @@ class LlamaEngine:
             gate = linear(h, p["gate_proj"], self.spec.act)
             up = linear(h, p["up_proj"], self.spec.act)
         act = torch.nn.functional.silu(gate) * up
-        return x + linear(act, p["down_proj"], self.spec.act)
+        return x + self._out_linear(act, p["down_proj"])
 
     def _quant_qkv(self, q, k, v):
         """The spec's q/k/v activation quantizers, applied before the cache
@@ -801,7 +813,9 @@ class OPTEngine(LlamaEngine):
                           self._ocfg.layer_norm_eps)
 
     def _attn_qkv(self, p, hidden, positions):
-        b, s, h = hidden.shape
+        b, s, _ = hidden.shape
+        hd = self.cfg.head_dim
+        h = self.cfg.num_attention_heads * hd  # the heads this engine owns
         if "qkv_fused" in p:
             qkv = linear(hidden, p["qkv_fused"], self.spec.act)
             q, k, v = qkv[..., :h], qkv[..., h: 2 * h], qkv[..., 2 * h:]
@@ -809,10 +823,9 @@ class OPTEngine(LlamaEngine):
             q = linear(hidden, p["q_proj"], self.spec.act)
             k = linear(hidden, p["k_proj"], self.spec.act)
             v = linear(hidden, p["v_proj"], self.spec.act)
-        hd = self.cfg.head_dim
-        q = maybe_quant(q * (hd ** -0.5), self.spec.q)
-        k = maybe_quant(k, self.spec.k)
-        v = maybe_quant(v, self.spec.v)
+        q = self._token_quant(q * (hd ** -0.5), self.spec.q)
+        k = self._token_quant(k, self.spec.k)
+        v = self._token_quant(v, self.spec.v)
 
         def heads(y):
             return y.reshape(b, s, self.cfg.num_attention_heads,
@@ -827,12 +840,12 @@ class OPTEngine(LlamaEngine):
         return 1.0  # q is scaled in _attn_qkv
 
     def _attn_out(self, p, attn):
-        return linear(attn, p["out_proj"], self.spec.act)
+        return self._out_linear(attn, p["out_proj"])
 
     def _mlp(self, p, x):
         h = layer_norm(x, p["final_layer_norm"], self._ocfg.layer_norm_eps)
         h = torch.relu(linear(h, p["fc1"], self.spec.act))
-        return x + linear(h, p["fc2"], self.spec.act)
+        return x + self._out_linear(h, p["fc2"])
 
 
 class FalconEngine(LlamaEngine):
@@ -865,8 +878,7 @@ class FalconEngine(LlamaEngine):
             # made once (and again when the cache grows): the slopes come
             # from a host list, and the copy of one to the card makes the
             # host wait for it
-            self._slopes = tfalcon.alibi_slopes(cfg.num_attention_heads,
-                                                self.device)
+            self._slopes = self._make_slopes()
             self._bias = tfalcon.alibi_bias(cfg, self.max_len, self.device,
                                             self._slopes)
 
@@ -878,6 +890,11 @@ class FalconEngine(LlamaEngine):
 
     def _alibi_slopes(self):
         return self._slopes
+
+    def _make_slopes(self):
+        """The ALiBi slopes of this engine's heads, on its device."""
+        return tfalcon.alibi_slopes(self._fcfg.num_attention_heads,
+                                    self.device)
 
     def _quant_qkv(self, q, k, v):
         return q, k, v  # the attention matmuls are not quantized
@@ -900,7 +917,7 @@ class FalconEngine(LlamaEngine):
         return q, k, v
 
     def _attn_out(self, p, attn):
-        return linear(attn, p["dense"], self.spec.act)
+        return self._out_linear(attn, p["dense"])
 
     def _block(self, p, x, positions, mask, commit):
         cfg = self._fcfg
@@ -925,7 +942,7 @@ class FalconEngine(LlamaEngine):
                                     cfg.layer_norm_eps)
         h = torch.nn.functional.gelu(
             linear(mlp_ln, p["dense_h_to_4h"], self.spec.act))
-        mlp_out = linear(h, p["dense_4h_to_h"], self.spec.act)
+        mlp_out = self._out_linear(h, p["dense_4h_to_h"])
         if cfg.new_decoder_architecture or cfg.parallel_attn:
             mlp_out = mlp_out + attn_out
         return residual + mlp_out

@@ -27,8 +27,9 @@ verify pass, the accepted counts from a cumulative product of matches, and
 the next lengths. The host builds the inputs once before the loop and
 copies the (rounds, B, gamma + 1) tokens and (rounds, B) counts back once
 after it. ``sample_spec_step`` is the sampling mode (rejection-sampling
-acceptance, host-paced). The JAX package's tensor-parallel branch waits for
-the port's parallel layer.
+acceptance, host-paced). A tensor-parallel target (``serving/tp_engine.py``)
+gets a TP draft placed from its raw params, and ``spec_steps`` runs its
+rounds one at a time (``spec_step``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -65,8 +66,8 @@ def _packed_head(params: dict, bits: int):
 class SpecDecoder:
     """Greedy speculative decoding over a (target, draft) engine pair.
 
-    target: a LlamaEngine, OPTEngine or FalconEngine; its greedy stream is
-        reproduced. draft: an engine with the same vocabulary; by default a
+    target: a LlamaEngine, OPTEngine or FalconEngine, or a TP engine; its
+        greedy stream is reproduced. draft: an engine with the same vocabulary; by default a
         layer-skip self-draft of ``draft_layers`` blocks of the target.
     gamma: proposals per round; a round costs gamma + 1 draft steps and one
         verify pass of the target, and emits 1..gamma + 1 tokens.
@@ -79,21 +80,30 @@ class SpecDecoder:
         self.target = target
         self.gamma = gamma
         if draft is None:
-            d = min(draft_layers, len(target.params["layers"]))
+            tp = hasattr(target, "mesh")
+            raw = target._raw_params if tp else target.params
+            d = min(draft_layers, len(raw["layers"]))
             # OPT and Falcon engines keep a llama-named view at .cfg and
-            # their family's config at _ocfg / _fcfg
-            base_cfg = getattr(target, "_fcfg",
-                               getattr(target, "_ocfg", target.cfg))
-            dparams = layer_skip_params(target.params, d)
+            # their family's config at _ocfg / _fcfg; a TP engine its
+            # global config at _gcfg
+            base_cfg = getattr(target, "_gcfg", getattr(
+                target, "_fcfg", getattr(target, "_ocfg", target.cfg)))
+            dparams = layer_skip_params(raw, d)
             if draft_head_bits:
                 dparams["lm_head"] = _packed_head(dparams, draft_head_bits)
-            draft = type(target)(
-                dparams, _clone_cfg(base_cfg, num_hidden_layers=d),
-                max_batch=target.max_batch, max_len=target.max_len,
-                dtype=target.dtype,
-                kv_dtype="int8" if target.kv_int8 else "native",
-                spec=target.spec, auto_grow=target.auto_grow,
-                grow_limit=target.grow_limit, device=target.device)
+            kw = dict(max_batch=target.max_batch, max_len=target.max_len,
+                      dtype=target.dtype,
+                      kv_dtype="int8" if target.kv_int8 else "native",
+                      spec=target.spec, auto_grow=target.auto_grow,
+                      grow_limit=target.grow_limit)
+            dcfg = _clone_cfg(base_cfg, num_hidden_layers=d)
+            if tp:  # a TP draft is placed again from the raw params
+                draft = type(target)(dparams, dcfg, target.mesh,
+                                     overlap_chunks=target.overlap_chunks,
+                                     **kw)
+            else:
+                draft = type(target)(dparams, dcfg, device=target.device,
+                                     **kw)
         self.draft = draft
         # proposals made and accepted (speed diagnostics)
         self.proposed = 0
@@ -137,11 +147,9 @@ class SpecDecoder:
 
     # ------------------------------------------------------------------
     def spec_step(self, last_tokens: Dict[int, int]) -> Dict[int, List[int]]:
-        """One round for the given slots ({slot: last emitted token}):
-        spec_steps(last_tokens, rounds=1). (The JAX package keeps a
-        host-paced round for its tensor-parallel engines, which the port
-        does not have yet.) Returns {slot: [1..gamma + 1 tokens]}."""
-        return self.spec_steps(last_tokens, rounds=1)
+        """One round for the given slots ({slot: last emitted token}), one
+        dispatch of ``_rounds``. Returns {slot: [1..gamma + 1 tokens]}."""
+        return self._dispatch(last_tokens, 1)
 
     # ------------------------------------------------------------------
     def _rounds(self, last, lengths, rounds: int, kv_len: int):
@@ -175,10 +183,24 @@ class SpecDecoder:
     def spec_steps(self, last_tokens: Dict[int, int],
                    rounds: int = 4) -> Dict[int, List[int]]:
         """``rounds`` greedy rounds in one dispatch (``_rounds``), the fused
-        counterpart of JAX's spec_step as step_n is of step. The window
-        bucket is
-        set once for the dispatch, on the host, from the worst case of
-        rounds x (gamma + 1) new rows. Returns {slot: [tokens]}."""
+        counterpart of JAX's spec_step as step_n is of step; for a
+        tensor-parallel target, ``rounds`` calls of ``spec_step`` (JAX's
+        TP branch). Returns {slot: [tokens]}."""
+        if not hasattr(self.target, "mesh"):
+            return self._dispatch(last_tokens, rounds)
+        res = {s: [] for s in last_tokens}
+        live = dict(last_tokens)
+        for _ in range(rounds):
+            for s, toks in self.spec_step(live).items():
+                res[s].extend(toks)
+                live[s] = toks[-1]
+        return res
+
+    def _dispatch(self, last_tokens: Dict[int, int],
+                  rounds: int) -> Dict[int, List[int]]:
+        """``rounds`` greedy rounds in one ``_rounds`` dispatch. The window
+        bucket is set once for the dispatch, on the host, from the worst
+        case of rounds x (gamma + 1) new rows."""
         g, t, d = self.gamma, self.target, self.draft
         self._require_greedy(last_tokens)
         need = rounds * (g + 1)

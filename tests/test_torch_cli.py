@@ -17,7 +17,8 @@ the fake-quant weights to the f32 ulps of the LWC sigmoid), and it serves
 the packed model, which gives the text of JAX's engine on main.py's
 packed model. Falcon is LWC only: asked for LET, both calibrate without
 it (the act statistics are still collected and written, as main.py does).
-``--sp 2`` calibrates sequence-parallel as main.py's ``--sp 2`` does.
+``--sp 2`` calibrates sequence-parallel as main.py's ``--sp 2`` does, and
+``--tp 2`` evaluates and serves as main.py's ``--tp 2`` does.
 Unported flags exit naming the ROADMAP item; a net with no synthetic
 config and no checkpoint exits as main.py does. ``--tasks`` (piqa and
 lambada_openai, both packages' task download patched to the same injected
@@ -70,6 +71,9 @@ MAIN = _main_py()
 # main.py's --sp 2 run and the port's run without --sp (measured 4.8e-7
 # relative to each)
 SP_PPL_RTOL = 1e-5
+# test_tp_serves_and_evaluates_as_main_py: the TP trunk's perplexity against
+# main.py's --tp 2 (GSPMD over the plain forward) and the port's --tp 1
+TP_PPL_RTOL = 1e-5
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -146,16 +150,79 @@ def test_parser_matches_main_py():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "item 2"), (["--num_processes", "2"], "item 3"),
-    (["--export_autogptq"], "item 4")])
+    (["--num_processes", "2"], "item 3"), (["--export_autogptq"], "item 4")])
 def test_unported_flags_exit(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet: .*{item}"):
         cli.main(["--platform", "cpu", "--synthetic"] + flags)
 
 
+@pytest.mark.parametrize("net", ["tiny-llama", "tiny-falcon"])
+def test_tp_serves_and_evaluates_as_main_py(tmp_path, net):
+    """--tp 2 (16-bit weights, JAX's carried across): perplexity through
+    the tensor-parallel trunk within TP_PPL_RTOL of main.py's --tp 2 and of
+    the port's --tp 1; the TP engine's greedy text is --tp 1's and main.py's
+    (--tp_overlap 2 too); the mesh of 2 CPU shards is logged."""
+    args = ["--platform", "cpu", "--synthetic", "--net", net, "--wbits",
+            "16", "--abits", "16", "--eval_ppl", "--serve_prompt", PROMPT,
+            "--max_new_tokens", "8"]
+    want = main_py_on_conftest_devices(args + ["--tp", "2"]
+                                       + _dirs(tmp_path, "jax"))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cli, "load_model", carried_load_model)
+    try:
+        got = cli.main(args + ["--tp", "2"] + _dirs(tmp_path, "port"))
+        one = cli.main(args + _dirs(tmp_path, "one"))
+        lap = cli.main(args + ["--tp", "2", "--tp_overlap", "2"]
+                       + _dirs(tmp_path, "lap"))
+    finally:
+        mp.undo()
+    assert sorted(got) == sorted(want) == ["generation", "synthetic"]
+    assert got["generation"] == one["generation"] == want["generation"]
+    assert lap == got
+    assert got["synthetic"] == pytest.approx(want["synthetic"],
+                                             rel=TP_PPL_RTOL)
+    assert got["synthetic"] == pytest.approx(one["synthetic"],
+                                             rel=TP_PPL_RTOL)
+    needle = "tensor-parallel over tp=2"
+    assert _log_lines(tmp_path / "port_out", needle)[0] == (
+        f"{needle}: ['cpu', 'cpu']")
+
+
+def test_tp_refusals(tmp_path):
+    """--tp with --eval_ppl and quantized activations exits (the trunk
+    takes no activation quantizers); heads that do not split exit before
+    anything runs."""
+    base = ["--platform", "cpu", "--synthetic", "--net", "tiny-llama"]
+    with pytest.raises(SystemExit, match="no activation quantizers"):
+        cli.main(base + ["--tp", "2", "--eval_ppl", "--wbits", "4",
+                         "--abits", "4", "--epochs", "0"])
+    with pytest.raises(ValueError, match="do not divide into tp=3"):
+        cli.main(base + ["--tp", "3", "--wbits", "16", "--abits", "16",
+                         "--serve_prompt", "hi"] + _dirs(tmp_path, "p"))
+
+
 def _log_lines(out_dir, needle):
     return [ln[ln.index(needle):] for f in sorted(out_dir.glob("log_*.txt"))
             for ln in f.read_text().splitlines() if needle in ln]
+
+
+def main_py_on_conftest_devices(argv):
+    """main.py's run of ``argv``. main.py asks JAX for --sp or --tp virtual
+    CPU devices, which JAX refuses once its backend is up; the conftest's 8
+    already hold its mesh."""
+    update = jax.config.update
+
+    def keep_the_conftest_devices(name, value):
+        if name == "jax_num_cpu_devices" and len(jax.devices()) >= value:
+            return
+        update(name, value)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax.config, "update", keep_the_conftest_devices)
+    try:
+        return MAIN.main(argv)
+    finally:
+        mp.undo()
 
 
 def test_sp_calibrates_as_main_py(tmp_path):
@@ -166,21 +233,9 @@ def test_sp_calibrates_as_main_py(tmp_path):
     summing in its own order) and of the port's own run without --sp, and
     main.py's generated text."""
     args = COMMON + ["--net", "tiny-llama", "--epochs", "1"]
+    want = main_py_on_conftest_devices(args + ["--sp", "2"]
+                                       + _dirs(tmp_path, "jax"))
     mp = pytest.MonkeyPatch()
-    update = jax.config.update
-
-    def keep_the_conftest_devices(name, value):
-        # main.py asks for --sp virtual CPU devices, which JAX refuses once
-        # its backend is up; the conftest's 8 already hold its mesh
-        if name == "jax_num_cpu_devices" and len(jax.devices()) >= value:
-            return
-        update(name, value)
-
-    mp.setattr(jax.config, "update", keep_the_conftest_devices)
-    try:
-        want = MAIN.main(args + ["--sp", "2"] + _dirs(tmp_path, "jax"))
-    finally:
-        mp.undo()
     mp.setattr(cli, "load_model", carried_load_model)
     try:
         got = cli.main(args + ["--sp", "2"] + _dirs(tmp_path, "port"))

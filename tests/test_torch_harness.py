@@ -144,7 +144,7 @@ def test_greedy_until_w4a4_matches_jax_and_uncached():
 
 def test_engine_dtype_and_tp_mesh():
     """The engine takes ``dtype``, else the first floating leaf (f32 here);
-    a tp_mesh raises naming the parallel layer's item."""
+    with a tp_mesh it is the family's TP engine over that mesh."""
     nt = jax_opt_numpy()
     params = from_jax_params(nt, device="cpu")
     tl = TorchLM(OPT, params, opt.OPTConfig(**CFG), CharTokenizer(),
@@ -157,9 +157,15 @@ def test_engine_dtype_and_tp_mesh():
     assert tl16._get_engine().dtype == torch.bfloat16
     assert tl16._get_engine().max_batch == 2
     assert tl16._get_engine().max_len == 64
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TorchLM(OPT, params, opt.OPTConfig(**CFG), CharTokenizer(),
-                device="cpu", tp_mesh=object())
+    from omniquant_tpu_torch.parallel import make_mesh
+    from omniquant_tpu_torch.serving import TPOPTEngine
+
+    mesh = make_mesh(tp=2, devices=["cpu"] * 2)
+    tlp = TorchLM(OPT, params, opt.OPTConfig(**CFG), CharTokenizer(),
+                  seqlen=64, batch_size=2, device="cpu", tp_mesh=mesh)
+    eng = tlp._get_engine()
+    assert isinstance(eng, TPOPTEngine) and eng.mesh is mesh
+    assert (eng.dtype, eng.max_batch, eng.max_len) == (torch.float32, 2, 64)
 
 
 WORDS = ("alpha bravo charlie delta echo foxtrot golf hotel india juliett "

@@ -52,7 +52,9 @@ def test_no_jax_or_jax_package_loaded():
                 "eval.harness.tasks_qa", "eval.harness.tasks_translation",
                 "decontamination", "decontamination.janitor",
                 "decontamination.decontaminate", "generate_act_stats",
-                "parallel", "parallel.ring_attention"):
+                "parallel", "parallel.ring_attention", "parallel.mesh",
+                "parallel.sharding", "parallel.tp_forward",
+                "serving.tp_engine"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 
@@ -78,7 +80,7 @@ def test_default_device_raises_without_a_card():
     from omniquant_tpu_torch import resolve_device
     from omniquant_tpu_torch.calib import (
         CalibConfig, calibrate, collect_act_stats)
-    from omniquant_tpu_torch.models import LLAMA, llama, opt
+    from omniquant_tpu_torch.models import LLAMA, falcon, llama, opt
     from omniquant_tpu_torch.quant import QuantConfig
     from omniquant_tpu_torch.serving import LlamaEngine, OPTEngine, pack_model
     from omniquant_tpu_torch.utils import from_jax_params
@@ -115,4 +117,20 @@ def test_default_device_raises_without_a_card():
         TorchLM(LLAMA, params, cfg, tokenizer=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_tasks(LLAMA, params, cfg, None, ["piqa"])
+    from omniquant_tpu_torch.parallel import Mesh, make_mesh
+    from omniquant_tpu_torch.serving import (
+        TPFalconEngine, TPLlamaEngine, TPOPTEngine)
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(tp=2)
+    cuda2 = Mesh(["cuda:0", "cuda:0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TPLlamaEngine(params, cfg, cuda2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TPOPTEngine(opt.init_params(gen, ocfg, device="cpu"), ocfg, cuda2)
+    fcfg = falcon.FalconConfig(vocab_size=32, hidden_size=128,
+                               num_hidden_layers=1, num_attention_heads=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TPFalconEngine(falcon.init_params(gen, fcfg, device="cpu"), fcfg,
+                       cuda2)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -672,6 +672,12 @@ def _decode_want(q, cache, lens, kv_len, ring, ring_n):
         (4, 8, 16, 64, 2048, 2048, "bounds", 8, 3),
         (4, 8, 29, 64, 1536, 1600, "bounds", 0, -1),
         (4, 2, 9, 128, 1000, 1024, [999, 0, -1, 500], 4, 2),
+        # a LLaMA-2-70B shard at tp 8: one kv head of 8 query heads, batch
+        # 8, a 2048 window, with and without step_n's ring
+        (8, 1, 8, 128, 2048, 2048, [2047, 1023, 1024, 0, -1, 1500, 600,
+                                    2000], 0, -1),
+        (8, 1, 8, 128, 2048, 2048, [2030, 1023, 1024, 0, -1, 1500, 600,
+                                    2000], 8, 7),
     ])
 def test_decode_attention_int8_kernel(cuda, B, n_kv, n_rep, hd, kv_len,
                                       max_len, lengths, R, ring_n):
@@ -1059,6 +1065,107 @@ def test_engine_on_the_card_matches_plain_versions(cuda):
         logits.append(lg.float().cpu())
     d = logits[1] - logits[0]
     assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 3e-2
+
+
+# ---------------------------------------------------------------------------
+# K1 at the per-shard shapes of tensor-parallel serving
+
+# (label, bits, group, layout, N, K, tp, padded K): a column-parallel weight
+# packed whole, padded (pad_intermediate_packed), made splittable
+# (_ensure_col_splittable: OPT-2.7B's out_proj retiles from 512 rows to 256
+# at tp 2 and 128 at tp 4) and split; shard 0 against the plain version. A
+# row-parallel shard is a pack of its own lanes: the 70B fused qkv (1280
+# lanes a shard at tp 8) and gate_up (2 x 3584).
+TP_K1 = [
+    ("70b o tp8", 3, 128, "planar", 8192, 8192, 8, 8192),
+    ("70b down tp8", 3, 128, "planar", 8192, 28672, 8, 28672),
+    ("70b qkv tp8", 3, 128, "pairs", 1280, 8192, 1, 8192),
+    ("70b gate_up tp8", 3, 128, "pairs", 7168, 8192, 1, 8192),
+    ("7b down tp2", 4, 128, "pairs", 4096, 11008, 2, 11264),
+    ("7b o tp2", 4, 128, "pairs", 4096, 4096, 2, 4096),
+    ("opt27b out tp2 (tile 256)", 4, 128, "pairs", 2560, 2560, 2, 2560),
+    ("opt27b out tp4 (tile 128)", 4, 128, "pairs", 2560, 2560, 4, 2560),
+]
+
+
+def tp_shard_weight(device, bits, group_size, layout, N, K, tp, k_pad,
+                    seed=0):
+    """Shard 0 of a (N, K) weight placed column-parallel over tp shards, as
+    the TP engine places it, with bf16 scales and zeros."""
+    from omniquant_tpu_torch.parallel import tp_forward as tpf
+    from omniquant_tpu_torch.parallel.sharding import local_packed
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(N, K, generator=gen, device=device) * 0.02
+    pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=group_size),
+                     layout=layout)
+    del w
+    pw = pw.map_tensors(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+    if k_pad != K:
+        pw = tpf._pad_packed_in(pw, k_pad)
+    pw = tpf._ensure_col_splittable(pw, tp)
+    return local_packed(pw, tpf.local_spec(pw, False), tp, 0, device)
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 128])
+@pytest.mark.parametrize("label,bits,group_size,layout,N,K,tp,k_pad", TP_K1)
+def test_quant_matmul_kernel_tp_shards(cuda, label, bits, group_size, layout,
+                                       N, K, tp, k_pad, m):
+    """K1 on the tiles and shapes tensor-parallel placement makes (retiled
+    tiles included), against its plain version; one launch, never the dense
+    route."""
+    pw = tp_shard_weight(cuda, bits, group_size, layout, N, K, tp, k_pad)
+    if "tile" in label:
+        assert pw.tile_k == int(label.split("tile ")[1].rstrip(")"))
+    x = torch.randn(m, k_pad // tp, generator=torch.Generator(
+        device=cuda).manual_seed(m), device=cuda).to(torch.bfloat16)
+    before = quant_matmul.launches
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    ok, err, worst = tolerance.bf16_close(got, quant_matmul_reference(x, pw),
+                                          tolerance.QUANT_MATMUL_SLACK)
+    assert ok, (label, err, worst)
+
+
+def test_tp_engine_on_the_card_matches_single(cuda):
+    """A tiny packed LLaMA served by TPLlamaEngine over 4 shards on one card
+    (bf16, int8 KV: K1, K2, K3, K4, K5, K6 on every shard) against the
+    single engine on the card: prefill logits near each other, every kernel
+    launched by every shard."""
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.parallel import make_mesh
+    from omniquant_tpu_torch.serving import TPLlamaEngine
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=512,
+                            intermediate_size=1024, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=4)
+    gen = torch.Generator().manual_seed(0)
+    dense = llama.init_params(gen, cfg, device="cpu")
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+                        device="cpu")
+    reqs = [[(7 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12))]
+    kw = dict(max_batch=4, max_len=128, dtype=torch.bfloat16,
+              flash_min_len=32, kv_dtype="int8")
+    single = LlamaEngine(packed, cfg, device=cuda, **kw)
+    tp = TPLlamaEngine(packed, cfg, make_mesh(tp=4, devices=[cuda] * 4), **kw)
+    logits, streams = [], []
+    for eng in (single, tp):
+        kernels.reset_launch_counts()
+        slots, lg = eng.add_requests(reqs, return_logits=True)
+        logits.append(lg.float().cpu())
+        last = {s: eng._pending_next[s] for s in slots}
+        streams.append(eng.step_n(last, 4))
+        counts = kernels.launch_counts()
+    d = logits[1] - logits[0]
+    assert (d.pow(2).mean().sqrt() / logits[0].pow(2).mean().sqrt()) < 3e-2
+    for name in ("quant_matmul", "flash_attention", "kv_cache_prefill_write",
+                 "kv_cache_write_span", "decode_attention_int8"):
+        assert counts[name] > 0, name
+    # every shard launches its own: 4 shards x 2 layers x 4 steps of K6
+    assert counts["decode_attention_int8"] == 4 * 2 * 4
 
 
 # ---------------------------------------------------------------------------
