@@ -250,6 +250,32 @@ prints no result. Any failure raises, so the exit code is non-zero.
               70B's at tp 8, 7B's at tp 2, OPT-2.7B's out_proj retiled to
               256 and 128 rows) and K6 at a 70B shard's one kv head of 8
               query heads.
+14. mp      -- multi-process serving, every rank a process of its own on
+              the one card (this script with --mp-rank, spawned after the
+              build, each rank with the phase's timeout; a gloo group, as
+              the ranks share a card; each pack written once to
+              build/mp/ in utils/convert.py's npz format and read by the
+              ranks, none of which packs). DP: LLaMA-7B widths at 32
+              layers (engine A's: W4A16 g128 pairs, bf16 KV, max_len 512)
+              behind DPServingCoordinator over 2 ranks of max_batch 4: 8 x
+              128 prompts routed round-robin, the first decode, step_n(.,
+              8) x 4, gather_tokens; held: both ranks gather the same
+              global streams, each under the near-tie rule; each rank's
+              first-decode logits equal a batch-4 LlamaEngine's on its
+              prompts bit for bit and its streams that engine's; its K1,
+              K3 and K4 launches that engine's; a rank whose scales are x
+              1.01 must fail that hold. Read beside one engine at batch 8:
+              prefill and step_n tok/s a rank and together, peak GiB a
+              rank. TP: the tp phase's LLaMA-2-7B tp 2 (W4A16) and
+              LLaMA-2-70B tp 8 (8 layers, int8 KV) packs made again from
+              their seeds, one shard a rank (each rank places only its
+              shard): every rank's launches exactly one shard's of the tp
+              phase's run, its prefill and first-decode logits against the
+              tp phase's in-process TP engine (bit identity reported, held
+              at E2E_TOL), all ranks alike, streams under the near-tie
+              rule; the last shard's partial left out of every sum must
+              fail. A step ms, step_n and prefill tok/s and a shard's GiB
+              beside the in-process mesh's and the single engine's.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line ``{"kernels": [...]}``; the last line is
@@ -4840,11 +4866,14 @@ def tp_fault(torch, cfg, packed, single_got, eng, reqs, spec, tol, bound,
         eng.release(x)
 
 
-def tp_phase(torch, device, seed, out: dict) -> dict:
+def tp_phase(torch, device, seed, out: dict, keep: dict = None) -> dict:
     """TP_RUNS in order; the last (LLaMA-2-70B widths, int8 KV) ends with
     one step_n(., 8) of the single and the TP engine under torch.profiler
-    (profile_step: the card's busy share of a step). Returns the TP
-    engines' launches summed over the runs."""
+    (profile_step: the card's busy share of a step). ``keep`` receives the
+    pack (cfg, params) and the TP engine's logits, streams and readings of
+    MP_TP_RUNS (the mp phase hands the pack to its ranks and holds them
+    against the rest). Returns the TP engines' launches summed over the
+    runs."""
     res = out["tp"] = {}
     counts = {}
     packs = {}
@@ -4866,6 +4895,11 @@ def tp_phase(torch, device, seed, out: dict) -> dict:
             torch, device, name, cfg, packed, seed, res)
         for k, v in res[name]["tp_engine"]["launches"].items():
             counts[k] = counts.get(k, 0) + v
+        if keep is not None and name in MP_TP_RUNS:
+            keep[name] = dict(prefill=t_got[0].float().cpu(),
+                              dec=t_got[1].float().cpu(), streams=t_got[2],
+                              first=[x[0] for x in s_got[2]],
+                              readings=res[name], pack=packs[key])
         tp_fault(torch, cfg, packed, s_got, eng, reqs, spec, tol, bound,
                  res[name])
         if name == "70b_int8":
@@ -4972,11 +5006,570 @@ def check_tp_kernels(torch, device, timer, out: dict) -> tuple:
     return rows, k6
 
 
+# ---------------------------------------------------------------------------
+# mp: multi-process serving with every rank on the one card. Ranks are this
+# script run with --mp-rank, spawned with subprocess after the kernels are
+# built; each joins a gloo group (its ranks share one card, so not NCCL:
+# parallel/multihost.py) and reads its pack from an npz file (the v2
+# format of utils/convert.py::load_packed_npz) that this process writes.
+# DP: engine A's LLaMA-7B widths at full depth (32 layers, W4A16 g128
+# pairs, bf16 KV, max_len 512) behind DPServingCoordinator over
+# MP_DP_RANKS ranks of max_batch 4: 8 prompts of 128 tokens routed
+# round-robin, the first decode, step_n(., 8) x MP_DP_DISPATCHES; against
+# one LlamaEngine at batch 8 and one at batch 4 (each rank's prompts) on
+# the same pack. TP: MP_TP_RUNS of TP_RUNS with one shard a rank, against
+# the tp phase's in-process TP engine on the same (regenerated) pack.
+MP_DIR = os.path.join(HERE, "build", "mp")
+MP_DP_MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                   num_hidden_layers=32, num_attention_heads=32,
+                   num_key_value_heads=32)  # engine A's (main's cfg)
+MP_DP_RANKS, MP_DP_MAX_BATCH, MP_DP_PROMPTS, MP_DP_LEN = 2, 4, 8, 128
+MP_DP_MAX_LEN, MP_DP_DISPATCHES = 512, 4
+MP_DP_PATHS = ("quant_matmul", "quant_matmul_prefill",
+               "kv_cache_prefill_write", "kv_cache_write")
+MP_TP_RUNS = ("7b_w4a16", "70b_int8")
+MP_TIMEOUT_S = {"dp": 300, "7b_w4a16": 180, "70b_int8": 360}
+MP_COLLECTIVE_TIMEOUT_S = 300
+MP_FAULT_SCALE = 1.01  # DP's planted fault: rank 1's scales x 1.01
+# TP's planted fault runs the first MP_TP_FAULT_REQS prompts: a 70B
+# prefill's partials (8 x 256 rows) cross gloo through the host at ~20 s
+MP_TP_FAULT_REQS = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mp_spawn(leg: str, world: int, seed: int, timeout: float) -> list:
+    """``world`` ranks of this script with ``--mp-rank leg``, each logging
+    to MP_DIR/<leg>_rank<r>.log, given ``timeout`` seconds in all; the
+    first rank to fail, or the clock, kills them all and raises. Returns
+    each rank's (json readings, tensors)."""
+    import torch
+
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 1) // world)))
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(MP_DIR, f"{leg}_rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-rank", leg,
+                 "--rank", str(r), "--world", str(world), "--port",
+                 str(port), "--seed", str(seed)], cwd=HERE, env=env,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            late = time.time() - t0 > timeout
+            if bad or late:
+                r = bad[0] if bad else 0
+                with open(os.path.join(MP_DIR, f"{leg}_rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(
+                    f"mp {leg}: rank {r} "
+                    f"{'exited ' + str(codes[r]) if bad else 'timed out'} "
+                    f"after {time.time() - t0:.1f} s:\n{tail}")
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    out = []
+    for r in range(world):
+        base = os.path.join(MP_DIR, f"{leg}_rank{r}")
+        with open(base + ".json") as f:
+            out.append((json.load(f), torch.load(base + ".pt")))
+    return out
+
+
+def _dp_run(torch, eng, reqs, coord=None) -> tuple:
+    """Serve ``reqs`` as a DP rank (``coord``: submit, step_n and
+    gather_tokens of a DPServingCoordinator over ``eng``) or as one engine:
+    a warm-up, then the prefill, the first decode's logits
+    (eng._decode_impl on the local slots from their first tokens; step_n
+    writes that row again with the same values) and MP_DP_DISPATCHES
+    step_n(., 8), timed on the host clock behind synchronisations, the
+    launch counts and the peak memory reset at the prefill. A rank starts
+    the prefill and the decode loop at a barrier of every rank and keeps
+    the host-clock stamps (one clock: the ranks share the host) of each
+    window, so the ranks' windows together are read from the first start
+    to the last end. Returns (readings, first-decode logits of the local
+    slots in request order, streams: the global ones for a rank, else the
+    engine's)."""
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.parallel import multihost
+
+    def barrier():
+        if coord is not None:
+            torch.distributed.barrier(group=multihost.cpu_group())
+
+    warm = [r[:16] for r in reqs[:2 * (coord.nproc if coord else 1)]]
+    if coord is not None:
+        ids = coord.submit(warm)
+        coord.step_n(2)
+        for i in ids:
+            coord.release(i)
+    else:
+        slots = eng.add_requests(warm)
+        eng.step_n({x: eng._pending_next[x] for x in slots}, 2)
+        for x in slots:
+            eng.release(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _Fallbacks() as fb:
+        barrier()
+        t = time.time()
+        if coord is not None:
+            ids = coord.submit(reqs)
+            slots = [coord._slot_of[i] for i in ids if i in coord._slot_of]
+        else:
+            slots = eng.add_requests(reqs)
+        torch.cuda.synchronize()
+        prefill = (t, time.time())
+        first = [eng._pending_next[x] for x in slots]
+        toks, lens = eng._device_tokens(dict(zip(slots, first)))
+        dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+        torch.cuda.synchronize()
+        barrier()
+        t = time.time()
+        if coord is not None:
+            for _ in range(MP_DP_DISPATCHES):
+                coord.step_n(8)
+        else:
+            last = dict(zip(slots, first))
+            streams = {x: [f] for x, f in last.items()}
+            for _ in range(MP_DP_DISPATCHES):
+                out = eng.step_n(last, 8)
+                for x in slots:
+                    streams[x].extend(out[x])
+                last = {x: out[x][-1] for x in slots}
+        torch.cuda.synchronize()
+        decode = (t, time.time())
+    barrier()
+    if coord is not None:
+        got = coord.gather_tokens()
+        streams = [got[i] for i in ids]
+        for i in ids:
+            coord.release(i)
+    else:
+        streams = [streams[x] for x in slots]
+        for x in slots:
+            eng.release(x)
+    if fb.calls:
+        raise AssertionError(f"mp dp: plain versions or dense routes ran "
+                             f"on the card path: {fb.calls}")
+    n = len(slots)
+    prefill_s, decode_s = prefill[1] - prefill[0], decode[1] - decode[0]
+    r = dict(requests=n, prefill_s=prefill_s, decode_s=decode_s,
+             prefill_window=prefill, decode_window=decode,
+             prefill_tok_s=n * len(reqs[0]) / prefill_s,
+             decode_tok_s=n * 8 * MP_DP_DISPATCHES / decode_s,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             launches=kernels.launch_counts())
+    return r, dec.float().cpu(), streams
+
+
+def _mp_dp_rank(torch, dev, args) -> tuple:
+    """A DP rank: its own replica of the pack on the card behind
+    DPServingCoordinator, the clean run, then the fault run (rank 1's
+    scales x MP_FAULT_SCALE)."""
+    from omniquant_tpu_torch.models import llama
+    from omniquant_tpu_torch.quant import PackedWeight
+    from omniquant_tpu_torch.serving import DPServingCoordinator, LlamaEngine
+    from omniquant_tpu_torch.utils import load_packed_npz
+
+    cfg = llama.LlamaConfig(**MP_DP_MODEL)
+    t = time.time()
+    packed = load_packed_npz(os.path.join(MP_DIR, "dp_pack.npz"), device=dev)
+    eng = LlamaEngine(packed, cfg, max_batch=MP_DP_MAX_BATCH,
+                      max_len=MP_DP_MAX_LEN, dtype=torch.bfloat16,
+                      seed=args.seed, device=dev)
+    del packed
+    res = dict(load_s=time.time() - t)
+    coord = DPServingCoordinator(eng)
+    reqs = prompts(torch, MP_DP_PROMPTS, MP_DP_LEN, cfg.vocab_size,
+                   args.seed + 24)
+    res["clean"], dec, streams = _dp_run(torch, eng, reqs, coord)
+    tensors = {"clean_dec": dec}
+    res["clean"]["streams"] = streams
+    if coord.pid == 1:
+        for layer in eng.params["layers"]:
+            for w in layer.values():
+                if isinstance(w, PackedWeight):
+                    w.scales.mul_(MP_FAULT_SCALE)
+    res["fault"], tensors["fault_dec"], res["fault"]["streams"] = _dp_run(
+        torch, eng, reqs, coord)
+    return res, tensors
+
+
+def _tp_model_cfg(name):
+    from omniquant_tpu_torch.models import llama
+
+    if TP_RUNS[name][0] == "70b":
+        return llama.LlamaConfig(**dict(LLAMA2_70B,
+                                        num_hidden_layers=TP_70B_LAYERS))
+    return llama.LlamaConfig(**LLAMA2_7B)
+
+
+def _mp_tp_rank(torch, dev, args) -> tuple:
+    """A TP rank of TP_RUNS[args.mp_rank], one shard: the pack read on the
+    host and only this rank's shard placed on the card; _serve_timed from
+    the in-process run's first tokens, then the planted fault (the last
+    shard's partial left out of every sum, on every rank) through the same
+    calls on the first MP_TP_FAULT_REQS prompts."""
+    from omniquant_tpu_torch.models.common import ActQuantSpec
+    from omniquant_tpu_torch.parallel import make_mesh
+    from omniquant_tpu_torch.serving import TPLlamaEngine
+    from omniquant_tpu_torch.utils import load_packed_npz
+
+    name = args.mp_rank
+    model, tp, kv, abits = TP_RUNS[name]
+    cfg = _tp_model_cfg(name)
+    t = time.time()
+    packed = load_packed_npz(os.path.join(MP_DIR, f"{name}_pack.npz"),
+                             device="cpu", dtype=torch.bfloat16)
+    res = dict(load_s=time.time() - t)
+    t = time.time()
+    mesh = make_mesh(tp=tp)
+    eng = TPLlamaEngine(packed, cfg, mesh, max_batch=TP_BATCH,
+                        max_len=TP_MAX_LEN, dtype=torch.bfloat16,
+                        kv_dtype=kv, spec=ActQuantSpec.from_bits(abits),
+                        seed=args.seed)
+    torch.cuda.synchronize()
+    res.update(place_s=time.time() - t, local=mesh.local,
+               held=[p for p, s in enumerate(eng.shards) if s is not None])
+    with open(os.path.join(MP_DIR, f"{name}_first.json")) as f:
+        first = json.load(f)
+    reqs = prompts(torch, TP_BATCH, TP_PROMPT_LEN, cfg.vocab_size,
+                   args.seed + 22)
+    prefill, dec, streams, _ = _serve_timed(torch, eng, reqs, res,
+                                            first=first)
+    res["streams"] = streams
+    res["shard_gib"] = _tree_bytes(
+        torch, [s.params for s in eng.local_shards],
+        [s.cache for s in eng.local_shards]) / 2**30
+    tensors = dict(prefill=prefill.float().cpu(), dec=dec.float().cpu())
+    for x in [i for i, a in enumerate(eng.active) if a]:
+        eng.release(x)
+    n_f = MP_TP_FAULT_REQS
+    with _DropLastPartial(eng.mesh):
+        slots, f_prefill = eng.add_requests(reqs[:n_f], return_logits=True)
+        toks, lens = eng._device_tokens(dict(zip(slots, first)))
+        f_dec = eng._decode_impl(toks, lens, eng._kv_len(1))
+        out = eng.step_n(dict(zip(slots, first)), 8)
+    res["fault_streams"] = [[f] + out[x] for f, x in zip(first, slots)]
+    tensors.update(fault_prefill=f_prefill.float().cpu(),
+                   fault_dec=f_dec.float().cpu())
+    return res, tensors
+
+
+def mp_rank_main(torch, args) -> int:
+    """One rank of the mp phase (``--mp-rank``): join the gloo group, run
+    the leg, write MP_DIR/<leg>_rank<r>.json and .pt."""
+    from omniquant_tpu_torch.parallel import MultihostConfig, init_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_multihost(MultihostConfig(
+        f"localhost:{args.port}", args.world, args.rank,
+        timeout_s=MP_COLLECTIVE_TIMEOUT_S), "cuda")
+    leg = _mp_dp_rank if args.mp_rank == "dp" else _mp_tp_rank
+    res, tensors = leg(torch, dev, args)
+    res.update(rank=torch.distributed.get_rank(), device=str(dev),
+               backend=torch.distributed.get_backend())
+    base = os.path.join(MP_DIR, f"{args.mp_rank}_rank{args.rank}")
+    torch.save(tensors, base + ".pt")
+    with open(base + ".json", "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _dp_hold(torch, cfg, packed, reqs, ranks, single, run, bound) -> dict:
+    """The DP hold on ``run`` ("clean" or "fault") of every rank: the
+    gathered global streams equal on every rank and under the near-tie
+    rule (stream_gaps) at ``bound``; each rank's first-decode logits equal
+    to the batch-4 single engine's on its prompts bit for bit (the same
+    kernels at the same shapes on the same card) and its streams equal to
+    that engine's; its launches of MP_DP_PATHS that engine's. The batch-8
+    engine's streams are read the same way."""
+    from omniquant_tpu_torch.models import LLAMA
+    from omniquant_tpu_torch.models.common import NO_ACT_QUANT
+
+    got = [r[run]["streams"] for r, _ in ranks]
+    h = dict(ranks_agree=all(g == got[0] for g in got))
+    h["streams"] = near_tie(stream_gaps(torch, LLAMA, cfg, packed, reqs,
+                                        got[0], NO_ACT_QUANT), bound)
+    h["equal_to_batch8"] = sum(a == b for a, b in zip(
+        got[0], single["batch8"][2]))
+    h["ranks"] = []
+    for r, (res, tensors) in enumerate(ranks):
+        one = single[f"rank{r}"]
+        mine = got[0][r::len(ranks)]
+        h["ranks"].append(dict(
+            dec_bit_equal=bool(torch.equal(tensors[f"{run}_dec"], one[1])),
+            dec_gap=logit_gap(tensors[f"{run}_dec"], one[1]),
+            streams_equal=sum(a == b for a, b in zip(mine, one[2])),
+            launches_equal={k: (res[run]["launches"][k],
+                                one[0]["launches"][k])
+                            for k in MP_DP_PATHS}))
+    h["ok"] = (h["ranks_agree"] and h["streams"]["ok"] and all(
+        x["dec_bit_equal"] and x["streams_equal"] == MP_DP_PROMPTS // len(
+            ranks) for x in h["ranks"]))
+    return h
+
+
+def mp_dp(torch, device, seed, res: dict) -> dict:
+    """The DP leg: the pack written, the batch-8 and batch-4 single engines,
+    the ranks spawned, the hold on the clean run (must pass) and on the
+    fault run (must fail), the launch checks. Returns the ranks' launches
+    summed (clean runs)."""
+    from omniquant_tpu_torch.models import llama
+    from omniquant_tpu_torch.serving import LlamaEngine
+    from omniquant_tpu_torch.utils import save_pytree
+
+    cfg = llama.LlamaConfig(**MP_DP_MODEL)
+    packed = make_packed(torch, cfg, device, seed + 23)
+    t = time.time()
+    save_pytree(os.path.join(MP_DIR, "dp_pack.npz"), packed)
+    res["pack_write_s"] = time.time() - t
+    reqs = prompts(torch, MP_DP_PROMPTS, MP_DP_LEN, cfg.vocab_size, seed + 24)
+    single = {}
+    kw = dict(max_len=MP_DP_MAX_LEN, dtype=torch.bfloat16, seed=seed,
+              device=device)
+    eng = LlamaEngine(packed, cfg, max_batch=MP_DP_PROMPTS, **kw)
+    single["batch8"] = _dp_run(torch, eng, reqs)
+    del eng
+    eng = LlamaEngine(packed, cfg, max_batch=MP_DP_MAX_BATCH, **kw)
+    for r in range(MP_DP_RANKS):
+        single[f"rank{r}"] = _dp_run(torch, eng, reqs[r::MP_DP_RANKS])
+    del eng
+    torch.cuda.empty_cache()
+    t = time.time()
+    ranks = mp_spawn("dp", MP_DP_RANKS, seed, MP_TIMEOUT_S["dp"])
+    res["spawn_s"] = time.time() - t
+    os.remove(os.path.join(MP_DIR, "dp_pack.npz"))
+    bound = SPEC_TIE * E2E_TOL["max"]
+    hold = res["hold"] = _dp_hold(torch, cfg, packed, reqs, ranks, single,
+                                  "clean", bound)
+    fault = res["fault"] = _dp_hold(torch, cfg, packed, reqs, ranks, single,
+                                    "fault", bound)
+    res["single_batch8"] = single["batch8"][0]
+    res["single_batch4"] = [single[f"rank{r}"][0]
+                            for r in range(MP_DP_RANKS)]
+    res["ranks"] = [dict({k: v for k, v in r["clean"].items()
+                          if k != "streams"}, load_s=r["load_s"],
+                         backend=r["backend"], device=r["device"])
+                    for r, _ in ranks]
+    rk = res["ranks"]
+
+    def span(key):  # the first rank's start to the last rank's end
+        return max(r[key][1] for r in rk) - min(r[key][0] for r in rk)
+
+    tog = res["together"] = dict(
+        prefill_s=span("prefill_window"), decode_s=span("decode_window"),
+        start_skew_s=max(abs(r[k][0] - rk[0][k][0]) for r in rk
+                         for k in ("prefill_window", "decode_window")))
+    tog.update(prefill_tok_s=MP_DP_PROMPTS * MP_DP_LEN / tog["prefill_s"],
+               decode_tok_s=(MP_DP_PROMPTS * 8 * MP_DP_DISPATCHES
+                             / tog["decode_s"]))
+    wrong = {r: {k: v for k, v in x["launches_equal"].items()
+                 if v[0] != v[1] or v[0] <= 0}
+             for r, x in enumerate(hold["ranks"])}
+    s8 = single["batch8"][0]
+    log(f"  mp dp ({MP_DP_RANKS} ranks x max_batch {MP_DP_MAX_BATCH}, "
+        f"{cfg.num_hidden_layers} layers, {rk[0]['backend']}): prefill tok/s "
+        + " / ".join(f"{r['prefill_tok_s']:.1f}" for r in rk)
+        + f" a rank, {res['together']['prefill_tok_s']:.1f} together "
+        f"(single batch 8: {s8['prefill_tok_s']:.1f}); step_n tok/s "
+        + " / ".join(f"{r['decode_tok_s']:.1f}" for r in rk)
+        + f" a rank, {res['together']['decode_tok_s']:.1f} together (single "
+        f"batch 8: {s8['decode_tok_s']:.1f}); peak GiB a rank "
+        + " / ".join(f"{r['peak_gib']:.2f}" for r in rk)
+        + f" (single batch 8: {s8['peak_gib']:.2f}); together: the first "
+        f"rank's start to the last rank's end, the ranks' windows starting "
+        f"at barriers at most {tog['start_skew_s'] * 1e3:.2f} ms apart; pack "
+        f"written in {res['pack_write_s']:.1f} s, ranks "
+        f"{res['spawn_s']:.1f} s")
+    log(f"  mp dp hold: ranks agree {hold['ranks_agree']}; streams "
+        f"{_log_tie(hold['streams'])}; {hold['equal_to_batch8']} of "
+        f"{MP_DP_PROMPTS} equal to the batch-8 engine's; per rank first-"
+        "decode logits bit-equal to the batch-4 engine's "
+        f"{[x['dec_bit_equal'] for x in hold['ranks']]}, streams equal "
+        f"{[x['streams_equal'] for x in hold['ranks']]}; launches "
+        f"(rank, batch-4 engine) "
+        f"{[x['launches_equal'] for x in hold['ranks']]}")
+    log(f"  mp dp fault (rank 1's scales x {MP_FAULT_SCALE}): first-decode "
+        "logits bit-equal "
+        f"{[x['dec_bit_equal'] for x in fault['ranks']]}, rms rel "
+        f"{[round(x['dec_gap']['rms_rel'], 5) for x in fault['ranks']]}; "
+        f"streams equal {[x['streams_equal'] for x in fault['ranks']]}: "
+        f"{'REJECTED' if not fault['ok'] else 'PASSED'}")
+    if not hold["ok"] or any(wrong.values()):
+        raise AssertionError(f"mp dp: the hold fails (ok {hold['ok']}) or "
+                             f"launches differ {wrong}")
+    if fault["ok"]:
+        raise AssertionError("mp dp: the planted fault passed the hold")
+    counts = {}
+    for r, _ in ranks:
+        for k, v in r["clean"]["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def mp_tp(torch, device, seed, name, inproc: dict, out: dict) -> dict:
+    """A TP leg: the tp phase's pack (taken from ``inproc``) written, tp
+    ranks of one shard, each rank's launches one shard's of the in-process
+    run (_tp_expected / tp, exactly); the prefill and first-decode logits
+    against the in-process TP engine's (bit identity reported, held to
+    E2E_TOL), all ranks alike, the streams under the near-tie rule; the
+    planted fault must fail. Returns the ranks' launches summed."""
+    from omniquant_tpu_torch.models import LLAMA
+    from omniquant_tpu_torch.models.common import ActQuantSpec
+    from omniquant_tpu_torch.utils import save_pytree
+
+    model, tp, kv, abits = TP_RUNS[name]
+    res = out[name] = dict(tp=tp, kv=kv, abits=abits)
+    cfg, packed = inproc.pop("pack")
+    t = time.time()
+    save_pytree(os.path.join(MP_DIR, f"{name}_pack.npz"), packed)
+    with open(os.path.join(MP_DIR, f"{name}_first.json"), "w") as f:
+        json.dump(inproc["first"], f)
+    res["pack_write_s"] = time.time() - t
+    t = time.time()
+    ranks = mp_spawn(name, tp, seed, MP_TIMEOUT_S[name])
+    res["spawn_s"] = time.time() - t
+    os.remove(os.path.join(MP_DIR, f"{name}_pack.npz"))
+    reqs = prompts(torch, TP_BATCH, TP_PROMPT_LEN, cfg.vocab_size, seed + 22)
+    spec = ActQuantSpec.from_bits(abits)
+    tol = E2E_TOL if abits == 16 else E2E_INT_TOL[abits]
+    bound = SPEC_TIE * tol["max"]
+    r0, t0 = ranks[0]
+    want = {k: v // tp for k, v in _tp_expected(
+        name, tp, cfg.num_hidden_layers, 1 + 8 * TP_DISPATCHES,
+        TP_DISPATCHES).items()}
+    wrong = {r: {k: (res_r["launches"][k], v) for k, v in want.items()
+                 if res_r["launches"][k] != v}
+             for r, (res_r, _) in enumerate(ranks)}
+    missing = [k for k in TP_PATHS[name] if r0["launches"][k] <= 0]
+
+    def hold(prefill, dec, streams, fault=False):
+        n = len(streams)  # the fault runs the first MP_TP_FAULT_REQS
+        want = inproc["prefill"][:n]
+        h = dict(prefill_logits=logit_gap(prefill, want),
+                 prefill_bit_equal=bool(torch.equal(prefill, want)),
+                 streams=near_tie(stream_gaps(torch, LLAMA, cfg, packed,
+                                              reqs[:n], streams, spec),
+                                  bound))
+        if not fault:
+            h.update(decode_logits=logit_gap(dec, inproc["dec"]),
+                     decode_bit_equal=bool(torch.equal(dec, inproc["dec"])),
+                     streams_equal_in_process=sum(
+                         a == b for a, b in zip(streams, inproc["streams"])))
+        h["ok"] = (gap_within(h["prefill_logits"], tol)
+                   and (fault or gap_within(h["decode_logits"], tol))
+                   and h["streams"]["ok"])
+        return h
+
+    h = res["hold"] = hold(t0["prefill"], t0["dec"], r0["streams"])
+    h["ranks_agree"] = all(
+        torch.equal(t["prefill"], t0["prefill"])
+        and torch.equal(t["dec"], t0["dec"]) and r["streams"] == r0["streams"]
+        for r, t in ranks)
+    f = res["fault"] = hold(t0["fault_prefill"], None, r0["fault_streams"],
+                            fault=True)
+    res["ranks"] = [{k: r[k] for k in (
+        "load_s", "place_s", "prefill_s", "prefill_tok_s", "decode_s",
+        "step_s", "decode_tok_s", "peak_gib", "run_peak_gib", "shard_gib",
+        "local", "held", "backend", "device")} for r, _ in ranks]
+    ip = inproc["readings"]
+    rk = res["ranks"]
+    log(f"  mp tp {name} ({model}, {cfg.num_hidden_layers} layers, {tp} "
+        f"ranks of one shard, {kv} KV, {rk[0]['backend']}): a step "
+        f"{max(r['step_s'] for r in rk) * 1e3:.2f} ms (in-process mesh "
+        f"{ip['tp_engine']['step_s'] * 1e3:.2f}, single engine "
+        f"{ip['single']['step_s'] * 1e3:.2f}); step_n tok/s "
+        f"{min(r['decode_tok_s'] for r in rk):.1f} (in-process "
+        f"{ip['tp_engine']['decode_tok_s']:.1f}, single "
+        f"{ip['single']['decode_tok_s']:.1f}); prefill tok/s "
+        f"{min(r['prefill_tok_s'] for r in rk):.1f} (in-process "
+        f"{ip['tp_engine']['prefill_tok_s']:.1f}, single "
+        f"{ip['single']['prefill_tok_s']:.1f}); a shard "
+        f"{max(r['shard_gib'] for r in rk):.3f} GiB (in-process "
+        f"{max(ip['tp_engine']['shard_gib']):.3f}), peak a rank "
+        f"{max(r['peak_gib'] for r in rk):.2f} GiB; read "
+        f"{max(r['load_s'] for r in rk):.1f} s, placed "
+        f"{max(r['place_s'] for r in rk):.1f} s, pack written "
+        f"{res['pack_write_s']:.1f} s, ranks {res['spawn_s']:.1f} s; "
+        f"launches a rank {r0['launches']}")
+    log(f"  mp tp {name} against the in-process TP engine: prefill logits "
+        f"bit-equal {h['prefill_bit_equal']} (rms rel "
+        f"{h['prefill_logits']['rms_rel']:.3g}, max rel "
+        f"{h['prefill_logits']['max_rel']:.3g}; tol {tol['rms']}, "
+        f"{tol['max']}), first decode bit-equal {h['decode_bit_equal']}; "
+        f"ranks agree {h['ranks_agree']}; streams {_log_tie(h['streams'])}, "
+        f"{h['streams_equal_in_process']} of {len(reqs)} equal to the "
+        f"in-process engine's")
+    log(f"  mp tp {name} fault (the last shard's partial left out of every "
+        f"sum): prefill logits rms rel {f['prefill_logits']['rms_rel']:.3g};"
+        f" streams {_log_tie(f['streams'])}: "
+        f"{'REJECTED' if not f['ok'] else 'PASSED'}")
+    if any(wrong.values()) or missing:
+        raise AssertionError(f"mp tp {name}: launches (got, want) {wrong}, "
+                             f"never launched {missing}")
+    if not (h["ok"] and h["ranks_agree"]):
+        raise AssertionError(f"mp tp {name}: the ranks fail the hold")
+    if f["ok"]:
+        raise AssertionError(f"mp tp {name}: the planted fault passed")
+    counts = {}
+    for r, _ in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    del packed
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mp_phase(torch, device, seed, out: dict, inproc: dict) -> dict:
+    """DP then the TP legs (``inproc``: the tp phase's in-process results
+    of MP_TP_RUNS). Returns the ranks' launches summed over the legs."""
+    os.makedirs(MP_DIR, exist_ok=True)
+    res = out["mp"] = {}
+    counts = {}
+    legs = [("dp", lambda: mp_dp(torch, device, seed, res.setdefault(
+        "dp", {})))] + [(name, lambda name=name: mp_tp(
+            torch, device, seed, name, inproc[name], res))
+        for name in MP_TP_RUNS]
+    for leg, run in legs:
+        t = time.time()
+        for k, v in run().items():
+            counts[k] = counts.get(k, 0) + v
+        res[leg]["leg_s"] = time.time() - t
+        torch.cuda.empty_cache()
+    return counts
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    # one rank of the mp phase (spawned by mp_spawn)
+    ap.add_argument("--mp-rank", default=None, help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world", "--port"):
+        ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "omniquant_tpu_torch", "csrc")):
@@ -4989,6 +5582,8 @@ def main(argv=None) -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.mp_rank:
+        return mp_rank_main(torch, args)
     from omniquant_tpu_torch.models import llama
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5130,15 +5725,28 @@ def main(argv=None) -> int:
         f"LLaMA-2-70B widths at tp 8 ({TP_70B_LAYERS} of 80 layers, W3 g128, "
         f"bf16 and int8 KV), each against the single engine of its pack")
     t_tp = time.time()
-    tp_counts = tp_phase(torch, device, args.seed, out)
+    tp_keep = {}
+    tp_counts = tp_phase(torch, device, args.seed, out, tp_keep)
     out["tp_phase_s"] = time.time() - t_tp
     log(f"  tp phase {out['tp_phase_s']:.1f} s")
 
-    # the serve, spec, harness, sp and tp phases' launches per entry: K1's
-    # count holds both layouts
+    log(f"mp: multi-process serving, every rank on the card (gloo): DP over "
+        f"{MP_DP_RANKS} ranks at LLaMA-7B widths (32 layers, W4A16 g128) "
+        f"against one engine at batch {MP_DP_PROMPTS}; then TP with one "
+        f"shard a rank: LLaMA-2-7B widths at tp 2 and LLaMA-2-70B widths at "
+        f"tp 8 ({TP_70B_LAYERS} layers, int8 KV) against the tp phase's "
+        f"in-process mesh")
+    t_mp = time.time()
+    mp_counts = mp_phase(torch, device, args.seed, out, tp_keep)
+    del tp_keep
+    out["mp_phase_s"] = time.time() - t_mp
+    log(f"  mp phase {out['mp_phase_s']:.1f} s")
+
+    # the serve, spec, harness, sp, tp and mp phases' launches per entry
+    # (mp: its ranks' main runs): K1's count holds both layouts
     counts = {k: v + spec_counts.get(k, 0) + harness_counts.get(k, 0)
               + sp_counts.get(k, 0) + tp_counts.get(k, 0)
-              for k, v in counts.items()}
+              + mp_counts.get(k, 0) for k, v in counts.items()}
     planar = (counts["quant_matmul_planar_decode"]
               + counts["quant_matmul_planar_prefill"])
     launches = dict(counts, quant_matmul=counts["quant_matmul"] - planar,
@@ -5263,6 +5871,28 @@ def main(argv=None) -> int:
             for k, v in tpr.items()) + "; busy share TP / single: "
         + " / ".join(str(tpr["70b_int8"][w]["profile"]["busy_share"])
                      for w in ("tp_engine", "single")) + "; on:")
+    log(smi)
+    mpr = out["mp"]
+    dp = mpr["dp"]
+    log("mp (DP: prefill / step_n tok/s of the ranks together and of the "
+        "single engine at batch 8, peak GiB a rank; TP a rank of one shard "
+        "/ in-process mesh / single engine: a step ms, step_n tok/s; a "
+        "shard's GiB; prefill logits bit-equal to the in-process mesh's): "
+        f"dp {dp['together']['prefill_tok_s']:.1f} / "
+        f"{dp['single_batch8']['prefill_tok_s']:.1f}, "
+        f"{dp['together']['decode_tok_s']:.1f} / "
+        f"{dp['single_batch8']['decode_tok_s']:.1f}, "
+        + " / ".join(f"{r['peak_gib']:.2f}" for r in dp["ranks"]) + "; "
+        + "; ".join(
+            f"{k} {max(r['step_s'] for r in v['ranks']) * 1e3:.2f} / "
+            f"{tpr[k]['tp_engine']['step_s'] * 1e3:.2f} / "
+            f"{tpr[k]['single']['step_s'] * 1e3:.2f}, "
+            f"{min(r['decode_tok_s'] for r in v['ranks']):.1f} / "
+            f"{tpr[k]['tp_engine']['decode_tok_s']:.1f} / "
+            f"{tpr[k]['single']['decode_tok_s']:.1f}; "
+            f"{max(r['shard_gib'] for r in v['ranks']):.3f}; "
+            f"{v['hold']['prefill_bit_equal']}"
+            for k, v in mpr.items() if k in MP_TP_RUNS) + "; on:")
     log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(
         f"{n} {out['serve_' + n]['prefill_tok_s']:.1f} / "

@@ -36,9 +36,17 @@ scores ``--eval_ppl`` through the tensor-parallel trunk (``parallel/
 tp_forward.py``, which takes no activation quantizers, so it needs
 ``--abits 16``), over the first N visible cards (it exits when there are
 fewer; ``chip_smoke.py`` puts N shards on one card through the library),
-or N shards in this process on the CPU. Flags whose machinery is not
-ported yet (multi-host parallelism, the AutoGPTQ exporter) exit with the
-ROADMAP item that ports it.
+or N shards in this process on the CPU. ``--num_processes N
+--coordinator host:port --process_id R`` joins this process to a group of
+N ranks (``parallel/multihost.py``: NCCL where every rank of the host has
+a card of its own, else gloo); every rank runs the whole program, the
+``--tp`` mesh then spans the ranks (``--tp N --num_processes N``: one
+shard a process), and only rank 0 writes files (``--save_dir``, the
+calibration's and the caches' npz files, the ``--eval_cache`` db); each
+rank logs to a file of its own, ``log_<time>_rank<R>.txt``. Flags whose
+machinery is not ported yet (the AutoGPTQ exporter, a cluster found
+without ``--coordinator``, ``--sp`` across ranks) exit with the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -122,11 +130,14 @@ def build_parser():
     p.add_argument("--act-scales", dest="act_scales", type=str, default=None)
     p.add_argument("--act-shifts", dest="act_shifts", type=str, default=None)
     p.add_argument("--coordinator", type=str, default=None,
-                   help="with --num_processes > 1 only")
+                   help="multi-process: host:port of rank 0 (required "
+                        "with --num_processes > 1)")
     p.add_argument("--num_processes", type=int, default=1,
-                   help="process count (only 1: not ported yet)")
+                   help="multi-process: the number of ranks (one "
+                        "torch.distributed group)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="with --num_processes > 1 only")
+                   help="multi-process: this process's rank (required "
+                        "with --num_processes > 1)")
     p.add_argument("--platform", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="device to run on (cpu: the kernels' plain versions)")
@@ -157,8 +168,13 @@ def build_parser():
 # the unported flags: (is the flag set, what it needs)
 def _unported(args) -> list:
     return [what for used, what in (
-        (args.num_processes > 1, "--num_processes > 1 needs the multi-host "
-                                 "layer (ROADMAP Queue 1 item 3)"),
+        (args.num_processes > 1 and (args.coordinator is None
+                                     or args.process_id is None),
+         "--num_processes > 1 without --coordinator and --process_id needs "
+         "cluster auto-detection (ROADMAP Queue 1 item 3)"),
+        (args.num_processes > 1 and args.sp > 1,
+         "--sp with --num_processes > 1 needs ring attention across ranks "
+         "(ROADMAP Queue 1 item 3)"),
         (args.export_autogptq, "--export_autogptq needs the AutoGPTQ "
                                "exporter (ROADMAP Queue 1 item 4)"),
     ) if used]
@@ -256,6 +272,16 @@ def main(argv=None):
         device = resolve_device(args.platform)
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
+    rank = 0
+    if args.num_processes > 1:  # main.py:210-217; a failed join raises
+        from .parallel.multihost import (
+            MultihostConfig, init_multihost, process_index)
+
+        device = init_multihost(MultihostConfig(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id), device)
+        rank = process_index()
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -272,13 +298,14 @@ def main(argv=None):
     if args.tp > 1:
         try:  # fail before calibrating when there are too few cards
             mesh = tp_mesh(device, args.tp)
-        except RuntimeError as e:
+        except (RuntimeError, ValueError) as e:
             raise SystemExit(str(e)) from None
     for d in (args.output_dir, args.cache_dir, args.save_dir,
               args.profile_dir):
         if d:
             Path(d).mkdir(parents=True, exist_ok=True)
-    logger = create_logger(args.output_dir)
+    logger = create_logger(args.output_dir,
+                           rank=rank if args.num_processes > 1 else None)
     logger.info(args)
     if args.net is None and args.model:
         args.net = args.model.split("/")[-1]
@@ -292,9 +319,10 @@ def main(argv=None):
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = scope.enter_context(torch.profiler.profile(activities=acts))
-        results = _run(args, device, logger, mesh)
+        results = _run(args, device, logger, mesh, rank)
     if prof is not None:
-        trace = os.path.join(args.profile_dir, "trace.json")
+        trace = os.path.join(args.profile_dir, "trace.json" if rank == 0
+                             else f"trace_rank{rank}.json")
         prof.export_chrome_trace(trace)
         logger.info(f"profiler trace written to {trace}")
     logger.info(json.dumps(results))
@@ -315,20 +343,21 @@ def sp_devices(device, n: int) -> list:
 
 
 def tp_mesh(device, n: int):
-    """The tensor-parallel mesh of ``--tp n``: the first n visible cards
-    (``make_mesh``, which raises when there are fewer), or n shards in this
-    process on the CPU."""
-    from .parallel import make_mesh
+    """The tensor-parallel mesh of ``--tp n``: across the ranks when a
+    process group is up (n / ranks shards a rank, on its device), else
+    the first n visible cards (``make_mesh``, which raises when there are
+    fewer), or n shards in this process on the CPU."""
+    from .parallel import make_mesh, multihost
 
-    if device.type == "cuda":
+    if device.type == "cuda" or multihost.initialized():
         return make_mesh(tp=n)
     return make_mesh(tp=n, devices=[device] * n)
 
 
-def _run(args, device, logger, mesh) -> dict:
+def _run(args, device, logger, mesh, rank: int = 0) -> dict:
     """main.py's steps after its set-up: load, calibrate, save, evaluate,
     serve (``mesh``: the tensor-parallel mesh of ``--tp``); returns the
-    results."""
+    results. Only rank 0 writes files."""
     import torch
 
     from . import kernels
@@ -347,7 +376,8 @@ def _run(args, device, logger, mesh) -> dict:
         batch_size=args.batch_size, let_lr=args.let_lr, lwc_lr=args.lwc_lr,
         wd=args.wd, aug_loss=args.aug_loss, offload_layers=args.offload_layers,
         buffer_dtype=torch.bfloat16 if args.bf16_buffers else torch.float32,
-        output_dir=args.output_dir, resume=args.resume)
+        output_dir=args.output_dir if rank == 0 else None,
+        resume=args.resume)
 
     omni_parameters = None
     if args.wbits < 16 or args.abits < 16:
@@ -367,7 +397,8 @@ def _run(args, device, logger, mesh) -> dict:
                     vocab_size=model_cfg.vocab_size)
             except NotImplementedError as e:
                 raise SystemExit(str(e)) from None
-            np.savez(cache, tokens=train_tokens)
+            if rank == 0:
+                np.savez(cache, tokens=train_tokens)
 
         act_scales = act_shifts = None
         if args.let:
@@ -380,8 +411,11 @@ def _run(args, device, logger, mesh) -> dict:
                 act_scales, act_shifts = collect_act_stats(
                     family, params, model_cfg, train_tokens, logger=logger,
                     device=device)
-                save_pytree(f"{args.output_dir}/act_scales.npz", act_scales)
-                save_pytree(f"{args.output_dir}/act_shifts.npz", act_shifts)
+                if rank == 0:
+                    save_pytree(f"{args.output_dir}/act_scales.npz",
+                                act_scales)
+                    save_pytree(f"{args.output_dir}/act_shifts.npz",
+                                act_shifts)
         sp_mesh = None
         if args.sp > 1:
             sp_mesh = sp_devices(device, args.sp)
@@ -400,7 +434,7 @@ def _run(args, device, logger, mesh) -> dict:
 
         packed = pack_model(family, params, cc.weight_quant_config,
                             omni_parameters, device=device)
-    if args.save_dir:
+    if args.save_dir and rank == 0:
         logger.info(f"saving fake-quant model to {args.save_dir}")
         save_pytree(f"{args.save_dir}/model_fakequant.npz", params)
         with open(f"{args.save_dir}/config.json", "w") as f:
@@ -416,7 +450,9 @@ def _run(args, device, logger, mesh) -> dict:
     tp_forward = None
     if mesh is not None:
         logger.info(f"tensor-parallel over tp={args.tp}: "
-                    f"{[str(d) for d in mesh.devices]}")
+                    f"{[str(d) for d in mesh.devices]}"
+                    + (f" on ranks {mesh.ranks}" if mesh.spans_processes
+                       else ""))
     if args.eval_ppl:
         eval_sets = (["synthetic"] if args.synthetic
                      else ["wikitext2", "ptb", "c4", "ptb-new", "c4-new"])
@@ -437,7 +473,8 @@ def _run(args, device, logger, mesh) -> dict:
                 except NotImplementedError as e:  # no local copy
                     logger.info(f"skipping {ds}: {e}")
                     continue
-                np.savez(cache, tokens=test_tokens)
+                if rank == 0:
+                    np.savez(cache, tokens=test_tokens)
             ppl = evaluate_ppl(
                 family, params, model_cfg, test_tokens, seqlen=seqlen,
                 spec=cc.act_quant_spec,
@@ -454,7 +491,7 @@ def _run(args, device, logger, mesh) -> dict:
             tokenizer, args.tasks.split(","), num_fewshot=args.num_fewshot,
             limit=None if args.limit < 0 else args.limit,
             spec=cc.act_quant_spec, logger=logger,
-            cache_db=args.eval_cache or None,
+            cache_db=(args.eval_cache or None) if rank == 0 else None,
             # main.py's fingerprint: every flag that changes the evaluated
             # model, in its order; --real_quant, under which the port (not
             # main.py) evaluates the packed model in bf16, adds a marker, so

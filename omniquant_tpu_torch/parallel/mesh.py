@@ -1,4 +1,4 @@
-"""The in-process device mesh: n shards, one program each, in threads.
+"""The device mesh: n shards, one program each, in threads and processes.
 
 JAX drives the devices of a mesh from one process through ``shard_map``
 and joins them with collectives (``psum``, ``pmin``, ``ppermute``). Here a
@@ -21,9 +21,25 @@ shard 0's device (nothing is copied between shards on one card), a copy of
 it on any other card. So every shard holds bit-identical values, and
 replicated hidden states (and every shard's sampling) never diverge.
 
-``make_mesh(dp, tp)`` is JAX's ``parallel.make_mesh``: a tensor-parallel
-mesh over the first ``tp`` visible cards. A caller that wants n shards on
-one card passes the devices itself.
+A mesh may span processes (``ranks``: the rank of the ``torch.distributed``
+group that holds each shard, every rank as many;
+``parallel/multihost.py::global_mesh`` builds one). A rank places and runs
+only its own shards (``local``); with one,
+``run`` calls the program in the calling thread. A collective gathers
+every rank's values (``all_gather``, not ``all_reduce``, whose sum order
+is the library's) and each rank folds all n in shard order on its first
+shard's device, exactly as above, so every rank holds the same bits. Gloo
+gathers no CUDA tensors, so on gloo the values travel through the host as
+raw bytes.
+
+A (dp, tp) mesh (``dp`` > 1) holds dp rows of tp shards, dp-major (shard p
+is row p // tp): its collectives reduce each row on its own (JAX's psum
+over the "tp" axis), and the rows are data-parallel replicas.
+
+``make_mesh(dp, tp)`` is JAX's ``parallel.make_mesh``: a mesh over the
+first dp * tp visible cards, or, when a process group is up, over every
+rank's shards (``global_mesh``). A caller that wants n shards on one card
+passes the devices itself.
 """
 from __future__ import annotations
 
@@ -92,41 +108,85 @@ class _Baton:
 
 
 class Mesh:
-    """n shards, shard p on ``devices[p]`` (the devices may repeat). ``run``
-    runs one program per shard, each in its own thread (JAX's
-    ``shard_map``); the programs meet at the collectives."""
+    """n shards, shard p on ``devices[p]`` (the devices may repeat), held
+    by rank ``ranks[p]`` of the process group (None: all in this process);
+    ``dp`` rows of n // dp. ``run`` runs one program per local shard, each
+    in its own thread (JAX's ``shard_map``); the programs meet at the
+    collectives."""
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, ranks: Optional[Sequence] = None,
+                 dp: int = 1):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        if dp < 1 or len(self.devices) % dp:
+            raise ValueError(f"{len(self.devices)} shards do not form "
+                             f"{dp} rows")
+        self.dp = dp
+        self.ranks = None if ranks is None else [int(r) for r in ranks]
+        if self.ranks is None:
+            self.local = list(range(self.n))
+        else:
+            if len(self.ranks) != self.n:
+                raise ValueError("one rank a shard")
+            rank = torch.distributed.get_rank()
+            world = torch.distributed.get_world_size()
+            self.local = [p for p, r in enumerate(self.ranks) if r == rank]
+            if sorted(set(self.ranks)) != list(range(world)) or len(
+                    {self.ranks.count(r) for r in range(world)}) != 1:
+                raise ValueError(
+                    f"every rank of the group must hold as many shards of "
+                    f"the mesh: ranks {self.ranks} in a world of {world}")
         self._baton = None
-        self._slots = [None] * len(self.devices)
-        self._arrived = 0
+        self._slots = {}
         self._result = None
 
     @property
     def n(self) -> int:
         return len(self.devices)
 
+    @property
+    def tp(self) -> int:
+        return self.n // self.dp
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.ranks is not None
+
+    def each(self, fn) -> list:
+        """[fn(p, devices[p]) for each local shard p], None at the other
+        ranks' shards: what a rank places of a per-shard tree."""
+        return [fn(p, d) if p in self.local else None
+                for p, d in enumerate(self.devices)]
+
+    def first(self, results: list):
+        """The first local shard's entry of a per-shard list (after an
+        all-reduce, every shard's replicated values are the same bits)."""
+        return results[self.local[0]]
+
     def run(self, fn, *shard_args) -> list:
-        """[fn(p, *(a[p] for a in shard_args)) for each shard p], each call
-        in its own thread with the caller's grad and inference modes and,
-        on a card, its shard's device current; the threads take turns (the
-        baton: module docstring). The first error of any shard is raised
-        once every shard has stopped."""
-        if self.n == 1:
-            return [fn(0, *(a[0] for a in shard_args))]
+        """[fn(p, *(a[p] for a in shard_args)) for each local shard p]
+        (None at other ranks' shards), each call in its own thread with
+        the caller's grad and inference modes and, on a card, its shard's
+        device current; the threads take turns (the baton: module
+        docstring). One local shard runs in the calling thread. The first
+        error of any shard is raised once every shard has stopped."""
+        local = self.local
+        results = [None] * self.n
+        if len(local) == 1:
+            p = local[0]
+            with _on(self.devices[p]):
+                results[p] = fn(p, *(a[p] for a in shard_args))
+            return results
         grad = torch.is_grad_enabled()
         inference = torch.is_inference_mode_enabled()
-        results = [None] * self.n
         errors = []
-        self._baton = baton = _Baton(self.n)
-        self._slots, self._arrived = [None] * self.n, 0
+        self._baton = baton = _Baton(len(local))
+        self._slots = {}
 
-        def work(p):
+        def work(i, p):
             try:
-                baton.take(p)
+                baton.take(i)
                 with torch.inference_mode(inference), \
                         torch.set_grad_enabled(grad), _on(self.devices[p]):
                     results[p] = fn(p, *(a[p] for a in shard_args))
@@ -134,15 +194,15 @@ class Mesh:
                 errors.append(e)
                 baton.break_()  # wake shards waiting in a collective
             finally:
-                baton.pass_on(p, "done")
+                baton.pass_on(i, "done")
 
-        threads = [threading.Thread(target=work, args=(p,), daemon=True)
-                   for p in range(self.n)]
+        threads = [threading.Thread(target=work, args=(i, p), daemon=True)
+                   for i, p in enumerate(local)]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
-        self._baton, self._slots, self._result = None, [None] * self.n, None
+        self._baton, self._slots, self._result = None, {}, None
         if errors:
             raise next((e for e in errors if not isinstance(e, BrokenMesh)),
                        errors[0])
@@ -150,56 +210,97 @@ class Mesh:
 
     def _collective(self, p: int, value, combine):
         """Shard p's part of a collective: every shard hands in its
-        ``value``; the last to arrive runs ``combine`` on the n values (in
-        shard order), which returns one result per shard; shard p gets its
-        own."""
-        if self.n == 1:
-            return combine([value])[0]
+        ``value``; the last local shard to arrive gathers the other ranks'
+        values and runs ``combine`` on the n values (in shard order), which
+        returns one result per shard; shard p gets its own."""
+        if len(self.local) == 1:
+            return combine(self._gather({p: value}))[p]
         self._slots[p] = value
-        self._arrived += 1
-        if self._arrived < self.n:
-            self._baton.pass_on(p, "waiting")
-            self._baton.take(p)
+        if len(self._slots) < len(self.local):
+            i = self.local.index(p)
+            self._baton.pass_on(i, "waiting")
+            self._baton.take(i)
         else:
-            self._arrived = 0
-            self._result = combine(list(self._slots))
+            slots, self._slots = self._slots, {}
+            self._result = combine(self._gather(slots))
             self._baton.ready_all()
         return self._result[p]
 
+    def _gather(self, slots: dict) -> list:
+        """The n shards' values in shard order: this rank's from ``slots``,
+        the other ranks' gathered from them (same shape and dtype on every
+        shard); on gloo through the host, as raw bytes."""
+        if not self.spans_processes:
+            return [slots[p] for p in range(self.n)]
+        dist = torch.distributed
+        mine = torch.stack([slots[p] for p in self.local])
+        world = dist.get_world_size()
+        if dist.get_backend() == "gloo":
+            raw = mine.detach().cpu().contiguous().view(torch.uint8)
+            got = [torch.empty_like(raw) for _ in range(world)]
+            dist.all_gather(got, raw)
+            got = [g.view(mine.dtype) for g in got]
+        else:
+            out = torch.empty((world,) + tuple(mine.shape),
+                              dtype=mine.dtype, device=mine.device)
+            dist.all_gather_into_tensor(out, mine.contiguous())
+            got = list(out.unbind(0))
+        values = dict(slots)
+        for r, g in enumerate(got):
+            owned = [p for p, q in enumerate(self.ranks) if q == r]
+            for p, v in zip(owned, g.unbind(0)):
+                values.setdefault(p, v)
+        return [values[p] for p in range(self.n)]
+
     def all_reduce(self, p: int, x: torch.Tensor, op: str = "sum"):
-        """Shard p's ``x`` in, the reduction over every shard's out (JAX's
-        ``psum``/``pmin``/``pmax``): combined in shard order on shard 0's
-        device, bit-identical on every shard."""
+        """Shard p's ``x`` in, the reduction over its row's shards out
+        (JAX's ``psum``/``pmin``/``pmax``): combined in shard order on the
+        first local shard's device, bit-identical on every shard."""
         if op not in _OPS:
             raise ValueError(f"op must be one of {sorted(_OPS)}, not {op!r}")
         return self._collective(p, x, lambda xs: self._reduce(xs, op))
 
     def _reduce(self, xs: list, op: str) -> list:
-        home = self.devices[0]
+        home = self.devices[self.local[0]]
         dtype = xs[0].dtype
         wide = (torch.float32 if xs[0].is_floating_point()
                 and xs[0].element_size() < 4 else dtype)
-        acc = xs[0].to(home, wide)
-        for x in xs[1:]:
-            acc = _OPS[op](acc, x.to(home, wide))
-        acc = acc.to(dtype)
-        return [acc if d == home else acc.to(d, non_blocking=True)
-                for d in self.devices]
+        out = [None] * self.n
+        for row in range(self.dp):
+            shards = range(row * self.tp, (row + 1) * self.tp)
+            if not any(p in self.local for p in shards):
+                continue
+            acc = xs[shards[0]].to(home, wide)
+            for q in shards[1:]:
+                acc = _OPS[op](acc, xs[q].to(home, wide))
+            acc = acc.to(dtype)
+            for q in shards:
+                if q in self.local:
+                    d = self.devices[q]
+                    out[q] = acc if d == home else acc.to(d, non_blocking=True)
+        return out
 
 
 def make_mesh(dp: int = 1, tp: int = 1, devices: Optional[Sequence] = None
               ) -> Mesh:
-    """A tensor-parallel mesh of ``tp`` shards (JAX's ``make_mesh``): by
-    default over the first ``tp`` visible cards, raising when there are
-    fewer (a card is never repeated unasked); ``devices`` gives the shards'
-    devices instead, and may repeat one (n shards on one card, or on the
-    CPU). Only dp = 1: data-parallel replicas are multi-process serving."""
-    if dp != 1:
-        raise NotImplementedError(
-            "dp > 1 (data-parallel serving replicas) needs multi-process "
-            "serving (ROADMAP Queue 1 item 3)")
-    if tp < 1:
-        raise ValueError(f"tp must be at least 1, not {tp}")
+    """A (dp, tp) mesh (JAX's ``make_mesh``), dp-major. When a process
+    group is up and no ``devices`` are given, over every rank's shards
+    (``multihost.global_mesh``: a rank's shards on its card, as many a
+    rank as make dp * tp). Else in this process: by default over the first
+    dp * tp visible cards, raising when there are fewer (a card is never
+    repeated unasked); ``devices`` gives the shards' devices instead, and
+    may repeat one (n shards on one card, or on the CPU)."""
+    from . import multihost
+
+    if tp < 1 or dp < 1:
+        raise ValueError(f"dp and tp must be at least 1, not {dp}, {tp}")
+    n = dp * tp
+    if devices is None and multihost.initialized():
+        world = multihost.process_count()
+        if n % world:
+            raise ValueError(f"a ({dp}, {tp}) mesh does not split over "
+                             f"{world} processes")
+        return multihost.global_mesh(tp=tp, dp=dp, local_shards=n // world)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -208,9 +309,10 @@ def make_mesh(dp: int = 1, tp: int = 1, devices: Optional[Sequence] = None
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devices = list(devices)
-    if len(devices) < tp:
+    if len(devices) < n:
+        shape = f"tp={tp}" if dp == 1 else f"a ({dp}, {tp}) mesh"
         raise RuntimeError(
-            f"make_mesh: tp={tp} needs {tp} devices, {len(devices)} given "
+            f"make_mesh: {shape} needs {n} devices, {len(devices)} given "
             f"({[str(d) for d in devices]}); to put several shards on one "
             "card, pass that card repeated as devices")
-    return Mesh(devices[:tp])
+    return Mesh(devices[:n], dp=dp)

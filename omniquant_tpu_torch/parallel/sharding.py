@@ -141,7 +141,9 @@ def _shard(x, spec, n: int, p: int, device):
 
 
 def shard_params(params, mesh, specs) -> list:
-    """One tree per shard of ``mesh``: every tensor of ``params`` split by
-    its spec (whole where the spec is None), on the shard's device."""
-    return [_shard(params, specs, mesh.n, p, d)
-            for p, d in enumerate(mesh.devices)]
+    """One tree per local shard of ``mesh`` (None at other ranks' shards):
+    every tensor of ``params`` split by its spec over a row's tp shards
+    (shard p takes part p % tp; whole where the spec is None), on the
+    shard's device."""
+    return mesh.each(lambda p, d: _shard(params, specs, mesh.tp,
+                                         p % mesh.tp, d))

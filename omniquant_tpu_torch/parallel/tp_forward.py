@@ -271,28 +271,28 @@ def local_spec(w, row: bool) -> dict:
 
 
 def place_linear(w, row: bool, mesh) -> list:
-    """One linear's shards, one per shard of ``mesh``, on its device. A
-    column-parallel PackedWeight must hold exactly its in_features in
-    packed rows: tile pad rows at its end would shift every shard's rows
-    against its part of the input."""
+    """One linear's shards, one per shard of ``mesh``, on its device: split
+    over a row's tp shards (shard p takes part p % tp), the same on every
+    dp row. A column-parallel PackedWeight must hold exactly its
+    in_features in packed rows: tile pad rows at its end would shift every
+    shard's rows against its part of the input."""
     spec = local_spec(w, row)
-    n = mesh.n
+    n = mesh.tp
     if isinstance(w, PackedWeight):
         if not row and n > 1 and w.k_pad != w.in_features:
             raise ValueError(
                 f"a column-parallel PackedWeight of {w.in_features} rows in "
                 f"{w.k_pad} packed rows does not split over {n} shards")
-        return [local_packed(w, spec, n, p, d)
-                for p, d in enumerate(mesh.devices)]
-    return [{"weight": split(w["weight"], spec["weight"], n, p, d),
-             "bias": None if w.get("bias") is None else
-             split(w["bias"], spec["bias"], n, p, d)}
-            for p, d in enumerate(mesh.devices)]
+        return mesh.each(lambda p, d: local_packed(w, spec, n, p % n, d))
+    return mesh.each(lambda p, d: {
+        "weight": split(w["weight"], spec["weight"], n, p % n, d),
+        "bias": None if w.get("bias") is None else
+        split(w["bias"], spec["bias"], n, p % n, d)})
 
 
 def replicate(tree, mesh) -> list:
-    """``tree`` whole on every shard's device (a device's copy is made once
-    and shared by the shards on it)."""
+    """``tree`` whole on every local shard's device (a device's copy is made
+    once and shared by the shards on it); None at other ranks' shards."""
     copies = {}
 
     def put(x, d):
@@ -306,25 +306,27 @@ def replicate(tree, mesh) -> list:
             return [put(v, d) for v in x]
         return x
 
-    out = []
-    for d in mesh.devices:
+    def copy(p, d):
         if d not in copies:
             copies[d] = put(tree, d)
-        out.append(copies[d])
-    return out
+        return copies[d]
+
+    return mesh.each(copy)
 
 
 def place_block(block: dict, mesh, rows, cols) -> list:
-    """A block's params on the mesh, one dict per shard: row- and
-    column-parallel linears split, everything else whole."""
-    shards = [{} for _ in range(mesh.n)]
+    """A block's params on the mesh, one dict per local shard (None at
+    other ranks' shards): row- and column-parallel linears split,
+    everything else whole."""
+    shards = mesh.each(lambda p, d: {})
     for name, w in block.items():
         if name in rows or name in cols:
             parts = place_linear(w, name in rows, mesh)
         else:
             parts = replicate(w, mesh)
         for s, part in zip(shards, parts):
-            s[name] = part
+            if s is not None:
+                s[name] = part
     return shards
 
 
@@ -598,9 +600,12 @@ def make_tp_forward(family: str, mesh, cfg, overlap_chunks: int = 1):
     calibrated block's weights (PackedWeight or dense) for TP, one block
     per shard; ``make_forward(layers)`` gives the tensor-parallel trunk
     ``fwd(layers, x)`` over such blocks: x (B, S, H) in, replicated, the
-    output of the last block out, on shard 0's device. Embeddings and the
-    head stay outside (replicated)."""
-    tp = mesh.n
+    output of the last block out, on the first local shard's device.
+    Embeddings and the head stay outside (replicated). The blocks split
+    over a row's tp shards; the dp rows of a (dp, tp) mesh are replicas. On
+    a mesh that spans processes a rank places and runs only its own
+    shards."""
+    tp = mesh.tp
     shard_block = _make_shard_block(mesh, family, cfg, tp)
     block_fn = _BLOCK_FNS[family](cfg, tp, mesh, overlap_chunks)
 
@@ -616,7 +621,8 @@ def make_tp_forward(family: str, mesh, cfg, overlap_chunks: int = 1):
                     x_p = block_fn(p, block[p], x_p, mask, positions)
                 return x_p
 
-            return mesh.run(shard, [x.to(d) for d in mesh.devices])[0]
+            return mesh.first(mesh.run(
+                shard, mesh.each(lambda p, d: x.to(d))))
 
         return fwd
 

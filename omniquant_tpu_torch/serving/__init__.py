@@ -1,3 +1,4 @@
+from .dp_serving import DPServingCoordinator
 from .engine import (
     FalconEngine, KVCache, LlamaEngine, OPTEngine, fuse_packed)
 from .export import pack_model

@@ -36,6 +36,13 @@ TP engine, whose slot arrays the shards share.
     hidden states and logits, and every shard's sampling (each shard draws
     from its own generator, seeded alike), never diverge.
 
+On a mesh that spans processes (``parallel/multihost.py``) a rank places
+and builds only its own shards (``local_shards``; the other ranks' entries
+of ``shards`` are None): it never holds their weights or cache. Every rank
+receives the same calls, so the host-side batching, replicated, stays in
+step, and each step program returns the first local shard's result,
+which the all-reduce made the same bits on every rank.
+
 JAX's ``lower_step`` (AOT-lowering a step at full geometry without running
 it) has no counterpart: it only rehearsed XLA compiles.
 """
@@ -128,15 +135,18 @@ def _cast(x, dtype):
 
 def place_params(params: dict, gcfg, mesh, family: str, dtype):
     """Pad, restructure, fuse and place a whole engine param tree for TP:
-    one tree per shard on its device, floating tensors in ``dtype``.
+    one tree per local shard on its device (None at other ranks' shards,
+    whose weights this rank never holds), floating tensors in ``dtype``.
     Returns (per-shard trees, the padded intermediate size). The fused
-    projections replace their parts."""
-    tp = mesh.n
+    projections replace their parts. The split is over a row's tp shards;
+    the dp rows of a (dp, tp) mesh hold the same parts."""
+    tp = mesh.tp
     rows, cols = set(ROW_PARALLEL[family]), set(COL_PARALLEL[family])
     for site in _FUSE_SITES[family]:
         rows.add(site[-1])  # fused names are row-parallel
     rest = _cast({k: v for k, v in params.items() if k != "layers"}, dtype)
-    placed = [dict(tree, layers=[]) for tree in replicate(rest, mesh)]
+    placed = [None if tree is None else dict(tree, layers=[])
+              for tree in replicate(rest, mesh)]
     inter_pad = None
     for block in params["layers"]:
         block = _cast(dict(block), dtype)
@@ -158,7 +168,8 @@ def place_params(params: dict, gcfg, mesh, family: str, dtype):
                         if name in cols and isinstance(w, PackedWeight)
                         else w) for name, w in block.items()}
         for tree, shard in zip(placed, place_block(block, mesh, rows, cols)):
-            tree["layers"].append(shard)
+            if tree is not None:
+                tree["layers"].append(shard)
     return placed, inter_pad
 
 
@@ -172,7 +183,9 @@ class _ShardMixin:
     the mesh's collectives."""
 
     def _shard_setup(self, gcfg, mesh, p: int, overlap_chunks: int):
+        # p meets the collectives; the column picks the shard's part
         self._gcfg, self._mesh, self._p = gcfg, mesh, p
+        self._col = p % mesh.tp
         self.overlap_chunks = overlap_chunks
 
     def _prep_params(self, params):
@@ -213,7 +226,7 @@ def _view(cfg, **overrides) -> SimpleNamespace:
 class _LlamaShard(_ShardMixin, LlamaEngine):
     def __init__(self, params, cfg, mesh, p, overlap_chunks, inter_pad, **kw):
         self._shard_setup(cfg, mesh, p, overlap_chunks)
-        tp = mesh.n
+        tp = mesh.tp
         local = _view(cfg, num_attention_heads=cfg.num_attention_heads // tp,
                       num_key_value_heads=cfg.num_key_value_heads // tp,
                       head_dim=cfg.head_dim, n_rep=cfg.n_rep,
@@ -226,7 +239,7 @@ class _OPTShard(_ShardMixin, OPTEngine):
     def __init__(self, params, cfg, mesh, p, overlap_chunks, inter_pad, **kw):
         self._shard_setup(cfg, mesh, p, overlap_chunks)
         self._ocfg = cfg
-        nh_l = cfg.num_attention_heads // mesh.n
+        nh_l = cfg.num_attention_heads // mesh.tp
         local = _view(cfg, num_attention_heads=nh_l, num_key_value_heads=nh_l,
                       head_dim=cfg.head_dim, n_rep=1,
                       intermediate_size=cfg.ffn_dim,
@@ -239,18 +252,18 @@ class _OPTShard(_ShardMixin, OPTEngine):
 class _FalconShard(_ShardMixin, FalconEngine):
     def __init__(self, params, cfg, mesh, p, overlap_chunks, inter_pad, **kw):
         self._shard_setup(cfg, mesh, p, overlap_chunks)
-        FalconEngine.__init__(self, params, local_falcon_config(cfg, mesh.n),
+        FalconEngine.__init__(self, params, local_falcon_config(cfg, mesh.tp),
                               device=mesh.devices[p], **kw)
 
     def _make_slopes(self):
         """This shard's slice of the global ALiBi slopes: they depend on
-        the global head count and index, and the row split gives shard p
-        heads [p * nh_l, (p + 1) * nh_l)."""
+        the global head count and index, and the row split gives the shard
+        in column c heads [c * nh_l, (c + 1) * nh_l)."""
         from ..models.falcon import alibi_slopes
 
         nh_l = self._fcfg.num_attention_heads
         full = alibi_slopes(self._gcfg.num_attention_heads, self.device)
-        return full[self._p * nh_l:(self._p + 1) * nh_l].contiguous()
+        return full[self._col * nh_l:(self._col + 1) * nh_l].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -274,21 +287,20 @@ class _TPMixin:
         if "device" in kw:
             raise TypeError("a TP engine runs on its mesh's devices; it "
                             "takes no device")
-        for d in mesh.devices:  # a card that is not there raises here
-            resolve_device(d)
-        self.mesh, self.tp = mesh, mesh.n
+        for p in mesh.local:  # a card that is not there raises here
+            resolve_device(mesh.devices[p])
+        self.mesh, self.tp = mesh, mesh.tp
         self._gcfg = cfg
         self.overlap_chunks = overlap_chunks
         self._raw_params = params  # spec-decode drafts re-place from raw
         self._check_heads(cfg)
         placed, inter_pad = place_params(params, cfg, mesh, self._family,
                                          kw.get("dtype", torch.bfloat16))
-        self.shards = [self._shard_cls(placed[p], cfg, mesh, p,
-                                       overlap_chunks, inter_pad, **kw)
-                       for p in range(mesh.n)]
+        self.shards = mesh.each(lambda p, d: self._shard_cls(
+            placed[p], cfg, mesh, p, overlap_chunks, inter_pad, **kw))
         del placed
-        super().__init__(None, cfg, device=mesh.devices[0], **kw)
-        for s in self.shards:  # one host state, read by every shard
+        super().__init__(None, cfg, device=mesh.devices[mesh.local[0]], **kw)
+        for s in self.local_shards:  # one host state, read by every shard
             for name in _SLOT_STATE:
                 setattr(s, name, getattr(self, name))
 
@@ -297,11 +309,16 @@ class _TPMixin:
             raise ValueError(f"{cfg.num_attention_heads} heads do not "
                              f"divide into tp={self.tp} shards")
 
+    @property
+    def local_shards(self) -> list:
+        """This rank's shard engines (every shard on an in-process mesh)."""
+        return [self.shards[p] for p in self.mesh.local]
+
     def _prep_params(self, params):
-        return [s.params for s in self.shards]
+        return [None if s is None else s.params for s in self.shards]
 
     def _init_cache(self):
-        return [s.cache for s in self.shards]
+        return [None if s is None else s.cache for s in self.shards]
 
     def _grow(self, need: int):
         new_len = self._grow_target(need)
@@ -310,12 +327,13 @@ class _TPMixin:
         self.cache = self._init_cache()
 
     def _on_shards(self, name: str, *args, **kw):
-        """shard.<name>(*args, **kw) on every shard at once, each with its
-        own copy of the tensor args on its device; shard 0's result."""
-        per = [[a.to(d) if isinstance(a, torch.Tensor) else a
-                for d in self.mesh.devices] for a in args]
-        return self.mesh.run(
-            lambda p, *a: getattr(self.shards[p], name)(*a, **kw), *per)[0]
+        """shard.<name>(*args, **kw) on every local shard at once, each with
+        its own copy of the tensor args on its device; the first local
+        shard's result (the same bits on every shard and rank)."""
+        per = [self.mesh.each(lambda p, d, a=a: a.to(d) if isinstance(
+            a, torch.Tensor) else a) for a in args]
+        return self.mesh.first(self.mesh.run(
+            lambda p, *a: getattr(self.shards[p], name)(*a, **kw), *per))
 
     def _prefill_impl(self, tokens, slot: int, last_idx: int, seq_len: int):
         return self._on_shards("_prefill_impl", tokens, slot, last_idx,

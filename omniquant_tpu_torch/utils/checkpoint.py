@@ -13,7 +13,6 @@ into tensors.
 """
 from __future__ import annotations
 
-import io
 import os
 import types
 from typing import Any
@@ -122,14 +121,14 @@ def save_pytree(path: str, tree: Any) -> None:
     """Write ``tree`` (tensor or numpy leaves) to the npz at ``path``."""
     flat = _flatten(tree)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    buf = io.BytesIO()
-    np.savez(buf, **flat)
     with open(path, "wb") as f:
-        f.write(buf.getvalue())
+        np.savez(f, **flat)
 
 
-def load_pytree(path: str) -> Any:
-    """The tree saved at ``path``, with numpy leaves."""
+def load_pytree(path: str, leaf=None) -> Any:
+    """The tree saved at ``path``, with numpy leaves, or ``leaf(array)`` of
+    each as it is read (so a caller that converts them never holds a
+    whole model twice)."""
     with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
+        flat = {k: z[k] if leaf is None else leaf(z[k]) for k in z.files}
     return _unflatten(flat)

@@ -26,6 +26,19 @@ from ..quant.packing import PackedWeight
 from .checkpoint import _is_packed, load_pytree
 
 
+def _tensor(a, device, dtype, copy: bool = True) -> torch.Tensor:
+    """A numpy array (or a tensor already converted) as a tensor on
+    ``device``: floating in ``dtype``, integers in their own type. With
+    ``copy`` a CPU tensor never shares the caller's array."""
+    if not isinstance(a, torch.Tensor):
+        a = np.array(a, copy=copy)
+        if a.dtype.name == "bfloat16":  # numpy has no bf16 torch can take
+            a = a.astype(np.float32)  # exact widening
+        a = torch.from_numpy(a)
+    t = a.to(device)
+    return t.to(dtype) if t.is_floating_point() else t
+
+
 def from_jax_params(tree, device="cuda", dtype=torch.float32):
     """The JAX parameter tree (numpy leaves) as tensors on ``device``.
     Floating arrays, packed scales/zeros/bias included, become ``dtype``;
@@ -33,11 +46,7 @@ def from_jax_params(tree, device="cuda", dtype=torch.float32):
     device = resolve_device(device)
 
     def tensor(a):
-        a = np.array(a, copy=True)
-        if a.dtype.name == "bfloat16":  # numpy has no bf16 torch can take
-            a = a.astype(np.float32)  # exact widening
-        t = torch.from_numpy(a).to(device)
-        return t.to(dtype) if t.is_floating_point() else t
+        return _tensor(a, device, dtype)
 
     def conv(x):
         if x is None:
@@ -63,5 +72,9 @@ def from_jax_params(tree, device="cuda", dtype=torch.float32):
 
 def load_packed_npz(path: str, device="cuda", dtype=torch.float32):
     """Read a JAX-package npz checkpoint (packed format v2 included) into
-    the port's parameter tree on ``device``."""
-    return from_jax_params(load_pytree(path), device=device, dtype=dtype)
+    the port's parameter tree on ``device``, each array converted as it is
+    read (a model is never held twice on the host)."""
+    device = resolve_device(device)
+    tree = load_pytree(path, leaf=lambda a: _tensor(a, device, dtype,
+                                                    copy=False))
+    return from_jax_params(tree, device=device, dtype=dtype)

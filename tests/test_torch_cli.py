@@ -17,8 +17,10 @@ the fake-quant weights to the f32 ulps of the LWC sigmoid), and it serves
 the packed model, which gives the text of JAX's engine on main.py's
 packed model. Falcon is LWC only: asked for LET, both calibrate without
 it (the act statistics are still collected and written, as main.py does).
-``--sp 2`` calibrates sequence-parallel as main.py's ``--sp 2`` does, and
-``--tp 2`` evaluates and serves as main.py's ``--tp 2`` does.
+``--sp 2`` calibrates sequence-parallel as main.py's ``--sp 2`` does,
+``--tp 2`` evaluates and serves as main.py's ``--tp 2`` does, and two
+processes under ``--num_processes 2 --tp 2`` (one shard each) print the
+single-process ``--tp 2`` run's results.
 Unported flags exit naming the ROADMAP item; a net with no synthetic
 config and no checkpoint exits as main.py does. ``--tasks`` (piqa and
 lambada_openai, both packages' task download patched to the same injected
@@ -150,7 +152,9 @@ def test_parser_matches_main_py():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num_processes", "2"], "item 3"), (["--export_autogptq"], "item 4")])
+    (["--num_processes", "2"], "item 3"), (["--export_autogptq"], "item 4"),
+    (["--num_processes", "2", "--coordinator", "localhost:1",
+      "--process_id", "0", "--sp", "2"], "ring attention across ranks")])
 def test_unported_flags_exit(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet: .*{item}"):
         cli.main(["--platform", "cpu", "--synthetic"] + flags)
@@ -186,6 +190,57 @@ def test_tp_serves_and_evaluates_as_main_py(tmp_path, net):
     needle = "tensor-parallel over tp=2"
     assert _log_lines(tmp_path / "port_out", needle)[0] == (
         f"{needle}: ['cpu', 'cpu']")
+
+
+def test_num_processes_serves_as_one_process_tp(tmp_path):
+    """--num_processes 2 --tp 2 on tiny-llama: two processes (a gloo group
+    over localhost, one TP shard each) print the results JSON of the
+    single-process --tp 2 run, perplexity and text alike; only rank 0
+    writes --save_dir, and each rank logs to its own file."""
+    args = ["--platform", "cpu", "--synthetic", "--net", "tiny-llama",
+            "--wbits", "16", "--abits", "16", "--eval_ppl", "--serve_prompt",
+            PROMPT, "--max_new_tokens", "8", "--tp", "2"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "omniquant_tpu_torch", *args,
+         "--num_processes", "2", "--coordinator", f"localhost:{port}",
+         "--process_id", str(r), "--save_dir", str(tmp_path / "mp_save")]
+        + _dirs(tmp_path, "mp"), cwd=tmp_path, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    one = cli.main(args + _dirs(tmp_path, "one"))
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+        assert json.loads(out.strip().splitlines()[-1]) == one
+    assert sorted(one) == ["generation", "synthetic"]
+    assert sorted(f.name for f in (tmp_path / "mp_save").iterdir()) == [
+        "config.json", "model_fakequant.npz"]
+    needle = "tensor-parallel over tp=2"
+    for r in range(2):
+        logs = list((tmp_path / "mp_out").glob(f"log_*_rank{r}.txt"))
+        assert len(logs) == 1
+        assert [ln[ln.index(needle):] for ln in logs[0].read_text(
+        ).splitlines() if needle in ln] == [
+            f"{needle}: ['cpu', 'cpu'] on ranks [0, 1]"]
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 def test_tp_refusals(tmp_path):

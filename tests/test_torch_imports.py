@@ -54,7 +54,8 @@ def test_no_jax_or_jax_package_loaded():
                 "decontamination.decontaminate", "generate_act_stats",
                 "parallel", "parallel.ring_attention", "parallel.mesh",
                 "parallel.sharding", "parallel.tp_forward",
-                "serving.tp_engine"):
+                "serving.tp_engine", "parallel.multihost",
+                "serving.dp_serving"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 

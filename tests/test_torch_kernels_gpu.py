@@ -2028,3 +2028,125 @@ def test_torchlm_on_the_card_matches_cpu(cuda):
     gaps = cs.text_stream_gaps(torch, OPT, cfg, ref, NO_ACT_QUANT, lm, gen,
                                out["cuda"][2], "cpu")
     assert gaps and cs.near_tie(gaps, cs.SPEC_TIE * tol)["ok"]
+
+
+# ---------------------------------------------------------------------------
+# multi-process serving: two gloo ranks on the one card
+
+_MP_RANK = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[4])
+from omniquant_tpu_torch.models import LLAMA, llama
+from omniquant_tpu_torch.parallel import (
+    MultihostConfig, init_multihost, make_mesh)
+from omniquant_tpu_torch.quant import QuantConfig
+from omniquant_tpu_torch.serving import (
+    DPServingCoordinator, LlamaEngine, pack_model)
+
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dev = init_multihost(MultihostConfig(f"localhost:{port}", 2, rank,
+                                     timeout_s=120), "cuda")
+mesh = make_mesh(tp=2)
+res = {"backend": torch.distributed.get_backend(), "local": mesh.local}
+for dtype in (torch.bfloat16, torch.float32):
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    x = torch.randn(64, 4096, generator=gen, device=dev).to(dtype)
+    got = mesh.run(lambda p, x: mesh.all_reduce(p, x),
+                   mesh.each(lambda p, d: x))
+    res[str(dtype)] = mesh.first(got).cpu()
+cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                        intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=2, num_key_value_heads=2)
+dense = llama.init_params(torch.Generator().manual_seed(1), cfg,
+                          device="cpu")
+packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+                    device="cpu")
+eng = LlamaEngine(packed, cfg, max_batch=4, max_len=128,
+                  dtype=torch.bfloat16, device=dev)
+reqs = [[(5 * i + j) % 256 for i in range(n)]
+        for j, n in enumerate((40, 33, 12, 20))]
+res["streams"] = DPServingCoordinator(eng).generate_all(
+    reqs, max_new_tokens=12, step=4)
+torch.save(res, out)
+torch.distributed.destroy_process_group()
+"""
+
+
+def _two_ranks_on_the_card(tmp_path):
+    """Both ranks of _MP_RANK, each with a timeout; their results."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MP_RANK, str(r), str(port),
+         str(tmp_path / f"rank{r}.pt"), repo], cwd=tmp_path,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return _two_ranks_on_the_card(tmp_path_factory.mktemp("mp"))
+
+
+def test_all_reduce_across_processes_on_the_card(cuda, two_ranks):
+    """Two ranks, one shard each on the card (gloo: the partials travel
+    through the host): each rank's sum of CUDA partials, bf16 and f32, is
+    the in-process fold's bit for bit."""
+    from omniquant_tpu_torch.parallel import Mesh
+
+    for r, res in enumerate(two_ranks):
+        assert res["local"] == [r]
+        assert res["backend"] == ("nccl" if torch.cuda.device_count() >= 2
+                                  else "gloo")
+    for dtype in (torch.bfloat16, torch.float32):
+        parts = [torch.randn(64, 4096, generator=torch.Generator(
+            device=cuda).manual_seed(100 + r), device=cuda).to(dtype)
+            for r in range(2)]
+        want = Mesh([cuda] * 2)._reduce(parts, "sum")[0].cpu()
+        for res in two_ranks:
+            got = res[str(dtype)]
+            assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_dp_generate_all_on_the_card(cuda, two_ranks):
+    """DPServingCoordinator over the two ranks (two requests each, routed
+    round-robin): both gather the same global streams, which are those of
+    one process's engine of the same capacity serving each rank's two."""
+    from omniquant_tpu_torch.serving import DPServingCoordinator
+
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256,
+                            intermediate_size=512, num_hidden_layers=2,
+                            num_attention_heads=2, num_key_value_heads=2)
+    dense = llama.init_params(torch.Generator().manual_seed(1), cfg,
+                              device="cpu")
+    packed = pack_model(LLAMA, dense, QuantConfig(n_bits=4, group_size=128),
+                        device="cpu")
+    reqs = [[(5 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((40, 33, 12, 20))]
+    want = [None] * 4
+    for r in range(2):
+        eng = LlamaEngine(packed, cfg, max_batch=4, max_len=128,
+                          dtype=torch.bfloat16, device=cuda)
+        want[r::2] = DPServingCoordinator(eng).generate_all(
+            reqs[r::2], max_new_tokens=12, step=4)
+    assert two_ranks[0]["streams"] == two_ranks[1]["streams"] == want

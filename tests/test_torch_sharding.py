@@ -205,10 +205,16 @@ def test_all_reduce_is_bit_identical_on_every_shard(n, op):
 
 
 def test_make_mesh_refuses():
-    """dp > 1 names multi-process serving; fewer devices than tp raise (a
-    card is never repeated unasked); tp shards on one device when asked."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        make_mesh(dp=2, tp=2, devices=[CPU] * 4)
+    """dp > 1 lays dp rows of tp shards, dp-major, each row reduced on its
+    own (JAX's psum over "tp"); fewer devices than dp * tp raise (a card is
+    never repeated unasked); tp shards on one device when asked."""
+    mesh = make_mesh(dp=2, tp=2, devices=[CPU] * 4)
+    assert (mesh.dp, mesh.tp, mesh.n) == (2, 2, 4)
+    parts = [torch.full((3,), float(10 ** p)) for p in range(4)]
+    got = mesh.run(lambda p, x: mesh.all_reduce(p, x), parts)
+    assert [g[0].item() for g in got] == [11.0, 11.0, 1100.0, 1100.0]
+    with pytest.raises(RuntimeError, match="needs 6 devices"):
+        make_mesh(dp=2, tp=3, devices=[CPU] * 4)
     with pytest.raises(RuntimeError, match="needs 4 devices"):
         make_mesh(tp=4, devices=[CPU] * 2)
     if not torch.cuda.is_available():

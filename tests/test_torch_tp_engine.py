@@ -193,6 +193,33 @@ def test_tp_sampling_matches_single():
                   gen_kw=dict(temperature=0.8, top_k=20))
 
 
+@pytest.mark.parametrize("name", ["llama", "opt", "falcon_alibi"])
+def test_tp_engine_on_dp_rows_matches_one_row(name):
+    """A (2, 2) mesh, as JAX's engine takes one: each row's shards split
+    over tp 2 (column p % 2, ALiBi slopes too) and the rows are replicas,
+    so the logits are the (1, 2) mesh's bit for bit, and so are the
+    tokens."""
+    from omniquant_tpu_torch.parallel import make_mesh
+
+    fam = name.split("_")[0]
+    pk, cfg = packed(name)[1], tiny(name)[1]
+    kw = dict(max_batch=2, max_len=64, dtype=torch.float32)
+    rows = TP[fam](pk, cfg, make_mesh(dp=2, tp=2, devices=["cpu"] * 4),
+                   **kw)
+    one = TP[fam](pk, cfg, cpu_mesh(2), **kw)
+    assert rows.tp == 2 and len(rows.shards) == 4
+    toks = [7, 11, 13, 17]
+    logits = []
+    for e in (one, rows):
+        slot = e.add_request(PROMPT)
+        logits.append(e.verify_step_logits({slot: toks})[slot])
+    assert np.array_equal(logits[1], logits[0])
+    assert (rows.generate(PROMPT, max_new_tokens=6)
+            == one.generate(PROMPT, max_new_tokens=6))
+    if name == "falcon_alibi":
+        assert torch.equal(rows.shards[3]._slopes, one.shards[1]._slopes)
+
+
 def test_tp_engine_refuses():
     pk = packed("llama")[1]
     cfg = tiny("llama")[1]

@@ -17,6 +17,7 @@ import torch
 
 from omniquant_tpu.parallel import make_mesh as j_make_mesh
 from omniquant_tpu.parallel import tp_forward as jtpf
+from omniquant_tpu_torch.parallel import make_mesh
 from omniquant_tpu_torch.parallel import tp_forward as tpf
 
 from test_torch_sharding import (  # noqa: F401
@@ -70,6 +71,27 @@ def test_tp_trunk_matches_jax(name, is_packed, tp):
         down = layers[0][0]["down_proj"]
         assert layers[0][0]["gate_proj"].out_features == 256
         assert (down.in_features, down.tile_k) == (256, 256)
+
+
+def test_tp_trunk_on_dp_rows_matches_jax():
+    """A (2, 2) mesh: each row splits over tp 2 and the rows are replicas
+    (JAX's trunk shards over the "tp" axis alone): the (1, 2) trunk's
+    output bit for bit, and JAX's at (2, 2) within TOL."""
+    jc, tc = tiny("llama")[:2]
+    jpk, tpk = packed("llama", tile_k=64)
+    make_fwd, shard_block = jtpf.make_tp_forward(
+        "llama", j_make_mesh(dp=2, tp=2), jc)
+    jlayers = [shard_block(b) for b in jpk["layers"]]
+    x = inputs("llama", 5)
+    want = np.asarray(make_fwd(jlayers)(jlayers, jnp.asarray(x)))
+    make_fwd, shard_block = tpf.make_tp_forward(
+        "llama", make_mesh(dp=2, tp=2, devices=["cpu"] * 4), tc)
+    layers = [shard_block(b) for b in tpk["layers"]]
+    assert layers[0][3]["o_proj"].in_features == 128
+    got = make_fwd(layers)(layers, torch.from_numpy(x)).numpy()
+    fwd, one = port_trunk("llama", True, 2)
+    assert np.array_equal(got, fwd(one, torch.from_numpy(x)).numpy())
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("chunks", [2, 4])
