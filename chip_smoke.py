@@ -37,6 +37,19 @@ prints no result. Any failure raises, so the exit code is non-zero.
               K5 on an 8-row flush at C's and D's batch and window, each
               beside its empty launch with the same grid (the floor) and
               its wrapper's host microseconds per call.
+2b. probes -- the Hopper probes of the JAX package's experiment scripts
+              (kernels/probes.py, csrc/probes.cu; on no serving path): S4
+              consume at M = K = N = 4096 (n_dots 4 and 1), S2 mxu_rate
+              bf16 and int8 (512^3, 64 x 64 products), S3 f32inj_matmul
+              (W4, W2, W8 g128 planar at M = 32, K = N = 4096) and S1
+              ablate_decode (W4 and W2, full, noup at bn = bk, nodot),
+              each held against its plain version at
+              tolerance.PROBE_REL_TOL and timed beside its bound and a
+              library call; then their path: the four drivers
+              (omniquant_tpu_torch/scripts, as ``python -m`` runs them)
+              with the launch counts set to 0 before and read after, every
+              probe and every S1 mode launched. The serving path must
+              launch none of them.
 3. serve   -- LLaMA-7B widths and depth (vocab 32000, hidden 4096, inter
               11008, 32 layers, 32/32 heads), random weights from a seeded
               torch.Generator, packed by pack_model's auto layout: W4 g128
@@ -162,7 +175,10 @@ prints no result. Any failure raises, so the exit code is non-zero.
               (its default platform), tiny-opt, tiny-llama and
               tiny-falcon: W4A16 g64
               LWC, 2 epochs of 8 x 256, --eval_ppl, --real_quant,
-              --save_dir and a 16-token --serve_prompt of the packed model;
+              --save_dir and a 16-token --serve_prompt of the packed model
+              (tiny-llama with --export_autogptq: its model_autogptq.pt
+              decoded by unpack_autogptq equals model_packed.npz's
+              weights at the f16 scales, bit for bit);
               exit 0, a results JSON last, and K1, K3 and K4 launched (the
               CLI logs its launch counts); tiny-llama again with --sp 2
               (its mesh logged, K2 with stats launched as the ring's
@@ -355,6 +371,26 @@ KERNELS = {
         "omniquant_tpu_torch/csrc/quant_matmul_int.cu",
         "per element 2 bf16 ulps of |plain| + 2^-14 * xs * sum_g (|dot_g| "
         "sc_g + |xsum_g off2_g|), as quant_matmul_int"),
+    # the Hopper probes of the JAX package's experiment scripts (S1-S4), on
+    # no serving path: the probes phase drives them through their drivers
+    "ablate_decode": (
+        "scripts/exp_ablate_kernel.py:98",
+        "omniquant_tpu_torch/csrc/probes.cu",
+        "1e-2 of the largest |plain| (an f32 sum rounded to bf16 once)"),
+    "mxu_rate_bf16": (
+        "scripts/exp_mxu_rates.py:48", "omniquant_tpu_torch/csrc/probes.cu",
+        "1e-5 of the largest |plain| (64 f32 sums of one product, in "
+        "another order)"),
+    "mxu_rate_int8": (
+        "scripts/exp_mxu_rates.py:48", "omniquant_tpu_torch/csrc/probes.cu",
+        "exact (s32 sums of integers)"),
+    "f32inj_matmul": (
+        "scripts/exp_unpack_variants.py:114",
+        "omniquant_tpu_torch/csrc/probes.cu",
+        "1e-2 of the largest |plain| (an f32 sum rounded to bf16 once)"),
+    "consume": (
+        "scripts/exp_ablate_int.py:66", "omniquant_tpu_torch/csrc/probes.cu",
+        "1e-2 of the largest |plain| (an f32 sum rounded to bf16 once)"),
 }
 
 # kernels each engine of the serve phase must launch; quant_matmul_prefill
@@ -384,7 +420,7 @@ SERVE_PATHS = {
 EXTRAS = ("prefill", "long_prompt", "falcon", "opt27b", "int_mm_ms",
           "kernel_ms", "generic_kernel_ms", "verify", "widths", "floor_ms",
           "host_us", "cases", "ms_without_stats", "stats_m_max_abs_err",
-          "stats_l_max_rel_err", "tp")
+          "stats_l_max_rel_err", "tp", "rate", "peak_share")
 
 # e2e tolerance on logits, relative to the reference's rms / max magnitude:
 # the engine rounds activations to bf16 at every op (2^-9 relative each)
@@ -1551,6 +1587,205 @@ def check_int_dense(torch, device, timer, dims, out: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# probes phase: the Hopper probes of the JAX package's experiment scripts
+# (kernels/probes.py, S1-S4), at the scripts' shapes
+
+# count name -> the probe's launches that the drivers' run must show
+PROBE_PATHS = ("consume", "mxu_rate_bf16", "mxu_rate_int8", "f32inj_matmul",
+               "ablate_decode_full", "ablate_decode_noup",
+               "ablate_decode_nodot")
+PROBE_DRIVERS = ("exp_ablate_int", "exp_mxu_rates", "exp_unpack_variants",
+                 "exp_ablate_kernel")
+
+
+def _probe_row(torch, timer, label, name, call, plain, lib, nbytes, ops,
+               peak) -> dict:
+    """One probe call held to its plain version at PROBE_REL_TOL, then the
+    device times of the kernel, the plain version and the library call
+    (None where there is none), beside the bound for these inputs."""
+    from omniquant_tpu_torch.kernels import tolerance
+
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    ok, err, rel = tolerance.probe_close(got, want, name)
+    if not ok:
+        raise AssertionError(f"{label}: max abs err {err}, {rel:.3g} of the "
+                             "largest |value|")
+    del got, want
+    t = timer(call, label)
+    t_plain = timer(plain, label + " plain", iters=3)
+    t_lib = None if lib is None else timer(lib, label + " library")
+    b, by = bound_ms(nbytes, ops, peak)
+    log(f"  {label:34s}: max abs err {err:.3g} ({rel:.3g} of max)  kernel "
+        f"{t:.4f} ms  plain {t_plain:.4f}  library "
+        f"{'-' if t_lib is None else f'{t_lib:.4f}'}  bound {b:.4f} ({by})")
+    return dict(ms=t, plain_ms=t_plain, library_ms=t_lib, bound_ms=b,
+                bound_by=by, max_abs_err=err, rel_err=rel)
+
+
+def _probe_entry(rows: dict, head: str) -> dict:
+    """The JSON entry: the head row's numbers, the largest error of all,
+    every row under ``cases``."""
+    return dict(rows[head], shape=head, cases=rows,
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+
+
+def probe_checks(torch, device, timer) -> dict:
+    """S1-S4 against their plain versions at the scripts' shapes, timed
+    (the Timer's cold-L2 single launches). Bounds: bytes (words, x, the
+    slabs' used rows, out) for S1 and S3, operations at the bf16 and int8
+    peaks for S2 and S4. Library calls, timed only: S4 torch._int_mm and
+    the scale (n_dots 1's function); S2 one torch.matmul / torch._int_mm
+    doing the kernel's 64 x 64 products (x tiled, w stacked); S3 and S1
+    full bf16 torch.matmul
+    on the weight they multiply (S1's without zero points). S3's rows also
+    time K1 on the same words (``k1_ms``: the script's "cur")."""
+    from omniquant_tpu_torch.kernels import probes
+    from omniquant_tpu_torch.kernels.quant_matmul import quant_matmul
+    from omniquant_tpu_torch.quant import (QuantConfig, dequantize_packed,
+                                           pack_weight)
+    from omniquant_tpu_torch.quant.packing import unpack_codes
+    from omniquant_tpu_torch.scripts import (exp_ablate_int,
+                                             exp_ablate_kernel,
+                                             exp_mxu_rates,
+                                             exp_unpack_variants)
+
+    res = {}
+    # S4 at M = K = N = 4096, BK 512, W4 g128 codes
+    ops = exp_ablate_int.operands(device)
+    xc, w8, slabs, n_g = ops["xc"], ops["w8"], ops["slabs"], ops["n_g"]
+    M, K = xc.shape
+    N = w8.shape[1]
+    rows = {}
+    for n_dots in (n_g, 1):
+        lib = None
+        if n_dots == 1:
+            row0 = slabs[0, 0]
+            lib = lambda: torch._int_mm(xc, w8) * row0
+        rows[f"n_dots {n_dots}"] = _probe_row(
+            torch, timer, f"consume n_dots {n_dots}", "consume",
+            lambda n=n_dots: probes.consume(xc, w8, slabs, n),
+            lambda n=n_dots: probes.consume_plain(xc, w8, slabs, n), lib,
+            M * K + K * N + (K // 512) * n_g * N * 4 + M * N * 2,
+            2.0 * M * K * N, INT8_OPS_PER_S)
+    del ops, xc, w8
+    res["consume"] = _probe_entry(rows, f"n_dots {n_g}")
+    # S2: 512^3 operands, 64 products a repeat, 64 repeats
+    for dt, name, peak in (("bf16", "mxu_rate_bf16", BF16_FLOPS_PER_S),
+                           ("int8", "mxu_rate_int8", INT8_OPS_PER_S)):
+        x, w = exp_mxu_rates.operands(device, dt)
+        fn = getattr(probes, name)
+        # the library's call for the same products: x tiled 64 x 64 times w
+        # stacked 64 times, (32768, 32768) . (32768, 512), whose 64 row
+        # blocks are the 64 repeats' sums of 64 products each
+        xt, ws = x.repeat(probes.MXU_REPEATS, probes.MXU_INNER), w.repeat(
+            probes.MXU_INNER, 1)
+        if dt == "bf16":
+            lib = lambda xt=xt, ws=ws: torch.matmul(xt, ws)
+        else:
+            lib = lambda xt=xt, ws=ws: torch._int_mm(xt, ws)
+        flops = probes.mxu_flops(x.shape[0], w.shape[1])
+        row = _probe_row(
+            torch, timer, f"{name} 512^3 x 64 x 64", name,
+            lambda fn=fn, x=x, w=w: fn(x, w),
+            lambda x=x, w=w: probes.mxu_rate_plain(x, w), lib,
+            x.numel() * x.element_size() * 2 + x.shape[0] * w.shape[1] * 4,
+            flops, peak)
+        del xt, ws
+        row["rate"] = flops / (row["ms"] * 1e-3)
+        row["peak_share"] = row["rate"] / peak
+        row["library_rate"] = flops / (row["library_ms"] * 1e-3)
+        log(f"    {name}: {row['rate'] / 1e12:.1f} TOP/s, "
+            f"{100 * row['peak_share']:.1f} % of the dense peak (library "
+            f"{row['library_rate'] / 1e12:.1f} TOP/s)")
+        res[name] = dict(row, shape="512 x 512 x 512, 64 x 64 products",
+                         cases={})
+    # S3 and S1 at M = 32, K = N = 4096, planar g128 (tile 512)
+    gen = torch.Generator(device=device).manual_seed(2424)
+    x = torch.randn(exp_unpack_variants.M, exp_unpack_variants.K,
+                    generator=gen, device=device).to(torch.bfloat16)
+    M, K = x.shape
+    N = exp_unpack_variants.N
+    inj, abl = {}, {}
+    for bits in (4, 2, 8):
+        w = torch.randn(N, K, generator=gen, device=device) * 0.02
+        pw = pack_weight(w, QuantConfig(n_bits=bits, group_size=128))
+        del w
+        words = pw.qweight.numel() * 4
+        used = (K // 512) * 4 * N * 4  # a slab's used rows, f32
+        sc2, off2 = probes.f32inj_slabs(pw)
+        w_lib = dequantize_packed(pw, dtype=torch.bfloat16)
+        args = (x, pw.qweight, sc2, off2, bits, pw.tile_k, pw.group_size)
+        k1 = pw.map_tensors(
+            lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t)
+        inj[f"W{bits}"] = row = _probe_row(
+            torch, timer, f"f32inj_matmul W{bits} m={M}", "f32inj_matmul",
+            lambda a=args: probes.f32inj_matmul(*a),
+            lambda a=args: probes.f32inj_matmul_plain(*a),
+            lambda w_lib=w_lib: torch.matmul(x, w_lib),
+            words + x.numel() * 2 + 2 * used + M * N * 2, 2.0 * M * K * N,
+            BF16_FLOPS_PER_S)
+        # the script's "cur" row: K1 on the same words (bf16 scales)
+        row["k1_ms"] = timer(lambda k1=k1: quant_matmul(x, k1),
+                             f"quant_matmul W{bits} m={M}")
+        log(f"    K1 on the same words: {row['k1_ms']:.4f} ms")
+        del k1
+        if bits in exp_ablate_kernel.WIDTHS:
+            sc = probes.ablate_slabs(pw)
+            codes = unpack_codes(pw.qweight, bits, K, 128, pw.tile_k)
+            w_nz = (codes.float() * pw.scales.t().float().repeat_interleave(
+                128, 0)).to(torch.bfloat16)  # no zero points, as S1
+            del codes
+            for mode in probes.ABLATE_MODES:
+                bn = pw.tile_k if mode == "noup" else exp_ablate_kernel.BN
+                a = (mode, x, pw.qweight, sc, bits, pw.tile_k, 128, bn)
+                abl[f"W{bits} {mode}"] = _probe_row(
+                    torch, timer, f"ablate_decode W{bits} {mode} bn={bn}",
+                    "ablate_decode", lambda a=a: probes.ablate_decode(*a),
+                    lambda a=a: probes.ablate_decode_plain(*a),
+                    (lambda w_nz=w_nz: torch.matmul(x, w_nz))
+                    if mode == "full" else None,
+                    words + x.numel() * 2 + used + M * N * 2,
+                    2.0 * M * K * N, BF16_FLOPS_PER_S)
+            del w_nz
+        del pw, w_lib, sc2, off2
+    res["f32inj_matmul"] = _probe_entry(inj, "W4")
+    res["ablate_decode"] = _probe_entry(abl, "W4 full")
+    return res
+
+
+def probes_phase(torch, device, timer, out: dict) -> tuple:
+    """The probes held and timed (probe_checks), then their path: the four
+    drivers (omniquant_tpu_torch/scripts, each main() as ``python -m``
+    runs it, at the scripts' shapes, printing the scripts' rows) with the
+    launch counts set to 0 before and read after; each probe, and each of
+    S1's modes, must have launched. Returns (entries, counts)."""
+    import importlib
+
+    from omniquant_tpu_torch import kernels
+
+    t0 = time.time()
+    res = probe_checks(torch, device, timer)
+    kernels.reset_launch_counts()
+    for d in PROBE_DRIVERS:
+        log(f"  python -m omniquant_tpu_torch.scripts.{d}:")
+        importlib.import_module(f"omniquant_tpu_torch.scripts.{d}").main([])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    missing = [k for k in PROBE_PATHS if counts[k] <= 0]
+    log(f"  probe launches in the drivers' run: "
+        f"{ {k: counts[k] for k in PROBE_PATHS} }")
+    if missing:
+        raise AssertionError(f"probes: never launched by the drivers: "
+                             f"{missing}")
+    out["probes"] = dict(rows=res, launches=counts,
+                         phase_s=time.time() - t0)
+    log(f"  probes phase {out['probes']['phase_s']:.1f} s")
+    return res, counts
+
+
 def make_packed(torch, cfg, device, seed, bits=4, group_size=128):
     """Random dense weights from a seeded generator, packed at ``bits`` and
     ``group_size`` (the "auto" layout: pairs for 2/3/4-bit at g128, planar
@@ -3383,9 +3618,11 @@ def falcon_phase(torch, device, seed, out: dict) -> None:
 # the card) as a user runs it, once per synthetic net. At these widths the
 # projections with N % 128 != 0 take the dense reference instead of K1, as
 # the JAX package routes them: CLI_DENSE names them.
-# run name -> (net, extra flags): the three nets, and tiny-llama again with
-# sequence-parallel calibration over 2 shards on the card (--sp 2)
-CLI_RUNS = {"tiny-opt": ("tiny-opt", ()), "tiny-llama": ("tiny-llama", ()),
+# run name -> (net, extra flags): the three nets (tiny-llama also writes
+# the AutoGPTQ checkpoint), and tiny-llama again with sequence-parallel
+# calibration over 2 shards on the card (--sp 2)
+CLI_RUNS = {"tiny-opt": ("tiny-opt", ()),
+            "tiny-llama": ("tiny-llama", ("--export_autogptq",)),
             "tiny-falcon": ("tiny-falcon", ()),
             "tiny-llama-sp2": ("tiny-llama", ("--sp", "2"))}
 # the --sp 2 run's K2 stats launches: 2 layers x 8 windows x 2 capture
@@ -3404,6 +3641,41 @@ CLI_DENSE = {"tiny-opt": "qkv (N 192), out_proj and fc2 (N 64)",
                             "(N 64)"}
 
 
+def autogptq_hold(save_dir: str, family: str) -> dict:
+    """The CLI's model_autogptq.pt decoded by unpack_autogptq, linear by
+    linear, against its model_packed.npz dequantized with the scales
+    rounded to f16 as the wire holds them: equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from omniquant_tpu_torch.quant import dequantize_packed
+    from omniquant_tpu_torch.serving import export_autogptq as ag
+    from omniquant_tpu_torch.utils import load_packed_npz
+
+    sd = torch.load(os.path.join(save_dir, "model_autogptq.pt"),
+                    weights_only=True)
+    packed = load_packed_npz(os.path.join(save_dir, "model_packed.npz"),
+                             device="cpu")
+    held, worst = 0, 0.0
+    for i, block in enumerate(packed["layers"]):
+        prefix = ag._LAYER_PREFIX[family].format(i=i)
+        for key, path in ag._LINEAR_NAMES[family].items():
+            pw = block[key]
+            tensors = {t: sd[f"{prefix}{path}.{t}"].numpy()
+                       for t in ("qweight", "qzeros", "scales", "g_idx")}
+            got = ag.unpack_autogptq(tensors, pw.bits)
+            f16 = dataclasses.replace(
+                pw, scales=pw.scales.half().float(), bias=None)
+            want = dequantize_packed(f16, dtype=torch.float32)[
+                :pw.in_features].numpy()
+            worst = max(worst, float(np.abs(got - want).max()))
+            held += 1
+    if worst != 0.0:
+        raise AssertionError(f"model_autogptq.pt: {held} linears, largest "
+                             f"difference {worst} from the packed weights")
+    return dict(linears=held, tensors=len(sd), max_abs_err=worst)
+
+
 def cli_phase(out: dict) -> None:
     """The CLI_RUNS as subprocesses started together, each in a fresh
     directory under the git-ignored build/ with its output in files there:
@@ -3411,7 +3683,9 @@ def cli_phase(out: dict) -> None:
     perplexity and a generation, and log the launch of every kernel of
     CLI_PATHS; the --sp 2 run must log its mesh, launch K2 with stats
     CLI_SP_STATS times and give tiny-llama's perplexity within
-    CLI_SP_PPL_RTOL. A run still going after 600 s is killed and fails."""
+    CLI_SP_PPL_RTOL; tiny-llama's model_autogptq.pt must decode to its
+    model_packed.npz (autogptq_hold). A run still going after 600 s is
+    killed and fails."""
     import re
     import shutil
 
@@ -3487,6 +3761,12 @@ def cli_phase(out: dict) -> None:
     if not (sp["mesh_logged"] and gap <= CLI_SP_PPL_RTOL and
             sp["launches"]["flash_attention_stats"] == CLI_SP_STATS):
         raise AssertionError(f"cli tiny-llama-sp2: {sp}")
+    ag = res["tiny-llama"]["autogptq"] = autogptq_hold(
+        os.path.join(HERE, "build", "cli_smoke", "tiny-llama", "save"),
+        "llama")
+    log(f"  cli tiny-llama --export_autogptq: model_autogptq.pt "
+        f"({ag['tensors']} tensors) decodes to model_packed.npz on all "
+        f"{ag['linears']} linears, largest difference {ag['max_abs_err']}")
 
 
 # ---------------------------------------------------------------------------
@@ -5635,6 +5915,11 @@ def main(argv=None) -> int:
     results["decode_attention_int8"]["max_abs_err"] = max(
         [results["decode_attention_int8"]["max_abs_err"]]
         + [r["max_abs_err"] for r in tp_k6])
+    log("probes: the Hopper probes of the JAX package's experiment scripts "
+        "(S1-S4) against their plain versions at the scripts' shapes, then "
+        "their drivers")
+    probe_rows, probe_counts = probes_phase(torch, device, timer, out)
+    results.update(probe_rows)
     out["host_in_window"] = timer.host_in_window
     log(f"  timings that include host time (the function synchronises): "
         f"{timer.host_in_window or 'none'}")
@@ -5751,6 +6036,11 @@ def main(argv=None) -> int:
               + counts["quant_matmul_planar_prefill"])
     launches = dict(counts, quant_matmul=counts["quant_matmul"] - planar,
                     quant_matmul_planar=planar)
+    # the probes lie on no serving path: the drivers' run is theirs
+    stray = {k: launches[k] for k in probe_rows if launches[k]}
+    if stray:
+        raise AssertionError(f"probes launched on the serving path: {stray}")
+    launches.update({k: probe_counts[k] for k in probe_rows})
     entries = []
     for name, (replaces, source, tol) in KERNELS.items():
         r = results[name]

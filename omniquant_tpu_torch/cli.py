@@ -14,12 +14,13 @@ through ``transformers``); calibrate it (tokens cached under
 ``--act-scales``/``--act-shifts``, ``--resume`` an omni_parameters.npz);
 ``--save_dir``: write ``model_fakequant.npz`` and ``config.json``, and with
 ``--real_quant`` also ``model_packed.npz``, in the npz format both packages
-read; ``--eval_ppl``: perplexity on each test split there is a local copy
-of (offline, only ``synthetic``); ``--tasks``: the evaluation harness
-(``eval/harness``: ``run_tasks`` over a ``TorchLM``, its scores cached in
-the sqlite db ``--eval_cache`` when given); ``--serve_prompt``: generate
-with the serving engine. The last line of standard output is the results
-JSON.
+read (and with ``--export_autogptq`` ``model_autogptq.pt``, AutoGPTQ's
+tensors: ``serving/export_autogptq.py``); ``--eval_ppl``: perplexity on
+each test split there is a local copy of (offline, only ``synthetic``);
+``--tasks``: the evaluation harness (``eval/harness``: ``run_tasks`` over a
+``TorchLM``, its scores cached in the sqlite db ``--eval_cache`` when
+given); ``--serve_prompt``: generate with the serving engine. The last
+line of standard output is the results JSON.
 
 Unlike ``main.py``, which evaluates and serves the fake-quant weights
 whatever the flag says, ``--real_quant`` runs ``--tasks`` and serves
@@ -44,9 +45,8 @@ a card of its own, else gloo); every rank runs the whole program, the
 shard a process), and only rank 0 writes files (``--save_dir``, the
 calibration's and the caches' npz files, the ``--eval_cache`` db); each
 rank logs to a file of its own, ``log_<time>_rank<R>.txt``. Flags whose
-machinery is not ported yet (the AutoGPTQ exporter, a cluster found
-without ``--coordinator``, ``--sp`` across ranks) exit with the ROADMAP
-item that ports it.
+machinery is not ported yet (a cluster found without ``--coordinator``,
+``--sp`` across ranks) exit with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -175,8 +175,6 @@ def _unported(args) -> list:
         (args.num_processes > 1 and args.sp > 1,
          "--sp with --num_processes > 1 needs ring attention across ranks "
          "(ROADMAP Queue 1 item 3)"),
-        (args.export_autogptq, "--export_autogptq needs the AutoGPTQ "
-                               "exporter (ROADMAP Queue 1 item 4)"),
     ) if used]
 
 
@@ -446,6 +444,15 @@ def _run(args, device, logger, mesh, rank: int = 0) -> dict:
         if packed is not None:
             save_pytree(f"{args.save_dir}/model_packed.npz", packed)
             logger.info("saved packed real-quant weights")
+            if args.export_autogptq:
+                from .serving.export_autogptq import save_autogptq_checkpoint
+
+                save_autogptq_checkpoint(
+                    family.name, packed,
+                    f"{args.save_dir}/model_autogptq.pt")
+                logger.info(
+                    "saved AutoGPTQ-format checkpoint (reference "
+                    "real-quant interop, quantize/omniquant.py:255-277)")
 
     tp_forward = None
     if mesh is not None:

@@ -32,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("quant_matmul", "kv_update", "flash_attention", "decode_attention",
-           "quant_matmul_int")
+           "quant_matmul_int", "probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

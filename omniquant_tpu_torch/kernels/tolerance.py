@@ -97,3 +97,22 @@ def flash_stats_close(m_got, l_got, m_want, l_want) -> tuple:
                     dl / (FLASH_STATS_SLACK * l_want)).max().item())
     rel_l = (dl / l_want.clamp_min(1e-30)).max().item()
     return worst <= 1.0, dm.max().item(), rel_l, worst
+
+
+# The Hopper probes (kernels/probes.py) against their plain versions, as a
+# share of the output's largest |value|: consume (S4), f32inj_matmul (S3)
+# and ablate_decode (S1) round an f32 sum to bf16 once (2^-8 of an element
+# at most; the sums differ only in order); mxu_rate_bf16 (S2) adds 64 f32
+# products summed in another order; mxu_rate_int8 sums integers exactly.
+PROBE_REL_TOL = {"consume": 1e-2, "mxu_rate_bf16": 1e-5, "mxu_rate_int8": 0.0,
+                 "f32inj_matmul": 1e-2, "ablate_decode": 1e-2}
+
+
+def probe_close(got: torch.Tensor, want: torch.Tensor, name: str) -> tuple:
+    """Hold a probe's output to PROBE_REL_TOL[name] of want's largest
+    |value|. Returns (within the bound, max abs error, that error over the
+    largest |value|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    finite = bool(torch.isfinite(got.float()).all())
+    return finite and rel <= PROBE_REL_TOL[name], err, rel

@@ -13,7 +13,8 @@ equals main.py's within 1e-5 relative (f32) and its generated text is
 main.py's. With
 ``--real_quant --save_dir`` it writes files that the JAX package's
 ``load_pytree`` reads and that equal main.py's (packed words bit for bit,
-the fake-quant weights to the f32 ulps of the LWC sigmoid), and it serves
+the fake-quant weights to the f32 ulps of the LWC sigmoid; with
+``--export_autogptq`` a model_autogptq.pt equal to main.py's), and it serves
 the packed model, which gives the text of JAX's engine on main.py's
 packed model. Falcon is LWC only: asked for LET, both calibrate without
 it (the act statistics are still collected and written, as main.py does).
@@ -114,6 +115,7 @@ def runs(request, tmp_path_factory):
     net = request.param
     d = tmp_path_factory.mktemp(net)
     want = MAIN.main(COMMON + ["--net", net, "--epochs", "1", "--real_quant",
+                               "--export_autogptq",
                                "--save_dir", str(d / "jsave")]
                      + _dirs(d, "jax"))
     resume = ["--epochs", "0", "--resume",
@@ -125,6 +127,7 @@ def runs(request, tmp_path_factory):
         stats = [arg for k in ("scales", "shifts") for arg in (
             f"--act-{k}", str(d / "jax_out" / f"act_{k}.npz"))]
         packed = cli.main(COMMON + ["--net", net, "--real_quant",
+                                    "--export_autogptq",
                                     "--save_dir", str(d / "tsave")] + resume
                           + stats + _dirs(d, "port_rq"))
     finally:
@@ -152,7 +155,7 @@ def test_parser_matches_main_py():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num_processes", "2"], "item 3"), (["--export_autogptq"], "item 4"),
+    (["--num_processes", "2"], "item 3"),
     (["--num_processes", "2", "--coordinator", "localhost:1",
       "--process_id", "0", "--sp", "2"], "ring attention across ranks")])
 def test_unported_flags_exit(flags, item):
@@ -460,6 +463,43 @@ def test_save_dir_matches_main_py(runs):
         want = json.load(f)
     with open(d / "tsave" / "config.json") as f:
         assert json.load(f) == want
+
+
+def test_autogptq_checkpoint_matches_main_py(runs, tmp_path):
+    """--real_quant --export_autogptq: the port's model_autogptq.pt holds
+    main.py's tensors name for name: the integer ones (qweight, qzeros,
+    g_idx) bit for bit, the f16 ones (scales, biases, norms, embeddings)
+    bit for bit or one f16 step apart, as the f32 values they round agree
+    to f32 ulps (test_save_dir_matches_main_py). The port's exporter on
+    main.py's own model_packed.npz writes main.py's file bit for bit."""
+    from omniquant_tpu_torch.serving.export_autogptq import (
+        save_autogptq_checkpoint)
+    from omniquant_tpu_torch.utils import load_packed_npz
+
+    d = runs["dir"]
+    want = torch.load(str(d / "jsave" / "model_autogptq.pt"),
+                      weights_only=True)
+    got = torch.load(str(d / "tsave" / "model_autogptq.pt"),
+                     weights_only=True)
+    assert sorted(got) == sorted(want)
+    assert any(k.endswith(".qweight") for k in want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if w.dtype != torch.float16:
+            assert torch.equal(g, w), k
+            continue
+        step = torch.nextafter(w.abs(), torch.tensor(
+            float("inf"), dtype=w.dtype)) - w.abs()
+        assert ((g.float() - w.float()).abs() <= step.float()).all(), k
+    save_autogptq_checkpoint(
+        get_family(runs["net"]).name,
+        load_packed_npz(str(d / "jsave" / "model_packed.npz"), device="cpu"),
+        str(tmp_path / "from_jax_pack.pt"))
+    again = torch.load(str(tmp_path / "from_jax_pack.pt"), weights_only=True)
+    assert sorted(again) == sorted(want)
+    for k, w in want.items():
+        assert again[k].dtype == w.dtype and torch.equal(again[k], w), k
 
 
 def test_real_quant_serves_the_packed_model(runs):

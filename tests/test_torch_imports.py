@@ -55,7 +55,11 @@ def test_no_jax_or_jax_package_loaded():
                 "parallel", "parallel.ring_attention", "parallel.mesh",
                 "parallel.sharding", "parallel.tp_forward",
                 "serving.tp_engine", "parallel.multihost",
-                "serving.dp_serving"):
+                "serving.dp_serving", "kernels.probes", "scripts",
+                "scripts._common", "scripts.exp_ablate_int",
+                "scripts.exp_mxu_rates", "scripts.exp_unpack_variants",
+                "scripts.exp_ablate_kernel", "serving.export_autogptq",
+                "utils.import_reference", "utils.profiling"):
         assert f"omniquant_tpu_torch.{sub}" in res["modules"]
 
 

@@ -2150,3 +2150,108 @@ def test_dp_generate_all_on_the_card(cuda, two_ranks):
         want[r::2] = DPServingCoordinator(eng).generate_all(
             reqs[r::2], max_new_tokens=12, step=4)
     assert two_ranks[0]["streams"] == two_ranks[1]["streams"] == want
+
+
+# ---------------------------------------------------------------------------
+# the Hopper probes (kernels/probes.py, S1-S4) against their plain versions,
+# at PROBE_REL_TOL of the output's largest |value|
+
+def _probe_held(got, want, name):
+    ok, err, rel = tolerance.probe_close(got, want, name)
+    assert ok, f"{name}: max abs err {err}, {rel:.3g} of the largest |value|"
+
+
+@pytest.mark.parametrize("M,K,N,BK,n_dots", [
+    (256, 1024, 256, 512, 4), (256, 1024, 256, 512, 1), (200, 512, 384, 256, 4),
+    (16, 256, 128, 256, 1), (128, 1536, 128, 512, 2), (64, 512, 128, 128, 4)])
+def test_consume_kernel_matches_plain(cuda, M, K, N, BK, n_dots):
+    from omniquant_tpu_torch.kernels import probes
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + n_dots)
+    xc = torch.randint(-128, 128, (M, K), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    w8 = torch.randint(-8, 8, (K, N), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    slabs = torch.rand(K // BK, 8, N, generator=gen, device=cuda) * 0.1
+    got = probes.consume(xc, w8, slabs, n_dots)
+    torch.cuda.synchronize()
+    _probe_held(got, probes.consume_plain(xc, w8, slabs, n_dots), "consume")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("M,N,inner,repeats", [(512, 512, 4, 4),
+                                               (64, 128, 3, 8)])
+def test_mxu_rate_kernels_match_plain(cuda, dtype, M, N, inner, repeats):
+    from omniquant_tpu_torch.kernels import probes
+
+    gen = torch.Generator(device=cuda).manual_seed(M + inner)
+    if dtype == torch.int8:
+        x = torch.randint(-16, 16, (M, 512), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        w = torch.randint(-8, 8, (512, N), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        fn, name = probes.mxu_rate_int8, "mxu_rate_int8"
+    else:
+        x = torch.randn(M, 512, generator=gen, device=cuda).to(dtype)
+        w = torch.randn(512, N, generator=gen, device=cuda).to(dtype)
+        fn, name = probes.mxu_rate_bf16, "mxu_rate_bf16"
+    got = fn(x, w, inner, repeats)
+    torch.cuda.synchronize()
+    _probe_held(got, probes.mxu_rate_plain(x, w, inner), name)
+
+
+def _probe_pack(cuda, bits, K, N, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn(N, K, generator=gen, device=cuda) * 0.02
+    return pack_weight(w, QuantConfig(n_bits=bits, group_size=128))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,K,N", [(32, 1024, 256), (5, 512, 384),
+                                   (32, 4096, 4096)])
+def test_f32inj_kernel_matches_plain(cuda, bits, M, K, N):
+    from omniquant_tpu_torch.kernels import probes
+
+    pw = _probe_pack(cuda, bits, K, N, bits + M)
+    x = torch.randn(M, K, generator=torch.Generator(device=cuda).manual_seed(
+        M), device=cuda).to(torch.bfloat16)
+    sc2, off2 = probes.f32inj_slabs(pw)
+    args = (x, pw.qweight, sc2, off2, bits, pw.tile_k, pw.group_size)
+    got = probes.f32inj_matmul(*args)
+    torch.cuda.synchronize()
+    _probe_held(got, probes.f32inj_matmul_plain(*args), "f32inj_matmul")
+    _probe_held(got, quant_matmul_reference(x.float(), pw), "f32inj_matmul")
+
+
+@pytest.mark.parametrize("mode", ["full", "noup", "nodot"])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("M,K,N,bn", [(32, 1024, 256, 128),
+                                      (7, 512, 384, 384), (32, 4096, 4096, 512)])
+def test_ablate_kernel_matches_plain(cuda, mode, bits, M, K, N, bn):
+    from omniquant_tpu_torch.kernels import probes
+
+    pw = _probe_pack(cuda, bits, K, N, bits + K)
+    x = torch.randn(M, K, generator=torch.Generator(device=cuda).manual_seed(
+        N), device=cuda).to(torch.bfloat16)
+    args = (mode, x, pw.qweight, probes.ablate_slabs(pw), bits, pw.tile_k,
+            pw.group_size, bn)
+    got = probes.ablate_decode(*args)
+    torch.cuda.synchronize()
+    _probe_held(got, probes.ablate_decode_plain(*args), "ablate_decode")
+    # K1's split-K sum in slice order: a second call gives the same bits
+    # (and finds the tickets the first one left zeroed)
+    assert torch.equal(probes.ablate_decode(*args), got)
+
+
+def test_device_memory_stats_on_the_card(cuda):
+    """utils.profiling.device_memory_stats: each card's bytes in use, peak
+    and capacity, as torch.cuda reports them."""
+    from omniquant_tpu_torch.utils import device_memory_stats
+
+    x = torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    s = stats["cuda:0"]
+    assert s["bytes_in_use"] >= x.numel()
+    assert s["peak_bytes_in_use"] >= s["bytes_in_use"]
+    assert s["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
