@@ -261,7 +261,21 @@ prints no result. Any failure raises, so the exit code is non-zero.
               streams under the near-tie rule; the planted fault (the last
               shard's partial left out of every sum) must fail that hold.
               The 70B int8 run ends with one step_n(., 8) of each engine
-              under torch.profiler (the card's busy share). The kernels
+              under torch.profiler (the card's busy share). Then
+              --eval_ppl --tp's path (make_tp_model_forward with the
+              activation quantizers) at LLaMA-2-70B widths, TP_70B_LAYERS
+              layers, tp 8, per-channel W4A4 and W6A6 packed planar, in
+              bf16, on one 2048-token window of the synthetic test split
+              (TP_PPL_RUNS): K8 + K9 at the row-parallel sites, the
+              fake-quantized input (ranges all-reduced) into K1's planar
+              prefill tile at the column-parallel ones, launches exactly tp
+              times a shard's; against the single-device forward of the
+              pack: every column-parallel site's gathered quantized input
+              the unsplit quantizer's bit for bit, each shard's
+              row-parallel products the single device's columns within
+              TP_PPL_SHARD_RMS, the logits within TP_PPL_LOGIT_RMS (W6A6
+              only) and the NLL rule of ppl_check; shard-local ranges and
+              shard 0's scales x 1.01 must each fail. Seconds a window, peak GiB. The kernels
               phase holds and times K1 at the per-shard shapes (TP_K1:
               70B's at tp 8, 7B's at tp 2, OPT-2.7B's out_proj retiled to
               256 and 128 rows) and K6 at a 70B shard's one kv head of 8
@@ -291,7 +305,21 @@ prints no result. Any failure raises, so the exit code is non-zero.
               at E2E_TOL), all ranks alike, streams under the near-tie
               rule; the last shard's partial left out of every sum must
               fail. A step ms, step_n and prefill tok/s and a shard's GiB
-              beside the in-process mesh's and the single engine's.
+              beside the in-process mesh's and the single engine's. DP
+              again, its ranks launched with torchrun's variables and no
+              coordinator (init_multihost finds the group): each rank's
+              streams, first-decode logits and launches those of the
+              explicit launch's rank bit for bit. SP: the sp phase's
+              LLaMA-2-7B run (4 x 4096 tokens, W4A16 g128 LWC) with the
+              ring across 2 ranks of one shard (k/v blocks and, in the
+              backward, their gradients exchanged point to point through
+              the host): layer 0's fp capture the in-process SPMesh's bit
+              for bit, losses and LWC factors within the sp phase's
+              tolerances and MP_SP_LOSS_RTOL / MP_SP_LWC_RMS of it, both
+              ranks alike, each rank's K2 stats launches its shard's share
+              of the ring; rank 1 handing zeros back for the dk/dv must
+              fail. Seconds a step (the slowest rank) beside the
+              in-process and single-device runs, peak GiB a rank.
 
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line ``{"kernels": [...]}``; the last line is
@@ -4464,7 +4492,9 @@ def _sp_calibrate(torch, device, family, cfg, dense, train, cc, mesh,
                   fault=None) -> dict:
     """calibrate on a copy of ``dense`` with ``sp_mesh=mesh`` (None: the
     single-device run) and ``fault`` planted (SP_FAULTS; "drop_last_mse"
-    takes the last shard's terms out of the train loss): its params, omni
+    takes the last shard's terms out of the train loss; "no_shift_back",
+    on a mesh over ranks, zeroes the gradients rank 1's ring shifts back):
+    its params, omni
     parameters, losses, timings, peak GiB, launches, ring calls and layer
     0's fp capture of window 0, (S, hidden)."""
     import importlib
@@ -4489,8 +4519,20 @@ def _sp_calibrate(torch, device, family, cfg, dense, train, cc, mesh,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     calls = dict(ra.ring_attention_local.calls)
+    mesh_mod = importlib.import_module("omniquant_tpu_torch.parallel.mesh")
+    exchange = mesh_mod.Mesh._exchange
+
+    def no_shift_back(self, xs, step):
+        # rank 1 hands zeros back in place of the dk/dv of the blocks it
+        # received (a backward with no shift): the exchange still happens
+        if step < 0 and torch.distributed.get_rank() == 1:
+            xs = [torch.zeros_like(x) for x in xs]
+        return exchange(self, xs, step)
+
     if fault == "drop_last_mse":
         ra.SPMesh.run = drop_last
+    if fault == "no_shift_back":
+        mesh_mod.Mesh._exchange = no_shift_back
     t0 = time.time()
     try:
         params, omni = calibrate(
@@ -4500,6 +4542,7 @@ def _sp_calibrate(torch, device, family, cfg, dense, train, cc, mesh,
         torch.cuda.synchronize()
     finally:
         ra.SPMesh.run = run
+        mesh_mod.Mesh._exchange = exchange
     return dict(
         params=params, omni=omni, losses=losses, phase_s=time.time() - t0,
         steps=len(timings["step_s"]),
@@ -4573,7 +4616,8 @@ def _sp_readings(torch, device, family, cfg, wcfg, run, one, held,
                 codes_apart_share=codes, held_out_mse=mse, failed=failed)
 
 
-def sp_calib_run(torch, device, name, family, cfg, dense, seed) -> dict:
+def sp_calib_run(torch, device, name, family, cfg, dense, seed,
+                 keep: dict = None) -> dict:
     """One SP_CALIB_RUNS entry: calibrate ``dense`` without and with
     sp_mesh = [device] * shards on the same windows, each with its seconds
     a step, peak GiB and launches; the SP run's K2 launches, all with
@@ -4610,6 +4654,12 @@ def sp_calib_run(torch, device, name, family, cfg, dense, seed) -> dict:
             f"{r['ring_calls']}; losses " + ", ".join(
                 f"{x:.6e}" for x in r["losses"]))
     one, sp = runs["single"], runs["sp"]
+    if keep is not None and name == MP_SP_RUN:
+        keep[name] = dict(
+            capture=sp["capture"].cpu(), losses=sp["losses"],
+            lwc=_lwc_flat(torch, family, sp["omni"], cfg).cpu(),
+            step_s=sp["step_s"], peak_gib=sp["peak_gib"],
+            single_step_s=one["step_s"], single_peak_gib=one["peak_gib"])
     steps = sp["steps"]
     stats = layers * SP_NSAMPLES * 2 * shards * (shards + 1) // 2
     want = dict(stats=stats, k2=stats, flash=layers * SP_NSAMPLES * 2,
@@ -4659,13 +4709,24 @@ def sp_calib_run(torch, device, name, family, cfg, dense, seed) -> dict:
     return res
 
 
-def sp_phase(torch, device, seed, out: dict) -> dict:
+def _lwc_flat(torch, family, omni, cfg):
+    """Every LWC factor of a calibration's omni parameters, in one f32
+    vector (layers, linears, factors in order)."""
+    return torch.cat([omni[i]["lwc"][n][f].float().flatten()
+                      for i in range(cfg.num_hidden_layers)
+                      for n in family.linear_names
+                      for f in sorted(omni[i]["lwc"][n])])
+
+
+def sp_phase(torch, device, seed, out: dict, keep: dict = None) -> dict:
     """(a) K2 with stats at SP_K2's shapes, causal and not, against its plain
     version and timed; (b) the ring over SP_RING_LEN tokens at
     SP_RING_SHARDS; (c) SP calibration of LLaMA-2-7B widths at 4096 tokens
     and (d) of OPT-2.7B widths at 2048 (SP_CALIB_RUNS), each against the
     single-device run. Returns the launch counts of the SP runs (the main
-    path's): K2's, and those of them with stats."""
+    path's): K2's, and those of them with stats. ``keep`` receives
+    MP_SP_RUN's SP run (capture, losses, LWC factors, seconds a step, peak
+    GiB) for the mp phase."""
     from omniquant_tpu_torch.models import LLAMA, OPT, llama, opt
 
     res = out["sp"] = {}
@@ -4689,7 +4750,7 @@ def sp_phase(torch, device, seed, out: dict) -> dict:
             cfg = opt.OPTConfig(**dict(OPT_27B, num_hidden_layers=2))
             dense = opt_dense(torch, device, cfg, seed + 21)
         r = res[name] = sp_calib_run(torch, device, name, family, cfg, dense,
-                                     seed)
+                                     seed, keep)
         for k, v in (("flash_attention", "k2"),
                      ("flash_attention_stats", "stats")):
             counts[k] = counts.get(k, 0) + r["launches"][v]
@@ -4792,18 +4853,20 @@ TP_PATHS = {"70b_bf16": _TP_A16 + ("quant_matmul_prefill",
                                    "decode_attention_int8")}
 
 
-def _llama2_70b_pack(torch, device, layers, seed):
+def _llama2_70b_pack(torch, device, layers, seed, bits=3, group_size=128,
+                     layout=None):
     """LLaMA-2-70B widths at ``layers`` layers, N(0, 0.02) weights and
-    norms near 1 from a seeded generator, each linear packed at W3 g128 as
-    soon as it is drawn (a layer's f32 weights are 3.4 GB; the model's never
-    exist at once): o_proj and down_proj planar, the others by the auto
-    layout (pairs). Embeddings and head f32."""
+    norms near 1 from a seeded generator, each linear packed (W3 g128 by
+    default) as soon as it is drawn (a layer's f32 weights are 3.4 GB; the
+    model's never exist at once): with ``layout`` None, o_proj and
+    down_proj planar and the others by the auto layout (pairs), else every
+    linear in ``layout``. Embeddings and head f32."""
     from omniquant_tpu_torch.models import llama
     from omniquant_tpu_torch.quant import QuantConfig, pack_weight
 
     cfg = llama.LlamaConfig(**dict(LLAMA2_70B, num_hidden_layers=layers))
     gen = torch.Generator(device=device).manual_seed(seed)
-    wcfg = QuantConfig(n_bits=3, group_size=128)
+    wcfg = QuantConfig(n_bits=bits, group_size=group_size)
     H, I = cfg.hidden_size, cfg.intermediate_size
     kv = cfg.num_key_value_heads * cfg.head_dim
     shapes = {"q_proj": (H, H), "k_proj": (kv, H), "v_proj": (kv, H),
@@ -4819,9 +4882,8 @@ def _llama2_70b_pack(torch, device, layers, seed):
         block = {"input_layernorm": norm(), "post_attention_layernorm": norm()}
         for name, (n, k) in shapes.items():
             w = torch.randn(n, k, generator=gen, device=device) * 0.02
-            block[name] = pack_weight(
-                w, wcfg, layout="planar" if name in ("o_proj", "down_proj")
-                else "auto")
+            block[name] = pack_weight(w, wcfg, layout=layout or (
+                "planar" if name in ("o_proj", "down_proj") else "auto"))
             del w
         blocks.append(block)
     top = {k: torch.randn(cfg.vocab_size, H, generator=gen,
@@ -5146,14 +5208,311 @@ def tp_fault(torch, cfg, packed, single_got, eng, reqs, spec, tol, bound,
         eng.release(x)
 
 
+# --eval_ppl --tp's path (make_tp_model_forward with the run's activation
+# quantizers) at LLaMA-2-70B widths, TP_70B_LAYERS layers, tp 8 on the
+# card: per-channel W4A4 and W6A6 packed planar (the scripts' recipes),
+# in bf16 as an engine holds it; one window of TP_PPL_SEQLEN tokens of the
+# synthetic test split. The row-parallel sites (q, k, v, gate, up) take
+# K8 + K9 at m = 2048, the column-parallel ones (o, down) the
+# fake-quantized input (its per-token ranges all-reduced) into K1's planar
+# prefill tile. run -> (weight bits, activation bits)
+TP_PPL_RUNS = {"70b_w4a4_ppl": (4, 4), "70b_w6a6_ppl": (6, 6)}
+TP_PPL_TP, TP_PPL_SEQLEN = 8, 2048
+# Holds. At W4A4 and W6A6 in bf16 two sound forwards of one pack part by
+# the bf16 noise that the 4- and 6-bit activation codes turn into whole
+# code steps, and the more so the more layers they pass. So: (a) at every
+# column-parallel site of every layer, the shards' quantized inputs,
+# gathered, must be the unsplit quantizer of the gathered inputs bit for
+# bit; (b) at layer 0's input, each shard's row-parallel products (q, k,
+# v, gate, up through K8 + K9) must be the single device's columns of the
+# whole linear within TP_PPL_SHARD_RMS rms relative; (c) the logits, TP
+# against single device, within the run's TP_PPL_LOGIT_RMS (rms relative),
+# where a limit separates the faults (None: at W4A4 the sound run lies as
+# far from the single device as the faults); (d) ppl_check's per-token NLL
+# rule against the plain f32 forward. Planted faults through the same run:
+# every column-parallel site quantized with its shard's own per-token
+# ranges (must fail a and c), shard 0's scales x TP_PPL_FAULT_SCALE in
+# every linear (must fail b and c)
+TP_PPL_SHARD_RMS = 2e-3  # the sound run reads 0, the scale fault 0.0121
+# logits' rms rel on an NVIDIA H100 80GB HBM3, 700 W, sound / local ranges
+# / scales: W4A4 0.904 / 1.103 / 1.048, W6A6 0.381 / 0.538 / 0.498
+TP_PPL_LOGIT_RMS = {"70b_w4a4_ppl": None, "70b_w6a6_ppl": 0.44}
+TP_PPL_FAULT_SCALE = 1.01
+
+
+def _window_nll(torch, logits, window):
+    """The shifted cross-entropy of each token of one window, f32."""
+    logp = torch.log_softmax(logits[:-1].float(), dim=-1)
+    return -logp.gather(-1, window[1:, None])[:, 0]
+
+
+def _plain_window_logits(torch, cfg, packed, window, spec, dtype):
+    """The plain forward's logits over one window, layer by layer from the
+    packed model dequantized as plain_reference_params does, in ``dtype``
+    (f32: the reference; bf16: what the card's plain arithmetic reaches)."""
+    from omniquant_tpu_torch.models import LLAMA
+    from omniquant_tpu_torch.serving.engine import _to_engine
+
+    top = _to_engine(plain_reference_params(
+        torch, {k: v for k, v in packed.items() if k != "layers"}),
+        window.device, dtype)
+    with torch.inference_mode():
+        x = LLAMA.embed(top, window[None], cfg)
+        for layer in packed["layers"]:
+            x = _chain(torch, LLAMA, cfg, [_to_engine(plain_reference_params(
+                torch, layer), window.device, dtype)], x, spec)
+        return LLAMA.head(top, x, cfg)[0].float()
+
+
+def _fault_on(torch, fwd, fault):
+    """Plant ``fault`` ("local_ranges" or "scale_shard0") in the TP forward
+    ``fwd``; returns the undo."""
+    import dataclasses as dc
+
+    from omniquant_tpu_torch.models.common import maybe_quant
+    from omniquant_tpu_torch.parallel import tp_forward as tpf
+    from omniquant_tpu_torch.quant import PackedWeight
+
+    saved_quant = tpf.tp_act_quant
+    saved_blocks = [dict(shards[0]) for shards in fwd.layers]
+    if fault == "local_ranges":
+        tpf.tp_act_quant = lambda mesh, p, x, qcfg: maybe_quant(x, qcfg)
+    elif fault == "scale_shard0":
+        for shards in fwd.layers:
+            for name, w in shards[0].items():
+                if isinstance(w, PackedWeight):
+                    shards[0][name] = dc.replace(
+                        w, scales=w.scales * TP_PPL_FAULT_SCALE)
+
+    def undo():
+        tpf.tp_act_quant = saved_quant
+        for shards, block in zip(fwd.layers, saved_blocks):
+            shards[0].clear()
+            shards[0].update(block)
+
+    return undo
+
+
+def _tp_ppl_forward(torch, fwd, window, sites=None):
+    """One window through the TP model forward: (logits f32, seconds,
+    launches, plain versions entered). ``sites``, a list, receives every
+    column-parallel site's (shard, input, quantized input, quantizer)."""
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.parallel import tp_forward as tpf
+
+    inner = tpf.tp_act_quant
+
+    def record(mesh, p, x, qcfg):
+        y = inner(mesh, p, x, qcfg)
+        if qcfg is not None and qcfg.enabled:
+            sites.append((p, x, y, qcfg))
+        return y
+
+    if sites is not None:
+        tpf.tp_act_quant = record
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        with _Fallbacks() as fb, torch.inference_mode():
+            t = time.time()
+            logits = fwd(window[None])[0].float()
+            torch.cuda.synchronize()
+            seconds = time.time() - t
+    finally:
+        tpf.tp_act_quant = inner
+    return logits, seconds, kernels.launch_counts(), fb.calls
+
+
+def _sites_hold(torch, sites, tp) -> dict:
+    """(a): each column-parallel site's shards' quantized inputs, gathered,
+    against the unsplit quantizer of the gathered inputs; the count of
+    sites and of those apart."""
+    from omniquant_tpu_torch.quant.quantizer import fake_quant_act
+
+    by_shard = [[s for s in sites if s[0] == p] for p in range(tp)]
+    apart = 0
+    for calls in zip(*by_shard):
+        whole = fake_quant_act(torch.cat([c[1] for c in calls], dim=-1),
+                               calls[0][3])
+        apart += not torch.equal(torch.cat([c[2] for c in calls], dim=-1),
+                                 whole)
+    return dict(sites=len(by_shard[0]), apart=apart,
+                ok=apart == 0 and len(by_shard[0]) > 0
+                and len({len(b) for b in by_shard}) == 1)
+
+
+def _row_shards_hold(torch, fwd, served, cfg, window, spec, tp) -> dict:
+    """(b): layer 0's input (the normed embeddings of the window) through
+    each shard's placed row-parallel linears and through the whole linears
+    of the single-device model: the largest rms relative gap over (shard,
+    linear) of a shard's products to its columns of the whole."""
+    from omniquant_tpu_torch.models import LLAMA
+    from omniquant_tpu_torch.models.common import linear, rms_norm
+    from omniquant_tpu_torch.parallel import tp_forward as tpf
+
+    block = served["layers"][0]
+    with torch.inference_mode():
+        h = rms_norm(LLAMA.embed(served, window[None], cfg),
+                     block["input_layernorm"], cfg.rms_norm_eps)
+        worst = 0.0
+        for name in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"):
+            whole = linear(h, block[name], spec.act).float()
+            n = whole.shape[-1] // tp
+            for p in range(tp):
+                got = tpf._row_linear(h, fwd.layers[0][p][name],
+                                      spec.act).float()
+                worst = max(worst, rms_rel_err(got, whole[..., p * n:
+                                                          (p + 1) * n]))
+    return dict(worst_rms_rel=worst, ok=worst <= TP_PPL_SHARD_RMS)
+
+
+def tp_ppl_run(torch, device, name, seed, out: dict) -> dict:
+    """One TP_PPL_RUNS entry: the pack, the single-device forward's and the
+    TP forward's logits on one window, timed; the TP forward's launches
+    exactly tp times a shard's (K8 and K9 at the five row-parallel sites of
+    every layer, K1's planar prefill tile at the two column-parallel ones),
+    none through a plain version; the holds above (a-d); each planted
+    fault must fail its holds. Returns the TP forward's launches."""
+    from omniquant_tpu_torch import kernels
+    from omniquant_tpu_torch.calib import get_synthetic
+    from omniquant_tpu_torch.models import LLAMA
+    from omniquant_tpu_torch.models.common import ActQuantSpec
+    from omniquant_tpu_torch.parallel import make_mesh, make_tp_model_forward
+    from omniquant_tpu_torch.serving.engine import _to_engine
+
+    bits, abits = TP_PPL_RUNS[name]
+    tp, layers = TP_PPL_TP, TP_70B_LAYERS
+    t0 = time.time()
+    cfg, packed = _llama2_70b_pack(torch, device, layers, seed + 70 + bits,
+                                   bits=bits, group_size=None,
+                                   layout="planar")
+    served = _to_engine(packed, device, torch.bfloat16)
+    spec = ActQuantSpec.from_bits(abits)
+    _, test = get_synthetic(0, seed, TP_PPL_SEQLEN, vocab_size=cfg.vocab_size)
+    window = torch.as_tensor(test[0, :TP_PPL_SEQLEN], device=device).long()
+    res = out[name] = dict(tp=tp, layers=layers, wbits=bits, abits=abits,
+                           seqlen=TP_PPL_SEQLEN, pack_s=time.time() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        LLAMA.forward(served, window[None, :64], cfg, spec)  # warm-up
+        torch.cuda.synchronize()
+        t = time.time()
+        single = LLAMA.forward(served, window[None], cfg, spec)[0].float()
+        torch.cuda.synchronize()
+    res["single_s_per_window"] = time.time() - t
+    t = time.time()
+    fwd = make_tp_model_forward(LLAMA, served, cfg, make_mesh(
+        tp=tp, devices=[device] * tp), spec=spec)
+    torch.cuda.synchronize()
+    res["place_s"] = time.time() - t
+    _tp_ppl_forward(torch, fwd, window[:64])  # warm-up
+    got, res["tp_s_per_window"], counts, fallbacks = _tp_ppl_forward(
+        torch, fwd, window)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["launches"] = counts
+    per = {"_unpack_to_int8": 5 * layers, "_quant_matmul_int_dense":
+           5 * layers, "quant_matmul": 2 * layers,
+           "quant_matmul_planar_prefill": 2 * layers}
+    wrong = {k: (counts[k], tp * v) for k, v in per.items()
+             if counts[k] != tp * v}
+    if wrong or fallbacks:
+        raise AssertionError(f"tp {name}: launches (got, want) {wrong}; "
+                             f"plain versions entered {fallbacks}")
+
+    lim = TP_PPL_LOGIT_RMS[name]
+
+    def holds(logits, sites):
+        h = dict(logits=logit_gap(logits, single),
+                 sites=_sites_hold(torch, sites, tp),
+                 row_shards=_row_shards_hold(torch, fwd, served, cfg,
+                                             window, spec, tp))
+        h["logits"]["ok"] = lim is None or h["logits"]["rms_rel"] <= lim
+        return h
+
+    sites = []
+    _tp_ppl_forward(torch, fwd, window, sites)
+    hold = res["hold"] = holds(got, sites)
+    del sites
+    ref = _plain_window_logits(torch, cfg, packed, window, spec,
+                               torch.float32)
+    nll_ref = _window_nll(torch, ref, window)
+    del ref
+    plain16 = _plain_window_logits(torch, cfg, packed, window, spec,
+                                   torch.bfloat16)
+    gaps = {k: (_window_nll(torch, lg, window) - nll_ref).pow(2).mean()
+            .sqrt().item() for k, lg in (("tp", got), ("single", single),
+                                         ("bf16_forward", plain16))}
+    del plain16
+    bound = PPL_VS_PLAIN * gaps["bf16_forward"]
+    hold.update(nll_rms_gap=gaps, nll_bound=bound, ppl={
+        k: math.exp(nll.mean().item()) for k, nll in (
+            ("tp", _window_nll(torch, got, window)),
+            ("single", _window_nll(torch, single, window)),
+            ("f32_forward", nll_ref))})
+    hold["ok"] = (hold["sites"]["ok"] and hold["row_shards"]["ok"]
+                  and hold["logits"]["ok"]
+                  and gaps["tp"] <= bound and gaps["single"] <= bound)
+    res["faults"] = {}
+    for fault, check in (("local_ranges", "sites"),
+                         ("scale_shard0", "row_shards")):
+        undo = _fault_on(torch, fwd, fault)
+        try:
+            sites = []
+            f_got = _tp_ppl_forward(torch, fwd, window, sites)[0]
+            f = res["faults"][fault] = holds(f_got, sites)
+        finally:
+            undo()
+        # its bit-level hold and, where it is set, the logit limit
+        f["rejected"] = not f[check]["ok"] and (lim is None
+                                                or not f["logits"]["ok"])
+        del sites, f_got
+    del fwd, served, packed, got, single
+    torch.cuda.empty_cache()
+    res["run_s"] = time.time() - t0
+
+    def said(h):
+        return (f"column-parallel sites apart {h['sites']['apart']} of "
+                f"{h['sites']['sites']}, row shards' worst rms rel "
+                f"{h['row_shards']['worst_rms_rel']:.4g}, logits rms rel "
+                f"{h['logits']['rms_rel']:.4g}")
+
+    log(f"  tp {name} (--eval_ppl --tp {tp}: LLaMA-2-70B widths, {layers} "
+        f"layers, W{bits}A{abits} per-channel planar, one {TP_PPL_SEQLEN}-"
+        f"token window): TP {res['tp_s_per_window']:.3f} s a window, single "
+        f"device {res['single_s_per_window']:.3f}; placed in "
+        f"{res['place_s']:.2f} s; peak {res['peak_gib']:.2f} GiB; "
+        f"perplexity TP {hold['ppl']['tp']:.4f}, single "
+        f"{hold['ppl']['single']:.4f}, plain f32 "
+        f"{hold['ppl']['f32_forward']:.4f}; launches {counts}")
+    log(f"  tp {name} hold: {said(hold)} (limits: 0, {TP_PPL_SHARD_RMS}, "
+        f"{lim}), max rel {hold['logits']['max_rel']:.4g}, cos "
+        f"{hold['logits']['cos']:.4f}, argmax agreement "
+        f"{hold['logits']['argmax_agree']:.4f}; per-token NLL rms gap to "
+        f"the plain f32 forward: TP {gaps['tp']:.4g}, single "
+        f"{gaps['single']:.4g}, plain bf16 {gaps['bf16_forward']:.4g} "
+        f"(bound {bound:.4g})")
+    for fault, f in res["faults"].items():
+        log(f"  tp {name} fault {fault}: {said(f)}: "
+            f"{'REJECTED' if f['rejected'] else 'PASSED'}")
+    if not hold["ok"]:
+        raise AssertionError(f"tp {name}: the TP forward fails its hold: "
+                             f"{hold}")
+    admitted = [k for k, v in res["faults"].items() if not v["rejected"]]
+    if admitted:
+        raise AssertionError(f"tp {name}: planted faults passed {admitted}")
+    return counts
+
+
 def tp_phase(torch, device, seed, out: dict, keep: dict = None) -> dict:
     """TP_RUNS in order; the last (LLaMA-2-70B widths, int8 KV) ends with
     one step_n(., 8) of the single and the TP engine under torch.profiler
     (profile_step: the card's busy share of a step). ``keep`` receives the
     pack (cfg, params) and the TP engine's logits, streams and readings of
     MP_TP_RUNS (the mp phase hands the pack to its ranks and holds them
-    against the rest). Returns the TP engines' launches summed over the
-    runs."""
+    against the rest). Then TP_PPL_RUNS (tp_ppl_run). Returns the TP
+    engines' and TP forwards' launches summed over the runs."""
     res = out["tp"] = {}
     counts = {}
     packs = {}
@@ -5204,6 +5563,9 @@ def tp_phase(torch, device, seed, out: dict, keep: dict = None) -> dict:
         res[name]["run_s"] = time.time() - t0
     del packs
     torch.cuda.empty_cache()
+    for name in TP_PPL_RUNS:
+        for k, v in tp_ppl_run(torch, device, name, seed, res).items():
+            counts[k] = counts.get(k, 0) + v
     return counts
 
 
@@ -5308,7 +5670,22 @@ MP_DP_MAX_LEN, MP_DP_DISPATCHES = 512, 4
 MP_DP_PATHS = ("quant_matmul", "quant_matmul_prefill",
                "kv_cache_prefill_write", "kv_cache_write")
 MP_TP_RUNS = ("7b_w4a16", "70b_int8")
-MP_TIMEOUT_S = {"dp": 300, "7b_w4a16": 180, "70b_int8": 360}
+# SP: the sp phase's LLaMA-2-7B run (4 x 4096 tokens, W4A16 g128 LWC, 2
+# epochs) with the ring across MP_SP_RANKS gloo ranks of one shard each,
+# the clean run, then the planted fault (rank 1's ring hands zeros back in
+# place of the dk/dv of the blocks it received). Held against the sp
+# phase's in-process SPMesh run: layer 0's fp capture bit for bit, the
+# losses and LWC factors within the sp phase's tolerances and within
+# MP_SP_LOSS_RTOL / MP_SP_LWC_RMS (the two differ only in the order of the
+# loss's and the gradients' sums; the fault must fail them), both ranks'
+# factors bit for bit, each rank's K2 stats launches its shard's share of
+# the ring's schedule. The sound run read 1.51e-6 and 1.17e-5, the fault
+# 2.04e-4 and 5.73e-3 (PERF.md, PR 25): the fault stays inside the sp
+# phase's tolerances, which hold SP against a single-device run
+MP_SP_RUN, MP_SP_RANKS = "llama2_7b_4096_sp2", 2
+MP_SP_LOSS_RTOL, MP_SP_LWC_RMS = 2e-5, 1e-4
+MP_TIMEOUT_S = {"dp": 300, "dp_auto": 300, "7b_w4a16": 180,
+                "70b_int8": 360, "sp": 480}
 MP_COLLECTIVE_TIMEOUT_S = 300
 MP_FAULT_SCALE = 1.01  # DP's planted fault: rank 1's scales x 1.01
 # TP's planted fault runs the first MP_TP_FAULT_REQS prompts: a 70B
@@ -5324,11 +5701,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def mp_spawn(leg: str, world: int, seed: int, timeout: float) -> list:
+def mp_spawn(leg: str, world: int, seed: int, timeout: float,
+             torchrun: bool = False) -> list:
     """``world`` ranks of this script with ``--mp-rank leg``, each logging
     to MP_DIR/<leg>_rank<r>.log, given ``timeout`` seconds in all; the
-    first rank to fail, or the clock, kills them all and raises. Returns
-    each rank's (json readings, tensors)."""
+    first rank to fail, or the clock, kills them all and raises. The ranks
+    get --rank/--world/--port, or with ``torchrun`` the variables torchrun
+    sets (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE) and no coordinator (init_multihost finds the group
+    in them). Returns each rank's (json readings, tensors)."""
     import torch
 
     port = _free_port()
@@ -5339,11 +5720,20 @@ def mp_spawn(leg: str, world: int, seed: int, timeout: float) -> list:
     try:
         for r in range(world):
             logs.append(open(os.path.join(MP_DIR, f"{leg}_rank{r}.log"), "w"))
+            cmd = [sys.executable, os.path.abspath(__file__), "--mp-rank",
+                   leg, "--seed", str(seed)]
+            rank_env = env
+            if torchrun:
+                rank_env = dict(env, MASTER_ADDR="localhost",
+                                MASTER_PORT=str(port), RANK=str(r),
+                                WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                                LOCAL_WORLD_SIZE=str(world))
+            else:
+                cmd += ["--rank", str(r), "--world", str(world), "--port",
+                        str(port)]
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mp-rank", leg,
-                 "--rank", str(r), "--world", str(world), "--port",
-                 str(port), "--seed", str(seed)], cwd=HERE, env=env,
-                stdout=logs[-1], stderr=subprocess.STDOUT))
+                cmd, cwd=HERE, env=rank_env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
         while True:
             codes = [p.poll() for p in procs]
             bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
@@ -5485,6 +5875,8 @@ def _mp_dp_rank(torch, dev, args) -> tuple:
     res["clean"], dec, streams = _dp_run(torch, eng, reqs, coord)
     tensors = {"clean_dec": dec}
     res["clean"]["streams"] = streams
+    if args.mp_rank == "dp_auto":
+        return res, tensors
     if coord.pid == 1:
         for layer in eng.params["layers"]:
             for w in layer.values():
@@ -5556,21 +5948,59 @@ def _mp_tp_rank(torch, dev, args) -> tuple:
     return res, tensors
 
 
+def _mp_sp_rank(torch, dev, args) -> tuple:
+    """An SP rank: MP_SP_RUN's dense model and windows made from the seed
+    as the sp phase makes them, an SPMesh over the ranks (one shard a
+    rank), calibrate clean and with the planted fault (_sp_calibrate)."""
+    from omniquant_tpu_torch.calib import CalibConfig, get_synthetic
+    from omniquant_tpu_torch.models import LLAMA, llama
+    from omniquant_tpu_torch.parallel import SPMesh, global_mesh
+
+    cfg = llama.LlamaConfig(**SP_LLAMA)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    dense = llama.init_params(gen, cfg, dtype=torch.float32, device=dev)
+    _, seqlen, shards = SP_CALIB_RUNS[MP_SP_RUN]
+    train, _ = get_synthetic(SP_NSAMPLES, args.seed, seqlen,
+                             vocab_size=cfg.vocab_size)
+    cc = CalibConfig(nsamples=SP_NSAMPLES, **SP_CALIB)
+    world = torch.distributed.get_world_size()
+    m = global_mesh(tp=shards, local_shards=shards // world, device=dev)
+    mesh = SPMesh(m.devices, m.ranks)
+    res, tensors = dict(local=mesh.local, ranks=mesh.ranks), {}
+    for run, fault in (("clean", None), ("fault", "no_shift_back")):
+        r = _sp_calibrate(torch, dev, LLAMA, cfg, dense, train, cc, mesh,
+                          fault)
+        res[run] = {k: r[k] for k in ("losses", "steps", "step_s",
+                                      "fp_pass_s", "propagate_s", "phase_s",
+                                      "peak_gib", "launches", "ring_calls")}
+        tensors[f"{run}_capture"] = r["capture"].cpu()
+        tensors[f"{run}_lwc"] = _lwc_flat(torch, LLAMA, r["omni"], cfg).cpu()
+        del r
+        torch.cuda.empty_cache()
+    return res, tensors
+
+
 def mp_rank_main(torch, args) -> int:
-    """One rank of the mp phase (``--mp-rank``): join the gloo group, run
-    the leg, write MP_DIR/<leg>_rank<r>.json and .pt."""
+    """One rank of the mp phase (``--mp-rank``): join the gloo group (with
+    --rank/--world/--port, or, without --port, from the launcher's
+    environment), run the leg, write MP_DIR/<leg>_rank<r>.json and .pt."""
     from omniquant_tpu_torch.parallel import MultihostConfig, init_multihost
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = init_multihost(MultihostConfig(
-        f"localhost:{args.port}", args.world, args.rank,
-        timeout_s=MP_COLLECTIVE_TIMEOUT_S), "cuda")
-    leg = _mp_dp_rank if args.mp_rank == "dp" else _mp_tp_rank
+    if args.port:
+        cfg = MultihostConfig(f"localhost:{args.port}", args.world,
+                              args.rank, timeout_s=MP_COLLECTIVE_TIMEOUT_S)
+    else:
+        cfg = MultihostConfig(timeout_s=MP_COLLECTIVE_TIMEOUT_S)
+    dev = init_multihost(cfg, "cuda")
+    leg = {"dp": _mp_dp_rank, "dp_auto": _mp_dp_rank,
+           "sp": _mp_sp_rank}.get(args.mp_rank, _mp_tp_rank)
     res, tensors = leg(torch, dev, args)
-    res.update(rank=torch.distributed.get_rank(), device=str(dev),
+    rank = torch.distributed.get_rank()
+    res.update(rank=rank, device=str(dev),
                backend=torch.distributed.get_backend())
-    base = os.path.join(MP_DIR, f"{args.mp_rank}_rank{args.rank}")
+    base = os.path.join(MP_DIR, f"{args.mp_rank}_rank{rank}")
     torch.save(tensors, base + ".pt")
     with open(base + ".json", "w") as f:
         json.dump(res, f)
@@ -5641,7 +6071,27 @@ def mp_dp(torch, device, seed, res: dict) -> dict:
     t = time.time()
     ranks = mp_spawn("dp", MP_DP_RANKS, seed, MP_TIMEOUT_S["dp"])
     res["spawn_s"] = time.time() - t
+    t = time.time()
+    auto = mp_spawn("dp_auto", MP_DP_RANKS, seed, MP_TIMEOUT_S["dp_auto"],
+                    torchrun=True)
+    res["auto_spawn_s"] = time.time() - t
     os.remove(os.path.join(MP_DIR, "dp_pack.npz"))
+    # the torchrun-style launch (no --rank/--world/--port): each rank's
+    # results those of the explicit launch's rank, bit for bit
+    res["auto"] = [dict(
+        streams_equal=a["clean"]["streams"] == e["clean"]["streams"],
+        dec_bit_equal=bool(torch.equal(at["clean_dec"], et["clean_dec"])),
+        launches_equal=a["clean"]["launches"] == e["clean"]["launches"],
+        rank=a["rank"], backend=a["backend"])
+        for (a, at), (e, et) in zip(auto, ranks)]
+    log(f"  mp dp launched with torchrun's variables and no coordinator: "
+        f"per rank streams, first-decode logits and launches equal to the "
+        f"explicit launch's {res['auto']} ({res['auto_spawn_s']:.1f} s)")
+    if not all(a["streams_equal"] and a["dec_bit_equal"]
+               and a["launches_equal"] and a["rank"] == r
+               for r, a in enumerate(res["auto"])):
+        raise AssertionError("mp dp: the auto-detected launch differs from "
+                             f"the explicit one: {res['auto']}")
     bound = SPEC_TIE * E2E_TOL["max"]
     hold = res["hold"] = _dp_hold(torch, cfg, packed, reqs, ranks, single,
                                   "clean", bound)
@@ -5823,16 +6273,100 @@ def mp_tp(torch, device, seed, name, inproc: dict, out: dict) -> dict:
     return counts
 
 
+def _mp_sp_hold(torch, ranks, inproc, run: str, layers: int) -> dict:
+    """The SP hold on ``run`` ("clean" or "fault") of every rank (module
+    constants above)."""
+    s_local = inproc["capture"].shape[0] // MP_SP_RANKS
+    lwc0 = ranks[0][1][f"{run}_lwc"]
+    losses = ranks[0][0][run]["losses"]
+    h = dict(
+        capture_bit_equal=[bool(torch.equal(
+            t[f"{run}_capture"], inproc["capture"][r * s_local:
+                                                   (r + 1) * s_local]))
+            for r, (_, t) in enumerate(ranks)],
+        ranks_agree=all(torch.equal(t[f"{run}_lwc"], lwc0)
+                        and res[run]["losses"] == losses
+                        for res, t in ranks),
+        loss_max_rel_gap=max(abs(a - b) / abs(b) for a, b in zip(
+            losses, inproc["losses"])),
+        lwc_rms_gap=(lwc0 - inproc["lwc"]).pow(2).mean().sqrt().item())
+    # shard r of the causal ring attends r + 1 blocks a ring; a ring a
+    # window, layer and pass (fp and propagation)
+    h["k2_stats"] = [(res[run]["launches"]["flash_attention_stats"],
+                      layers * SP_NSAMPLES * 2 * (r + 1))
+                     for r, (res, _) in enumerate(ranks)]
+    h["within_sp_phase"] = (h["loss_max_rel_gap"] <= SP_LOSS_RTOL
+                            and h["lwc_rms_gap"] <= SP_LWC_RMS)
+    h["ok"] = (all(h["capture_bit_equal"]) and h["ranks_agree"]
+               and h["within_sp_phase"]
+               and h["loss_max_rel_gap"] <= MP_SP_LOSS_RTOL
+               and h["lwc_rms_gap"] <= MP_SP_LWC_RMS
+               and all(a == b for a, b in h["k2_stats"]))
+    return h
+
+
+def mp_sp(torch, device, seed, inproc: dict, res: dict) -> dict:
+    """The SP leg: MP_SP_RANKS ranks, the clean run held (must pass), the
+    fault run (must fail). Returns the ranks' launches summed (clean
+    runs)."""
+    from omniquant_tpu_torch.models import llama
+
+    layers = llama.LlamaConfig(**SP_LLAMA).num_hidden_layers
+    t = time.time()
+    ranks = mp_spawn("sp", MP_SP_RANKS, seed, MP_TIMEOUT_S["sp"])
+    res["spawn_s"] = time.time() - t
+    hold = res["hold"] = _mp_sp_hold(torch, ranks, inproc, "clean", layers)
+    fault = res["fault"] = _mp_sp_hold(torch, ranks, inproc, "fault", layers)
+    res["ranks"] = [dict({k: r["clean"][k] for k in (
+        "steps", "step_s", "fp_pass_s", "propagate_s", "phase_s", "peak_gib",
+        "ring_calls")}, backend=r["backend"], device=r["device"],
+        local=r["local"]) for r, _ in ranks]
+    rk = res["ranks"]
+    log(f"  mp sp ({MP_SP_RUN}: LLaMA-2-7B widths, {layers} layers, "
+        f"{SP_NSAMPLES} x {SP_CALIB_RUNS[MP_SP_RUN][1]} tokens, the ring "
+        f"across {MP_SP_RANKS} ranks of one shard, {rk[0]['backend']}): a "
+        f"step {max(r['step_s'] for r in rk):.4f} s (the slowest rank; "
+        f"in-process SPMesh {inproc['step_s']:.4f}, single device "
+        f"{inproc['single_step_s']:.4f}); peak GiB a rank "
+        + " / ".join(f"{r['peak_gib']:.2f}" for r in rk)
+        + f" (in-process {inproc['peak_gib']:.2f}, single device "
+        f"{inproc['single_peak_gib']:.2f}); fp pass s a layer "
+        + " / ".join(", ".join(f"{x:.3f}" for x in r["fp_pass_s"])
+                     for r in rk) + f"; ranks {res['spawn_s']:.1f} s")
+    for name, h in (("hold", hold), ("fault (rank 1 hands zeros back for "
+                                     "dk/dv)", fault)):
+        log(f"  mp sp {name}: capture bit-equal to the in-process mesh's "
+            f"{h['capture_bit_equal']}; ranks agree {h['ranks_agree']}; "
+            f"losses max rel gap {h['loss_max_rel_gap']:.3g} (tol "
+            f"{MP_SP_LOSS_RTOL}, sp phase {SP_LOSS_RTOL}); LWC rms gap "
+            f"{h['lwc_rms_gap']:.3g} (tol {MP_SP_LWC_RMS}, sp phase "
+            f"{SP_LWC_RMS}); K2 stats launches (got, want) a rank "
+            f"{h['k2_stats']}: {'PASSED' if h['ok'] else 'REJECTED'}")
+    if not hold["ok"]:
+        raise AssertionError(f"mp sp: the ranks fail the hold: {hold}")
+    if fault["ok"]:
+        raise AssertionError("mp sp: the planted fault passed the hold")
+    counts = {}
+    for r, _ in ranks:
+        for k, v in r["clean"]["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def mp_phase(torch, device, seed, out: dict, inproc: dict) -> dict:
-    """DP then the TP legs (``inproc``: the tp phase's in-process results
-    of MP_TP_RUNS). Returns the ranks' launches summed over the legs."""
+    """DP (and its torchrun-style launch), the TP legs (``inproc``: the tp
+    phase's in-process results of MP_TP_RUNS), then SP (``inproc``
+    [MP_SP_RUN]: the sp phase's in-process run). Returns the ranks'
+    launches summed over the legs."""
     os.makedirs(MP_DIR, exist_ok=True)
     res = out["mp"] = {}
     counts = {}
     legs = [("dp", lambda: mp_dp(torch, device, seed, res.setdefault(
         "dp", {})))] + [(name, lambda name=name: mp_tp(
             torch, device, seed, name, inproc[name], res))
-        for name in MP_TP_RUNS]
+        for name in MP_TP_RUNS] + [("sp", lambda: mp_sp(
+            torch, device, seed, inproc[MP_SP_RUN], res.setdefault(
+                "sp", {})))]
     for leg, run in legs:
         t = time.time()
         for k, v in run().items():
@@ -5994,7 +6528,8 @@ def main(argv=None) -> int:
         "widths (2 layers) at 4096 tokens and OPT-2.7B widths (2 layers) at "
         "2048, each over 2 shards, against the single-device run")
     t_sp = time.time()
-    sp_counts = sp_phase(torch, device, args.seed, out)
+    mp_keep = {}
+    sp_counts = sp_phase(torch, device, args.seed, out, mp_keep)
     out["sp_phase_s"] = time.time() - t_sp
     log(f"  sp phase {out['sp_phase_s']:.1f} s")
     stats = out["sp"]["k2_stats"]
@@ -6010,8 +6545,7 @@ def main(argv=None) -> int:
         f"LLaMA-2-70B widths at tp 8 ({TP_70B_LAYERS} of 80 layers, W3 g128, "
         f"bf16 and int8 KV), each against the single engine of its pack")
     t_tp = time.time()
-    tp_keep = {}
-    tp_counts = tp_phase(torch, device, args.seed, out, tp_keep)
+    tp_counts = tp_phase(torch, device, args.seed, out, mp_keep)
     out["tp_phase_s"] = time.time() - t_tp
     log(f"  tp phase {out['tp_phase_s']:.1f} s")
 
@@ -6022,8 +6556,8 @@ def main(argv=None) -> int:
         f"tp 8 ({TP_70B_LAYERS} layers, int8 KV) against the tp phase's "
         f"in-process mesh")
     t_mp = time.time()
-    mp_counts = mp_phase(torch, device, args.seed, out, tp_keep)
-    del tp_keep
+    mp_counts = mp_phase(torch, device, args.seed, out, mp_keep)
+    del mp_keep
     out["mp_phase_s"] = time.time() - t_mp
     log(f"  mp phase {out['mp_phase_s']:.1f} s")
 
@@ -6158,9 +6692,28 @@ def main(argv=None) -> int:
             f"{v['tp_engine']['peak_gib']:.2f}; "
             f"{v['hold']['prefill_logits']['rms_rel']:.3g}; "
             f"{v['fault']['prefill_logits']['rms_rel']:.3g}"
-            for k, v in tpr.items()) + "; busy share TP / single: "
+            for k, v in tpr.items() if k in TP_RUNS)
+        + "; busy share TP / single: "
         + " / ".join(str(tpr["70b_int8"][w]["profile"]["busy_share"])
                      for w in ("tp_engine", "single")) + "; on:")
+    log(smi)
+    log("tp perplexity (--eval_ppl --tp 8, LLaMA-2-70B widths, "
+        f"{TP_70B_LAYERS} layers, one {TP_PPL_SEQLEN}-token window: TP / "
+        "single-device s a window; peak GiB; logits rms rel to the single "
+        "device; column-parallel sites apart; row shards' worst rms rel; "
+        "the faults' readings, local ranges / shard 0's scales x "
+        f"{TP_PPL_FAULT_SCALE}): " + "; ".join(
+            f"{k} {v['tp_s_per_window']:.3f} / "
+            f"{v['single_s_per_window']:.3f}, {v['peak_gib']:.2f}, "
+            f"{v['hold']['logits']['rms_rel']:.4g}, "
+            f"{v['hold']['sites']['apart']} of {v['hold']['sites']['sites']},"
+            f" {v['hold']['row_shards']['worst_rms_rel']:.3g}; faults "
+            f"{v['faults']['local_ranges']['sites']['apart']} of "
+            f"{v['faults']['local_ranges']['sites']['sites']}, "
+            f"{v['faults']['local_ranges']['logits']['rms_rel']:.4g} / "
+            f"{v['faults']['scale_shard0']['row_shards']['worst_rms_rel']:.3g}"
+            f", {v['faults']['scale_shard0']['logits']['rms_rel']:.4g}"
+            for k, v in tpr.items() if k in TP_PPL_RUNS) + "; on:")
     log(smi)
     mpr = out["mp"]
     dp = mpr["dp"]
@@ -6183,6 +6736,23 @@ def main(argv=None) -> int:
             f"{max(r['shard_gib'] for r in v['ranks']):.3f}; "
             f"{v['hold']['prefill_bit_equal']}"
             for k, v in mpr.items() if k in MP_TP_RUNS) + "; on:")
+    log(smi)
+    msp = mpr["sp"]
+    log(f"mp sp (the ring across {MP_SP_RANKS} ranks, {MP_SP_RUN}: s a step "
+        "the slowest rank / in-process SPMesh / single device; peak GiB a "
+        "rank; losses max rel gap, LWC rms gap to the in-process run; the "
+        "fault's): "
+        f"{max(r['step_s'] for r in msp['ranks']):.4f} / "
+        f"{out['sp'][MP_SP_RUN]['sp_step_s']:.4f} / "
+        f"{out['sp'][MP_SP_RUN]['single_step_s']:.4f}; "
+        + " / ".join(f"{r['peak_gib']:.2f}" for r in msp["ranks"])
+        + f"; {msp['hold']['loss_max_rel_gap']:.3g}, "
+        f"{msp['hold']['lwc_rms_gap']:.3g}; "
+        f"{msp['fault']['loss_max_rel_gap']:.3g}, "
+        f"{msp['fault']['lwc_rms_gap']:.3g}; dp launched with torchrun's "
+        f"variables equal to the explicit launch "
+        f"{all(a['streams_equal'] and a['dec_bit_equal'] for a in dp['auto'])}"
+        "; on:")
     log(smi)
     log("serving (prefill / decode tok/s, peak GiB): " + "; ".join(
         f"{n} {out['serve_' + n]['prefill_tok_s']:.1f} / "

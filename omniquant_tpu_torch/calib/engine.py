@@ -28,7 +28,13 @@ programs (``parallel.SPMesh``) whose attention is ring attention
 ``sp_attn_impl`` (K2 with its softmax stats on a card, the plain ring on
 the CPU), the train step with the plain, differentiable ring, its loss the
 mean over shards of each shard's MSE (JAX's ``pmean``). LLaMA and OPT only,
-as in JAX.
+as in JAX. ``sp_mesh`` may be an ``SPMesh`` over the ranks of a process
+group: a rank then holds only its shards' sequence blocks of every buffer,
+its loss is its shards' share of the mean, and after the backward (whose
+ring shifts the k/v gradients back across the ranks) the loss and every
+trainable's gradient are summed over the ranks in shard order, so every
+rank takes the same AdamW step (JAX gets the same sum from the transpose
+of its ``shard_map`` over replicated trainables).
 """
 from __future__ import annotations
 
@@ -108,16 +114,23 @@ def _resumed(template, saved, device):
     return torch.as_tensor(saved, dtype=template.dtype, device=device).clone()
 
 
-def _embed_all(family, params, model_cfg, tokens, dtype, device):
-    """Layer-0 inputs of every window, embedded 8 windows at a time."""
+def _embed_all(family, params, model_cfg, tokens, dtype, device,
+               split=None):
+    """Layer-0 inputs of every window, embedded 8 windows at a time; with
+    ``split`` (SP mode), each part split into its shard blocks as it is
+    made, and the blocks a shard's list (None at another rank's shard)."""
     emb = {k: v for k, v in params.items() if k != "layers"}
     emb_device = embedding_device(params)
     parts = []
     for i in range(0, tokens.shape[0], 8):
         t = tokens[i: i + 8]
         x = family.embed(emb, t.to(emb_device), model_cfg)
-        parts.append(x.to(device=device, dtype=dtype or x.dtype))
-    return torch.cat(parts)
+        x = x.to(device=device, dtype=dtype or x.dtype)
+        parts.append(x if split is None else split(x))
+    if split is None:
+        return torch.cat(parts)
+    return [None if blocks[0] is None else torch.cat(blocks)
+            for blocks in zip(*parts)]
 
 
 def _blockwise(family, layer, xs, model_cfg, mask, positions, spec=None):
@@ -133,15 +146,16 @@ def _blockwise(family, layer, xs, model_cfg, mask, positions, spec=None):
 
 def _sp_mode(family, model_cfg, sp_mesh, seqlen, spec, device, impl):
     """SP mode's pieces: (block pass, window batch, buffer copy, loss of
-    effective weights, split of a full buffer into shard blocks), as JAX's
-    ``calibrate`` sets them up under ``sp_mesh``; the same pieces as the
-    single-device ones in ``calibrate``, on lists of shard blocks."""
+    effective weights, split of a buffer into shard blocks, step reduction),
+    as JAX's ``calibrate`` sets them up under ``sp_mesh``; the same pieces
+    as the single-device ones in ``calibrate``, on lists of shard blocks
+    (None at the shards of other ranks)."""
     from ..parallel import SPMesh
 
     if family.name not in ("llama", "opt"):
         raise ValueError("sequence-parallel calibration supports llama and "
                          f"opt (got {family.name})")
-    mesh = SPMesh(sp_mesh)
+    mesh = sp_mesh if isinstance(sp_mesh, SPMesh) else SPMesh(sp_mesh)
     n = mesh.n
     if seqlen % n:
         raise ValueError(f"seqlen {seqlen} does not split into {n} "
@@ -152,8 +166,8 @@ def _sp_mode(family, model_cfg, sp_mesh, seqlen, spec, device, impl):
     # holds only the probs quantizer), so its ring runs at scale 1.0
     sm_scale = 1.0 if family.name == "opt" else None
     s_local = seqlen // n
-    pos = [torch.arange(p * s_local, (p + 1) * s_local, device=d)
-           for p, d in enumerate(mesh.devices)]
+    pos = mesh.each(lambda p, d: torch.arange(p * s_local, (p + 1) * s_local,
+                                              device=d))
 
     def hook(p, ring_impl):
         def attn(q, k, v, spec_):
@@ -166,7 +180,7 @@ def _sp_mode(family, model_cfg, sp_mesh, seqlen, spec, device, impl):
         return attn
 
     def on_devices(tree):
-        return {d: _to(tree, d) for d in mesh.devices}
+        return {d: _to(tree, d) for d in {mesh.devices[p] for p in mesh.local}}
 
     def blockwise(layer, shards, spec_=None):
         """Every window through the block, in place, the shards' programs
@@ -183,11 +197,12 @@ def _sp_mode(family, model_cfg, sp_mesh, seqlen, spec, device, impl):
         mesh.run(shard, shards)
 
     def batch(shards, idx, bs):
-        return [x[idx: idx + bs] for x in shards]
+        return [None if x is None else x[idx: idx + bs] for x in shards]
 
     def copy_(dst, src):
         for d, s_ in zip(dst, src):
-            d.copy_(s_)
+            if d is not None:
+                d.copy_(s_)
 
     def loss(eff, qin, fp_out, fp_out_2):
         on = on_devices(eff)
@@ -204,14 +219,38 @@ def _sp_mode(family, model_cfg, sp_mesh, seqlen, spec, device, impl):
 
         per_shard = mesh.run(shard, qin, fp_out,
                              fp_out_2 if fp_out_2 is not None else [None] * n)
+        if mesh.spans_processes:
+            # this rank's share of each term's mean over the n shards; the
+            # step sums the shares (and the gradients) over the ranks
+            return sum(torch.stack(t).sum() / n for t in zip(
+                *(per_shard[p] for p in mesh.local)))
         # pmean of each term over the shards
         return sum(torch.stack(t).mean() for t in zip(*per_shard))
 
     def split(x):
-        return [c.contiguous().to(d)
-                for c, d in zip(x.chunk(n, dim=1), mesh.devices)]
+        return mesh.each(lambda p, d: x[:, p * s_local: (p + 1) * s_local]
+                         .contiguous().to(d))
 
-    return blockwise, batch, copy_, loss, split
+    def reduce_step(loss_, params):
+        """Across ranks: the loss and every gradient summed over the ranks
+        in shard order (one flat all-reduce), the same bits on every rank;
+        returns the loss. JAX's transpose of its shard_map over replicated
+        trainables gives the same sum."""
+        if not mesh.spans_processes:
+            return loss_
+        flat = torch.cat([loss_.detach().reshape(1).to(torch.float32)]
+                         + [q.grad.reshape(-1).to(torch.float32)
+                            for q in params])
+        first = mesh.local[0]
+        total = mesh.first(mesh.run(lambda p: mesh.all_reduce(
+            p, flat if p == first else torch.zeros_like(flat))))
+        at = 1
+        for q in params:
+            q.grad.copy_(total[at: at + q.numel()].view_as(q.grad))
+            at += q.numel()
+        return total[0].to(loss_.dtype)
+
+    return blockwise, batch, copy_, loss, split, reduce_step
 
 
 def _truncate_stored_let(let: dict) -> None:
@@ -264,8 +303,9 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
     lists ``step_s`` (every train step), ``fp_pass_s``, ``propagate_s``
     and ``layer_s`` (one per layer).
 
-    ``sp_mesh``, a sequence of devices, turns on sequence-parallel mode
-    (the module docstring; ``seqlen`` a multiple of their number);
+    ``sp_mesh``, a sequence of devices or an ``SPMesh`` (over ranks, too),
+    turns on sequence-parallel mode (the module docstring; ``seqlen`` a
+    multiple of the shards);
     ``sp_attn_impl`` ("flash" or "plain"; by default the ring's own rule,
     "flash" on a card and "plain" on the CPU) is the ring of its fp and
     propagation passes."""
@@ -290,9 +330,7 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
     bs = cc.batch_size
     f32 = torch.float32
 
-    with torch.no_grad():
-        quant_inps = _embed_all(family, params, model_cfg, tokens,
-                                cc.buffer_dtype, device)
+    reduce_step = None
     if sp_mesh is None:
         mask = causal_mask(seqlen, seqlen, dtype=cc.buffer_dtype,
                            device=device)
@@ -315,15 +353,22 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
             if fp_out_2 is not None:
                 loss = loss + (out - fp_out_2.to(f32)).pow(2).mean()
             return loss
+
+        split = None
     else:
-        blockwise, batch, copy_, forward_loss, split = _sp_mode(
+        blockwise, batch, copy_, forward_loss, split, reduce_step = _sp_mode(
             family, model_cfg, sp_mesh, seqlen, spec, device, sp_attn_impl)
-        quant_inps = split(quant_inps)
-        log(f"sequence-parallel calibration over {len(sp_mesh)} shards on "
-            f"{[str(d) for d in sp_mesh]} (ring attention, seqlen {seqlen})")
+        devs = getattr(sp_mesh, "devices", sp_mesh)
+        log(f"sequence-parallel calibration over {len(devs)} shards on "
+            f"{[str(d) for d in devs]} (ring attention, seqlen {seqlen})")
+    with torch.no_grad():
+        quant_inps = _embed_all(family, params, model_cfg, tokens,
+                                cc.buffer_dtype, device, split)
 
     def clone(x):  # a buffer, or an SP buffer's list of shard blocks
-        return [t.clone() for t in x] if isinstance(x, list) else x.clone()
+        if isinstance(x, list):
+            return [None if t is None else t.clone() for t in x]
+        return x.clone()
 
     fp_inps = clone(quant_inps)
     fp_inps_2 = clone(quant_inps) if cc.aug_loss else None
@@ -406,6 +451,8 @@ def calibrate(family: ModelFamily, params: dict, model_cfg, calib_tokens,
                     for p in all_ps:  # optax steps every leaf
                         if p.grad is None:
                             p.grad = torch.zeros_like(p)
+                    if reduce_step is not None:
+                        loss = reduce_step(loss, all_ps)
                     with torch.no_grad():
                         norms.append(torch.sqrt(sum(
                             p.grad.pow(2).sum() for p in all_ps)))

@@ -34,19 +34,22 @@ on one card; on the CPU N shards in this process). ``--tp N`` serves
 ``--serve_prompt`` through the family's tensor-parallel engine
 (``serving/tp_engine.py``, ``--tp_overlap`` chunks of each all-reduce) and
 scores ``--eval_ppl`` through the tensor-parallel trunk (``parallel/
-tp_forward.py``, which takes no activation quantizers, so it needs
-``--abits 16``), over the first N visible cards (it exits when there are
-fewer; ``chip_smoke.py`` puts N shards on one card through the library),
-or N shards in this process on the CPU. ``--num_processes N
+tp_forward.py``, with the run's activation quantizers, their ranges
+all-reduced where a site's input is split), over the first N visible
+cards (it exits when there are fewer; ``chip_smoke.py`` puts N shards on
+one card through the library), or N shards in this process on the CPU;
+``--tasks`` stays unsharded, as in main.py. ``--num_processes N
 --coordinator host:port --process_id R`` joins this process to a group of
 N ranks (``parallel/multihost.py``: NCCL where every rank of the host has
-a card of its own, else gloo); every rank runs the whole program, the
-``--tp`` mesh then spans the ranks (``--tp N --num_processes N``: one
-shard a process), and only rank 0 writes files (``--save_dir``, the
-calibration's and the caches' npz files, the ``--eval_cache`` db); each
-rank logs to a file of its own, ``log_<time>_rank<R>.txt``. Flags whose
-machinery is not ported yet (a cluster found without ``--coordinator``,
-``--sp`` across ranks) exit with the ROADMAP item that ports it.
+a card of its own, else gloo); without ``--coordinator`` and
+``--process_id`` the launcher's environment (torchrun, SLURM, Open MPI)
+names them, and with none the run exits naming what it looked for. Every
+rank runs the whole program; the ``--tp`` mesh then spans the ranks
+(``--tp N --num_processes N``: one shard a process), as does the ``--sp``
+mesh (N / ranks shards a rank: the ring crosses the ranks, N must divide
+by them); only rank 0 writes files (``--save_dir``, the calibration's and
+the caches' npz files, the ``--eval_cache`` db); each rank logs to a file
+of its own, ``log_<time>_rank<R>.txt``.
 """
 from __future__ import annotations
 
@@ -75,7 +78,8 @@ def build_parser():
     p.add_argument("--save_dir", default=None, type=str,
                    help="save fake-quant model (npz pytree)")
     p.add_argument("--export_autogptq", default=False, action="store_true",
-                   help="not ported yet")
+                   help="with --real_quant --save_dir: also write "
+                        "model_autogptq.pt (AutoGPTQ's tensors)")
     p.add_argument("--real_quant", default=False, action="store_true",
                    help="pack the weights into int32 words: saved with "
                         "--save_dir, served with --serve_prompt")
@@ -130,14 +134,15 @@ def build_parser():
     p.add_argument("--act-scales", dest="act_scales", type=str, default=None)
     p.add_argument("--act-shifts", dest="act_shifts", type=str, default=None)
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-process: host:port of rank 0 (required "
-                        "with --num_processes > 1)")
+                   help="multi-process: host:port of rank 0 (with "
+                        "--num_processes > 1; without it and --process_id, "
+                        "the launcher's environment gives both)")
     p.add_argument("--num_processes", type=int, default=1,
                    help="multi-process: the number of ranks (one "
                         "torch.distributed group)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="multi-process: this process's rank (required "
-                        "with --num_processes > 1)")
+                   help="multi-process: this process's rank (with "
+                        "--coordinator)")
     p.add_argument("--platform", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="device to run on (cpu: the kernels' plain versions)")
@@ -163,19 +168,6 @@ def build_parser():
     p.add_argument("--draft_layers", type=int, default=4,
                    help="blocks in the layer-skip self-draft")
     return p
-
-
-# the unported flags: (is the flag set, what it needs)
-def _unported(args) -> list:
-    return [what for used, what in (
-        (args.num_processes > 1 and (args.coordinator is None
-                                     or args.process_id is None),
-         "--num_processes > 1 without --coordinator and --process_id needs "
-         "cluster auto-detection (ROADMAP Queue 1 item 3)"),
-        (args.num_processes > 1 and args.sp > 1,
-         "--sp with --num_processes > 1 needs ring attention across ranks "
-         "(ROADMAP Queue 1 item 3)"),
-    ) if used]
 
 
 TINY_CONFIGS = {
@@ -257,9 +249,6 @@ def load_model(args, logger, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    missing = _unported(args)
-    if missing:
-        raise SystemExit("not ported yet: " + "; ".join(missing))
 
     import torch
 
@@ -271,14 +260,21 @@ def main(argv=None):
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
     rank = 0
+    if args.num_processes > 1 and args.sp > 1 and (
+            args.sp % args.num_processes):
+        raise SystemExit(f"--sp {args.sp} does not split over "
+                         f"{args.num_processes} processes")
     if args.num_processes > 1:  # main.py:210-217; a failed join raises
         from .parallel.multihost import (
-            MultihostConfig, init_multihost, process_index)
+            MultihostConfig, NoLauncher, init_multihost, process_index)
 
-        device = init_multihost(MultihostConfig(
-            coordinator_address=args.coordinator,
-            num_processes=args.num_processes,
-            process_id=args.process_id), device)
+        try:  # without --coordinator and --process_id: the launcher's
+            device = init_multihost(MultihostConfig(
+                coordinator_address=args.coordinator,
+                num_processes=args.num_processes,
+                process_id=args.process_id), device)
+        except (NoLauncher, ValueError) as e:
+            raise SystemExit(str(e)) from None
         rank = process_index()
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -287,11 +283,6 @@ def main(argv=None):
     if (args.epochs > 0 and (args.wbits < 16 or args.abits < 16)
             and not (args.lwc or args.let)):
         raise SystemExit("--epochs > 0 requires --lwc or --let")
-    if args.tp > 1 and args.eval_ppl and args.abits < 16:
-        raise SystemExit(
-            "--eval_ppl with --tp > 1 scores through the tensor-parallel "
-            "trunk, which takes no activation quantizers (JAX's "
-            "make_tp_forward neither): use --abits 16 or --tp 1")
     mesh = None
     if args.tp > 1:
         try:  # fail before calibrating when there are too few cards
@@ -328,12 +319,21 @@ def main(argv=None):
     return results
 
 
-def sp_devices(device, n: int) -> list:
-    """An SP mesh of n shards over the visible devices of ``device``'s
-    type, taken cyclically: n shards on one card when there is one (as
-    main.py gives the CPU n virtual devices)."""
+def sp_devices(device, n: int):
+    """The SP mesh of ``--sp n``: across the ranks when a process group is
+    up (an ``SPMesh`` of n / ranks shards a rank, on its device, as
+    main.py's mesh over ``jax.devices()`` spans every process), else n
+    shards over the visible devices of ``device``'s type, taken
+    cyclically: n shards on one card when there is one (as main.py gives
+    the CPU n virtual devices)."""
     import torch
 
+    from .parallel import SPMesh, global_mesh, multihost
+
+    if multihost.initialized():
+        m = global_mesh(tp=n, local_shards=n // multihost.process_count(),
+                        device=device)
+        return SPMesh(m.devices, m.ranks)
     if device.type != "cuda":
         return [device] * n
     count = torch.cuda.device_count()
@@ -417,10 +417,12 @@ def _run(args, device, logger, mesh, rank: int = 0) -> dict:
         sp_mesh = None
         if args.sp > 1:
             sp_mesh = sp_devices(device, args.sp)
+            ranks = getattr(sp_mesh, "ranks", None)
             logger.info(
                 f"sequence-parallel calibration over {args.sp} devices "
                 f"(ring attention, seqlen {args.seqlen}): "
-                f"{[str(d) for d in sp_mesh]}")
+                f"{[str(d) for d in getattr(sp_mesh, 'devices', sp_mesh)]}"
+                + (f" on ranks {ranks}" if ranks else ""))
         params, omni_parameters = calibrate(
             family, params, model_cfg, train_tokens, cc, act_scales,
             act_shifts, logger=logger, device=device, sp_mesh=sp_mesh)
@@ -467,7 +469,8 @@ def _run(args, device, logger, mesh, rank: int = 0) -> dict:
             from .parallel import make_tp_model_forward
 
             tp_forward = make_tp_model_forward(
-                family, params, model_cfg, mesh, args.tp_overlap)
+                family, params, model_cfg, mesh, args.tp_overlap,
+                cc.act_quant_spec)
         for ds in eval_sets:
             cache = Path(args.cache_dir) / f"testloader_{args.net}_{ds}.npz"
             if cache.exists():

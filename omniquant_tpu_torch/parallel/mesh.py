@@ -32,6 +32,14 @@ shard's device, exactly as above, so every rank holds the same bits. Gloo
 gathers no CUDA tensors, so on gloo the values travel through the host as
 raw bytes.
 
+``shift`` is JAX's ``ppermute`` round a row: shard p hands a tensor to the
+next shard and gets the previous one's. In one process it is a device copy
+(nothing on one card); across ranks each rank posts its receives and sends
+to the neighbouring ranks at once and waits for them (gloo: raw bytes
+through pinned host buffers), with the group's timeout. A rank's shift is
+one autograd node whose backward shifts the gradients back the other way,
+so a graph that crosses ranks differentiates on every rank in step.
+
 A (dp, tp) mesh (``dp`` > 1) holds dp rows of tp shards, dp-major (shard p
 is row p // tp): its collectives reduce each row on its own (JAX's psum
 over the "tp" axis), and the rows are data-parallel replicas.
@@ -44,6 +52,7 @@ passes the devices itself.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import threading
 from typing import Optional, Sequence
 
@@ -208,13 +217,16 @@ class Mesh:
                        errors[0])
         return results
 
-    def _collective(self, p: int, value, combine):
+    def _collective(self, p: int, value, combine, gather: bool = True):
         """Shard p's part of a collective: every shard hands in its
         ``value``; the last local shard to arrive gathers the other ranks'
         values and runs ``combine`` on the n values (in shard order), which
-        returns one result per shard; shard p gets its own."""
+        returns one result per shard; shard p gets its own. With ``gather``
+        False, ``combine`` takes the local shards' values ({shard: value})
+        and does its own communication."""
         if len(self.local) == 1:
-            return combine(self._gather({p: value}))[p]
+            slots = {p: value}
+            return combine(self._gather(slots) if gather else slots)[p]
         self._slots[p] = value
         if len(self._slots) < len(self.local):
             i = self.local.index(p)
@@ -222,7 +234,7 @@ class Mesh:
             self._baton.take(i)
         else:
             slots, self._slots = self._slots, {}
-            self._result = combine(self._gather(slots))
+            self._result = combine(self._gather(slots) if gather else slots)
             self._baton.ready_all()
         return self._result[p]
 
@@ -252,6 +264,64 @@ class Mesh:
                 values.setdefault(p, v)
         return [values[p] for p in range(self.n)]
 
+    def _peer(self, p: int, step: int) -> int:
+        """The shard ``step`` places after p round p's row."""
+        row = p - p % self.tp
+        return row + (p % self.tp + step) % self.tp
+
+    def shift(self, p: int, x: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """Shard p's ``x`` goes to shard p + step of its row, and shard p
+        gets shard p - step's (JAX's ``ppermute`` round the ring), on its
+        device; every shard's tensor has one shape and dtype.
+        Differentiable: the gradient goes back the other way."""
+        return self._collective(p, x, lambda slots: self._shift(slots, step),
+                                gather=False)
+
+    def _shift(self, slots: dict, step: int) -> dict:
+        if not self.spans_processes:
+            return {p: slots[self._peer(p, -step)].to(self.devices[p],
+                                                      non_blocking=True)
+                    for p in self.local}
+        out = _Shift.apply(self, step, *(slots[p] for p in self.local))
+        return dict(zip(self.local, out))
+
+    def _exchange(self, xs: list, step: int) -> list:
+        """The local shards' ``xs`` (in ``local`` order) shifted by
+        ``step``: a neighbour on this rank copies, a neighbour on another
+        rank exchanges point to point (every receive and send posted, then
+        waited for, under the group's timeout)."""
+        from . import multihost
+
+        dist = torch.distributed
+        gloo = dist.get_backend() == "gloo"
+        out = [None] * len(self.local)
+        works, recvs = [], []
+        for i, p in enumerate(self.local):
+            src = self._peer(p, -step)
+            if src in self.local:
+                out[i] = xs[self.local.index(src)].to(self.devices[p],
+                                                      copy=True)
+                continue
+            buf = _host_bytes(xs[i]) if gloo else torch.empty_like(xs[i])
+            recvs.append((i, buf))
+            works.append(dist.irecv(buf, self.ranks[src], tag=p))
+        for i, p in enumerate(self.local):
+            dst = self._peer(p, step)
+            if dst not in self.local:
+                x = xs[i].detach().contiguous()
+                if gloo:
+                    x = _host_bytes(x).copy_(x.view(torch.uint8).reshape(-1))
+                works.append(dist.isend(x, self.ranks[dst], tag=dst))
+        timeout = datetime.timedelta(seconds=multihost.timeout_s())
+        for w in works:
+            w.wait(timeout)
+        for i, buf in recvs:
+            x = xs[i]
+            if gloo:
+                buf = buf.to(x.device).view(x.dtype).reshape(x.shape)
+            out[i] = buf
+        return out
+
     def all_reduce(self, p: int, x: torch.Tensor, op: str = "sum"):
         """Shard p's ``x`` in, the reduction over its row's shards out
         (JAX's ``psum``/``pmin``/``pmax``): combined in shard order on the
@@ -279,6 +349,26 @@ class Mesh:
                     d = self.devices[q]
                     out[q] = acc if d == home else acc.to(d, non_blocking=True)
         return out
+
+
+def _host_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A host buffer of ``x``'s bytes (uint8), pinned where x is on a card."""
+    n = x.numel() * x.element_size()
+    return torch.empty(n, dtype=torch.uint8, pin_memory=x.is_cuda)
+
+
+class _Shift(torch.autograd.Function):
+    """A rank's shift of its local shards' tensors (``Mesh._exchange``):
+    its backward shifts their gradients by the opposite step."""
+
+    @staticmethod
+    def forward(ctx, mesh, step, *xs):
+        ctx.mesh, ctx.step = mesh, step
+        return tuple(mesh._exchange(list(xs), step))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.mesh._exchange(list(grads), -ctx.step))
 
 
 def make_mesh(dp: int = 1, tp: int = 1, devices: Optional[Sequence] = None

@@ -23,6 +23,17 @@ of the calibration set; ``dp_mean`` is the gradient mean over the dp rows
 that JAX's GSPMD inserts without being asked: an all-gather, then a sum in
 row order, so every rank holds the same bits.
 
+Without a coordinator and a process id, ``init_multihost`` finds the
+cluster in the launcher's environment (``detect_cluster``), as
+``jax.distributed.initialize()`` does with no arguments: torchrun's
+``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``, SLURM's ``SLURM_JOB_ID``/``SLURM_STEP_NODELIST``/
+``SLURM_NTASKS``/``SLURM_PROCID``/``SLURM_LOCALID`` (the coordinator is the
+first host of the node list, at the port JAX's SLURM cluster picks:
+``SLURM_JOB_ID % 4096 + 61440``), or Open MPI's ``OMPI_COMM_WORLD_*`` with
+``OMPI_MCA_orte_hnp_uri`` (the launcher's address, JAX's port rule). With
+none of them it raises, naming what it looked for; it never falls back to
+one process.
+
 CPU validation path: N processes on one machine, each calling
 ``init_multihost(MultihostConfig("localhost:<port>", N, rank), "cpu")``;
 the collectives ride gloo over localhost (tests/test_torch_multihost.py).
@@ -33,6 +44,7 @@ import dataclasses
 import datetime
 import logging
 import os
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -41,7 +53,7 @@ import torch
 from .. import resolve_device
 
 _log = logging.getLogger(__name__)
-_STATE = {"cpu_group": None, "device": None}
+_STATE = {"cpu_group": None, "device": None, "timeout_s": 600.0}
 
 
 @dataclasses.dataclass
@@ -65,13 +77,117 @@ def process_count() -> int:
     return torch.distributed.get_world_size() if initialized() else 1
 
 
+@dataclasses.dataclass
+class Cluster:
+    """A launcher's view of the job: where rank 0 listens, how many ranks,
+    this one's rank, and its place among its host's ranks (``local_world``
+    None where the launcher does not say)."""
+
+    launcher: str
+    coordinator_address: str
+    num_processes: int
+    process_id: int
+    local_rank: int
+    local_world: Optional[int]
+
+
+_TORCHRUN = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+_SLURM = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+          "SLURM_PROCID", "SLURM_LOCALID")
+_OMPI = ("OMPI_MCA_orte_hnp_uri", "OMPI_COMM_WORLD_SIZE",
+         "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_LOCAL_RANK")
+
+
+def _port_of_job(job_id: int) -> int:
+    """JAX's port rule: one of the 4096 ports at the top of the ephemeral
+    range, picked by the job id."""
+    return job_id % 2**12 + (65535 - 2**12 + 1)
+
+
+def slurm_first_host(node_list: str) -> str:
+    """The first host of a SLURM node list: ``node001``,
+    ``node001,host2``, ``node[001-015],host2`` and ``node[001,007-015]``
+    all give ``node001`` (JAX's ``SlurmCluster`` reading)."""
+    cut = next((i for i, ch in enumerate(node_list) if ch in ",["),
+               len(node_list))
+    if cut == len(node_list) or node_list[cut] == ",":
+        return node_list[:cut]
+    suffix = node_list[cut + 1:]
+    end = next((i for i, ch in enumerate(suffix) if ch in ",-"), None)
+    return node_list[:cut] + suffix[:end]
+
+
+def _torchrun(env) -> Cluster:
+    local = env.get("LOCAL_WORLD_SIZE")
+    return Cluster("torchrun", f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                   int(env["WORLD_SIZE"]), int(env["RANK"]),
+                   int(env.get("LOCAL_RANK", env["RANK"])),
+                   None if local is None else int(local))
+
+
+def _slurm(env) -> Cluster:
+    addr = (f"{slurm_first_host(env['SLURM_STEP_NODELIST'])}:"
+            f"{_port_of_job(int(env['SLURM_JOB_ID']))}")
+    n, nodes = int(env["SLURM_NTASKS"]), env.get("SLURM_STEP_NUM_NODES")
+    return Cluster("slurm", addr, n, int(env["SLURM_PROCID"]),
+                   int(env["SLURM_LOCALID"]),
+                   n // int(nodes) if nodes else None)
+
+
+def _openmpi(env) -> Cluster:
+    uri = env["OMPI_MCA_orte_hnp_uri"]
+    # the job id is a multiple of 2^12 (JAX's OmpiCluster)
+    port = _port_of_job(int(uri.split(".", 1)[0]) // 2**12)
+    m = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if m is None:
+        raise RuntimeError(f"no launcher address in "
+                           f"OMPI_MCA_orte_hnp_uri={uri!r}")
+    addr = f"{next(g for g in m.groups() if g is not None)}:{port}"
+    local = env.get("OMPI_COMM_WORLD_LOCAL_SIZE")
+    return Cluster("openmpi", addr, int(env["OMPI_COMM_WORLD_SIZE"]),
+                   int(env["OMPI_COMM_WORLD_RANK"]),
+                   int(env["OMPI_COMM_WORLD_LOCAL_RANK"]),
+                   None if local is None else int(local))
+
+
+# (the variables a launcher must set, its reader), in the order looked for
+_LAUNCHERS = ((_TORCHRUN, _torchrun), (_SLURM, _slurm), (_OMPI, _openmpi))
+
+
+class NoLauncher(RuntimeError):
+    """No launcher's variables are in the environment."""
+
+
+def detect_cluster(env=None) -> Cluster:
+    """The cluster the launcher describes in ``env`` (default
+    ``os.environ``): torchrun, SLURM or Open MPI, in that order. Raises
+    ``NoLauncher`` naming every variable it looked for when none is
+    complete."""
+    env = os.environ if env is None else env
+    for names, read in _LAUNCHERS:
+        if all(k in env for k in names):
+            return read(env)
+    raise NoLauncher(
+        "no coordinator_address and process_id given, and no launcher "
+        "found in the environment: looked for torchrun's "
+        f"{', '.join(_TORCHRUN)}; SLURM's {', '.join(_SLURM)}; Open MPI's "
+        f"{', '.join(_OMPI)}")
+
+
 def local_layout(cfg: MultihostConfig) -> tuple:
     """(this rank's index among its host's ranks, the ranks on its host):
-    the launcher's ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` where both are
-    set (torchrun sets them), else every rank on one host."""
+    the launcher's where it gives both (torchrun's ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE``; SLURM's ``SLURM_LOCALID`` with ``SLURM_NTASKS``
+    over ``SLURM_STEP_NUM_NODES``; Open MPI's local rank and size), else
+    every rank on one host."""
     env = os.environ
     if "LOCAL_RANK" in env and "LOCAL_WORLD_SIZE" in env:
         return int(env["LOCAL_RANK"]), int(env["LOCAL_WORLD_SIZE"])
+    for names, read in _LAUNCHERS[1:]:
+        if all(k in env for k in names):
+            c = read(env)
+            if c.local_world is not None:
+                return c.local_rank, c.local_world
     return cfg.process_id, cfg.num_processes
 
 
@@ -79,13 +195,33 @@ def init_multihost(cfg: MultihostConfig, device="cuda") -> torch.device:
     """Join this process into the group and return its device: ``device``
     itself on the CPU, else card ``local_rank % device_count``
     (``local_layout``). A no-op (``device`` resolved) when num_processes
-    == 1. An init that fails raises; nothing carries on as one process."""
+    == 1. With neither ``coordinator_address`` nor ``process_id``, the
+    cluster comes from the launcher's environment (``detect_cluster``;
+    ``num_processes``, when given, must be its count). An init that fails
+    raises; nothing carries on as one process."""
     dev = resolve_device(device)
-    if not cfg.num_processes or cfg.num_processes == 1:
+    if cfg.num_processes == 1:
         return dev
-    if cfg.coordinator_address is None or cfg.process_id is None:
-        raise ValueError("init_multihost needs coordinator_address and "
-                         "process_id for num_processes > 1")
+    if cfg.coordinator_address is None and cfg.process_id is None:
+        found = detect_cluster()
+        if cfg.num_processes not in (None, found.num_processes):
+            raise ValueError(
+                f"num_processes={cfg.num_processes}, but the {found.launcher}"
+                f" environment holds {found.num_processes} ranks")
+        _log.info(f"{found.launcher} launch: rank {found.process_id} of "
+                  f"{found.num_processes}, coordinator "
+                  f"{found.coordinator_address}")
+        cfg = dataclasses.replace(
+            cfg, coordinator_address=found.coordinator_address,
+            num_processes=found.num_processes, process_id=found.process_id)
+        if cfg.num_processes == 1:
+            return dev
+    elif (cfg.coordinator_address is None or cfg.process_id is None
+          or not cfg.num_processes):
+        raise ValueError("init_multihost needs coordinator_address, "
+                         "num_processes and process_id together, or none "
+                         "of the first and last (the launcher's "
+                         "environment then gives them)")
     local_rank, local_n = local_layout(cfg)
     count = torch.cuda.device_count() if dev.type == "cuda" else 0
     # NCCL when every rank of the host has a card of its own; else gloo
@@ -105,7 +241,13 @@ def init_multihost(cfg: MultihostConfig, device="cuda") -> torch.device:
     _STATE["cpu_group"] = (torch.distributed.new_group(backend="gloo")
                            if backend == "nccl" else None)
     _STATE["device"] = dev
+    _STATE["timeout_s"] = cfg.timeout_s
     return dev
+
+
+def timeout_s() -> float:
+    """The group's collective timeout in seconds (init_multihost's)."""
+    return _STATE["timeout_s"]
 
 
 def cpu_group():

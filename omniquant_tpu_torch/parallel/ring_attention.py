@@ -9,13 +9,17 @@ so the result equals attention over the whole sequence while no shard ever
 holds more than S/n of it.
 
 JAX drives the n devices of a mesh from one process through ``shard_map``
-and rotates with ``ppermute``. Here a mesh is a sequence of n
-``torch.device``s (which may repeat: n shards on one card), and one
-process runs step i of every shard in lockstep, rotating with
-``.to(device of shard p + 1, non_blocking=True)``, a peer copy between
-cards and nothing on one card. ``SPMesh.run`` runs one program per shard,
-each in its own thread, and ``SPMesh.ring_attention`` is the collective
-those programs call (``parallel/mesh.py`` holds the thread machinery).
+and rotates with ``ppermute``. Here each shard runs its own loop over the
+ring's n steps (``ring_attention_shard``): it attends its q block to the
+k/v block it holds, then shifts k/v to shard p + 1 (``Mesh.shift``, JAX's
+``ppermute``). On a mesh in one process (``SPMesh.run``: one thread a
+shard) the shift is a device copy, nothing on one card; on a mesh that
+spans the ranks of a process group it is a point-to-point exchange, whose
+backward shifts the gradients the other way (the transpose of
+``ppermute``), so the plain ring is differentiable across processes. A rank
+holds one k/v block a shard at a time, never the whole sequence.
+``ring_attention_local`` runs the n shards' loops for lists of blocks in
+one process.
 
 Two per-block implementations:
   impl="flash" (the default on a CUDA tensor): K2 with its softmax stats
@@ -39,7 +43,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from .mesh import Mesh, _on
+from .mesh import Mesh
 
 _NEG = -1e30
 
@@ -75,81 +79,89 @@ def _default_impl(t: torch.Tensor) -> str:
     return "flash" if t.is_cuda else "plain"
 
 
+def ring_attention_shard(p: int, n: int, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, shift,
+                         sm_scale: Optional[float] = None,
+                         causal: bool = True, impl: Optional[str] = None):
+    """Shard p's part of ring attention over n shards: q (B, H, S/n, D) and
+    k/v (B, Hkv, S/n, D) its blocks, H % Hkv == 0; ``shift(kv)`` hands the
+    stacked (2, B, Hkv, S/n, D) k/v this shard holds to shard p + 1 and
+    returns shard p - 1's. Step i attends q to the block of shard p - i and
+    merges it (skipped where causality masks it whole: p < i); the merge
+    order is the steps'. Returns the (B, H, S/n, D) output in q's dtype."""
+    B, H, s_local, D = q.shape
+    Hkv = k.shape[1]
+    if H % Hkv:
+        raise ValueError(f"{H} query heads do not group onto {Hkv} kv heads")
+    if not k.shape[2] == v.shape[2] == s_local:
+        raise ValueError("every block of the ring must hold S/n rows")
+    if sm_scale is None:
+        sm_scale = float(D) ** -0.5
+    if impl == "flash":
+        from ..kernels.flash_attention import flash_attention
+
+        # K2 takes bf16 on the card; on the CPU its plain version takes any
+        kd = torch.bfloat16 if q.is_cuda else q.dtype
+        q_in = q.to(kd)
+        kv = torch.stack([k.to(kd), v.to(kd)])
+    else:
+        n_rep = H // Hkv
+        kv = torch.stack([k, v])
+    dev = q.device
+    m = torch.full((B, H, s_local, 1), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, s_local, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, s_local, D), dtype=torch.float32, device=dev)
+    for i in range(n):
+        if not (causal and p < i):  # else the block of shard p - i + n
+            diag = i == 0
+            k_cur, v_cur = kv.unbind(0)
+            if impl == "flash":
+                o_b, m_b, l_b = flash_attention(
+                    q_in, k_cur, v_cur, sm_scale=sm_scale,
+                    causal=causal and diag, return_stats=True)
+                m, l, acc = _merge(m, l, acc, o_b, m_b[..., None],
+                                   l_b[..., None])
+            else:
+                if n_rep > 1:
+                    k_cur = k_cur.repeat_interleave(n_rep, dim=1)
+                    v_cur = v_cur.repeat_interleave(n_rep, dim=1)
+                pos = torch.arange(s_local, device=dev) if diag else None
+                m, l, acc = _block_update(q, k_cur, v_cur, pos, pos,
+                                          sm_scale, m, l, acc, causal)
+        if i != n - 1:
+            kv = shift(kv)
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _check_impl(q: torch.Tensor, impl: Optional[str]) -> str:
+    impl = impl or _default_impl(q)
+    if impl not in ("flash", "plain"):
+        raise ValueError(f"impl must be 'flash' or 'plain', not {impl!r}")
+    return impl
+
+
 def ring_attention_local(qs: Sequence[torch.Tensor],
                          ks: Sequence[torch.Tensor],
                          vs: Sequence[torch.Tensor],
                          sm_scale: Optional[float] = None,
                          causal: bool = True,
                          impl: Optional[str] = None) -> list:
-    """Ring attention over n shards' blocks: qs[p] (B, H, S/n, D) and
-    ks[p]/vs[p] (B, Hkv, S/n, D) on shard p's device, H % Hkv == 0. Runs
-    the ring's n steps for every shard in lockstep and returns the n
-    outputs (B, H, S/n, D) in q's dtype, each on its shard's device.
+    """Ring attention over n shards' blocks in this process: qs[p] (B, H,
+    S/n, D) and ks[p]/vs[p] (B, Hkv, S/n, D) on shard p's device. Runs
+    every shard's ``ring_attention_shard`` on a mesh of the blocks'
+    devices and returns the n outputs (B, H, S/n, D) in q's dtype, each on
+    its shard's device.
 
     Each call adds one to ``ring_attention_local.calls[impl]``."""
     n = len(qs)
     if not n == len(ks) == len(vs):
         raise ValueError(f"{len(qs)} q, {len(ks)} k and {len(vs)} v blocks")
-    B, H, s_local, D = qs[0].shape
-    Hkv = ks[0].shape[1]
-    if H % Hkv:
-        raise ValueError(f"{H} query heads do not group onto {Hkv} kv heads")
-    if any(t.shape[2] != s_local for t in (*qs, *ks, *vs)):
-        raise ValueError("every block of the ring must hold S/n rows")
-    if sm_scale is None:
-        sm_scale = float(D) ** -0.5
-    impl = impl or _default_impl(qs[0])
-    if impl not in ("flash", "plain"):
-        raise ValueError(f"impl must be 'flash' or 'plain', not {impl!r}")
+    impl = _check_impl(qs[0], impl)
     ring_attention_local.calls[impl] += 1
-    devices = [q.device for q in qs]
-    if impl == "flash":
-        from ..kernels.flash_attention import flash_attention
-
-        # K2 takes bf16 on the card; on the CPU its plain version takes any
-        kd = torch.bfloat16 if qs[0].is_cuda else qs[0].dtype
-        q_in = [q.to(kd) for q in qs]
-        k_cur = [k.to(kd) for k in ks]
-        v_cur = [v.to(kd) for v in vs]
-    else:
-        n_rep = H // Hkv
-        k_cur = [k.repeat_interleave(n_rep, dim=1) if n_rep > 1 else k
-                 for k in ks]
-        v_cur = [v.repeat_interleave(n_rep, dim=1) if n_rep > 1 else v
-                 for v in vs]
-    m = [torch.full((B, H, s_local, 1), _NEG, dtype=torch.float32, device=d)
-         for d in devices]
-    l = [torch.zeros((B, H, s_local, 1), dtype=torch.float32, device=d)
-         for d in devices]
-    acc = [torch.zeros((B, H, s_local, D), dtype=torch.float32, device=d)
-           for d in devices]
-    for i in range(n):
-        for p in range(n):
-            if causal and p < i:
-                continue  # the block of shard p - i + n: every key masked
-            diag = i == 0
-            if impl == "flash":
-                with _on(devices[p]):
-                    o_b, m_b, l_b = flash_attention(
-                        q_in[p], k_cur[p], v_cur[p], sm_scale=sm_scale,
-                        causal=causal and diag, return_stats=True)
-                m[p], l[p], acc[p] = _merge(m[p], l[p], acc[p], o_b,
-                                            m_b[..., None], l_b[..., None])
-            else:
-                pos = None
-                if diag:
-                    pos = torch.arange(s_local, device=devices[p])
-                m[p], l[p], acc[p] = _block_update(
-                    qs[p], k_cur[p], v_cur[p], pos, pos, sm_scale, m[p],
-                    l[p], acc[p], causal)
-        if i != n - 1:
-            # shard p hands its block to shard p + 1
-            k_cur = [k_cur[p - 1].to(devices[p], non_blocking=True)
-                     for p in range(n)]
-            v_cur = [v_cur[p - 1].to(devices[p], non_blocking=True)
-                     for p in range(n)]
-    return [(a / lp.clamp_min(1e-30)).to(q.dtype)
-            for a, lp, q in zip(acc, l, qs)]
+    mesh = Mesh([q.device for q in qs])
+    return mesh.run(lambda p, q, k, v: ring_attention_shard(
+        p, n, q, k, v, lambda kv: mesh.shift(p, kv), sm_scale, causal, impl),
+        qs, ks, vs)
 
 
 ring_attention_local.calls = {"flash": 0, "plain": 0}
@@ -178,17 +190,48 @@ def ring_attention(q, k, v, devices: Sequence,
 
 class SPMesh(Mesh):
     """A sequence-parallel mesh: n shards, shard p on ``devices[p]`` (the
-    devices may repeat). ``run`` (``Mesh.run``) runs one program per shard,
-    each in its own thread (JAX's ``shard_map``); the programs meet at the
-    collective ``ring_attention``, which every shard calls in turn with its
+    devices may repeat), held by rank ``ranks[p]`` of the process group
+    (None: all in this process). ``run`` (``Mesh.run``) runs one program
+    per local shard, each in its own thread (JAX's ``shard_map``); the
+    programs meet in ``ring_attention``, which every shard calls with its
     blocks."""
 
     def ring_attention(self, p: int, q, k, v,
                        sm_scale: Optional[float] = None, causal: bool = True,
                        impl: Optional[str] = None):
-        """The collective: shard p's (B, H, S/n, D) q and (B, Hkv, S/n, D)
-        k/v blocks in, its output block out. Every shard must call it; one
-        of them runs ``ring_attention_local`` for all n."""
-        return self._collective(
-            p, (q, k, v), lambda blocks: ring_attention_local(
-                *zip(*blocks), sm_scale, causal, impl))
+        """Shard p's (B, H, S/n, D) q and (B, Hkv, S/n, D) k/v blocks in,
+        its output block out (``ring_attention_shard``, its k/v shifted
+        round the mesh). Every shard must call it. Each ring adds one to
+        ``ring_attention_local.calls[impl]`` on every rank."""
+        impl = _check_impl(q, impl)
+        if p == self.local[0]:
+            ring_attention_local.calls[impl] += 1
+        held = []
+
+        def shift(kv):
+            held[:] = [self.shift(p, kv)]
+            return held[0]
+
+        out = ring_attention_shard(p, self.n, q, k, v, shift, sm_scale,
+                                   causal, impl)
+        if self.spans_processes and held and held[0].requires_grad:
+            # every rank's backward must run every shift (each exchanges
+            # with a neighbour), though a shard that causality keeps from
+            # the late blocks does not use them: tie the last to the output
+            out = _Tie.apply(out, held[0])
+        return out
+
+
+class _Tie(torch.autograd.Function):
+    """``out`` unchanged; in the backward, a zero gradient for ``dep``, so
+    that autograd runs the nodes ``dep`` comes from."""
+
+    @staticmethod
+    def forward(ctx, out, dep):
+        ctx.dep = (dep.shape, dep.dtype, dep.device)
+        return out.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, dtype, device = ctx.dep
+        return grad, torch.zeros(shape, dtype=dtype, device=device)

@@ -24,6 +24,19 @@ carry scale-0 groups (dequant -> exact 0, so silu(0)*0 = 0, relu(0) = 0,
 gelu(0) = 0 activations), and the padded down/fc2 input rows multiply those
 zeros. This is how LLaMA-7B's intermediate 11008 runs at tp 2, 4 and 8.
 
+Activation quantizers (an ``ActQuantSpec``, as the family forward takes)
+stay exact under the split (``tp_act_quant``, which the TP engine shares):
+a row-parallel input is whole on every shard, so its per-token quantizer
+is local; a column-parallel input is split over its features, so its
+per-token min and max are all-reduced over the shards before the
+fake-quant, bit-identical to the unsplit quantizer on the gathered tensor;
+OPT's q/k/v, quantized per token over the whole hidden before the head
+split, likewise; LLaMA's q/k/v quantizers act per head, on the shard's
+own heads. On packed weights the row-parallel sites take the integer
+route of ``linear`` (K8 + K9, or K7 at small m) and the column-parallel
+sites the fake-quantized input into K1, as in the TP engine; on dense
+weights every site multiplies fake-quantized inputs.
+
 ``make_tp_forward`` is the tensor-parallel trunk (the CLI's ``--eval_ppl
 --tp``); ``serving/tp_engine.py`` places an engine's params with the same
 helpers.
@@ -39,9 +52,12 @@ import torch
 from ..kernels.quant_matmul import quant_matmul
 from ..models import falcon as tfalcon
 from ..models import llama as tllama
-from ..models.common import causal_mask, layer_norm, repeat_kv, rms_norm
+from ..models.common import (
+    NO_ACT_QUANT, ActQuantSpec, causal_mask, layer_norm, linear, maybe_quant,
+    repeat_kv, rms_norm)
 from ..quant.packing import (
     PackedWeight, pack_codes, rows_per_words, unpack_codes)
+from ..quant.quantizer import _fake_quant_core, _scale_zp
 from .sharding import COL_PARALLEL, ROW_PARALLEL, local_packed, split
 
 
@@ -361,14 +377,33 @@ def _fix_local_pw(w: PackedWeight) -> PackedWeight:
         in_features=min(w.in_features, local_rows))
 
 
-def _row_linear(x, w):
-    """Row-parallel local matmul (its bias shard added locally)."""
+def tp_act_quant(mesh, p: int, x, qcfg):
+    """Per-token fake-quant of shard p's part of a tensor split over its
+    features: the min and max of each token span every shard's features
+    (an all-reduce), so the result is bit-identical to the unsplit
+    quantizer's on the gathered tensor. Elementwise quantizers stay
+    local; grouped ones are refused (their groups would straddle
+    shards)."""
+    if qcfg is None or not qcfg.enabled:
+        return x
+    if qcfg.metric == "fix0to1":
+        return maybe_quant(x, qcfg)  # elementwise: shard-local is exact
+    if qcfg.group_size:
+        raise NotImplementedError(
+            "grouped activation quantization over a tp-split feature "
+            "axis (its groups would straddle shards)")
+    xmin = mesh.all_reduce(p, x.amin(dim=-1, keepdim=True), "min")
+    xmax = mesh.all_reduce(p, x.amax(dim=-1, keepdim=True), "max")
+    return _fake_quant_core(x, *_scale_zp(xmin, xmax, qcfg), qcfg)
+
+
+def _row_linear(x, w, act=None):
+    """Row-parallel local matmul (its bias shard added locally) on the
+    whole input, quantized per token by ``act`` (the integer route on
+    packed weights)."""
     if isinstance(w, PackedWeight):
-        return quant_matmul(x, _fix_local_pw(w))
-    y = x @ w["weight"].t()
-    if w.get("bias") is not None:
-        y = y + w["bias"]
-    return y
+        w = _fix_local_pw(w)
+    return linear(x, w, act)
 
 
 def _slice_packed_out(pw: PackedWeight, n0: int, n1: int) -> PackedWeight:
@@ -388,6 +423,13 @@ def effective_overlap_chunks(n: int, chunks: int) -> int:
     while c > 1 and n % (c * 128) != 0:
         c -= 1
     return c
+
+
+def _col_linear_q(x, w, mesh, p: int, overlap_chunks: int, act):
+    """A column-parallel site: the exact input quantizer (``tp_act_quant``),
+    then ``_col_linear_psum``."""
+    return _col_linear_psum(tp_act_quant(mesh, p, x, act), w, mesh, p,
+                            overlap_chunks)
 
 
 def _col_linear_psum(x, w, mesh, p: int, overlap_chunks: int = 1):
@@ -428,15 +470,20 @@ def _col_linear_psum(x, w, mesh, p: int, overlap_chunks: int = 1):
     return y
 
 
-def _attend(q, k, v, mask, scale, dtype):
-    """Dense attention with an f32 softmax (JAX's block functions)."""
+def _attend(q, k, v, mask, scale, dtype, spec: ActQuantSpec = NO_ACT_QUANT):
+    """Dense attention with an f32 softmax (JAX's block functions); the
+    spec's q/k quantizers on the scores' inputs, its p/v quantizers on the
+    probabilities and values (per head: a shard's own)."""
+    q, k = maybe_quant(q, spec.q), maybe_quant(k, spec.k)
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     probs = torch.softmax((scores + mask).float(), dim=-1).to(dtype)
-    return torch.matmul(probs, v)
+    return torch.matmul(maybe_quant(probs, spec.p), maybe_quant(v, spec.v))
 
 
-def _llama_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
+def _llama_block_fn(cfg, tp, mesh, overlap_chunks: int = 1,
+                    spec: ActQuantSpec = NO_ACT_QUANT):
     hd = cfg.head_dim
+    act = spec.act
     if cfg.num_attention_heads % tp or cfg.num_key_value_heads % tp:
         raise ValueError("heads and kv heads must divide into tp shards")
     n_heads_l = cfg.num_attention_heads // tp
@@ -446,34 +493,36 @@ def _llama_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
         b, s, _ = x.shape
         residual = x
         hidden = rms_norm(x, p["input_layernorm"], cfg.rms_norm_eps)
-        q = _row_linear(hidden, p["q_proj"]).reshape(
+        q = _row_linear(hidden, p["q_proj"], act).reshape(
             b, s, n_heads_l, hd).transpose(1, 2)
-        k = _row_linear(hidden, p["k_proj"]).reshape(
+        k = _row_linear(hidden, p["k_proj"], act).reshape(
             b, s, n_kv_l, hd).transpose(1, 2)
-        v = _row_linear(hidden, p["v_proj"]).reshape(
+        v = _row_linear(hidden, p["v_proj"], act).reshape(
             b, s, n_kv_l, hd).transpose(1, 2)
         cos, sin = tllama.rope_cos_sin(positions, hd, cfg.rope_theta,
                                        dtype=x.dtype)
         q, k = tllama.apply_rope(q, k, cos, sin)
         k = repeat_kv(k, n_heads_l // n_kv_l)
         v = repeat_kv(v, n_heads_l // n_kv_l)
-        attn = _attend(q, k, v, mask, hd ** -0.5, x.dtype)
+        attn = _attend(q, k, v, mask, hd ** -0.5, x.dtype, spec)
         attn = attn.transpose(1, 2).reshape(b, s, n_heads_l * hd)
-        x = residual + _col_linear_psum(attn, p["o_proj"], mesh, p_idx,
-                                        overlap_chunks)
+        x = residual + _col_linear_q(attn, p["o_proj"], mesh, p_idx,
+                                     overlap_chunks, act)
         residual = x
         hidden = rms_norm(x, p["post_attention_layernorm"], cfg.rms_norm_eps)
-        gate = _row_linear(hidden, p["gate_proj"])
-        up = _row_linear(hidden, p["up_proj"])
-        mlp = _col_linear_psum(torch.nn.functional.silu(gate) * up,
-                               p["down_proj"], mesh, p_idx, overlap_chunks)
+        gate = _row_linear(hidden, p["gate_proj"], act)
+        up = _row_linear(hidden, p["up_proj"], act)
+        mlp = _col_linear_q(torch.nn.functional.silu(gate) * up,
+                            p["down_proj"], mesh, p_idx, overlap_chunks, act)
         return residual + mlp
 
     return block_fn
 
 
-def _opt_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
+def _opt_block_fn(cfg, tp, mesh, overlap_chunks: int = 1,
+                  spec: ActQuantSpec = NO_ACT_QUANT):
     hd = cfg.head_dim
+    act = spec.act
     if cfg.num_attention_heads % tp:
         raise ValueError("heads must divide into tp shards")
     n_heads_l = cfg.num_attention_heads // tp
@@ -485,15 +534,20 @@ def _opt_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
         if cfg.do_layer_norm_before:
             hidden = layer_norm(hidden, p["self_attn_layer_norm"],
                                 cfg.layer_norm_eps)
-        q = _row_linear(hidden, p["q_proj"]) * (hd ** -0.5)
-        k = _row_linear(hidden, p["k_proj"])
-        v = _row_linear(hidden, p["v_proj"])
+        # q/k/v are quantized per token over the whole hidden, before the
+        # head split: their ranges span the shards
+        q = tp_act_quant(mesh, p_idx, _row_linear(hidden, p["q_proj"], act)
+                         * (hd ** -0.5), spec.q)
+        k = tp_act_quant(mesh, p_idx, _row_linear(hidden, p["k_proj"], act),
+                         spec.k)
+        v = tp_act_quant(mesh, p_idx, _row_linear(hidden, p["v_proj"], act),
+                         spec.v)
         q, k, v = (t.reshape(b, s, n_heads_l, hd).transpose(1, 2)
                    for t in (q, k, v))
-        attn = _attend(q, k, v, mask, 1.0, x.dtype)
+        attn = _attend(q, k, v, mask, 1.0, x.dtype, ActQuantSpec(p=spec.p))
         attn = attn.transpose(1, 2).reshape(b, s, n_heads_l * hd)
-        x = residual + _col_linear_psum(attn, p["out_proj"], mesh, p_idx,
-                                        overlap_chunks)
+        x = residual + _col_linear_q(attn, p["out_proj"], mesh, p_idx,
+                                     overlap_chunks, act)
         if not cfg.do_layer_norm_before:
             x = layer_norm(x, p["self_attn_layer_norm"], cfg.layer_norm_eps)
         residual = x
@@ -501,9 +555,9 @@ def _opt_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
         if cfg.do_layer_norm_before:
             hidden = layer_norm(hidden, p["final_layer_norm"],
                                 cfg.layer_norm_eps)
-        hidden = torch.relu(_row_linear(hidden, p["fc1"]))
-        x = residual + _col_linear_psum(hidden, p["fc2"], mesh, p_idx,
-                                        overlap_chunks)
+        hidden = torch.relu(_row_linear(hidden, p["fc1"], act))
+        x = residual + _col_linear_q(hidden, p["fc2"], mesh, p_idx,
+                                     overlap_chunks, act)
         if not cfg.do_layer_norm_before:
             x = layer_norm(x, p["final_layer_norm"], cfg.layer_norm_eps)
         return x
@@ -531,8 +585,10 @@ def local_falcon_config(cfg, tp: int):
                                hidden_size=nh_l * hd)
 
 
-def _falcon_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
+def _falcon_block_fn(cfg, tp, mesh, overlap_chunks: int = 1,
+                     spec: ActQuantSpec = NO_ACT_QUANT):
     nh, hd = cfg.num_attention_heads, cfg.head_dim
+    act = spec.act
     nh_l = nh // tp
     cfg_l = local_falcon_config(cfg, tp)
     slopes_all = tfalcon.alibi_slopes(nh) if cfg.alibi else None
@@ -546,7 +602,7 @@ def _falcon_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
         else:
             attn_ln = layer_norm(x, p["input_layernorm"], cfg.layer_norm_eps)
             mlp_ln = None
-        fused = _row_linear(attn_ln, p["query_key_value"])
+        fused = _row_linear(attn_ln, p["query_key_value"], act)
         q, k, v = (t.transpose(1, 2)
                    for t in tfalcon.split_heads(fused, cfg_l))
         if not cfg.alibi:
@@ -564,8 +620,8 @@ def _falcon_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
             m = m + bias[None]
         attn = _attend(q, k, v, m, hd ** -0.5, x.dtype)
         attn = attn.transpose(1, 2).reshape(b, s, nh_l * hd)
-        attn_out = _col_linear_psum(attn, p["dense"], mesh, p_idx,
-                                    overlap_chunks)
+        attn_out = _col_linear_q(attn, p["dense"], mesh, p_idx,
+                                 overlap_chunks, act)
         if not cfg.new_decoder_architecture:
             if cfg.parallel_attn:
                 mlp_ln = attn_ln
@@ -573,10 +629,10 @@ def _falcon_block_fn(cfg, tp, mesh, overlap_chunks: int = 1):
                 residual = residual + attn_out
                 mlp_ln = layer_norm(residual, p["post_attention_layernorm"],
                                     cfg.layer_norm_eps)
-        hmid = torch.nn.functional.gelu(_row_linear(mlp_ln,
-                                                    p["dense_h_to_4h"]))
-        mlp_out = _col_linear_psum(hmid, p["dense_4h_to_h"], mesh, p_idx,
-                                   overlap_chunks)
+        hmid = torch.nn.functional.gelu(_row_linear(
+            mlp_ln, p["dense_h_to_4h"], act))
+        mlp_out = _col_linear_q(hmid, p["dense_4h_to_h"], mesh, p_idx,
+                                overlap_chunks, act)
         if cfg.new_decoder_architecture or cfg.parallel_attn:
             mlp_out = mlp_out + attn_out
         return residual + mlp_out
@@ -595,19 +651,21 @@ _BLOCK_FNS = {
 # public API
 # ---------------------------------------------------------------------------
 
-def make_tp_forward(family: str, mesh, cfg, overlap_chunks: int = 1):
+def make_tp_forward(family: str, mesh, cfg, overlap_chunks: int = 1,
+                    spec: ActQuantSpec = NO_ACT_QUANT):
     """(make_forward, shard_block): ``shard_block`` pads and places one
     calibrated block's weights (PackedWeight or dense) for TP, one block
     per shard; ``make_forward(layers)`` gives the tensor-parallel trunk
     ``fwd(layers, x)`` over such blocks: x (B, S, H) in, replicated, the
     output of the last block out, on the first local shard's device.
-    Embeddings and the head stay outside (replicated). The blocks split
+    Embeddings and the head stay outside (replicated). ``spec`` holds the
+    activation quantizers (module docstring). The blocks split
     over a row's tp shards; the dp rows of a (dp, tp) mesh are replicas. On
     a mesh that spans processes a rank places and runs only its own
     shards."""
     tp = mesh.tp
     shard_block = _make_shard_block(mesh, family, cfg, tp)
-    block_fn = _BLOCK_FNS[family](cfg, tp, mesh, overlap_chunks)
+    block_fn = _BLOCK_FNS[family](cfg, tp, mesh, overlap_chunks, spec)
 
     def make_forward(layers):
         del layers  # JAX traces its specs from them; nothing to do here
@@ -630,15 +688,17 @@ def make_tp_forward(family: str, mesh, cfg, overlap_chunks: int = 1):
 
 
 def make_tp_model_forward(family, params: dict, cfg, mesh,
-                          overlap_chunks: int = 1):
+                          overlap_chunks: int = 1,
+                          spec: ActQuantSpec = NO_ACT_QUANT):
     """A causal-LM forward ``tokens (B, S) -> logits`` whose decoder blocks
-    run tensor-parallel on ``mesh`` (``make_tp_forward``), with the
-    family's embedding and head on the tokens' device: what ``--eval_ppl
-    --tp`` scores windows with. The blocks are placed once, here."""
+    run tensor-parallel on ``mesh`` (``make_tp_forward``, with the
+    activation quantizers of ``spec``), with the family's embedding and
+    head on the tokens' device: what ``--eval_ppl --tp`` scores windows
+    with. The blocks are placed once, here (``forward.layers``)."""
     from ..models import opt as topt
 
     make_forward, shard_block = make_tp_forward(family.name, mesh, cfg,
-                                                overlap_chunks)
+                                                overlap_chunks, spec)
     layers = [shard_block(b) for b in params["layers"]]
     trunk = make_forward(layers)
     rest = {k: v for k, v in params.items() if k != "layers"}
@@ -650,4 +710,5 @@ def make_tp_model_forward(family, params: dict, cfg, mesh,
              else mod.embed(rest, tokens))
         return mod.head(rest, trunk(layers, x).to(x.device), cfg)
 
+    forward.layers = layers  # the placed blocks: a list of shards a layer
     return forward

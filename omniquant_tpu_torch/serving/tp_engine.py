@@ -31,7 +31,8 @@ TP engine, whose slot arrays the shards share.
     and max come from an all-reduce before the fake-quant, bit-identical to
     the single engine's ranges. OPT's q/k/v, quantized per token over the
     whole hidden, do the same. A grouped activation quantizer is refused
-    (its groups would straddle shards).
+    (its groups would straddle shards). The quantizer is the TP trunk's
+    (``parallel/tp_forward.py::tp_act_quant``).
   * the all-reduce hands every shard the same bits, so the replicated
     hidden states and logits, and every shard's sampling (each shard draws
     from its own generator, seeded alike), never diverge.
@@ -55,13 +56,11 @@ from typing import Optional
 import torch
 
 from .. import resolve_device
-from ..models.common import maybe_quant
 from ..parallel.tp_forward import (
-    COL_PARALLEL, ROW_PARALLEL, _MLP_NAMES, _col_linear_psum,
+    COL_PARALLEL, ROW_PARALLEL, _MLP_NAMES, _col_linear_q,
     _ensure_col_splittable, local_falcon_config, pad_intermediate_packed,
-    place_block, replicate, restructure_falcon_mqa)
+    place_block, replicate, restructure_falcon_mqa, tp_act_quant)
 from ..quant.packing import PackedWeight
-from ..quant.quantizer import _fake_quant_core, _scale_zp
 from .engine import FalconEngine, LlamaEngine, OPTEngine
 
 
@@ -191,32 +190,16 @@ class _ShardMixin:
     def _prep_params(self, params):
         return params  # placed, in the engine dtype, by place_params
 
-    def _tp_act_quant(self, x, qcfg):
-        """Per-token fake-quant whose min/max span the whole feature row
-        (an all-reduce over the shards): bit-identical to the single
-        engine's quantizer on the gathered tensor."""
-        if qcfg is None or not qcfg.enabled:
-            return x
-        if qcfg.metric == "fix0to1":
-            return maybe_quant(x, qcfg)  # elementwise: shard-local is exact
-        if qcfg.group_size:
-            raise NotImplementedError(
-                "grouped activation quantization over a tp-split feature "
-                "axis (its groups would straddle shards)")
-        xmin = self._mesh.all_reduce(self._p, x.amin(dim=-1, keepdim=True),
-                                     "min")
-        xmax = self._mesh.all_reduce(self._p, x.amax(dim=-1, keepdim=True),
-                                     "max")
-        return _fake_quant_core(x, *_scale_zp(xmin, xmax, qcfg), qcfg)
-
     def _token_quant(self, x, qcfg):
-        return self._tp_act_quant(x, qcfg)
+        """Per-token fake-quant whose min/max span the whole feature row
+        (``parallel.tp_forward.tp_act_quant``)."""
+        return tp_act_quant(self._mesh, self._p, x, qcfg)
 
     def _out_linear(self, x, w):
         """Column-parallel: the exact input quantizer, then the local
         product, the all-reduce and the bias once."""
-        return _col_linear_psum(self._tp_act_quant(x, self.spec.act), w,
-                                self._mesh, self._p, self.overlap_chunks)
+        return _col_linear_q(x, w, self._mesh, self._p, self.overlap_chunks,
+                             self.spec.act)
 
 
 def _view(cfg, **overrides) -> SimpleNamespace:

@@ -11,7 +11,10 @@ writes WORKDIR/rank<RANK>.json and WORKDIR/rank<RANK>.npz:
     rank's rows, the dp mean of loss and gradients) and of
     calibration_run_global (six LWC steps, then the fold);
   * DP serving (``DPServingCoordinator.generate_all``) and its refusal;
-  * TP across the ranks, one shard each.
+  * TP across the ranks, one shard each;
+  * sequence-parallel calibration with the ring across the ranks (each
+    entry of ``sp_runs``: layer 0's capture pass through the flash ring,
+    the plain ring's gradients, then ``calibrate(sp_mesh=...)``).
 
 Imports neither JAX nor the JAX package.
 """
@@ -191,6 +194,91 @@ def tp_across_ranks(res, arrays, inputs, workdir):
     res["tp_tokens"] = eng.generate(prompts[0], max_new_tokens=8)
 
 
+def _flat_into(arrays, prefix, tree):
+    """The tensors of a nested dict into ``arrays`` under "prefix/key/..."."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat_into(arrays, f"{prefix}/{k}", v)
+    elif tree is not None:
+        arrays[prefix] = tree.detach().cpu().numpy()
+
+
+def sp_across_ranks(res, arrays, inputs, workdir):
+    """For each SP run: an SPMesh over the ranks (sp / world shards a
+    rank); layer 0 through the flash ring on this rank's blocks of
+    ``sp_x_<family>``; d(sum(ring * w))/d(q, k, v) of this rank's blocks
+    through the plain ring; then calibrate with sp_mesh (its losses, its
+    trainables and folded weights)."""
+    from omniquant_tpu_torch.calib import CalibConfig, calibrate
+    from omniquant_tpu_torch.models import get_family
+    from omniquant_tpu_torch.parallel import SPMesh, global_mesh
+    from omniquant_tpu_torch.utils import load_packed_npz
+
+    world = torch.distributed.get_world_size()
+    res["sp"] = {}
+    for run, (name, sp, kw, cfg_kw) in json.loads(
+            str(inputs["sp_runs"])).items():
+        fam = get_family(name)
+        cfg = fam.config_cls(**cfg_kw)
+        m = global_mesh(tp=sp, local_shards=sp // world, device=CPU)
+        mesh = SPMesh(m.devices, m.ranks)
+        params = load_packed_npz(str(workdir / f"sp_{name}.npz"), device=CPU)
+        x = torch.from_numpy(inputs[f"sp_x_{name}"])
+        s_local = x.shape[1] // sp
+        sm_scale = 1.0 if name == "opt" else None
+
+        def capture(p, x_p):
+            def attn(q, k, v, spec_):
+                return mesh.ring_attention(p, q, k, v, sm_scale=sm_scale,
+                                           impl="flash")
+
+            pos = torch.arange(p * s_local, (p + 1) * s_local)
+            return fam.block_forward(params["layers"][0], x_p, cfg, None,
+                                     pos, attn_impl=attn)[0]
+
+        ys = mesh.run(capture, mesh.each(
+            lambda p, d: x[:, p * s_local: (p + 1) * s_local]))
+        arrays[f"{run}/capture"] = torch.cat(
+            [ys[p] for p in mesh.local], dim=1).numpy()
+
+        qkv = [torch.from_numpy(inputs[f"sp_{t}"]) for t in "qkv"]
+        w = torch.from_numpy(inputs["sp_w"])
+        s_ring = qkv[0].shape[2] // sp
+
+        def ring_grads(p, *blocks):
+            blocks = [b.clone().requires_grad_(True) for b in blocks]
+            out = mesh.ring_attention(p, *blocks, impl="plain")
+            return out, blocks
+
+        parts = mesh.each(lambda p, d: [t[:, :, p * s_ring:(p + 1) * s_ring]
+                                        for t in qkv])
+        got = mesh.run(lambda p, b: ring_grads(p, *b), parts)
+        loss = sum((got[p][0] * w[:, :, p * s_ring:(p + 1) * s_ring]).sum()
+                   for p in mesh.local)
+        loss.backward()
+        for i, t in enumerate("qkv"):
+            arrays[f"{run}/d{t}"] = torch.cat(
+                [got[p][1][i].grad for p in mesh.local], dim=2).numpy()
+
+        tokens = inputs[f"sp_tokens_{name}"]
+        cc = CalibConfig(epochs=1, nsamples=tokens.shape[0], batch_size=1,
+                         **kw)
+        losses = []
+        params, omni = calibrate(fam, params, cfg, tokens, cc,
+                                 progress_cb=lambda i, e, x: losses.append(x),
+                                 device="cpu", sp_mesh=mesh)
+        res["sp"][run] = dict(losses=losses, local=mesh.local,
+                              ranks=mesh.ranks)
+        for i, layer in omni.items():
+            for group in ("lwc", "let"):
+                _flat_into(arrays, f"{run}/omni/{i}/{group}",
+                           layer.get(group))
+        for i, layer in enumerate(params["layers"]):
+            for lin in fam.linear_names:
+                arrays[f"{run}/weight/{i}/{lin}"] = (
+                    layer[lin]["weight"].numpy())
+
+
 def main():
     rank, world, port = (int(a) for a in sys.argv[1:4])
     workdir = Path(sys.argv[4])
@@ -210,6 +298,7 @@ def main():
     calibration_run(res, inputs, workdir)
     dp_serving(res, inputs, workdir)
     tp_across_ranks(res, arrays, inputs, workdir)
+    sp_across_ranks(res, arrays, inputs, workdir)
     res["jax_loaded"] = sorted(m for m in sys.modules
                                if m.split(".")[0] in ("jax", "omniquant_tpu"))
     np.savez(workdir / f"rank{rank}.npz", **arrays)

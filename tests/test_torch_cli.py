@@ -19,11 +19,13 @@ the packed model, which gives the text of JAX's engine on main.py's
 packed model. Falcon is LWC only: asked for LET, both calibrate without
 it (the act statistics are still collected and written, as main.py does).
 ``--sp 2`` calibrates sequence-parallel as main.py's ``--sp 2`` does,
-``--tp 2`` evaluates and serves as main.py's ``--tp 2`` does, and two
-processes under ``--num_processes 2 --tp 2`` (one shard each) print the
-single-process ``--tp 2`` run's results.
-Unported flags exit naming the ROADMAP item; a net with no synthetic
-config and no checkpoint exits as main.py does. ``--tasks`` (piqa and
+``--tp 2`` evaluates (16-bit, W4A4 and W6A6 activations) and serves as
+main.py's ``--tp 2`` does, and two processes under ``--num_processes 2
+--tp 2`` (one shard each) print the single-process ``--tp 2`` run's
+results, with ``--coordinator``/``--process_id`` or, launched with
+torchrun's variables, without them (then also calibrating with the ``--sp
+2`` ring across the two processes). A net with no synthetic config and no
+checkpoint exits as main.py does. ``--tasks`` (piqa and
 lambada_openai, both packages' task download patched to the same injected
 docs) gives main.py's task results; a second ``--eval_cache`` run, and a
 run on main.py's db, are served from the db without one LM call; and
@@ -75,7 +77,8 @@ MAIN = _main_py()
 # relative to each)
 SP_PPL_RTOL = 1e-5
 # test_tp_serves_and_evaluates_as_main_py: the TP trunk's perplexity against
-# main.py's --tp 2 (GSPMD over the plain forward) and the port's --tp 1
+# main.py's --tp 2 (GSPMD over the plain forward) and the port's --tp 1,
+# with 16-bit and with W4A4/W6A6 activations (their ranges all-reduced)
 TP_PPL_RTOL = 1e-5
 
 
@@ -154,24 +157,29 @@ def test_parser_matches_main_py():
         [0, 65, 300])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--num_processes", "2"], "item 3"),
-    (["--num_processes", "2", "--coordinator", "localhost:1",
-      "--process_id", "0", "--sp", "2"], "ring attention across ranks")])
-def test_unported_flags_exit(flags, item):
-    with pytest.raises(SystemExit, match=f"not ported yet: .*{item}"):
-        cli.main(["--platform", "cpu", "--synthetic"] + flags)
+_QUANT = {"w16": ["--wbits", "16", "--abits", "16"],
+          # per-channel round to nearest (no calibration steps), the
+          # activation quantizers of main.py's --abits
+          "w4a4": ["--wbits", "4", "--abits", "4", "--epochs", "0",
+                   "--nsamples", "2", "--seqlen", "64"],
+          "w6a6": ["--wbits", "6", "--abits", "6", "--epochs", "0",
+                   "--nsamples", "2", "--seqlen", "64"]}
 
 
-@pytest.mark.parametrize("net", ["tiny-llama", "tiny-falcon"])
-def test_tp_serves_and_evaluates_as_main_py(tmp_path, net):
-    """--tp 2 (16-bit weights, JAX's carried across): perplexity through
-    the tensor-parallel trunk within TP_PPL_RTOL of main.py's --tp 2 and of
-    the port's --tp 1; the TP engine's greedy text is --tp 1's and main.py's
-    (--tp_overlap 2 too); the mesh of 2 CPU shards is logged."""
-    args = ["--platform", "cpu", "--synthetic", "--net", net, "--wbits",
-            "16", "--abits", "16", "--eval_ppl", "--serve_prompt", PROMPT,
-            "--max_new_tokens", "8"]
+@pytest.mark.parametrize("net,quant", [
+    pytest.param(net, quant, id=net if quant == "w16" else f"{net}-{quant}")
+    for net in ("tiny-llama", "tiny-falcon") for quant in _QUANT])
+def test_tp_serves_and_evaluates_as_main_py(tmp_path, net, quant):
+    """--tp 2 (JAX's weights carried across; 16-bit, or W4A4/W6A6 at
+    --epochs 0): perplexity through the tensor-parallel trunk, with the
+    activation quantizers, within TP_PPL_RTOL of main.py's --tp 2 and of
+    the port's --tp 1; at 16 bits the TP engine's greedy text is --tp 1's
+    and main.py's (--tp_overlap 2 too); the mesh of 2 CPU shards is
+    logged."""
+    args = ["--platform", "cpu", "--synthetic", "--net", net,
+            "--eval_ppl"] + _QUANT[quant]
+    if quant == "w16":
+        args += ["--serve_prompt", PROMPT, "--max_new_tokens", "8"]
     want = main_py_on_conftest_devices(args + ["--tp", "2"]
                                        + _dirs(tmp_path, "jax"))
     mp = pytest.MonkeyPatch()
@@ -179,13 +187,16 @@ def test_tp_serves_and_evaluates_as_main_py(tmp_path, net):
     try:
         got = cli.main(args + ["--tp", "2"] + _dirs(tmp_path, "port"))
         one = cli.main(args + _dirs(tmp_path, "one"))
-        lap = cli.main(args + ["--tp", "2", "--tp_overlap", "2"]
-                       + _dirs(tmp_path, "lap"))
+        if quant == "w16":
+            lap = cli.main(args + ["--tp", "2", "--tp_overlap", "2"]
+                           + _dirs(tmp_path, "lap"))
     finally:
         mp.undo()
-    assert sorted(got) == sorted(want) == ["generation", "synthetic"]
-    assert got["generation"] == one["generation"] == want["generation"]
-    assert lap == got
+    assert sorted(got) == sorted(want) == (
+        ["generation", "synthetic"] if quant == "w16" else ["synthetic"])
+    if quant == "w16":
+        assert got["generation"] == one["generation"] == want["generation"]
+        assert lap == got
     assert got["synthetic"] == pytest.approx(want["synthetic"],
                                              rel=TP_PPL_RTOL)
     assert got["synthetic"] == pytest.approx(one["synthetic"],
@@ -195,22 +206,44 @@ def test_tp_serves_and_evaluates_as_main_py(tmp_path, net):
         f"{needle}: ['cpu', 'cpu']")
 
 
+_LAUNCHERS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+              "LOCAL_RANK", "LOCAL_WORLD_SIZE", "SLURM_JOB_ID",
+              "OMPI_MCA_orte_hnp_uri")
+
+
 def test_num_processes_serves_as_one_process_tp(tmp_path):
     """--num_processes 2 --tp 2 on tiny-llama: two processes (a gloo group
     over localhost, one TP shard each) print the results JSON of the
     single-process --tp 2 run, perplexity and text alike; only rank 0
-    writes --save_dir, and each rank logs to its own file."""
+    writes --save_dir, and each rank logs to its own file. Beside it, two
+    processes launched with torchrun's variables and no --coordinator or
+    --process_id, which also calibrate W4A16 LWC with the --sp 2 ring
+    across them: the single-process --sp 2 --tp 2 run's text, its
+    perplexity within SP_PPL_RTOL (the ranks sum the loss and gradients in
+    another order), and the SP mesh logged over both ranks."""
     args = ["--platform", "cpu", "--synthetic", "--net", "tiny-llama",
             "--wbits", "16", "--abits", "16", "--eval_ppl", "--serve_prompt",
             PROMPT, "--max_new_tokens", "8", "--tp", "2"]
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    sp_args = args[:5] + ["--wbits", "4", "--abits", "16", "--group_size",
+                          "32", "--lwc", "--epochs", "1", "--nsamples", "4",
+                          "--seqlen", "64"] + args[9:] + ["--sp", "2"]
+    env = {k: v for k, v in os.environ.items()
+           if k != "PYTHONPATH" and k not in _LAUNCHERS}
     env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    port = _free_port()
+    port, port_sp = _free_port(), _free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "omniquant_tpu_torch", *args,
          "--num_processes", "2", "--coordinator", f"localhost:{port}",
          "--process_id", str(r), "--save_dir", str(tmp_path / "mp_save")]
         + _dirs(tmp_path, "mp"), cwd=tmp_path, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    procs += [subprocess.Popen(
+        [sys.executable, "-m", "omniquant_tpu_torch", *sp_args,
+         "--num_processes", "2"] + _dirs(tmp_path, "sp"), cwd=tmp_path,
+        env=dict(env, MASTER_ADDR="localhost", MASTER_PORT=str(port_sp),
+                 RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                 LOCAL_WORLD_SIZE="2"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(2)]
     try:
@@ -221,9 +254,20 @@ def test_num_processes_serves_as_one_process_tp(tmp_path):
                 p.kill()
                 p.communicate()
     one = cli.main(args + _dirs(tmp_path, "one"))
-    for p, (out, err) in zip(procs, outs):
+    one_sp = cli.main(sp_args + _dirs(tmp_path, "one_sp"))
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, err[-4000:]
-        assert json.loads(out.strip().splitlines()[-1]) == one
+        got = json.loads(out.strip().splitlines()[-1])
+        if i < 2:
+            assert got == one
+        else:
+            assert got["generation"] == one_sp["generation"]
+            assert got["synthetic"] == pytest.approx(one_sp["synthetic"],
+                                                     rel=SP_PPL_RTOL)
+    needle = "sequence-parallel calibration over 2 devices"
+    assert _log_lines(tmp_path / "sp_out", needle) == [
+        f"{needle} (ring attention, seqlen 64): ['cpu', 'cpu'] on ranks "
+        "[0, 1]"] * 2
     assert sorted(one) == ["generation", "synthetic"]
     assert sorted(f.name for f in (tmp_path / "mp_save").iterdir()) == [
         "config.json", "model_fakequant.npz"]
@@ -246,14 +290,19 @@ def _free_port():
     return port
 
 
-def test_tp_refusals(tmp_path):
-    """--tp with --eval_ppl and quantized activations exits (the trunk
-    takes no activation quantizers); heads that do not split exit before
-    anything runs."""
+def test_tp_refusals(tmp_path, monkeypatch):
+    """Heads that do not split exit before anything runs; so do
+    --num_processes without --coordinator and --process_id where no
+    launcher's variables are set (naming those it looked for), and an --sp
+    that does not split over the processes."""
     base = ["--platform", "cpu", "--synthetic", "--net", "tiny-llama"]
-    with pytest.raises(SystemExit, match="no activation quantizers"):
-        cli.main(base + ["--tp", "2", "--eval_ppl", "--wbits", "4",
-                         "--abits", "4", "--epochs", "0"])
+    for k in _LAUNCHERS + ("SLURM_STEP_NODELIST", "OMPI_COMM_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="looked for torchrun's MASTER_ADDR"
+                                         ".*SLURM's SLURM_JOB_ID"):
+        cli.main(base + ["--num_processes", "2"] + _dirs(tmp_path, "n"))
+    with pytest.raises(SystemExit, match="--sp 3 does not split over 2"):
+        cli.main(base + ["--num_processes", "2", "--sp", "3"])
     with pytest.raises(ValueError, match="do not divide into tp=3"):
         cli.main(base + ["--tp", "3", "--wbits", "16", "--abits", "16",
                          "--serve_prompt", "hi"] + _dirs(tmp_path, "p"))

@@ -16,6 +16,20 @@ in-process 2-shard mesh's prefill logits bit for bit and JAX's TP engine's
 greedy tokens; ``Mesh.all_reduce`` over 4 shards, 2 a rank, is the
 in-process ``Mesh._reduce`` bit for bit in f32 and bf16; an over-capacity
 ``submit`` raises the same error on both ranks.
+
+Sequence parallelism with the ring across the ranks, on the SP runs of
+tests/test_torch_sp_calibration.py (OPT at sp 2: one shard a rank; LLaMA
+GQA at sp 4: two shards a rank, so the ring shifts within a rank and
+across): layer 0's capture pass through the flash ring gives the
+in-process ``SPMesh``'s blocks bit for bit; the plain ring's gradients
+(its k/v shifted back across the ranks) equal the in-process ring's within
+RING_GRAD_TOL; ``calibrate(sp_mesh=...)``'s losses, trainables and folded
+weights are held against JAX's ``calibrate(sp_mesh=Mesh)`` at that file's
+SP_RUNS tolerances, and the two ranks' trainables agree bit for bit.
+
+Cluster auto-detection (no group needed): SLURM's node lists, ranks and
+port as JAX's ``SlurmCluster`` reads them, Open MPI's as JAX's
+``OmpiCluster``, torchrun's variables, and the refusals.
 """
 import dataclasses
 import json
@@ -40,6 +54,9 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tests"))
 from _multihost_worker import (  # noqa: E402
     calibration_run_global, calibration_step_global, serving_fixture)
+from test_torch_sp_calibration import (  # noqa: E402
+    CONFIGS as SP_CONFIGS, SP_RUNS, _flat, _jax_sp_run, _model, _port_sp_block,
+    _tokens)
 
 WORLD = 2
 RANK_TIMEOUT_S = 180
@@ -51,6 +68,10 @@ RANK_TIMEOUT_S = 180
 # JAX's own for its two processes against its oracle
 FOLD_RTOL = 1e-6
 CPU = torch.device("cpu")
+# the plain ring's gradients across the ranks against the in-process
+# ring's: the same terms, summed in another order (measured: 0 at sp 2,
+# within 2.4e-7 at sp 4)
+RING_GRAD_TOL = 1e-6
 
 
 def _free_port():
@@ -86,12 +107,26 @@ def _write_inputs(work: Path) -> dict:
     j_save_pytree(str(work / "serve_packed.npz"), _np(packed))
     dense = _np(jllama.init_params(jax.random.PRNGKey(2), cfg))
     j_save_pytree(str(work / "tp_params.npz"), dense)
+    sp = {}
+    for run, (name, n, kw, _) in SP_RUNS.items():
+        j_save_pytree(str(work / f"sp_{name}.npz"), _model(name))
+        sp[f"sp_x_{name}"] = (rng.standard_normal(
+            (1, 64, SP_CONFIGS[name]["hidden_size"])) * 0.5).astype(
+                np.float32)
+        sp[f"sp_tokens_{name}"] = _tokens(name)
+    for t in "qkvw":  # the ring's gradient case: 4 heads on 2 kv heads
+        heads = 2 if t in "kv" else 4
+        sp[f"sp_{t}"] = rng.standard_normal((1, heads, 64, 16)).astype(
+            np.float32)
     np.savez(work / "inputs.npz", step_x=x, step_fp=fp,
              step_cfg=json.dumps(dataclasses.asdict(step_cfg)),
              run_cfg=json.dumps(dataclasses.asdict(run_cfg)),
              serve_cfg=json.dumps(dataclasses.asdict(cfg)),
-             serve_prompts=json.dumps(prompts))
-    return dict(cfg=cfg, packed=packed, prompts=prompts, dense=dense)
+             serve_prompts=json.dumps(prompts),
+             sp_runs=json.dumps({run: [name, n, kw, SP_CONFIGS[name]]
+                                 for run, (name, n, kw, _) in
+                                 SP_RUNS.items()}), **sp)
+    return dict(cfg=cfg, packed=packed, prompts=prompts, dense=dense, sp=sp)
 
 
 @pytest.fixture(scope="module")
@@ -149,6 +184,7 @@ def _jax_oracles(made) -> dict:
                      j_make_mesh(dp=1, tp=2), max_batch=2, max_len=32,
                      dtype=jnp.float32)
     out["tp_tokens"] = teng.generate(prompts[0], max_new_tokens=8)
+    out["sp"] = {run: _jax_sp_run(run) for run in SP_RUNS}
     return out
 
 
@@ -272,3 +308,193 @@ def test_local_layout_reads_the_launcher(monkeypatch):
     assert local_layout(cfg) == (11, 16)  # both or neither
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")
     assert local_layout(cfg) == (3, 8)
+
+
+def _one_thread(fn):
+    """``fn()`` on one intra-op thread, as the ranks run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("run", list(SP_RUNS))
+def test_sp_capture_across_ranks_is_the_in_process_mesh(group, run):
+    """Layer 0 through the flash ring on an SPMesh over the ranks: each
+    rank's output blocks are the in-process SPMesh's bit for bit."""
+    from omniquant_tpu_torch.models import get_family
+
+    name, sp, _, _ = SP_RUNS[run]
+    layer = from_jax_params(_model(name), device="cpu")["layers"][0]
+    x = torch.from_numpy(group["sp"][f"sp_x_{name}"])
+    want = _one_thread(lambda: _port_sp_block(name, layer, x, sp, "flash"))
+    dense, _ = get_family(name).block_forward(
+        layer, x, get_family(name).config_cls(**SP_CONFIGS[name]))
+    np.testing.assert_allclose(want.numpy(), dense.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    for r, (res, arrays) in enumerate(zip(group["json"], group["arrays"])):
+        local = res["sp"][run]["local"]
+        assert res["sp"][run]["ranks"] == [p * 2 // sp for p in range(sp)]
+        s = x.shape[1] // sp
+        mine = torch.cat([want[:, p * s:(p + 1) * s] for p in local], dim=1)
+        np.testing.assert_array_equal(arrays[f"{run}/capture"],
+                                      mine.numpy())
+
+
+@pytest.mark.parametrize("run", list(SP_RUNS))
+def test_sp_ring_gradients_cross_the_ranks(group, run):
+    """d(sum(ring * w))/d(q, k, v) through the plain ring over the ranks:
+    the remote blocks' dk/dv come back through the shift's backward, so
+    every rank's gradients equal the in-process ring's (RING_GRAD_TOL)."""
+    from omniquant_tpu_torch.parallel import ring_attention
+
+    sp = SP_RUNS[run][1]
+    q, k, v, w = (torch.from_numpy(group["sp"][f"sp_{t}"]) for t in "qkvw")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = _one_thread(lambda: ring_attention(*leaves, ["cpu"] * sp,
+                                             impl="plain"))
+    (out * w).sum().backward()
+    s = q.shape[2] // sp
+    for res, arrays in zip(group["json"], group["arrays"]):
+        local = res["sp"][run]["local"]
+        for t, leaf in zip("qkv", leaves):
+            want = torch.cat([leaf.grad[:, :, p * s:(p + 1) * s]
+                              for p in local], dim=2)
+            got = arrays[f"{run}/d{t}"]
+            assert np.abs(got).max() > 0, t
+            np.testing.assert_allclose(got, want.numpy(), rtol=0,
+                                       atol=RING_GRAD_TOL, err_msg=t)
+
+
+@pytest.mark.parametrize("run", list(SP_RUNS))
+def test_sp_calibration_across_ranks_matches_jax(group, run):
+    """calibrate(sp_mesh=...) with the ring across the ranks: its losses,
+    LWC/LET trainables and folded weights within SP_RUNS' tolerances of
+    JAX's calibrate(sp_mesh=Mesh); both ranks' bit for bit alike."""
+    name, _, _, tol = SP_RUNS[run]
+    j_params, j_omni, j_losses = group["oracle"]["sp"][run]
+    a, b = group["arrays"]
+    keys = sorted(k for k in a if k.startswith(f"{run}/omni/")
+                  or k.startswith(f"{run}/weight/"))
+    assert keys and keys == sorted(
+        k for k in b if k.startswith(f"{run}/omni/")
+        or k.startswith(f"{run}/weight/"))
+    for k in keys:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    ra, rb = (r["sp"][run]["losses"] for r in group["json"])
+    assert ra == rb
+    np.testing.assert_allclose(ra, j_losses, rtol=tol["loss"], atol=0)
+    for i, layer in j_omni.items():
+        for grp in ("lwc", "let"):
+            for path, want in _flat(layer.get(grp, {})).items():
+                got = a[f"{run}/omni/{i}/{grp}{path}"]
+                assert np.abs(got - want).max() <= tol["train"], (i, grp,
+                                                                  path)
+        for lin, want in _flat({n: j_params["layers"][int(i)][n]["weight"]
+                                for n in _linear_names(name)}).items():
+            got = a[f"{run}/weight/{i}{lin}"]
+            assert np.abs(got - want).max() <= tol["weight"], (i, lin)
+
+
+def _linear_names(name):
+    from omniquant_tpu_torch.models import get_family
+
+    return get_family(name).linear_names
+
+
+def _jax_cluster(monkeypatch, cls, env):
+    """JAX's reading of ``env`` through ``cls`` (a jax._src.clusters
+    ClusterEnv): (coordinator, count, id, local id)."""
+    for k in list(os.environ):
+        if k.startswith(("SLURM_", "OMPI_")) or k in (
+                "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert cls.is_env_present()
+    return (cls.get_coordinator_address(None, None), cls.get_process_count(),
+            cls.get_process_id(), cls.get_local_process_id())
+
+
+@pytest.mark.parametrize("nodes", ["node001", "node001,host2",
+                                   "node[001-015],host2",
+                                   "node[001,007-015]", "gpu-a[12-13]"])
+def test_slurm_environment_reads_as_jax(monkeypatch, nodes):
+    """The port's SLURM reading equals JAX's SlurmCluster's under the same
+    environment: the first host of the node list at port SLURM_JOB_ID %
+    4096 + 61440, the task count, the rank and the local rank; the local
+    layout is SLURM_LOCALID of SLURM_NTASKS / SLURM_STEP_NUM_NODES."""
+    from jax._src.clusters.slurm_cluster import SlurmCluster
+
+    from omniquant_tpu_torch.parallel.multihost import (
+        MultihostConfig, detect_cluster, local_layout)
+
+    env = dict(SLURM_JOB_ID="123456", SLURM_STEP_NODELIST=nodes,
+               SLURM_NTASKS="16", SLURM_PROCID="11", SLURM_LOCALID="3",
+               SLURM_STEP_NUM_NODES="2")
+    want = _jax_cluster(monkeypatch, SlurmCluster, env)
+    got = detect_cluster()
+    assert got.launcher == "slurm"
+    assert (got.coordinator_address, got.num_processes, got.process_id,
+            got.local_rank) == want
+    assert local_layout(MultihostConfig()) == (3, 8)
+
+
+def test_openmpi_environment_reads_as_jax(monkeypatch):
+    from jax._src.clusters.ompi_cluster import OmpiCluster
+
+    from omniquant_tpu_torch.parallel.multihost import detect_cluster
+
+    for uri in ("1531576320.0;tcp://10.96.0.1,10.148.0.1:34911",
+                "1314521088.0;tcp6://[fe80::b9b:ac5d:9cf0:b858,2620:10d:"
+                "c083:150e::3000:2]:43370"):
+        env = dict(OMPI_MCA_orte_hnp_uri=uri, OMPI_COMM_WORLD_SIZE="4",
+                   OMPI_COMM_WORLD_RANK="2", OMPI_COMM_WORLD_LOCAL_RANK="0")
+        want = _jax_cluster(monkeypatch, OmpiCluster, env)
+        got = detect_cluster()
+        assert (got.coordinator_address, got.num_processes, got.process_id,
+                got.local_rank) == want
+
+
+def test_torchrun_environment_and_refusals(monkeypatch):
+    """torchrun's variables (LOCAL_RANK/LOCAL_WORLD_SIZE taken over
+    SLURM's when both are set); with no launcher the error
+    names every variable looked for; a --num_processes other than the
+    launcher's count, or a coordinator without a process id, is refused
+    before any rendezvous."""
+    from omniquant_tpu_torch.parallel.multihost import (
+        MultihostConfig, NoLauncher, detect_cluster, init_multihost,
+        local_layout)
+
+    _jax_cluster(monkeypatch, type("Any", (), {
+        "is_env_present": classmethod(lambda c: True),
+        "get_coordinator_address": classmethod(lambda c, *a: None),
+        "get_process_count": classmethod(lambda c: None),
+        "get_process_id": classmethod(lambda c: None),
+        "get_local_process_id": classmethod(lambda c: None)}), {})
+    with pytest.raises(NoLauncher) as e:
+        detect_cluster()
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "SLURM_STEP_NODELIST",
+                "SLURM_LOCALID", "OMPI_COMM_WORLD_SIZE"):
+        assert var in str(e.value)
+    with pytest.raises(NoLauncher):
+        init_multihost(MultihostConfig(num_processes=2), "cpu")
+    env = dict(MASTER_ADDR="host7", MASTER_PORT="29500", RANK="5",
+               WORLD_SIZE="8", LOCAL_RANK="1", LOCAL_WORLD_SIZE="4",
+               SLURM_JOB_ID="1", SLURM_STEP_NODELIST="n1", SLURM_NTASKS="8",
+               SLURM_PROCID="5", SLURM_LOCALID="0")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = detect_cluster()
+    assert (got.launcher, got.coordinator_address, got.num_processes,
+            got.process_id, got.local_rank, got.local_world) == (
+                "torchrun", "host7:29500", 8, 5, 1, 4)
+    assert local_layout(MultihostConfig()) == (1, 4)
+    with pytest.raises(ValueError, match="num_processes=2, but the torchrun "
+                                         "environment holds 8 ranks"):
+        init_multihost(MultihostConfig(num_processes=2), "cpu")
+    with pytest.raises(ValueError, match="together"):
+        init_multihost(MultihostConfig("localhost:1", 2), "cpu")
